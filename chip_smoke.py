@@ -20,7 +20,10 @@ Phases, in order; any failed check raises and ends the run non-zero:
    on ``cuda``, each cell held exactly to the same run on the CPU;
 5. full scale: large-10k, 10 particles, 50 iterations on ``cuda``;
 6. timings (CUDA events, medians) beside the card's name and power
-   limit, then one JSON line per kernel and the final status line.
+   limit, then one JSON line per kernel and the final status line. The
+   JSON line's ``ms`` and ``plain_ms`` are both device time per call,
+   host enqueue hidden behind a device spin; wrapper-call times, host
+   enqueue included, are printed beside them.
 
 The launch count of every kernel is set to 0 just before phase 4 and
 read just after phase 5: the JSON line's ``launches`` is the main
@@ -46,6 +49,8 @@ FIG3_ITERATIONS = 100
 FULL_SCALE_ITERATIONS = 50
 TIMING_RUNS = 25               # medians over this many runs
 LAUNCHES_PER_RUN = 20          # back-to-back launches inside one run
+SPIN_CYCLES = 10_000_000       # device spin hiding host enqueue, ~5 ms
+MAX_SPIN_CYCLES = 2 ** 31
 
 
 class SmokeFailure(AssertionError):
@@ -69,16 +74,24 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def tpd_bytes(P, D, L, C, W, depth) -> int:
-    """Bytes the TPD function must move: every input read once, the
-    output written once."""
-    return P * (4 * D + 4 * L + 4) + 12 * C + 8 * D * W + 8 * D \
+def tpd_bytes(ps, L, W, depth, penalty) -> int:
+    """Bytes the TPD function must move for the placements ``ps``: each
+    placement row, leaf-load row and internal slot's kid row read once,
+    the level starts (launch arguments) once, the output written once,
+    and mdatasize and pspeed (and memcap when ``penalty`` > 0) read at
+    the distinct ids this swarm places, the only ids the function
+    reads them at."""
+    P, D = ps.shape
+    ids = len(set(ps.ravel().tolist()))
+    rows = 3 if penalty > 0 else 2
+    return P * (4 * D + 4 * L + 4) + 4 * W * (D - L) + 4 * rows * ids \
         + 4 * (depth + 1)
 
 
 def median_event_ms(torch, fn, runs=TIMING_RUNS, per_run=LAUNCHES_PER_RUN):
     """Median over ``runs`` of the CUDA-event time of ``per_run``
-    back-to-back calls of ``fn``, divided by ``per_run`` (ms/call)."""
+    back-to-back calls of ``fn``, divided by ``per_run`` (ms per call):
+    the wrapper-call time, host enqueue included."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -97,15 +110,18 @@ def median_event_ms(torch, fn, runs=TIMING_RUNS, per_run=LAUNCHES_PER_RUN):
 
 def median_device_ms(torch, fn, runs=TIMING_RUNS, per_run=LAUNCHES_PER_RUN):
     """Like :func:`median_event_ms`, but the device first spins in a
-    ``torch.cuda._sleep`` long enough for the host to enqueue all
-    ``per_run`` calls: the events then bracket device work only, without
-    the host's per-call enqueue cost. ``fn`` must not synchronise."""
-    spin = int(1e7 * per_run / LAUNCHES_PER_RUN)  # ~5 ms at ~2 GHz
+    ``torch.cuda._sleep`` while the host enqueues all ``per_run`` calls,
+    so the events bracket device work only, without the host's per-call
+    cost (ms per call on the device). A run counts only if the device
+    had not yet reached the first event when the host finished
+    enqueueing; otherwise the spin doubles and the run is repeated.
+    ``fn`` must not synchronise."""
+    spin = SPIN_CYCLES
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(runs):
+    while len(times) < runs:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(spin)
@@ -113,8 +129,14 @@ def median_device_ms(torch, fn, runs=TIMING_RUNS, per_run=LAUNCHES_PER_RUN):
         for _ in range(per_run):
             fn()
         b.record()
+        hidden = not a.query()
         b.synchronize()
-        times.append(a.elapsed_time(b) / per_run)
+        if hidden:
+            times.append(a.elapsed_time(b) / per_run)
+        else:
+            spin *= 2
+            check(spin <= MAX_SPIN_CYCLES,
+                  "host enqueue outlasts the longest device spin")
     return statistics.median(times)
 
 
@@ -348,27 +370,28 @@ def main() -> int:
     for P in (10, 1000):
         cm, ps, _, ops = operands(h10k, pool10k, P, 0.0, 7 + P, 0)
         k_ms = median_device_ms(torch, lambda ops=ops: batch_tpd_cuda(*ops))
-        call_ms = median_event_ms(torch, lambda ops=ops: batch_tpd_cuda(*ops))
-        r_ms = median_event_ms(torch, lambda ops=ops: tpd_ref(*ops), per_run=2)
-        b_ms = tpd_bytes(P, h10k.dimensions, h10k.n_leaves,
-                         h10k.total_clients, h10k.width, h10k.depth) \
-            / HBM_BYTES_PER_S * 1e3
+        r_ms = median_device_ms(torch, lambda ops=ops: tpd_ref(*ops))
+        k_call = median_event_ms(torch, lambda ops=ops: batch_tpd_cuda(*ops))
+        r_call = median_event_ms(torch, lambda ops=ops: tpd_ref(*ops))
+        nbytes = tpd_bytes(ps, h10k.n_leaves, h10k.width, h10k.depth, 0.0)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rows[P] = (k_ms, r_ms, b_ms)
-        print(f"large-10k P={P:5d}: kernel {k_ms * 1e3:8.2f} us on the "
-              f"device, {call_ms * 1e3:8.2f} us per back-to-back wrapper "
-              f"call; plain torch {r_ms * 1e3:9.2f} us; bound "
-              f"{b_ms * 1e3:.3f} us (bytes / 3.35 TB/s) [{card}]")
+        print(f"large-10k P={P:5d}: device time per call: kernel "
+              f"{k_ms * 1e3:8.2f} us, plain torch {r_ms * 1e3:9.2f} us; "
+              f"back-to-back wrapper call: kernel {k_call * 1e3:8.2f} us, "
+              f"plain torch {r_call * 1e3:9.2f} us; bound "
+              f"{b_ms * 1e3:.4f} us ({nbytes} B / 3.35 TB/s) [{card}]")
 
     hd = Hierarchy(5, 5, 2)
     cmd, psd, _, opsd = operands(hd, fig3(5, 5)[1], 10, 0.0, 11, 0)
     kd_ms = median_device_ms(torch, lambda: batch_tpd_cuda(*opsd))
     kd_call_ms = median_event_ms(torch, lambda: batch_tpd_cuda(*opsd))
-    bd_ms = tpd_bytes(10, hd.dimensions, hd.n_leaves, hd.total_clients,
-                      hd.width, hd.depth) / HBM_BYTES_PER_S * 1e3
+    bd_ms = tpd_bytes(psd, hd.n_leaves, hd.width, hd.depth, 0.0) \
+        / HBM_BYTES_PER_S * 1e3
     np_ms = median_host_ms(lambda: cmd.batch_tpd(psd, backend="np"))
     print(f"fig3 d5w5 P=10: kernel {kd_ms * 1e3:.2f} us on the device, "
           f"{kd_call_ms * 1e3:.2f} us per wrapper call, bound "
-          f"{bd_ms * 1e3:.3f} us; numpy batch_tpd(backend='np') "
+          f"{bd_ms * 1e3:.4f} us; numpy batch_tpd(backend='np') "
           f"{np_ms * 1e3:.2f} us (host clock) [{card}]")
 
     # where one large-10k iteration goes (P = 10)

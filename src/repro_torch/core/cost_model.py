@@ -94,19 +94,14 @@ class CostModel:
     _NP_FASTPATH_ELEMS = 32768
 
     def _attr_stack(self, dtype) -> np.ndarray:
-        """Stacked (A, C) client-attribute table: mdatasize, pspeed,
-        memcap(, pod id) — ONE fancy-index gathers every per-host
-        attribute."""
-        rows = [self.clients.mdatasize, self.clients.pspeed,
-                self.clients.memcap]
-        pod = getattr(self, "pod_of", None)
-        if pod is not None:
-            rows.append(np.asarray(pod))  # pod ids exact in f32
-        return np.stack(rows).astype(dtype)
+        """Stacked (3, C) client-attribute table: mdatasize, pspeed,
+        memcap — ONE fancy-index gathers every per-host attribute."""
+        return np.stack([self.clients.mdatasize, self.clients.pspeed,
+                         self.clients.memcap]).astype(dtype)
 
-    def _make_batch_tpd(self, dtype=None, pool_attrs=None):
+    def _make_batch_tpd(self, dtype=None):
         """Build the numpy (P, slots) -> (P,) TPD evaluator (the
-        reference's closure, host-side, numpy branch).
+        reference's closure, host-side, numpy branch of the base model).
 
         The canonical round-robin trainer split is recomputed per
         particle (rank of each unplaced client in ascending id order,
@@ -118,209 +113,84 @@ class CostModel:
         same order as the scalar reference (bincount/left-to-right
         child sums, division by pspeed, per-level maxima summed deepest
         level first), so it is bit-identical to ``tpd`` for width < 8.
-
-        ``pool_attrs`` switches on POOLED mode: a (A, S, C) stack of S
-        client pools' attribute tables; the returned evaluator takes
-        ``(placements, pool_idx=None)`` and scores placement row i
-        against pool ``pool_idx[i]``.
         """
-        xp = np
         h = self.hierarchy
         C, D, depth = h.total_clients, h.dimensions, h.depth
         n_leaves = h.n_leaves
         leaf_start = h.level_starts[depth - 1]
         kids_np = h.kids_table
         penalty = self.memory_penalty
-        have_pods = getattr(self, "pod_of", None) is not None
-        ici = float(getattr(self, "ici_cost", 0.0))
-        dcn = float(getattr(self, "dcn_cost", 0.0))
-        # trace-calibrated terms (neutral values on the base model keep
-        # every branch below bit-identical to the uncalibrated build)
-        cal_scale, cal_link, cal_train = self._calibration_terms()
-        calibrated = (cal_scale != 1.0 or any(cal_link)
-                      or cal_train != 0.0)
-        link_np = np.zeros(D, np.float64)
-        if calibrated and cal_link:
-            link = np.asarray(cal_link, np.float64)
-            link_np = link[np.minimum(h.levels, len(link) - 1)]
-        kids_cnt_np = (kids_np >= 0).sum(axis=1)                  # (D,)
-        tr_counts_np = np.bincount(np.arange(max(C - D, 0)) % n_leaves,
-                                   minlength=n_leaves)
-
-        def bincount(idx, w, m):
-            return np.bincount(
-                idx.ravel(),
-                weights=None if w is None else w.ravel(),
-                minlength=m)
         ft = np.dtype(dtype if dtype is not None else np.float32).type
-        pooled = pool_attrs is not None
-        if pooled:
-            attrs_np = np.asarray(pool_attrs)               # (A, S, C)
-        else:
-            attrs_np = self._attr_stack(ft)                 # (A, C)
+        attrs_np = self._attr_stack(ft)                     # (3, C)
+        mds_all = attrs_np[0]
         # uniform-payload fast path: when every client's mdatasize is
         # equal the canonical trainer split fixes each leaf cluster's
         # LOAD, so the per-call (P, C) rank/scatter pipeline collapses
         # to a per-slot constant — bit-identical because the constants
         # are accumulated by the same repeated addition the bincount
         # would perform. Rows with DUPLICATE ids take the general path.
-        mds_rows = attrs_np[0][None] if not pooled else attrs_np[0]
-        uniform = not have_pods and all(
-            row.size and np.all(row == row[0]) for row in mds_rows)
+        uniform = bool(mds_all.size) and bool(np.all(mds_all == mds_all[0]))
         if uniform:
             counts = np.bincount(np.arange(max(C - D, 0)) % n_leaves,
                                  minlength=n_leaves)
-
-            def leaf_consts(u):
-                # cumsum of a constant == the bincount's sequential
-                # repeated addition, prefix by prefix (bit-identical)
-                kmax = int(counts.max()) if counts.size else 0
-                acc = np.concatenate(
-                    [[np.float64(0.0)],
-                     np.cumsum(np.full(kmax, u, np.float64))])
-                return acc[counts]
-
-            leaf_part_np = np.zeros((mds_rows.shape[0], D), np.float64)
-            leaf_part_np[:, leaf_start:] = np.stack(
-                [leaf_consts(np.float64(row[0])) for row in mds_rows])
-            leaf_part = leaf_part_np.astype(ft)             # (S|1, D)
-        # gather only the attribute rows each site consumes
-        host_rows = [0, 1] + ([2] if penalty > 0 else []) + \
-            ([3] if have_pods else [])
-        kid_rows = [0] + ([3] if have_pods else [])
-        h_attrs = attrs_np[host_rows]
-        k_attrs = attrs_np[kid_rows]
-        mds_all = attrs_np[0]                      # (C,) | (S, C)
-        pods_all = attrs_np[3] if have_pods else None
+            # cumsum of a constant == the bincount's sequential repeated
+            # addition, prefix by prefix (bit-identical)
+            kmax = int(counts.max()) if counts.size else 0
+            acc = np.concatenate(
+                [[np.float64(0.0)],
+                 np.cumsum(np.full(kmax, np.float64(mds_all[0]),
+                                   np.float64))])
+            leaf_part_np = np.zeros(D, np.float64)
+            leaf_part_np[leaf_start:] = acc[counts]
+            leaf_part = leaf_part_np.astype(ft)             # (D,)
+        # gather only the attribute rows the host site consumes
+        h_attrs = attrs_np[[0, 1] + ([2] if penalty > 0 else [])]
         kids = np.clip(kids_np, 0, D - 1)
         kids_valid = kids_np >= 0
         is_leaf_slot = h.levels == depth - 1
         slot_leaf_idx = np.clip(np.arange(D) - leaf_start, 0, n_leaves - 1)
         level_starts_np = np.asarray(h.level_starts[:-1], np.int32)
-        link_slot = link_np.astype(ft)
-        kid_parts = (kids_cnt_np + 1).astype(ft)
-        static_parts = np.where(
-            h.levels == depth - 1, tr_counts_np[slot_leaf_idx] + 1,
-            kids_cnt_np + 1).astype(ft)
-        train_add = None
-        if calibrated and cal_train != 0.0:
-            psp = attrs_np[1]
-            inv_max = np.max(1.0 / psp, axis=-1)   # () | (S,)
-            if pooled:
-                train_add = (cal_train * inv_max).astype(ft)
-            else:
-                train_add = ft(cal_train * inv_max)
-        iota_cache = {}
 
-        def iota(P):
-            got = iota_cache.get(P)
-            if got is None:
-                got = iota_cache[P] = np.arange(P)
-            return got
-
-        def batch(placements, pool_idx=None):           # (P, D) int
+        def batch(placements):                           # (P, D) int
             placements = placements.astype(np.int32)
             P = placements.shape[0]
-            rows = iota(P) if pool_idx is None else np.asarray(pool_idx)
-            use_uniform = uniform and \
-                not rows_with_duplicates(placements).any()
-            if not use_uniform:
-                p_off = iota(P)[:, None]
-                # placed mask via bincount, not a (P, D, C) compare
-                placed = bincount(placements + C * p_off, None,
-                                  P * C).reshape(P, C)
-                unplaced = placed == 0
-                mds_b = mds_all[rows] if pooled else mds_all[None]
-                t_mds = xp.where(unplaced, mds_b, ft(0.0))
-                # canonical trainer split: rank among unplaced ids, mod
-                # leaves
-                leaf_of = (xp.cumsum(unplaced, axis=1) - 1) % n_leaves
-                leaf_bins = leaf_of + n_leaves * p_off
-            if pooled:
-                host = h_attrs[:, rows[:, None], placements]  # (Ah,P,D)
-            else:
-                host = h_attrs[:, placements]                 # (Ah,P,D)
-
-            kid_host = placements[:, kids]                   # (P, D, W)
-            if pooled:
-                kid_attr = k_attrs[:, rows[:, None, None], kid_host]
-            else:
-                kid_attr = k_attrs[:, kid_host]              # (Ak,P,D,W)
-            kid_mds = xp.where(kids_valid[None], kid_attr[0], ft(0.0))
-
-            if have_pods:  # TwoTier per-edge transfer costs
-                host_pod = host[-1]                          # (P, D)
-                kid_rate = xp.where(kid_attr[-1] == host_pod[:, :, None],
-                                    ft(ici), ft(dcn))
-                edge_int = xp.sum(
-                    xp.where(kids_valid[None], kid_mds * kid_rate,
-                             ft(0.0)), axis=2)
-                t_host_pod = host_pod.reshape(-1)[
-                    (leaf_start + leaf_of) + D * p_off]      # (P, C)
-                pods_b = pods_all[rows] if pooled else pods_all[None]
-                t_rate = xp.where(pods_b == t_host_pod,
-                                  ft(ici), ft(dcn))
-                # one bincount for both leaf accumulators: trainer loads
-                # in the first P*L bins, edge costs in the second
-                two = bincount(
-                    xp.concatenate([leaf_bins,
-                                    leaf_bins + P * n_leaves], axis=0),
-                    xp.concatenate([t_mds, t_mds * t_rate], axis=0),
-                    2 * P * n_leaves)
-                leaf_load = two[: P * n_leaves].reshape(P, n_leaves)
-                edge_leaf = two[P * n_leaves:].reshape(P, n_leaves)
-            elif not use_uniform:
-                leaf_load = bincount(leaf_bins, t_mds,
-                                     P * n_leaves).reshape(P, n_leaves)
-
-            if use_uniform:
+            host = h_attrs[:, placements]                # (Ah, P, D)
+            kid_mds = np.where(kids_valid[None],
+                               mds_all[placements[:, kids]], ft(0.0))
+            if uniform and not rows_with_duplicates(placements).any():
                 # leaf slots: constant trainer load (+0 kid sum);
                 # internal slots: +0 leaf part — both adds are exact
-                lp = leaf_part[rows] if pooled else leaf_part
-                child_load = lp + xp.sum(kid_mds, axis=2)
+                child_load = leaf_part + np.sum(kid_mds, axis=2)
             else:
-                child_load = xp.where(
+                p_off = np.arange(P)[:, None]
+                # placed mask via bincount, not a (P, D, C) compare
+                placed = np.bincount((placements + C * p_off).ravel(),
+                                     minlength=P * C).reshape(P, C)
+                unplaced = placed == 0
+                t_mds = np.where(unplaced, mds_all[None], ft(0.0))
+                # canonical trainer split: rank among unplaced ids, mod
+                # leaves
+                leaf_of = (np.cumsum(unplaced, axis=1) - 1) % n_leaves
+                leaf_load = np.bincount(
+                    (leaf_of + n_leaves * p_off).ravel(),
+                    weights=t_mds.ravel(),
+                    minlength=P * n_leaves).reshape(P, n_leaves)
+                child_load = np.where(
                     is_leaf_slot[None],
                     leaf_load[:, slot_leaf_idx].astype(ft),
-                    xp.sum(kid_mds, axis=2))
+                    np.sum(kid_mds, axis=2))
             load = host[0] + child_load
-            if calibrated and cal_scale != 1.0:
-                load = load * ft(cal_scale)
             delay = load / host[1]
             if penalty > 0:
                 cap = host[2]
-                over = xp.maximum(ft(0.0), load - cap)
+                over = np.maximum(ft(0.0), load - cap)
                 delay = delay * (1.0 + penalty * over /
-                                 xp.maximum(cap, ft(1e-9)))
-            if have_pods:
-                delay = delay + xp.where(is_leaf_slot[None],
-                                         edge_leaf[:, slot_leaf_idx
-                                                   ].astype(ft),
-                                         edge_int)
-            if calibrated and any(cal_link):
-                # per-part link charge: structural member counts for
-                # non-duplicate rows; duplicate rows recount actual
-                # trainers per leaf from the unplaced mask
-                if use_uniform:
-                    parts_f = static_parts[None]
-                else:
-                    leaf_cnt = bincount(
-                        leaf_bins, xp.where(unplaced, ft(1.0), ft(0.0)),
-                        P * n_leaves).reshape(P, n_leaves)
-                    parts_f = xp.where(
-                        is_leaf_slot[None],
-                        leaf_cnt[:, slot_leaf_idx] + ft(1.0),
-                        kid_parts[None])
-                delay = delay + link_slot[None] * parts_f
-
+                                 np.maximum(cap, ft(1e-9)))
             # per-level max, summed DEEPEST level first — the scalar
             # reference accumulates bottom-up, and float addition is not
             # associative, so the exact path must match its order
             level_max = np.maximum.reduceat(delay, level_starts_np, axis=1)
-            out = level_max[:, ::-1].sum(axis=1)
-            if train_add is not None:
-                out = out + (train_add[rows] if pooled else train_add)
-            return out
+            return level_max[:, ::-1].sum(axis=1)
 
         return batch
 
@@ -332,7 +202,7 @@ class CostModel:
         version), and the (P,) TPDs come back to the host."""
         h = self.hierarchy
         dev = self.device
-        tables = tpd_kernel_inputs(h, device=dev)
+        kids, level_starts = tpd_kernel_inputs(h, device=dev)
         attrs = torch.as_tensor(self._attr_stack(np.float32), device=dev)
         n_leaves, C = h.n_leaves, h.total_clients
         penalty = float(self.memory_penalty)
@@ -346,7 +216,8 @@ class CostModel:
                                  f"[0, {C})")
             p = torch.as_tensor(placements, device=dev)
             leaf = leaf_loads(p, attrs[0], n_leaves)
-            out = evaluate(p, attrs, leaf, *tables, penalty=penalty)
+            out = evaluate(p, attrs, leaf, kids, level_starts,
+                           penalty=penalty)
             return out.cpu().numpy()
 
         return run
@@ -370,22 +241,9 @@ class CostModel:
             raise ValueError(
                 f"hierarchy expects {hierarchy.total_clients} clients, "
                 f"pool has {len(self.clients)}")
-        pod = getattr(self, "pod_of", None)
-        if pod is not None and len(pod) != hierarchy.total_clients:
-            raise ValueError(
-                "cannot retarget a two-tier cost model across a pool "
-                "resize: pod_of does not cover the new population")
         object.__setattr__(self, "hierarchy", hierarchy)
         object.__setattr__(self, "_topology_version",
                            self.topology_version + 1)
-
-    def _calibration_terms(self) -> tuple:
-        """(payload_scale, level_link, train_scale) — neutral
-        ``(1.0, (), 0.0)`` on the base model."""
-        return (float(getattr(self, "payload_scale", 1.0)),
-                tuple(float(b) for b in getattr(self, "level_link", ())
-                      or ()),
-                float(getattr(self, "train_scale", 0.0)))
 
     def _client_token(self) -> tuple:
         """O(1) fingerprint of the client attrs + topology baked into
@@ -417,10 +275,9 @@ class CostModel:
         ``backend``: ``None`` auto-selects (``"kernel"`` on a CUDA
         device; on the CPU ``"np"`` below the fast-path threshold and
         ``"torch"`` above it); ``"np"`` / ``"torch"`` / ``"kernel"``
-        force a path. ``"kernel"`` needs a CUDA device, and both device
-        backends cover the base eq. 6/7 model only (no pod edge costs,
-        no trace-calibrated terms). A ``set_default_backend`` pin
-        replaces the auto-selection, never an explicit ``backend=``.
+        force a path; ``"kernel"`` needs a CUDA device. A
+        ``set_default_backend`` pin replaces the auto-selection, never an
+        explicit ``backend=``.
         """
         placements = np.asarray(placements, np.int32)
         if backend is None:
@@ -435,25 +292,16 @@ class CostModel:
         if backend == "np":
             fn = self._cached("_batch_tpd_np",
                               lambda: self._make_batch_tpd())
-        elif backend in ("torch", "kernel"):
-            if getattr(self, "pod_of", None) is not None:
-                raise ValueError(f"backend={backend!r} does not cover "
-                                 f"two-tier pod edge costs; use "
-                                 f"backend='np'")
-            if self._calibration_terms() != (1.0, (), 0.0):
-                raise ValueError(f"backend={backend!r} does not cover "
-                                 f"trace-calibrated terms; use "
-                                 f"backend='np'")
-            if backend == "kernel":
-                if self.device.type != "cuda":
-                    raise ValueError(
-                        f"backend='kernel' runs the CUDA kernel and needs "
-                        f"a CUDA device; this model is on {self.device}")
-                fn = self._cached("_batch_tpd_kernel",
-                                  lambda: self._make_device_tpd(True))
-            else:
-                fn = self._cached("_batch_tpd_torch",
-                                  lambda: self._make_device_tpd(False))
+        elif backend == "kernel":
+            if self.device.type != "cuda":
+                raise ValueError(
+                    f"backend='kernel' runs the CUDA kernel and needs a "
+                    f"CUDA device; this model is on {self.device}")
+            fn = self._cached("_batch_tpd_kernel",
+                              lambda: self._make_device_tpd(True))
+        elif backend == "torch":
+            fn = self._cached("_batch_tpd_torch",
+                              lambda: self._make_device_tpd(False))
         else:
             raise ValueError(f"unknown batch_tpd backend {backend!r}; "
                              f"use None, 'np', 'torch' or 'kernel'")

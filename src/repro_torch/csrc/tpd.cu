@@ -5,21 +5,31 @@
 // computes the same function; the plain torch version beside it is
 // repro_torch/kernels/ref.py:tpd_ref.
 //
-// What it computes, per particle p and aggregator slot s:
-//   load  = mds[host] + (leaf slot ? leaf_load[p, leaf(s)]
-//                                  : sum_w kids_valid[s,w] * mds[p[kids[s,w]]])
+// What it computes, per particle p and aggregator slot s, with the leaf
+// level the slot range [leaf_start, D) and L = D - leaf_start leaves:
+//   load  = mds[host] + (s >= leaf_start ? leaf_load[p, s - leaf_start]
+//                        : sum over kids[s, w] >= 0 of mds[p[kids[s, w]]])
 //   delay = load / pspeed[host]  (x (1 + penalty * over / max(cap, 1e-9)))
 //   out[p] = sum over levels, deepest first, of max_{s in level} delay
 //
-// Bound. The function moves P*(4D + 4L + 4) + 12C bytes (placements,
-// leaf loads, output, the (3, C) attribute table), plus the small static
-// tables (8DW + 8D + 4(depth+1)); its arithmetic is a few flops per
-// slot. So it is bound by bytes over the 3.35 TB/s of device memory: at
-// large-10k with P = 10 that is about 0.2 MB, well under a microsecond,
-// and the launch itself (a few microseconds) sets the pace. The design
-// answers with one launch per swarm evaluation and nothing else on the
-// device between host calls: one block per particle, the whole
-// evaluation fused, no intermediate written to device memory.
+// Operands: placements (P, D) int32, attrs (3, C) f32 = [mdatasize,
+// pspeed, memcap], leaf_load (P, L) f32, kids (D, W) int32 with -1 where
+// a slot has fewer than W child slots, and the depth + 1 level starts,
+// passed by value. Leaf-ness and the leaf index follow from the level
+// starts, a kid's validity from its -1 sentinel: the TPU kernel's
+// kids_valid, is_leaf and slot_leaf_idx tables are not needed.
+//
+// Bound. The function reads each placement row, each leaf-load row and
+// the kid rows of the internal slots once, writes P floats, and reads
+// mdatasize and pspeed (and memcap when penalty > 0) only at the ids the
+// swarm places: P*(4D + 4L + 4) + 4W*(D - L) + 4*rows*ids bytes, with
+// rows 2 or 3 and ids <= C the number of distinct placed ids. Its
+// arithmetic is a few flops per slot, so it is bound by bytes over the
+// 3.35 TB/s of device memory: at large-10k with P = 10 about 0.2 MB, well
+// under a microsecond, and the launch itself (a few microseconds) sets
+// the pace. The design answers with one launch per swarm evaluation and
+// nothing else on the device between host calls: one block per particle,
+// the whole evaluation fused, no intermediate written to device memory.
 //
 // Design. One block per particle. The block stages the particle's
 // placement row in shared memory (D ids, 5.5 KB at large-10k), then
@@ -48,17 +58,18 @@ namespace {
 constexpr int kMaxDepth = 32;
 constexpr int kMaxThreads = 256;
 
+struct LevelStarts {
+  int at[kMaxDepth + 1];  // level l is the slot range [at[l], at[l + 1])
+};
+
 __global__ void __launch_bounds__(kMaxThreads)
 tpd_kernel(const int* __restrict__ placements,     // (P, D)
            const float* __restrict__ attrs,        // (3, C)
            const float* __restrict__ leaf_load,    // (P, L)
-           const int* __restrict__ kids,           // (D, W), clipped
-           const float* __restrict__ kids_valid,   // (D, W) 0/1
-           const float* __restrict__ is_leaf,      // (D,) 0/1
-           const int* __restrict__ slot_leaf_idx,  // (D,)
-           const int* __restrict__ level_starts,   // (depth + 1,)
+           const int* __restrict__ kids,           // (D, W), -1 padded
            float* __restrict__ out,                // (P,)
-           int D, int C, int L, int W, int depth, float penalty) {
+           const LevelStarts levels, int D, int C, int W, int depth,
+           float penalty) {
   extern __shared__ int smem[];
   int* row = smem;                                  // (D,) placement row
   float* delay = reinterpret_cast<float*>(smem + D);  // (D,) slot delays
@@ -75,6 +86,8 @@ tpd_kernel(const int* __restrict__ placements,     // (P, D)
   const float* mds = attrs;
   const float* pspeed = attrs + C;
   const float* memcap = attrs + 2 * C;
+  const int leaf_start = levels.at[depth - 1];
+  const int L = D - leaf_start;
 
   if (tid == 0) bad_id = 0;
   __syncthreads();
@@ -92,15 +105,19 @@ tpd_kernel(const int* __restrict__ placements,     // (P, D)
   const float* lrow = leaf_load + static_cast<size_t>(p) * L;
   for (int s = tid; s < D; s += nthreads) {
     const int host = row[s];
-    const int* ks = kids + static_cast<size_t>(s) * W;
-    const float* kv = kids_valid + static_cast<size_t>(s) * W;
-    float child = __ldg(&mds[row[__ldg(&ks[0])]]) * __ldg(&kv[0]);
-    for (int w = 1; w < W; ++w) {
-      child = child + __ldg(&mds[row[__ldg(&ks[w])]]) * __ldg(&kv[w]);
+    float child;
+    if (s >= leaf_start) {
+      child = __ldg(&lrow[s - leaf_start]);
+    } else {
+      const int* ks = kids + static_cast<size_t>(s) * W;
+      int k = __ldg(&ks[0]);
+      child = k >= 0 ? __ldg(&mds[row[k]]) : 0.0f;
+      for (int w = 1; w < W; ++w) {
+        k = __ldg(&ks[w]);
+        child = child + (k >= 0 ? __ldg(&mds[row[k]]) : 0.0f);
+      }
     }
-    const float leaf_child = __ldg(&lrow[__ldg(&slot_leaf_idx[s])]);
-    const float load =
-        __ldg(&mds[host]) + (__ldg(&is_leaf[s]) > 0.0f ? leaf_child : child);
+    const float load = __ldg(&mds[host]) + child;
     float d = load / __ldg(&pspeed[host]);
     if (penalty > 0.0f) {
       const float cap = __ldg(&memcap[host]);
@@ -112,8 +129,8 @@ tpd_kernel(const int* __restrict__ placements,     // (P, D)
   __syncthreads();
 
   for (int l = 0; l < depth; ++l) {
-    const int a = __ldg(&level_starts[l]);
-    const int b = __ldg(&level_starts[l + 1]);
+    const int a = levels.at[l];
+    const int b = levels.at[l + 1];
     float m = -__int_as_float(0x7f800000);  // -inf
     for (int s = a + tid; s < b; s += nthreads) m = fmaxf(m, delay[s]);
     for (int off = 16; off > 0; off >>= 1) {
@@ -140,18 +157,19 @@ tpd_kernel(const int* __restrict__ placements,     // (P, D)
 
 extern "C" {
 
-// Launches the kernel on `stream` for P particles; returns the CUDA
-// error code of the launch (0 when it was accepted).
+// Launches the kernel on `stream` for P particles; `level_starts` is a
+// host array of depth + 1 ints, copied into the launch's arguments.
+// Returns the CUDA error code of the launch (0 when it was accepted).
 int tpd_launch(const void* placements, const void* attrs,
-               const void* leaf_load, const void* kids,
-               const void* kids_valid, const void* is_leaf,
-               const void* slot_leaf_idx, const void* level_starts,
-               void* out, int P, int D, int C, int L, int W, int depth,
-               float penalty, void* stream) {
+               const void* leaf_load, const void* kids, void* out,
+               const int* level_starts, int P, int D, int C, int W,
+               int depth, float penalty, void* stream) {
   if (P <= 0) return 0;
-  if (D <= 0 || W <= 0 || L <= 0 || depth <= 0 || depth > kMaxDepth) {
+  if (D <= 0 || W <= 0 || depth <= 0 || depth > kMaxDepth) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  LevelStarts levels = {};
+  for (int l = 0; l <= depth; ++l) levels.at[l] = level_starts[l];
   int threads = ((D + 31) / 32) * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
   const size_t smem = static_cast<size_t>(D) * (sizeof(int) + sizeof(float));
@@ -164,11 +182,7 @@ int tpd_launch(const void* placements, const void* attrs,
   tpd_kernel<<<P, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(placements), static_cast<const float*>(attrs),
       static_cast<const float*>(leaf_load), static_cast<const int*>(kids),
-      static_cast<const float*>(kids_valid),
-      static_cast<const float*>(is_leaf),
-      static_cast<const int*>(slot_leaf_idx),
-      static_cast<const int*>(level_starts), static_cast<float*>(out), D, C,
-      L, W, depth, penalty);
+      static_cast<float*>(out), levels, D, C, W, depth, penalty);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,7 +15,7 @@ card to the host. ``batch_tpd_cuda.launches`` counts launches.
 
 Around the kernel, in torch ops on the caller's device:
 
-* :func:`tpd_kernel_inputs` — the static per-hierarchy tables;
+* :func:`tpd_kernel_inputs` — the static per-hierarchy operands;
 * :func:`leaf_loads` — the trainer load of every leaf aggregator, the
   counterpart of the host numpy prefix-sum in the reference's
   ``CostModel._make_pallas_tpd``.
@@ -33,6 +33,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.ref import tpd_ref
 
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "tpd.cu"
@@ -48,26 +49,20 @@ MAX_DEPTH = 32                 # kMaxDepth in csrc/tpd.cu
 MAX_SLOTS = (232448 - 1024) // 8
 
 
-def tpd_kernel_inputs(hierarchy, device="cpu"):
-    """Static operand tables for one hierarchy, on ``device``:
-    ``(kids, kids_valid, is_leaf, slot_leaf_idx, level_starts)``.
+def tpd_kernel_inputs(hierarchy, device="cuda"):
+    """Static operands for one hierarchy: ``(kids, level_starts)``.
 
-    kids (D, W) int32 child slots (clipped; ``kids_valid`` masks the
-    padding), kids_valid (D, W) f32, is_leaf (D,) f32, slot_leaf_idx
-    (D,) int32, level_starts (depth + 1,) int32 — level ``l`` is the
-    slot range ``level_starts[l]:level_starts[l + 1]``.
+    kids (D, W) int32 child slots on ``device``, -1 where a slot has
+    fewer than W child slots; level_starts a tuple of depth + 1 ints on
+    the host — level ``l`` is the slot range
+    ``level_starts[l]:level_starts[l + 1]`` and the last level holds the
+    leaf aggregators. The kernel takes the level starts as launch
+    arguments, so neither it nor the plain version reads them from the
+    device.
     """
-    h = hierarchy
-    D, depth = h.dimensions, h.depth
-    leaf_start = h.level_starts[depth - 1]
-    kids = h.kids_table
-    tables = (np.clip(kids, 0, D - 1).astype(np.int32),
-              (kids >= 0).astype(np.float32),
-              (h.levels == depth - 1).astype(np.float32),
-              np.clip(np.arange(D) - leaf_start, 0,
-                      h.n_leaves - 1).astype(np.int32),
-              np.asarray(h.level_starts, np.int32))
-    return tuple(torch.as_tensor(t, device=device) for t in tables)
+    kids = torch.as_tensor(hierarchy.kids_table.astype(np.int32),
+                           device=resolve_device(device))
+    return kids, tuple(int(b) for b in hierarchy.level_starts)
 
 
 def leaf_loads(placements: torch.Tensor, mds: torch.Tensor,
@@ -146,7 +141,8 @@ def build_library() -> Path:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.tpd_launch.argtypes = [ptr] * 9 + [i32] * 6 + [ctypes.c_float, ptr]
+    lib.tpd_launch.argtypes = [ptr] * 5 + [ctypes.POINTER(i32)] \
+        + [i32] * 5 + [ctypes.c_float, ptr]
     lib.tpd_launch.restype = i32
     lib.tpd_error_string.argtypes = [i32]
     lib.tpd_error_string.restype = ctypes.c_char_p
@@ -165,11 +161,10 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def batch_tpd_cuda(placements, attrs, leaf_load, kids, kids_valid, is_leaf,
-                   slot_leaf_idx, level_starts, *,
+def batch_tpd_cuda(placements, attrs, leaf_load, kids, level_starts, *,
                    penalty: float = 0.0) -> torch.Tensor:
     """placements (P, D) int32, attrs (3, C) f32, leaf_load (P, L) f32
-    and the tables of :func:`tpd_kernel_inputs` -> (P,) f32 TPDs.
+    and the operands of :func:`tpd_kernel_inputs` -> (P,) f32 TPDs.
 
     On a CUDA device this launches the kernel on the current stream
     (asynchronously; the output is allocated here). On the CPU it
@@ -177,29 +172,29 @@ def batch_tpd_cuda(placements, attrs, leaf_load, kids, kids_valid, is_leaf,
     """
     dev = placements.device
     if dev.type == "cpu":
-        return tpd_ref(placements, attrs, leaf_load, kids, kids_valid,
-                       is_leaf, slot_leaf_idx, level_starts, penalty=penalty)
+        return tpd_ref(placements, attrs, leaf_load, kids, level_starts,
+                       penalty=penalty)
     if dev.type != "cuda":
         raise ValueError(f"batch_tpd_cuda runs on cuda or cpu, not {dev}")
-    if placements.dim() != 2 or attrs.dim() != 2 or leaf_load.dim() != 2 \
-            or kids.dim() != 2:
-        raise ValueError("placements, attrs, leaf_load and kids must be 2-D")
+    if placements.dim() != 2 or attrs.dim() != 2 or kids.dim() != 2:
+        raise ValueError("placements, attrs and kids must be 2-D")
     P, D = placements.shape
-    C, L, W = attrs.shape[1], leaf_load.shape[1], kids.shape[1]
-    depth = level_starts.shape[0] - 1
+    C, W = attrs.shape[1], kids.shape[1]
+    starts = tuple(int(b) for b in level_starts)
+    depth = len(starts) - 1
     if not 1 <= depth <= MAX_DEPTH:
         raise ValueError(f"depth must be in [1, {MAX_DEPTH}], got {depth}")
+    if starts[0] != 0 or starts[-1] != D or any(
+            a >= b for a, b in zip(starts, starts[1:])):
+        raise ValueError(f"level_starts {starts} do not split {D} slots "
+                         f"into non-empty levels")
     if D > MAX_SLOTS:
         raise ValueError(f"{D} slots exceed the kernel's shared-memory "
                          f"row of {MAX_SLOTS}")
     _check("placements", placements, torch.int32, (P, D), dev)
     _check("attrs", attrs, torch.float32, (3, C), dev)
-    _check("leaf_load", leaf_load, torch.float32, (P, L), dev)
+    _check("leaf_load", leaf_load, torch.float32, (P, D - starts[-2]), dev)
     _check("kids", kids, torch.int32, (D, W), dev)
-    _check("kids_valid", kids_valid, torch.float32, (D, W), dev)
-    _check("is_leaf", is_leaf, torch.float32, (D,), dev)
-    _check("slot_leaf_idx", slot_leaf_idx, torch.int32, (D,), dev)
-    _check("level_starts", level_starts, torch.int32, (depth + 1,), dev)
     out = torch.empty(P, dtype=torch.float32, device=dev)
     if P == 0:
         return out
@@ -208,9 +203,8 @@ def batch_tpd_cuda(placements, attrs, leaf_load, kids, kids_valid, is_leaf,
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.tpd_launch(
             placements.data_ptr(), attrs.data_ptr(), leaf_load.data_ptr(),
-            kids.data_ptr(), kids_valid.data_ptr(), is_leaf.data_ptr(),
-            slot_leaf_idx.data_ptr(), level_starts.data_ptr(),
-            out.data_ptr(), P, D, C, L, W, depth, float(penalty), stream)
+            kids.data_ptr(), out.data_ptr(), (ctypes.c_int * (depth + 1))(
+                *starts), P, D, C, W, depth, float(penalty), stream)
     if code != 0:
         raise RuntimeError(f"TPD kernel launch failed: "
                            f"{lib.tpd_error_string(code).decode()} ({code})")

@@ -67,3 +67,20 @@ def test_cost_model_kernel_backend_matches_torch_backend(cuda_device):
                                   cm.batch_tpd(ps, backend="torch"))
     np.testing.assert_array_equal(cm.batch_tpd(ps, backend="kernel"),
                                   cm.batch_tpd(ps, backend="np"))
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_malformed_operands(cuda_device):
+    h, cm, ps = _operands(SHAPES[0], 4, 0.0, cuda_device)
+    p = torch.as_tensor(ps, device=cuda_device)
+    attrs = torch.as_tensor(cm._attr_stack(np.float32), device=cuda_device)
+    leaf = leaf_loads(p, attrs[0], h.n_leaves)
+    kids, starts = tpd_kernel_inputs(h, device=cuda_device)
+    before = batch_tpd_cuda.launches
+    with pytest.raises(ValueError, match="level_starts"):
+        batch_tpd_cuda(p, attrs, leaf, kids, starts[:-1] + (starts[-1] + 1,))
+    with pytest.raises(TypeError, match="placements"):
+        batch_tpd_cuda(p.long(), attrs, leaf, kids, starts)
+    with pytest.raises(ValueError, match="leaf_load"):
+        batch_tpd_cuda(p, attrs, leaf[:, 1:].contiguous(), kids, starts)
+    assert batch_tpd_cuda.launches == before

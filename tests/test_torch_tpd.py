@@ -79,7 +79,8 @@ def _shared_operands(shape, hetero, penalty):
     attrs = ref._attr_stack(np.float32)
     leaf = _np_leaf_loads(ps, attrs[0], h.total_clients, h.n_leaves)
     got = tpd_ref(torch.as_tensor(ps), torch.as_tensor(attrs),
-                  torch.as_tensor(leaf), *tpd_kernel_inputs(port.hierarchy),
+                  torch.as_tensor(leaf),
+                  *tpd_kernel_inputs(port.hierarchy, device="cpu"),
                   penalty=penalty)
     assert got.dtype == torch.float32 and got.shape == (9,)
     return ref, ps, attrs, leaf, got.numpy()
@@ -187,6 +188,8 @@ def test_cuda_device_without_a_card_raises():
     pool = pool_from_numpy(*(np.ones(h.total_clients),) * 3)
     with pytest.raises(RuntimeError, match="cuda"):
         CostModel(h, pool)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tpd_kernel_inputs(h)
 
 
 def test_wrapper_hands_cpu_tensors_to_the_plain_version():
@@ -195,7 +198,7 @@ def test_wrapper_hands_cpu_tensors_to_the_plain_version():
     ps = torch.as_tensor(_swarm(h, 6, seed=5))
     attrs = torch.as_tensor(port._attr_stack(np.float32))
     leaf = leaf_loads(ps, attrs[0], h.n_leaves)
-    tables = tpd_kernel_inputs(h)
+    tables = tpd_kernel_inputs(h, device="cpu")
     before = batch_tpd_cuda.launches
     got = batch_tpd_cuda(ps, attrs, leaf, *tables, penalty=2.5)
     assert batch_tpd_cuda.launches == before  # no launch on the CPU
