@@ -9,28 +9,50 @@ It needs one CUDA card and ``nvcc``. Without a card, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 Phases, in order; any failed check raises and ends the run non-zero:
 
-1. card and toolchain;
-2. build the TPD kernel (``src/repro_torch/csrc/tpd.cu``);
-3. the kernel against its plain torch version on the card, exactly, and
-   against the float64 scalar model within rtol 2e-5, at the Fig. 3
+1. card and toolchain (and both TF32 flags);
+2. build both kernels (``src/repro_torch/csrc/tpd.cu`` and
+   ``fedavg.cu``), one ``nvcc`` each, started together;
+3. the TPD kernel against its plain torch version on the card, exactly,
+   and against the float64 scalar model within rtol 2e-5, at the Fig. 3
    extremes, large-1k and large-10k;
-4. the main path: the paper's Fig. 3 grid (depth {3,4,5} x width {4,5}
-   x particles {5,10}, 100 iterations, seed 0) through
-   ``FlagSwapPSO.run(cm.fitness, 100, batch_fitness_fn=cm.batch_fitness)``
-   on ``cuda``, each cell held exactly to the same run on the CPU;
-5. full scale: large-10k, 10 particles, 50 iterations on ``cuda``;
-6. timings (CUDA events, medians) beside the card's name and power
-   limit, then one JSON line per kernel and the final status line. The
-   JSON line's ``ms`` and ``plain_ms`` are both device time per call,
-   host enqueue hidden behind a device spin; wrapper-call times, host
-   enqueue included, are printed beside them.
+4. the FedAvg kernel against its plain torch version on the card,
+   exactly (atol 0): paper-fig4's two tree levels and a 256-client
+   tree's leaf level at the paper MLP's N = 1,791,754, K = 1, ragged
+   tails (N = 2049, 7), a bfloat16 pool, and the dense ``fedavg_batched``
+   and ``fedavg`` forms; ``torch.einsum`` on the dense stack is printed
+   beside it as a yardstick;
+5. the simulated main path: the paper's Fig. 3 grid (depth {3,4,5} x
+   width {4,5} x particles {5,10}, 100 iterations, seed 0) through
+   ``FlagSwapPSO.run`` on ``cuda``, then large-10k (10 particles, 50
+   iterations), each Fig. 3 cell held exactly to the same run on the CPU;
+6. the emulated main path: ``run_experiment("paper-fig4", ["pso",
+   "random", "uniform"], rounds=50, seeds=[0])`` on ``cuda`` with the
+   full-width paper MLP (batched engine, deterministic timing), held to
+   the same run on the CPU: placements and TPDs exactly, losses within
+   rtol 1e-4, final params within rtol 1e-3 (atol 1e-5);
+7. the loop engine: paper-fig4 with ``engine="loop"`` for 5 rounds on
+   ``cuda``: its TPD trace equals the batched engine's exactly, its
+   params agree within rtol 1e-3 (atol 1e-5);
+8. where a round's time goes: 3 rounds of paper-fig4, then full scale:
+   256 clients (``choose_fl_hierarchy(256)``), the full-width paper
+   MLP, 4 local steps of batch 8, 3 rounds of the batched engine on
+   ``cuda``; each round split into local training, aggregation and
+   evaluation, its aggregate held to the flat weighted sum;
+9. timings (CUDA events, medians) beside the card's name and power
+   limit, then the ``kernels`` JSON line and the final status line. The
+   JSON line's ``ms``, ``plain_ms`` and ``library_ms`` are device time
+   per call, host enqueue hidden behind a device spin; wrapper-call
+   times, host enqueue included, are printed beside them.
 
-The launch count of every kernel is set to 0 just before phase 4 and
-read just after phase 5: the JSON line's ``launches`` is the main
-path's count, and comparison launches never enter it.
+Each kernel's launch count is set to 0 just before the path that runs
+it and read just after: ``tpd`` over phase 5, ``fedavg_batched`` over
+phase 6's cuda run, ``fedavg`` over phase 7's loop-engine run.
+Comparison and timing launches never enter the JSON line's
+``launches``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -47,10 +69,20 @@ SEED = 0
 FIG3_DEPTH, FIG3_WIDTH, FIG3_PARTICLES = (3, 4, 5), (4, 5), (5, 10)
 FIG3_ITERATIONS = 100
 FULL_SCALE_ITERATIONS = 50
+FIG4_STRATEGIES = ("pso", "random", "uniform")
+FIG4_ROUNDS = 50
+LOOP_ROUNDS = 5
+# cuda vs cpu on the emulated track: the same float32 math summed in
+# other orders (the card's matmuls, the kernel's k-ordered sums)
+LOSS_RTOL = 1e-4
+PARAM_TOL = dict(rtol=1e-3, atol=1e-5)
+SCALE_CLIENTS, SCALE_ROUNDS = 256, 3
+SCALE_LOCAL_STEPS, SCALE_BATCH = 4, 8
 TIMING_RUNS = 25               # medians over this many runs
 LAUNCHES_PER_RUN = 20          # back-to-back launches inside one run
 SPIN_CYCLES = 10_000_000       # device spin hiding host enqueue, ~5 ms
 MAX_SPIN_CYCLES = 2 ** 31
+L2_BYTES = 50 * 2 ** 20        # H100 L2: timed operands rotate past it
 
 
 class SmokeFailure(AssertionError):
@@ -86,6 +118,15 @@ def tpd_bytes(ps, L, W, depth, penalty) -> int:
     rows = 3 if penalty > 0 else 2
     return P * (4 * D + 4 * L + 4) + 4 * W * (D - L) + 4 * rows * ids \
         + 4 * (depth + 1)
+
+
+def fedavg_bytes(rows, N, in_bytes, out_bytes) -> int:
+    """Bytes one FedAvg reduction must move: every distinct member row
+    read once, every output row written once, and the (G, K) row and
+    weight tables once."""
+    G, K = rows.shape
+    read = len({int(r) for r in rows.reshape(-1).tolist() if r >= 0})
+    return in_bytes * N * read + out_bytes * G * N + 8 * G * K
 
 
 def median_event_ms(torch, fn, runs=TIMING_RUNS, per_run=LAUNCHES_PER_RUN):
@@ -154,6 +195,19 @@ def median_host_ms(fn, runs=TIMING_RUNS, sync=None):
     return statistics.median(times)
 
 
+def rotating(fns):
+    """One callable cycling through ``fns`` (operand copies whose sum
+    exceeds L2, so every timed call finds its operands in device
+    memory, as the round engine does)."""
+    state = {"i": 0}
+
+    def call():
+        fn = fns[state["i"] % len(fns)]
+        state["i"] += 1
+        return fn()
+    return call
+
+
 def np_leaf_loads(np, ps, mds32, C, L):
     """The reference's host prefix-sum of trainer loads (float64
     bincount, rounded to float32)."""
@@ -167,6 +221,31 @@ def np_leaf_loads(np, ps, mds32, C, L):
                        minlength=P * L).reshape(P, L).astype(np.float32)
 
 
+def recording(spec, envs):
+    """``spec`` as a ScenarioSpec whose environments are kept in
+    ``envs``, each recording every step's (placement, tpd, loss) in
+    ``env.steps`` — how this script reads what ``run_experiment`` did."""
+    base = type(spec)
+
+    class Recorded(base):
+        def make_environment(self, seed=0, *, device="cuda"):
+            env = base.make_environment(self, seed, device=device)
+            env.steps = []
+            step = env.step
+
+            def recorded(r, placement):
+                obs = step(r, placement)
+                env.steps.append((obs.placement.tolist(), obs.tpd,
+                                  obs.metrics["loss"]))
+                return obs
+            env.step = recorded
+            envs.append(env)
+            return env
+
+    return Recorded(**{f.name: getattr(spec, f.name)
+                       for f in dataclasses.fields(spec)})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -175,13 +254,23 @@ def main() -> int:
         return 2
     import numpy as np
 
+    from repro_torch.configs import get_config
     from repro_torch.core.cost_model import CostModel
     from repro_torch.core.hierarchy import ClientPool, Hierarchy
     from repro_torch.core.pso import FlagSwapPSO
-    from repro_torch.experiments import get_scenario
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.experiments import get_scenario, run_experiment
+    from repro_torch.fl.aggregation import SegmentAggregator
+    from repro_torch.fl.distributed import choose_fl_hierarchy
+    from repro_torch.fl.orchestrator import FederatedOrchestrator
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fedavg as fedavg_mod
     from repro_torch.kernels import tpd as tpd_mod
-    from repro_torch.kernels.ref import tpd_ref
+    from repro_torch.kernels.fedavg import fedavg, fedavg_batched, fedavg_rows
+    from repro_torch.kernels.ref import fedavg_batched_ref, fedavg_ref, fedavg_rows_ref, tpd_ref
     from repro_torch.kernels.tpd import batch_tpd_cuda, leaf_loads, tpd_kernel_inputs
+    from repro_torch.models import get_model
+    from repro_torch.utils.trees import tree_leaves
 
     dev = torch.device("cuda")
 
@@ -189,25 +278,32 @@ def main() -> int:
     phase("1. card and toolchain")
     card = card_line()
     print(card)
-    nvcc = tpd_mod.find_nvcc()
+    nvcc = build.find_nvcc()
     nvcc_version = subprocess.run([nvcc, "--version"], capture_output=True,
                                   text=True, check=True, timeout=60)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}")
     print(f"nvcc {nvcc}: {nvcc_version.stdout.strip().splitlines()[-1]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"TF32: torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, "
+          f"torch.backends.cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32} (no convolution runs)")
 
     # ---- 2. build --------------------------------------------------------
     phase("2. build")
     t0 = time.perf_counter()
-    lib = tpd_mod.build_library()
+    libs = build.build_libraries([tpd_mod.SOURCE, fedavg_mod.SOURCE])
     build_s = time.perf_counter() - t0
-    print(f"built {lib.relative_to(ROOT)} in {build_s:.2f} s")
-    log = lib.with_suffix(".log")
-    if log.is_file():
-        print(log.read_text().strip())
+    for lib in libs:
+        print(f"built {lib.relative_to(ROOT)}")
+        log = lib.with_suffix(".log")
+        if log.is_file():
+            print(log.read_text().strip())
+    print(f"both builds in {build_s:.2f} s (parallel)")
 
-    # ---- 3. kernel vs plain version on the card -------------------------
+    # ---- 3. TPD kernel vs plain version on the card ---------------------
     phase("3. TPD kernel vs its plain torch version on the card")
 
     def operands(h, pool, P, penalty, seed, dup_rows):
@@ -252,7 +348,7 @@ def main() -> int:
         for penalty in (0.0, 3.0):
             cases.append(("large-10k", h10k, pool10k, P, penalty,
                           0 if P == 1 else 3))
-    max_abs_err = 0.0
+    tpd_max_abs_err = 0.0
     for i, (name, h, pool, P, penalty, dups) in enumerate(cases):
         cm, ps, attrs_np, ops = operands(h, pool, P, penalty, 100 + i, dups)
         leaf_ok = np.array_equal(
@@ -264,7 +360,7 @@ def main() -> int:
         torch.cuda.synchronize()
         want = tpd_ref(*ops, penalty=penalty)
         err = float((got - want).abs().max())
-        max_abs_err = max(max_abs_err, err)
+        tpd_max_abs_err = max(tpd_max_abs_err, err)
         check(torch.equal(got, want),
               f"{name} P={P} penalty={penalty}: kernel != plain version "
               f"(max abs err {err})")
@@ -278,9 +374,112 @@ def main() -> int:
               f"P={P:5d} penalty={penalty}: exact (atol 0), "
               f"rel err vs f64 scalar {rel:.2e}")
 
-    # ---- 4. main path: the Fig. 3 grid on cuda --------------------------
-    phase("4. main path: paper Fig. 3 grid on cuda, held to the CPU run")
-    batch_tpd_cuda.launches = 0   # every count to 0 just before the path
+    # ---- 4. FedAvg kernel vs plain version on the card -------------------
+    phase("4. FedAvg kernel vs its plain torch version on the card")
+    N_MLP = 1_791_754
+    check(sum(x.numel() for x in tree_leaves(get_model(get_config(
+        "paper-mlp-1m8")).init(torch.Generator().manual_seed(SEED), "cpu")))
+        == N_MLP, "paper-mlp-1m8 does not hold 1,791,754 params")
+    fig4_h = get_scenario("paper-fig4").make_hierarchy()
+    scale_h = choose_fl_hierarchy(SCALE_CLIENTS)
+    print(f"256 clients -> {scale_h}")
+
+    def level_operands(h, placement, N, dtype, seed):
+        """A (C + D, N) pool and every level's (rows, w, first out row)
+        as the aggregator builds them for ``placement``."""
+        rng = np.random.default_rng(seed)
+        C = h.total_clients
+        agg = SegmentAggregator(h)
+        plan = h.round_plan(placement)
+        w = rng.dirichlet(np.ones(C)).astype(np.float32)
+        tables = [agg._level_tables(i, plan, w)
+                  for i in range(len(plan.levels))]
+        pool = torch.empty((C + h.dimensions, N), dtype=dtype, device=dev)
+        pool.normal_(generator=torch.Generator(dev).manual_seed(seed))
+        return pool, tables
+
+    fedavg_max_abs_err = 0.0
+    einsum_max_abs_err = 0.0
+
+    def hold(name, pool, rows, w, out=None):
+        nonlocal fedavg_max_abs_err, einsum_max_abs_err
+        got = fedavg_rows(pool, rows, w, out=out)
+        torch.cuda.synchronize()
+        want = fedavg_rows_ref(pool, rows, w)
+        err = float((got.float() - want.float()).abs().max())
+        fedavg_max_abs_err = max(fedavg_max_abs_err, err)
+        check(torch.equal(got, want), f"{name}: kernel != plain version "
+                                      f"(max abs err {err})")
+        r = rows.to(dev).long()
+        dense = pool[r.clamp_min(0)].float()
+        wd = torch.where(r >= 0, w.to(dev), 0.0)
+        lib_err = float((torch.einsum("gkn,gk->gn", dense, wd)
+                         - got.float()).abs().max())
+        einsum_max_abs_err = max(einsum_max_abs_err, lib_err)
+        G, K = rows.shape
+        print(f"{name:34s} G={G} K={K:2d} N={pool.shape[1]:8d} "
+              f"{str(pool.dtype)[6:]:8s}: exact (atol 0); einsum differs "
+              f"by {lib_err:.3e}")
+
+    fig4_place = np.random.default_rng(SEED).permutation(
+        fig4_h.total_clients)[:fig4_h.dimensions]
+    pool4, tables4 = level_operands(fig4_h, fig4_place, N_MLP,
+                                    torch.float32, 1)
+    for i, (rows, w, first) in enumerate(tables4):
+        hold(f"paper-fig4 level {i} (deepest first)", pool4, rows, w,
+             out=pool4[first:first + rows.shape[0]])
+    scale_place = np.random.default_rng(SEED).permutation(
+        scale_h.total_clients)[:scale_h.dimensions]
+    pool256, tables256 = level_operands(scale_h, scale_place, N_MLP,
+                                        torch.float32, 2)
+    rows, w, _ = tables256[0]
+    check(tuple(rows.shape) == (4, 64), f"256-client leaf level is "
+                                         f"{tuple(rows.shape)}")
+    hold("256-client leaf level", pool256, rows, w)
+    del pool256
+    for name, R, N, G, K, dtype in (("K = 1", 3, N_MLP, 2, 1, torch.float32),
+                                    ("ragged N = 2049", 11, 2049, 3, 4,
+                                     torch.float32),
+                                    ("ragged N = 7", 9, 7, 2, 5,
+                                     torch.float32),
+                                    ("bf16 pool, odd rows", 13, N_MLP, 2, 5,
+                                     torch.bfloat16),
+                                    ("bf16 pool, N = 1001", 7, 1001, 3, 3,
+                                     torch.bfloat16)):
+        rng = np.random.default_rng(R * 31 + N)
+        pool = torch.empty((R, N), device=dev).normal_(
+            generator=torch.Generator(dev).manual_seed(R)).to(dtype)
+        rows = torch.from_numpy(rng.integers(-1, R, (G, K)).astype(np.int32))
+        rows[:, 0] = torch.from_numpy(rng.integers(0, R, G).astype(np.int32))
+        w = torch.from_numpy(rng.uniform(0, 1, (G, K)).astype(np.float32))
+        hold(name, pool, rows, w)
+    # the dense entry points: the (G, K, N) stack and the (K, N) one
+    dense = torch.empty((2, 5, N_MLP), device=dev).normal_(
+        generator=torch.Generator(dev).manual_seed(3))
+    wd = torch.rand((2, 5), device=dev,
+                    generator=torch.Generator(dev).manual_seed(4))
+    got = fedavg_batched(dense, wd)
+    torch.cuda.synchronize()
+    check(torch.equal(got, fedavg_batched_ref(dense, wd)),
+          "fedavg_batched != fedavg_batched_ref")
+    got1 = fedavg(dense[0], wd[0])
+    torch.cuda.synchronize()
+    check(torch.equal(got1, fedavg_ref(dense[0], wd[0])),
+          "fedavg != fedavg_ref")
+    lib_err = max(
+        float((torch.einsum("gkn,gk->gn", dense, wd) - got).abs().max()),
+        float((torch.einsum("kn,k->n", dense[0], wd[0]) - got1).abs().max()))
+    einsum_max_abs_err = max(einsum_max_abs_err, lib_err)
+    print(f"dense fedavg_batched (2, 5, {N_MLP}) and fedavg (5, {N_MLP}): "
+          f"exact (atol 0); einsum differs by {lib_err:.3e}")
+    print(f"largest |kernel - plain| {fedavg_max_abs_err}; largest "
+          f"|kernel - torch.einsum| {einsum_max_abs_err:.3e} (einsum sums "
+          f"in another order; the yardstick only)")
+
+    # ---- 5. simulated main path: the Fig. 3 grid on cuda -----------------
+    phase("5. simulated main path: paper Fig. 3 grid on cuda, held to the "
+          "CPU run")
+    batch_tpd_cuda.launches = 0   # the count to 0 just before the path
     t_main = time.perf_counter()
 
     def run_cell(depth, width, particles, device, backend=None):
@@ -312,8 +511,7 @@ def main() -> int:
                 cells.append((d, w, P, h, pso, best, wall))
     fig3_s = time.perf_counter() - t_main
 
-    # ---- 5. full scale: large-10k ---------------------------------------
-    phase("5. full scale: large-10k, 10 particles, 50 iterations on cuda")
+    # large-10k
     env10k = get_scenario("large-10k").make_environment(SEED, device="cuda")
     h, cm10k = env10k.hierarchy, env10k.cost_model
     pso10k = FlagSwapPSO(h.dimensions, h.total_clients, n_particles=10,
@@ -324,24 +522,24 @@ def main() -> int:
                          batch_fitness_fn=cm10k.batch_fitness)
     torch.cuda.synchronize()
     wall10k = time.perf_counter() - t0
-    launches_main = batch_tpd_cuda.launches   # read just after the path
-    check(launches_main - before == FULL_SCALE_ITERATIONS,
-          f"large-10k: {launches_main - before} launches, expected "
+    launches_tpd = batch_tpd_cuda.launches   # read just after the path
+    check(launches_tpd - before == FULL_SCALE_ITERATIONS,
+          f"large-10k: {launches_tpd - before} launches, expected "
           f"{FULL_SCALE_ITERATIONS}")
     scalar_best = cm10k.tpd(best10k)
     rel = abs(-pso10k.gbest_f - scalar_best) / scalar_best
     check(rel <= RTOL_SCALAR, f"large-10k gbest: kernel TPD "
                               f"{-pso10k.gbest_f} vs scalar {scalar_best}")
-    print(f"D={h.dimensions} C={h.total_clients}: {wall10k / 50 * 1e3:.3f} "
-          f"ms per iteration (host clock, {FULL_SCALE_ITERATIONS} "
-          f"iterations, {card}); gbest TPD {-pso10k.gbest_f:.6f} from the "
-          f"kernel vs {scalar_best:.6f} scalar (rel {rel:.2e}); TPD "
-          f"{pso10k.history.mean[0]:.4f} -> {pso10k.history.best[-1]:.4f}")
-    print(f"main path: {launches_main} kernel launches (12 Fig. 3 cells x "
-          f"{FIG3_ITERATIONS} + {FULL_SCALE_ITERATIONS})")
+    print(f"large-10k D={h.dimensions} C={h.total_clients}: "
+          f"{wall10k / 50 * 1e3:.3f} ms per iteration (host clock, "
+          f"{FULL_SCALE_ITERATIONS} iterations, {card}); gbest TPD "
+          f"{-pso10k.gbest_f:.6f} from the kernel vs {scalar_best:.6f} "
+          f"scalar (rel {rel:.2e}); TPD {pso10k.history.mean[0]:.4f} -> "
+          f"{pso10k.history.best[-1]:.4f}")
+    print(f"simulated path: {launches_tpd} TPD kernel launches (12 Fig. 3 "
+          f"cells x {FIG3_ITERATIONS} + {FULL_SCALE_ITERATIONS})")
 
     # the Fig. 3 grid again on the CPU: every cell must match exactly
-    phase("4b. Fig. 3 grid on the CPU (backend='torch'), compared")
     for d, w, P, h, pso, best, wall in cells:
         _, _, cpu, cpu_best = run_cell(d, w, P, "cpu", backend="torch")
         same = (pso.history.best == cpu.history.best
@@ -364,8 +562,166 @@ def main() -> int:
           f"cells improved TPD; P=10 <= P=5 (x1.02) in {p10_wins}/6 grids; "
           f"grid took {fig3_s:.2f} s on cuda")
 
-    # ---- 6. timings --------------------------------------------------------
-    phase(f"6. timings on {card}")
+    # ---- 6. emulated main path: paper-fig4 on cuda -----------------------
+    phase("6. emulated main path: run_experiment('paper-fig4', ...) on "
+          "cuda, held to the CPU run")
+    fig4 = get_scenario("paper-fig4")
+    print(f"paper-fig4: {fig4_h}, model {fig4.model}, engine "
+          f"{fig4.engine}, timing {fig4.timing}, {FIG4_ROUNDS} rounds")
+    envs_cuda, envs_cpu = [], []
+    fedavg_batched.launches = 0   # the count to 0 just before the path
+    t0 = time.perf_counter()
+    res_cuda = run_experiment(recording(fig4, envs_cuda), FIG4_STRATEGIES,
+                              rounds=FIG4_ROUNDS, seeds=[SEED],
+                              device="cuda")
+    torch.cuda.synchronize()
+    fig4_cuda_s = time.perf_counter() - t0
+    launches_fedavg_batched = fedavg_batched.launches   # just after
+    want = len(FIG4_STRATEGIES) * (FIG4_ROUNDS + 1) * fig4_h.depth
+    check(launches_fedavg_batched == want,
+          f"paper-fig4: {launches_fedavg_batched} fedavg_batched launches, "
+          f"expected {want} (2 levels x (50 rounds + 1 warmup) x 3 runs)")
+    print(f"{launches_fedavg_batched} fedavg_batched launches = "
+          f"{fig4_h.depth} levels x ({FIG4_ROUNDS} rounds + 1 warmup "
+          f"round) x {len(FIG4_STRATEGIES)} strategies; {fig4_cuda_s:.2f} s "
+          f"on cuda")
+    t0 = time.perf_counter()
+    res_cpu = run_experiment(recording(fig4, envs_cpu), FIG4_STRATEGIES,
+                             rounds=FIG4_ROUNDS, seeds=[SEED], device="cpu",
+                             progress=False)
+    fig4_cpu_s = time.perf_counter() - t0
+    max_loss_rel, max_param_abs = 0.0, 0.0
+    for name, ec, eh in zip(FIG4_STRATEGIES, envs_cuda, envs_cpu,
+                            strict=True):
+        check(len(ec.steps) == len(eh.steps) == FIG4_ROUNDS,
+              f"{name}: {len(ec.steps)} cuda / {len(eh.steps)} cpu rounds")
+        check([s[:2] for s in ec.steps] == [s[:2] for s in eh.steps],
+              f"{name}: cuda placements/TPDs differ from the CPU run")
+        lc = np.array([s[2] for s in ec.steps])
+        lh = np.array([s[2] for s in eh.steps])
+        check(bool(np.all(np.isfinite(lc))), f"{name}: non-finite loss")
+        loss_rel = float(np.max(np.abs(lc - lh) / np.abs(lh)))
+        max_loss_rel = max(max_loss_rel, loss_rel)
+        check(loss_rel <= LOSS_RTOL, f"{name}: losses differ by rel "
+                                     f"{loss_rel} > {LOSS_RTOL}")
+        for a, b in zip(tree_leaves(ec.orchestrator.params),
+                        tree_leaves(eh.orchestrator.params), strict=True):
+            a, b = a.cpu().numpy(), b.numpy()
+            check(a.shape == b.shape and bool(np.all(np.isfinite(a))),
+                  f"{name}: final params malformed")
+            max_param_abs = max(max_param_abs, float(np.max(np.abs(a - b))))
+            check(np.allclose(a, b, **PARAM_TOL),
+                  f"{name}: final params differ beyond {PARAM_TOL}")
+        print(f"{name:8s}: {FIG4_ROUNDS} placements and TPDs equal to the "
+              f"CPU run; loss {lh[0]:.4f} -> {lh[-1]:.4f}, largest rel "
+              f"loss diff {loss_rel:.2e}")
+    print(f"largest loss rel diff {max_loss_rel:.3e} (rtol {LOSS_RTOL}); "
+          f"largest final-param abs diff {max_param_abs:.3e} ({PARAM_TOL}); "
+          f"CPU run took {fig4_cpu_s:.2f} s")
+    agg = res_cuda.aggregates
+    pso_t, uni_t, rnd_t = (agg[s]["total_tpd"] for s in ("pso", "uniform",
+                                                          "random"))
+    print(f"paper claims (printed, not checked): PSO total TPD {pso_t:.2f} "
+          f"vs uniform {uni_t:.2f} ({(1 - pso_t / uni_t) * 100:.1f}% less) "
+          f"and random {rnd_t:.2f} ({(1 - pso_t / rnd_t) * 100:.1f}% less); "
+          f"the abstract reports 43% and 32%")
+    check(all(agg[s]["total_tpd"] == res_cpu.aggregates[s]["total_tpd"]
+              for s in FIG4_STRATEGIES),
+          "aggregate TPDs differ from the CPU run")
+
+    # ---- 7. the loop engine ----------------------------------------------
+    phase(f"7. loop engine: paper-fig4, {LOOP_ROUNDS} rounds on cuda")
+    envs_loop, envs_short = [], []
+    fedavg.launches = 0   # the count to 0 just before the path
+    run_experiment(recording(fig4.with_overrides(engine="loop"), envs_loop),
+                   ["pso"], rounds=LOOP_ROUNDS, seeds=[SEED], device="cuda")
+    torch.cuda.synchronize()
+    launches_fedavg = fedavg.launches   # just after
+    want = fig4_h.dimensions * LOOP_ROUNDS + 3
+    check(launches_fedavg == want,
+          f"loop engine: {launches_fedavg} fedavg launches, expected {want} "
+          f"(3 clusters x {LOOP_ROUNDS} rounds + 3 warmup fan-ins)")
+    run_experiment(recording(fig4, envs_short), ["pso"], rounds=LOOP_ROUNDS,
+                   seeds=[SEED], device="cuda", progress=False)
+    loop_tpds = [s[:2] for s in envs_loop[0].steps]
+    check(loop_tpds == [s[:2] for s in envs_short[0].steps]
+          and loop_tpds == [s[:2] for s in envs_cuda[0].steps[:LOOP_ROUNDS]],
+          "loop engine TPD trace differs from the batched engine's")
+    loop_diff = 0.0
+    for a, b in zip(tree_leaves(envs_loop[0].orchestrator.params),
+                    tree_leaves(envs_short[0].orchestrator.params),
+                    strict=True):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        loop_diff = max(loop_diff, float(np.max(np.abs(a - b))))
+        check(np.allclose(a, b, **PARAM_TOL),
+              "loop engine params differ from the batched engine's")
+    print(f"{launches_fedavg} fedavg launches = 3 clusters x {LOOP_ROUNDS} "
+          f"rounds + 3 warmup fan-ins; TPD trace equal to the batched "
+          f"engine's; largest param abs diff {loop_diff:.3e}")
+
+    # ---- 8. where a round's time goes: paper-fig4, then 256 clients ------
+    sync = torch.cuda.synchronize
+
+    def round_split(label, orch, rounds):
+        """Per-round time of local training (host batch collection
+        timed alone beside it), aggregation and evaluation, host clock
+        around synchronised parts; checks the aggregate against the flat
+        weighted FedAvg of the same stack."""
+        h = orch.hierarchy
+        C = h.total_clients
+        orch.warmup()
+        w_dev = torch.as_tensor(orch.weights, device=dev)
+        for r in range(rounds):
+            placement = np.random.default_rng((SEED, r)).permutation(C)[
+                :h.dimensions]
+            t0 = time.perf_counter()
+            orch._collect_batches(r)
+            collect = time.perf_counter() - t0
+            sync()
+            t0 = time.perf_counter()
+            stacked, _ = orch.train_cohort(np.arange(C), r)
+            sync()
+            t1 = time.perf_counter()
+            new, _ = orch.aggregate_cohort(stacked, placement)
+            sync()
+            t2 = time.perf_counter()
+            flat = (stacked["layers"][0]["w"] * w_dev[:, None, None]).sum(0)
+            check(torch.allclose(new["layers"][0]["w"], flat, rtol=1e-4,
+                                 atol=1e-6),
+                  f"{label}: hierarchical FedAvg != flat weighted sum")
+            orch.set_global(new)
+            sync()
+            t3 = time.perf_counter()
+            loss, acc = orch.evaluate_global()
+            t4 = time.perf_counter()
+            check(np.isfinite(loss), f"{label}: round {r} loss {loss}")
+            print(f"{label} round {r}: local training {(t1 - t0) * 1e3:.2f}"
+                  f" ms (host batch collection alone {collect * 1e3:.2f} "
+                  f"ms), aggregation {(t2 - t1) * 1e3:.2f} ms, evaluation "
+                  f"{(t4 - t3) * 1e3:.2f} ms; loss {loss:.4f} acc {acc:.3f} "
+                  f"(host clock, synchronised) [{card}]")
+
+    phase(f"8. where a round's time goes: paper-fig4, then "
+          f"{SCALE_CLIENTS} clients (paper-mlp-1m8, {SCALE_LOCAL_STEPS} "
+          f"local steps of batch {SCALE_BATCH}), {SCALE_ROUNDS} rounds on "
+          f"cuda")
+    round_split("paper-fig4", fig4.make_environment(
+        SEED, device="cuda").orchestrator, SCALE_ROUNDS)
+    cfg = get_config("paper-mlp-1m8")
+    C = scale_h.total_clients
+    torch.cuda.reset_peak_memory_stats()
+    round_split(f"{C} clients", FederatedOrchestrator(
+        get_model(cfg), scale_h, ClientPool.random(C, seed=SEED),
+        make_federated_dataset(cfg, C, seed=SEED),
+        local_steps=SCALE_LOCAL_STEPS, batch_size=SCALE_BATCH, seed=SEED,
+        timing="deterministic", engine="batched", device="cuda"),
+        SCALE_ROUNDS)
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; client stack {C} x {N_MLP} f32 = "
+          f"{C * N_MLP * 4 / 1e9:.2f} GB")
+
+    # ---- 9. timings --------------------------------------------------------
+    phase(f"9. timings on {card}")
     rows = {}
     for P in (10, 1000):
         cm, ps, _, ops = operands(h10k, pool10k, P, 0.0, 7 + P, 0)
@@ -376,7 +732,7 @@ def main() -> int:
         nbytes = tpd_bytes(ps, h10k.n_leaves, h10k.width, h10k.depth, 0.0)
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rows[P] = (k_ms, r_ms, b_ms)
-        print(f"large-10k P={P:5d}: device time per call: kernel "
+        print(f"TPD large-10k P={P:5d}: device time per call: kernel "
               f"{k_ms * 1e3:8.2f} us, plain torch {r_ms * 1e3:9.2f} us; "
               f"back-to-back wrapper call: kernel {k_call * 1e3:8.2f} us, "
               f"plain torch {r_call * 1e3:9.2f} us; bound "
@@ -389,7 +745,7 @@ def main() -> int:
     bd_ms = tpd_bytes(psd, hd.n_leaves, hd.width, hd.depth, 0.0) \
         / HBM_BYTES_PER_S * 1e3
     np_ms = median_host_ms(lambda: cmd.batch_tpd(psd, backend="np"))
-    print(f"fig3 d5w5 P=10: kernel {kd_ms * 1e3:.2f} us on the device, "
+    print(f"TPD fig3 d5w5 P=10: kernel {kd_ms * 1e3:.2f} us on the device, "
           f"{kd_call_ms * 1e3:.2f} us per wrapper call, bound "
           f"{bd_ms * 1e3:.4f} us; numpy batch_tpd(backend='np') "
           f"{np_ms * 1e3:.2f} us (host clock) [{card}]")
@@ -397,8 +753,8 @@ def main() -> int:
     # where one large-10k iteration goes (P = 10)
     cm, ps, _, ops = operands(h10k, pool10k, 10, 0.0, 5, 0)
     p_dev, attrs = ops[0], ops[1]
-    sync = torch.cuda.synchronize
-    h2d_ms = median_host_ms(lambda: torch.as_tensor(ps, device=dev), sync=sync)
+    h2d_ms = median_host_ms(lambda: torch.as_tensor(ps, device=dev),
+                            sync=torch.cuda.synchronize)
     leaf_dev_ms = median_device_ms(
         torch, lambda: leaf_loads(p_dev, attrs[0], h10k.n_leaves))
     leaf_ms = median_event_ms(
@@ -439,20 +795,99 @@ def main() -> int:
               f" np {t_np * 1e3:9.1f} us, kernel path {t_k * 1e3:9.1f} us "
               f"(host clock) [{card}]")
 
+    # FedAvg at the main path's shapes: paper-fig4's levels (the batched
+    # engine's row form) and the loop engine's largest cluster (K = 5)
+    lib = fedavg_mod._library()
+
+    def raw_launch(pool, rows_d, w_d, out):
+        """The kernel alone, tables already on the card (no staging, no
+        checks): its device time."""
+        def call():
+            code = lib.fedavg_rows_launch(
+                pool.data_ptr(), rows_d.data_ptr(), w_d.data_ptr(),
+                out.data_ptr(), rows_d.shape[0], rows_d.shape[1],
+                pool.shape[1], 0, torch.cuda.current_stream().cuda_stream)
+            check(code == 0, f"FedAvg launch failed ({code})")
+        return call
+
+    def fedavg_case(label, pool_rows, rows, w):
+        """Time kernel / wrapper / plain / einsum for one (rows, w) over
+        copies of a pool, rotated past the L2 cache."""
+        G, K = rows.shape
+        nbytes = fedavg_bytes(rows.numpy(), N_MLP, 4, 4)
+        copies = max(2, -(-3 * L2_BYTES // nbytes))
+        pools = [torch.empty((pool_rows, N_MLP), device=dev).normal_(
+            generator=torch.Generator(dev).manual_seed(50 + i))
+            for i in range(copies)]
+        outs = [torch.empty((G, N_MLP), device=dev) for _ in range(copies)]
+        rows_d, w_d = rows.to(dev), w.to(dev)
+        r_long = rows_d.long()
+        denses = [p[r_long.clamp_min(0)] for p in pools]
+        wd = torch.where(r_long >= 0, w_d, 0.0)
+        k_ms = median_device_ms(torch, rotating(
+            [raw_launch(p, rows_d, w_d, o) for p, o in zip(pools, outs)]))
+        call_ms = median_event_ms(torch, rotating(
+            [lambda p=p, o=o: fedavg_rows(p, rows, w, out=o)
+             for p, o in zip(pools, outs)]))
+        # one call per run: at K = 64 a call is ~450 small launches,
+        # and a run must stay under the device's queue of pending
+        # launches, or the host blocks on it behind the spin
+        plain_ms = median_device_ms(torch, rotating(
+            [lambda p=p: fedavg_rows_ref(p, rows_d, w_d) for p in pools]),
+            runs=9, per_run=1)
+        lib_ms = median_device_ms(torch, rotating(
+            [lambda d=d: torch.einsum("gkn,gk->gn", d, wd)
+             for d in denses]))
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"FedAvg {label:30s} G={G} K={K}: device time per call: "
+              f"kernel {k_ms * 1e3:8.2f} us, plain torch "
+              f"{plain_ms * 1e3:9.2f} us, torch.einsum on the dense stack "
+              f"{lib_ms * 1e3:8.2f} us; wrapper call {call_ms * 1e3:8.2f} "
+              f"us; bound {b_ms * 1e3:.2f} us ({nbytes} B / 3.35 TB/s, "
+              f"{k_ms and b_ms / k_ms * 100:.1f}% of it) [{card}]")
+        del pools, outs, denses
+        return k_ms, plain_ms, b_ms, lib_ms
+
+    C4 = fig4_h.total_clients
+    (leaf_rows, leaf_w, _), (root_rows, root_w, _) = tables4
+    del pool4
+    leaf = fedavg_case("paper-fig4 leaf level", C4 + fig4_h.dimensions,
+                       leaf_rows, leaf_w)
+    fedavg_case("paper-fig4 root level", C4 + fig4_h.dimensions, root_rows,
+                root_w)
+    rows256, w256, _ = tables256[0]
+    fedavg_case("256-client leaf level", scale_h.total_clients
+                + scale_h.dimensions, rows256, w256)
+    flat_rows = torch.arange(5, dtype=torch.int32).view(1, 5)
+    flat_w = torch.full((1, 5), 1.0)
+    flat = fedavg_case("loop-engine cluster (fedavg)", 5, flat_rows, flat_w)
+    flat_call_ms = median_event_ms(torch, lambda: fedavg(dense[0], wd[0]))
+    print(f"fedavg (K, N) = (5, {N_MLP}) wrapper call {flat_call_ms * 1e3:.2f}"
+          f" us [{card}]")
+
     k_ms, r_ms, b_ms = rows[10]
-    print(json.dumps({"kernels": [{
-        "name": "tpd",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/tpd.cu",
-        "replaces": "src/repro/kernels/tpd.py:75",
-        "launches": launches_main,
-        "max_abs_err": max_abs_err,
-        "ms": k_ms,
-        "plain_ms": r_ms,
-        "bound_ms": b_ms,
-        "bound_by": "bytes",
-        "library_ms": None,
-    }]}))
+    print(json.dumps({"kernels": [
+        {"name": "tpd", "route": "cuda",
+         "source": "src/repro_torch/csrc/tpd.cu",
+         "replaces": "src/repro/kernels/tpd.py:75",
+         "launches": launches_tpd, "max_abs_err": tpd_max_abs_err,
+         "ms": k_ms, "plain_ms": r_ms, "bound_ms": b_ms,
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "fedavg_batched", "route": "cuda",
+         "source": "src/repro_torch/csrc/fedavg.cu",
+         "replaces": "src/repro/kernels/fedavg.py:31",
+         "launches": launches_fedavg_batched,
+         "max_abs_err": fedavg_max_abs_err,
+         "ms": leaf[0], "plain_ms": leaf[1], "bound_ms": leaf[2],
+         "bound_by": "bytes", "library_ms": leaf[3]},
+        {"name": "fedavg", "route": "cuda",
+         "source": "src/repro_torch/csrc/fedavg.cu",
+         "replaces": "src/repro/kernels/fedavg.py:25",
+         "launches": launches_fedavg, "max_abs_err": fedavg_max_abs_err,
+         "ms": flat[0], "plain_ms": flat[1], "bound_ms": flat[2],
+         "bound_by": "bytes", "library_ms": flat[3]},
+    ]}))
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -33,11 +33,12 @@ from repro_torch.core.registry import (
     resolve_strategy,
     strategy_names,
 )
-from repro_torch.core.state import pool_from_numpy, swarm_from_state
+from repro_torch.core.state import params_from_numpy, params_to_numpy, pool_from_numpy, swarm_from_state
 
 __all__ = [
     "Hierarchy", "ClientPool", "CostModel",
     "FlagSwapPSO", "SwarmHistory", "pool_from_numpy", "swarm_from_state",
+    "params_from_numpy", "params_to_numpy",
     "StrategyInfo", "build_config", "create_strategy", "list_strategies",
     "register_strategy", "resolve_strategy", "strategy_names",
     "PlacementStrategy", "RandomPlacement", "UniformRoundRobinPlacement",

@@ -1,0 +1,193 @@
+"""Deterministic synthetic classification data for the emulated track.
+
+The port's copy of the classification half of ``repro.data.synthetic``:
+the MNIST-shaped class-conditional Gaussian set the paper's MLP trains
+on, the Dirichlet non-IID partitioner, and ``FederatedDataset`` with its
+elastic ``resize``. Everything is numpy on the host, drawn from the same
+seeds in the same order, so the same seed gives the same arrays bit for
+bit; the orchestrator moves each round's batches to the device. The LM
+token stream (``FederatedLMDataset``) comes with ROADMAP.md queue 1
+item 11.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+
+class SyntheticClassificationDataset:
+    """MNIST-shaped synthetic classification data (784 features, 10 classes).
+
+    Class-conditional Gaussians so the MLP actually learns; used by the
+    Fig. 4 cluster emulation.
+    """
+
+    def __init__(self, n_features: int = 784, n_classes: int = 10,
+                 n_samples: int = 10_000, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        self.n_features, self.n_classes = n_features, n_classes
+        self.centers = rng.normal(size=(n_classes, n_features)).astype(np.float32)
+        self.labels = rng.integers(0, n_classes, size=n_samples).astype(np.int32)
+        noise = rng.normal(scale=0.8, size=(n_samples, n_features)).astype(np.float32)
+        self.features = self.centers[self.labels] + noise
+
+    def __len__(self) -> int:
+        return len(self.labels)
+
+
+def dirichlet_partition(labels: np.ndarray, n_clients: int, alpha: float = 0.5,
+                        seed: int = 0, min_per_client: int = 8) -> list[np.ndarray]:
+    """Partition sample indices across clients with Dirichlet(alpha) class
+    skew — the standard non-IID FL split (smaller alpha => more skew)."""
+    rng = np.random.default_rng(seed)
+    n_classes = int(labels.max()) + 1
+    client_idx: list[list[int]] = [[] for _ in range(n_clients)]
+    for c in range(n_classes):
+        idx = np.where(labels == c)[0]
+        rng.shuffle(idx)
+        props = rng.dirichlet([alpha] * n_clients)
+        cuts = (np.cumsum(props) * len(idx)).astype(int)[:-1]
+        for cid, part in enumerate(np.split(idx, cuts)):
+            client_idx[cid].extend(part.tolist())
+    # guarantee a floor so no client starves (re-assign from the richest)
+    order = np.argsort([len(x) for x in client_idx])
+    for cid in order:
+        while len(client_idx[cid]) < min_per_client:
+            donor = max(range(n_clients), key=lambda i: len(client_idx[i]))
+            client_idx[cid].append(client_idx[donor].pop())
+    return [np.asarray(sorted(x), dtype=np.int64) for x in client_idx]
+
+
+def _carry_by_remap(old: list, remap: Optional[np.ndarray],
+                    new_total: int) -> list:
+    """Place survivors' entries at their remapped ids; ``None`` holes
+    mark joiners. ``remap`` is the composed old->new id map from
+    ``ClientPool.drain_resizes`` (-1 = departed; ``None`` = identity)."""
+    if remap is None:
+        remap = np.arange(len(old))
+    new: list = [None] * new_total
+    for old_id, new_id in enumerate(remap):
+        if new_id >= 0:
+            new[int(new_id)] = old[old_id]
+    return new
+
+
+def _mint_streams(new_streams: list, old_streams: list,
+                  hwm: Optional[int]) -> tuple:
+    """Fill ``None`` holes with fresh stream ids minted above the
+    high-water mark, in ascending id order; returns ``(streams, hwm)``.
+    A departed client's stream id is never recycled onto a joiner."""
+    if hwm is None:
+        hwm = max(old_streams, default=-1) + 1
+    for i, s in enumerate(new_streams):
+        if s is None:
+            new_streams[i] = hwm
+            hwm += 1
+    return new_streams, hwm
+
+
+@dataclass
+class FederatedDataset:
+    """Per-client views over a base dataset, produced by dirichlet_partition.
+
+    ELASTIC: :meth:`resize` reconciles the shard list with a client-pool
+    resize (the orchestrator's ``admit``/``retire``): survivors keep
+    their exact shards at their renumbered ids, departed shards are
+    dropped, and every joiner is provisioned a fresh Dirichlet-skewed
+    shard from the base set.
+
+    Batch draws are keyed by a per-client *stream id* (identity until
+    the first resize): renumbering never moves a survivor onto another
+    client's batch-draw sequence, and a departed client's stream is
+    never recycled onto a joiner.
+
+    Like the reference's, this dataset has no ``eval_batch``: the
+    orchestrator scores the global model on the first ``n`` base
+    samples.
+    """
+    base: SyntheticClassificationDataset
+    partitions: list
+    alpha: float = 0.5
+    stream_of: Optional[list] = None  # client id -> stream id (None = identity)
+    stream_hwm: Optional[int] = None  # next fresh stream id (monotonic)
+
+    @classmethod
+    def make(cls, n_clients: int, alpha: float = 0.5, seed: int = 0,
+             n_samples: int = 10_000) -> "FederatedDataset":
+        base = SyntheticClassificationDataset(n_samples=n_samples, seed=seed)
+        parts = dirichlet_partition(base.labels, n_clients, alpha=alpha, seed=seed)
+        return cls(base=base, partitions=parts, alpha=alpha)
+
+    @property
+    def n_clients(self) -> int:
+        return len(self.partitions)
+
+    def _stream(self, client_id: int) -> int:
+        return client_id if self.stream_of is None \
+            else self.stream_of[client_id]
+
+    def client_batch(self, client_id: int, batch_size: int, step: int) -> dict:
+        part = self.partitions[client_id]
+        rng = np.random.default_rng((self._stream(client_id), step))
+        take = rng.choice(len(part), size=min(batch_size, len(part)), replace=False)
+        idx = part[take]
+        return {"x": self.base.features[idx], "y": self.base.labels[idx]}
+
+    def client_weights(self) -> np.ndarray:
+        """FedAvg weights proportional to client sample counts."""
+        sizes = np.array([len(p) for p in self.partitions], dtype=np.float64)
+        return (sizes / sizes.sum()).astype(np.float32)
+
+    # ---- elastic population ----------------------------------------------
+    def _provision_shard(self, rng: np.random.Generator) -> np.ndarray:
+        """One fresh non-IID shard for a joiner: Dirichlet(alpha) class
+        proportions, sized like the current mean shard (floor 8)."""
+        labels = self.base.labels
+        n_classes = int(labels.max()) + 1
+        size = max(8, int(np.mean([len(p) for p in self.partitions]))
+                   if self.partitions else 64)
+        counts = rng.multinomial(size, rng.dirichlet([self.alpha] * n_classes))
+        idx: list[int] = []
+        for c, k in enumerate(counts):
+            if k == 0:
+                continue
+            pool = np.where(labels == c)[0]
+            idx.extend(rng.choice(pool, size=k,
+                                  replace=k > len(pool)).tolist())
+        return np.asarray(sorted(idx), dtype=np.int64)
+
+    def resize(self, remap: Optional[np.ndarray], new_total: int,
+               rng: np.random.Generator) -> None:
+        """Reconcile shards with a pool resize (see class docstring).
+
+        ``remap`` is the composed old->new client id map from
+        ``ClientPool.drain_resizes`` (-1 = departed; ``None`` = identity
+        over the old population); ids beyond its image are joiners and
+        get provisioned from ``rng``, in ascending id order. Survivors
+        carry BOTH their shard and their batch-draw stream id.
+        """
+        old_streams = self.stream_of if self.stream_of is not None \
+            else list(range(len(self.partitions)))
+        new_parts = _carry_by_remap(self.partitions, remap, new_total)
+        new_streams, hwm = _mint_streams(
+            _carry_by_remap(old_streams, remap, new_total),
+            old_streams, self.stream_hwm)
+        for i in range(new_total):
+            if new_parts[i] is None:
+                new_parts[i] = self._provision_shard(rng)
+        self.partitions = new_parts
+        self.stream_of = new_streams
+        self.stream_hwm = hwm
+
+
+def make_federated_dataset(model_cfg, n_clients: int, seed: int = 0,
+                           alpha: float = 0.5):
+    """Family-appropriate federated dataset for a model config (the mlp
+    family; the token streams come with the LM families)."""
+    if model_cfg.family == "mlp":
+        return FederatedDataset.make(n_clients, alpha=alpha, seed=seed)
+    raise NotImplementedError(
+        f"no federated dataset for family {model_cfg.family!r} yet; the "
+        f"LM token streams come with ROADMAP.md queue 1 item 11")

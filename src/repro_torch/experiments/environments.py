@@ -1,8 +1,8 @@
 """Environments: one propose/observe world per evaluation track.
 
-The port's simulated track (paper Fig. 3), held to
-``repro.experiments.environments``. A strategy is driven through the
-same loop as in the reference:
+The port's simulated track (paper Fig. 3) and emulated track (paper
+Fig. 4), held to ``repro.experiments.environments``. A strategy is
+driven through the same loop as in the reference:
 
     env.begin()
     for r in range(rounds):
@@ -13,9 +13,11 @@ same loop as in the reference:
 ``SimulatedEnvironment`` wraps :class:`repro_torch.core.cost_model.
 CostModel`; its ``step`` scores with the exact float64 numpy path, and
 swarm-mode callers (``FlagSwapPSO.run`` with ``batch_fitness_fn``) score
-on the cost model's device. The emulated and online tracks, and the
-two-tier pod model, wait for later slices and raise
-``NotImplementedError`` here.
+on the cost model's device. ``EmulatedEnvironment`` wraps
+:class:`repro_torch.fl.orchestrator.FederatedOrchestrator`: its ``step``
+runs a real federated round on the caller's device. The online track,
+the emulated track's fault path and the two-tier pod model wait for
+later slices and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -190,24 +192,115 @@ class SampledSimulatedEnvironment(SimulatedEnvironment):
         return super().sync_topology()
 
 
-# where each track that is not ported yet is to come from
-_NOT_PORTED = {
-    "emulated": "ROADMAP.md queue 1 item 5 (emulated slice, Fig. 4)",
-    "online": "ROADMAP.md queue 1 item 7 (online track)",
-}
+_FAULTS_NOT_PORTED = ("fault schedules and quorum merges on the "
+                      "emulated track come with ROADMAP.md queue 1 item 8 "
+                      "(faults/tolerance.py)")
+
+
+class EmulatedEnvironment:
+    """The Fig. 4 world: rounds cost what the federated run measures.
+
+    Thin adapter over ``FederatedOrchestrator`` — ``step`` IS
+    ``orchestrator.run_round``, so a strategy driven through this
+    environment reproduces ``FederatedOrchestrator.run`` exactly
+    (including model state evolution and eval metrics).
+
+    The topology is ELASTIC, as on the simulated track:
+    :meth:`sync_topology` delegates to
+    ``FederatedOrchestrator.sync_population``. Fault injection (the
+    reference's ``run_round_faulty`` path) is not ported: a fault
+    schedule or a quorum raises.
+    """
+    kind = "emulated"
+
+    def __init__(self, orchestrator, faults=None, quorum_frac: float = 0.0):
+        if (faults is not None and not faults.empty) or quorum_frac > 0:
+            raise NotImplementedError(_FAULTS_NOT_PORTED)
+        self.orchestrator = orchestrator
+        self.clients = orchestrator.clients
+        self.record_timings = False
+        self._cost_model: Optional[CostModel] = None
+
+    @property
+    def hierarchy(self) -> Hierarchy:
+        """The orchestrator's CURRENT hierarchy (elastic runs rebind it
+        mid-flight, so this must never be snapshotted at construction)."""
+        return self.orchestrator.hierarchy
+
+    @property
+    def topology_version(self) -> int:
+        return self.orchestrator.topology_version
+
+    @property
+    def cost_model(self) -> CostModel:
+        """Analytic eqs. 6-7 view of the same pool (lazily built, on the
+        orchestrator's device) — only strategy-construction context; the
+        observed TPD always comes from the orchestrator."""
+        if self._cost_model is None:
+            self._cost_model = CostModel(self.hierarchy, self.clients,
+                                         device=self.orchestrator.device)
+        return self._cost_model
+
+    def begin(self) -> None:
+        self.orchestrator.warmup()
+
+    def sync_topology(self) -> Optional[TopologyUpdate]:
+        """Reconcile the orchestrator with this round's pool resizes:
+        data shards carried/provisioned, FedAvg weights recomputed, the
+        round engine retargeted; the update feeds the strategies'
+        ``migrate`` hooks (the runner calls them)."""
+        update = self.orchestrator.sync_population()
+        if update is not None and self._cost_model is not None:
+            self._cost_model.retarget(update.new_hierarchy)
+        return update
+
+    def step(self, round_idx: int, placement) -> RoundObservation:
+        self.orchestrator.record_timings = self.record_timings
+        rec = self.orchestrator.run_round(round_idx, placement)
+        return RoundObservation(
+            round_idx=round_idx,
+            placement=np.asarray(rec.placement, np.int64),
+            tpd=float(rec.tpd),
+            metrics={"loss": rec.loss, "accuracy": rec.accuracy,
+                     "train_time": rec.train_time,
+                     "agg_time": rec.agg_time},
+            timings=self.orchestrator.last_timings or {},
+            topology_version=self.topology_version)
+
+
+def _build_emulated(spec, hierarchy, pool, faults, seed, device):
+    """Model + data + orchestrator for an emulated scenario."""
+    if not faults.empty or spec.quorum_frac > 0:
+        raise NotImplementedError(_FAULTS_NOT_PORTED)
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.fl.orchestrator import FederatedOrchestrator
+    from repro_torch.models import get_model
+
+    cfg = get_config(spec.model)
+    model = get_model(cfg)
+    data = make_federated_dataset(cfg, hierarchy.total_clients, seed=seed)
+    orch = FederatedOrchestrator(
+        model, hierarchy, pool, data,
+        local_steps=spec.local_steps, batch_size=spec.batch_size,
+        seed=seed, comm_latency=spec.comm_latency, timing=spec.timing,
+        engine=spec.engine, device=device)
+    return EmulatedEnvironment(orch)
 
 
 def build_environment(spec, seed: int = 0, *, device="cuda") -> Environment:
-    """Materialize a ScenarioSpec into a fresh environment for one run;
-    the cost model scores swarms on ``device``."""
-    if spec.kind != "simulated":
+    """Materialize a ScenarioSpec into a fresh environment for one run,
+    on ``device``: the simulated track's cost model scores swarms there,
+    the emulated track trains and aggregates there."""
+    if spec.kind == "online":
         raise NotImplementedError(
-            f"scenario {spec.name!r} is {spec.kind!r}; the port builds "
-            f"the simulated track only so far — the {spec.kind} track "
-            f"comes with {_NOT_PORTED[spec.kind]}")
+            f"scenario {spec.name!r} is online; the online track comes "
+            f"with ROADMAP.md queue 1 item 7 (online track)")
     hierarchy = spec.make_hierarchy()
     pool = spec.make_pool(seed)
     faults = spec.make_faults(seed)
+    if spec.kind == "emulated":
+        return _build_emulated(spec, hierarchy, pool, faults, seed, device)
     if not faults.empty or spec.quorum_frac > 0:
         raise ValueError(
             "fault schedules need a track that executes rounds — "

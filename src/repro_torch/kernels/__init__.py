@@ -3,4 +3,10 @@ version in ``kernels.ref``.
 
 * ``kernels.tpd.batch_tpd_cuda`` — batched TPD (eqs. 6-7), the port of
   the TPU kernel ``repro/kernels/tpd.py:batch_tpd_pallas``.
+* ``kernels.fedavg`` — weighted FedAvg (``fedavg_rows``,
+  ``fedavg_batched``, ``fedavg``), one CUDA reduction that ports both
+  ``repro/kernels/fedavg.py:fedavg_batched_pallas`` and
+  ``fedavg_pallas``; ``kernels.ops`` wraps it for trees.
+
+``kernels.build`` compiles each ``csrc/*.cu`` at first use.
 """

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's kernels.
+"""Plain PyTorch versions of the port's kernels (TPD and FedAvg).
 
 Each function here computes what its kernel computes, on any device, in
 torch ops. The CPU tests run them, ``chip_smoke.py`` holds each kernel
@@ -46,3 +46,51 @@ def tpd_ref(placements, attrs, leaf_load, kids, level_starts,
     for lv in range(len(bounds) - 2, -1, -1):        # deepest level first
         total = total + delay[:, bounds[lv]:bounds[lv + 1]].amax(dim=1)
     return total
+
+
+# ---------------------------------------------------------------------------
+# weighted FedAvg: out[g] = sum_k w[g, k] * x[g, k], float32 accumulation,
+# the terms added in k order (each product rounded before its add), the
+# result in the input dtype
+# ---------------------------------------------------------------------------
+def fedavg_rows_ref(pool, rows, w, out=None) -> torch.Tensor:
+    """Row-indexed FedAvg, the operands of ``kernels.fedavg.fedavg_rows``.
+
+    pool (R, N) f32 or bf16; rows (G, K) int32 row ids into the pool, -1
+    where a cluster has fewer than K members; w (G, K) f32 -> (G, N) in
+    the pool's dtype (written into ``out`` when given). A -1 entry adds
+    nothing, whatever its weight.
+    """
+    rows = torch.as_tensor(rows).to(pool.device).long()
+    w = torch.as_tensor(w).to(pool.device, torch.float32)
+    acc = torch.zeros((rows.shape[0], pool.shape[1]), dtype=torch.float32,
+                      device=pool.device)
+    for k in range(rows.shape[1]):
+        r = rows[:, k]
+        term = pool[r.clamp_min(0)].float() * w[:, k:k + 1]
+        acc = torch.where((r >= 0)[:, None], acc + term, acc)
+    if out is None:
+        return acc.to(pool.dtype)
+    return out.copy_(acc)
+
+
+def fedavg_batched_ref(stacked, w) -> torch.Tensor:
+    """stacked (G, K, N), w (G, K) -> (G, N): one weighted sum per
+    cluster (``kernels.fedavg.fedavg_batched``'s operands)."""
+    w = w.float()
+    acc = torch.zeros((stacked.shape[0], stacked.shape[2]),
+                      dtype=torch.float32, device=stacked.device)
+    for k in range(stacked.shape[1]):
+        acc = acc + stacked[:, k].float() * w[:, k:k + 1]
+    return acc.to(stacked.dtype)
+
+
+def fedavg_ref(stacked, w) -> torch.Tensor:
+    """stacked (K, N), w (K,) -> (N,) = sum_k w_k * stacked_k
+    (``kernels.fedavg.fedavg``'s operands)."""
+    w = w.float()
+    acc = torch.zeros(stacked.shape[1], dtype=torch.float32,
+                      device=stacked.device)
+    for k in range(stacked.shape[0]):
+        acc = acc + stacked[k].float() * w[k]
+    return acc.to(stacked.dtype)

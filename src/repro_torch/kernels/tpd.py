@@ -3,10 +3,9 @@
 
 The kernel is ``repro_torch/csrc/tpd.cu``, written for Hopper
 (``sm_90a``); its source note gives the design and the bound. It is
-built at first use with ``nvcc`` into ``build/`` at the repository root
-and bound through ``ctypes``: a plain C entry point that takes the
-pointers and the stream. A build is reused while the source and flags
-hash the same.
+built at first use by :mod:`repro_torch.kernels.build` and bound
+through ``ctypes``: a plain C entry point that takes the pointers and
+the stream.
 
 ``batch_tpd_cuda`` launches the kernel for tensors on a CUDA device and
 hands tensors on the CPU to the plain torch version,
@@ -24,25 +23,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.build import CSRC_DIR, build_library
 from repro_torch.kernels.ref import tpd_ref
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "tpd.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-# -fmad=false and no fast math: every f32 add, multiply and divide
-# rounds as the plain torch version's does (bit-comparable outputs)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+SOURCE = CSRC_DIR / "tpd.cu"
 MAX_DEPTH = 32                 # kMaxDepth in csrc/tpd.cu
 # placement row + delays in dynamic shared memory: 8 bytes a slot out of
 # the 227 KB a block may use, less room for the kernel's static arrays
@@ -92,54 +81,11 @@ def leaf_loads(placements: torch.Tensor, mds: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# build and bind
+# bind
 # ---------------------------------------------------------------------------
-def find_nvcc() -> str:
-    """``nvcc`` on PATH, else under ``$CUDA_HOME/bin``, else under the
-    toolkit torch itself detects."""
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    homes = [os.environ.get("CUDA_HOME")]
-    from torch.utils.cpp_extension import CUDA_HOME
-    homes.append(CUDA_HOME)
-    for home in homes:
-        if home and (Path(home) / "bin" / "nvcc").is_file():
-            return str(Path(home) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin; "
-                       "the TPD kernel is built from csrc/tpd.cu with nvcc")
-
-
-def library_path() -> Path:
-    """Where the build for the current source and flags lives."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"tpd-{digest[:16]}.so"
-
-
-def build_library() -> Path:
-    """Compile ``csrc/tpd.cu`` unless a build of the same source and
-    flags exists; returns the shared library's path. The compiler's
-    report (registers, shared memory, spills) is kept beside it as
-    ``.log``."""
-    lib = library_path()
-    if lib.is_file():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
-
-
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library()))
+    lib = ctypes.CDLL(str(build_library(SOURCE)))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.tpd_launch.argtypes = [ptr] * 5 + [ctypes.POINTER(i32)] \
         + [i32] * 5 + [ctypes.c_float, ptr]

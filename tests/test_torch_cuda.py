@@ -12,7 +12,9 @@ import torch
 
 from repro_torch.core.cost_model import CostModel
 from repro_torch.core.hierarchy import ClientPool, Hierarchy
-from repro_torch.kernels.ref import tpd_ref
+from repro_torch.experiments import get_scenario, run_single
+from repro_torch.kernels import fedavg as kfedavg
+from repro_torch.kernels.ref import fedavg_batched_ref, fedavg_ref, fedavg_rows_ref, tpd_ref
 from repro_torch.kernels.tpd import batch_tpd_cuda, leaf_loads, tpd_kernel_inputs
 
 # (depth, width, trainers/leaf, clients)
@@ -84,3 +86,71 @@ def test_wrapper_rejects_malformed_operands(cuda_device):
     with pytest.raises(ValueError, match="leaf_load"):
         batch_tpd_cuda(p, attrs, leaf[:, 1:].contiguous(), kids, starts)
     assert batch_tpd_cuda.launches == before
+
+
+# ---------------------------------------------------------------------------
+# FedAvg
+# ---------------------------------------------------------------------------
+# (R, N, G, K): ragged tails (N = 7, 2049, 1001), odd row alignment, K = 1
+FEDAVG_SHAPES = [(9, 7, 2, 5), (12, 2049, 3, 4), (5, 1001, 1, 1),
+                 (40, 4096, 4, 10)]
+
+
+def _fedavg_operands(shape, dtype, device):
+    R, N, G, K = shape
+    rng = np.random.default_rng(R * N)
+    pool = torch.as_tensor(rng.standard_normal((R, N)).astype(np.float32),
+                           device=device).to(dtype)
+    rows = rng.integers(-1, R, size=(G, K)).astype(np.int32)
+    rows[:, 0] = rng.integers(0, R, size=G)
+    w = rng.uniform(0.0, 1.0, size=(G, K)).astype(np.float32)
+    return pool, torch.from_numpy(rows), torch.from_numpy(w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FEDAVG_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fedavg_kernel_equals_plain_version(cuda_device, shape, dtype):
+    pool, rows, w = _fedavg_operands(shape, dtype, cuda_device)
+    before = kfedavg.fedavg_batched.launches
+    got = kfedavg.fedavg_rows(pool, rows, w)
+    torch.cuda.synchronize()
+    assert kfedavg.fedavg_batched.launches == before + 1
+    assert got.dtype == dtype
+    assert torch.equal(got, fedavg_rows_ref(pool, rows, w))   # atol 0
+    # the dense forms
+    R, N, G, K = shape
+    dense = pool[: (R // K) * K].reshape(R // K, K, N)
+    wd = torch.rand((R // K, K), generator=torch.Generator().manual_seed(R))
+    assert torch.equal(kfedavg.fedavg_batched(dense, wd.to(cuda_device)),
+                       fedavg_batched_ref(dense, wd.to(cuda_device)))
+    assert torch.equal(kfedavg.fedavg(dense[0], wd[0]),
+                       fedavg_ref(dense[0], wd[0].to(cuda_device)))
+
+
+@pytest.mark.cuda
+def test_fedavg_wrapper_rejects_malformed_operands(cuda_device):
+    pool, rows, w = _fedavg_operands(FEDAVG_SHAPES[1], torch.float32,
+                                     cuda_device)
+    before = kfedavg.fedavg_batched.launches
+    with pytest.raises(TypeError, match="int32"):
+        kfedavg.fedavg_rows(pool, rows.long(), w)
+    with pytest.raises(ValueError, match="rows must lie"):
+        kfedavg.fedavg_rows(pool, rows + 100, w)
+    with pytest.raises(ValueError, match="rows must lie"):
+        kfedavg.fedavg_rows(pool, (rows + 100).to(cuda_device), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        kfedavg.fedavg_rows(pool.t(), rows, w)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kfedavg.fedavg_rows(pool.half(), rows, w)
+    assert kfedavg.fedavg_batched.launches == before
+
+
+@pytest.mark.cuda
+def test_fig4_smoke_model_same_tpds_on_cuda_and_cpu(cuda_device):
+    spec = get_scenario("paper-fig4").with_overrides(model="mlp-smoke")
+    runs = {dev: run_single(spec, "pso", seed=0, rounds=4, device=dev)
+            for dev in ("cuda", "cpu")}
+    assert runs["cuda"].tpds == runs["cpu"].tpds
+    np.testing.assert_allclose(runs["cuda"].metrics["loss"],
+                               runs["cpu"].metrics["loss"], rtol=1e-4)
