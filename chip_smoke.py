@@ -10,8 +10,9 @@ checkout of the repository, it exits non-zero and prints no result.
 Phases, in order; any failed check raises and ends the run non-zero:
 
 1. card and toolchain (and both TF32 flags);
-2. build both kernels (``src/repro_torch/csrc/tpd.cu`` and
-   ``fedavg.cu``), one ``nvcc`` each, started together;
+2. build all four kernels (``src/repro_torch/csrc/tpd.cu``,
+   ``fedavg.cu``, ``flash_attention.cu`` and ``rglru.cu``), one ``nvcc``
+   each, started together;
 3. the TPD kernel against its plain torch version on the card, exactly,
    and against the float64 scalar model within rtol 2e-5, at the Fig. 3
    extremes, large-1k and large-10k;
@@ -38,15 +39,37 @@ Phases, in order; any failed check raises and ends the run non-zero:
    MLP, 4 local steps of batch 8, 3 rounds of the batched engine on
    ``cuda``; each round split into local training, aggregation and
    evaluation, its aggregate held to the flat weighted sum;
-9. timings (CUDA events, medians) beside the card's name and power
-   limit, then the ``kernels`` JSON line and the final status line. The
-   JSON line's ``ms``, ``plain_ms`` and ``library_ms`` are device time
-   per call, host enqueue hidden behind a device spin; wrapper-call
-   times, host enqueue included, are printed beside them.
+9. TPD and FedAvg timings (CUDA events, medians) beside the card's name
+   and power limit. The JSON line's ``ms``, ``plain_ms`` and
+   ``library_ms`` are device time per call, host enqueue hidden behind
+   a device spin; wrapper-call times, host enqueue included, are
+   printed beside them;
+10. the flash-attention and RG-LRU kernels against their plain torch
+    versions at recurrentgemma-2b's serving shapes: flash at B = 4,
+    Hq = 10, Hkv = 1, hd = 256, S = 1024 causal, S = 4096 and a ragged
+    4097 with window 2048, bf16 (rtol = atol = 2e-2) and f32 (1e-4);
+    the scan at (4, 4096, 2560) f32 and ragged T and D, exactly;
+11. the hybrid serving main path: full-width ``recurrentgemma-2b``
+    (26 layers, 3.55B f32 params drawn on the card, bf16 compute)
+    serving 8 requests through ``WaveScheduler(max_batch=4)``: 4 prompts
+    of 1024 tokens and 4 of 4096 (tokens from numpy, seed 0), 32 new
+    tokens each; every output equal to its batch-1 serial decode; prefill
+    time, decode time per token and ``summary()``; where a decode step
+    goes; and prefill(4096) + decode equal to prefill(4097) (f32 rtol =
+    atol = 2e-3, bf16 atol 0.5 on logits of scale ~5);
+12. a depth cut against the CPU: the same params at full width cut to
+    one triple and two tails, a 64-token prompt, prefill and a decode
+    step on ``cuda`` (both kernels) vs ``cpu`` (plain versions), f32 and
+    bf16 at the same tolerances;
+13. flash and RG-LRU timings: kernel, wrapper call, plain version and
+    (flash) ``torch.nn.functional.scaled_dot_product_attention`` as the
+    yardstick, beside each bound; then the ``kernels`` JSON line (five
+    kernels) and the final status line.
 
 Each kernel's launch count is set to 0 just before the path that runs
 it and read just after: ``tpd`` over phase 5, ``fedavg_batched`` over
-phase 6's cuda run, ``fedavg`` over phase 7's loop-engine run.
+phase 6's cuda run, ``fedavg`` over phase 7's loop-engine run,
+``flash_attention`` and ``rglru_scan`` over phase 11's scheduler run.
 Comparison and timing launches never enter the JSON line's
 ``launches``.
 """
@@ -246,6 +269,379 @@ def recording(spec, envs):
                        for f in dataclasses.fields(spec)})
 
 
+# ---- the hybrid LM serving path: recurrentgemma-2b (phases 10-13) --------
+RG_ARCH = "recurrentgemma-2b"
+# 4 prompts of 1024 tokens (below the 2048 window: causal attention) and
+# 4 of 4096 (windowed attention), 32 new tokens each, 4 to a wave
+SERVE_PROMPTS = ((1024, 4), (4096, 4))
+SERVE_NEW_TOKENS = 32
+SERVE_MAX_BATCH = 4
+DEPTH_CUT_LAYERS = 5            # one (r, r, a) triple and the two tails
+DEPTH_CUT_PROMPT = 64
+PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core rate
+FLASH_SHAPE = (4, 10, 1, 256)   # serving B, Hq, Hkv, hd
+# (S, window): the 1024-token wave (causal), the 4096-token wave
+# (window 2048) and a ragged length; the last timed case is the one the
+# kernels line reports
+FLASH_CASES = ((1024, None), (4096, 2048), (4097, 2048))
+FLASH_TIMED = ((1024, None), (4096, 2048))
+# (B, T, D): a serving prefill's scan, then ragged T and D
+RGLRU_CASES = (((4, 4096, 2560), "float32"), ((4, 1031, 2500), "float32"),
+               ((3, 777, 2561), "bfloat16"))
+# flash kernel vs the dense plain version: f32, online vs dense softmax
+# over up to 2048 keys summed in other orders; bf16, one more rounding
+# of the output (the reference's own kernel tests use 2e-5 and 2e-2)
+FLASH_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
+             "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# full-width logits (scale ~5): float32 differs only by the order of
+# sums (card vs host, decode vs prefill products); bfloat16 rounds at
+# other points along 26 layers (decode's 8-row products vs prefill's
+# per-sequence ones, cuBLAS vs the host's bf16 GEMM)
+LOGIT_TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
+             "bfloat16": dict(rtol=0.05, atol=0.5)}
+
+
+def flash_bound(b, hq, hkv, s, hd, window, elem_bytes):
+    """(bound ms, flops, bytes) of one causal flash call: 4 hd flops per
+    visible (query head, key) pair over the bf16 tensor-core rate, and
+    q, k, v read and the output written once over the memory rate."""
+    pairs = sum(min(i + 1, window or s) for i in range(s))
+    flops = 4 * b * hq * hd * pairs
+    nbytes = elem_bytes * (2 * b * hq * s * hd + 2 * b * hkv * s * hd)
+    return max(flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3, \
+        flops, nbytes
+
+
+def hybrid_phases(torch, np_, dev, card):
+    """Phases 10-13; returns the flash and RG-LRU entries of the
+    ``kernels`` line."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref, rglru_scan_ref
+    from repro_torch.kernels.rglru import rglru_scan
+    from repro_torch.models import get_model
+    from repro_torch.models.rglru import DECODE_ROWS
+    from repro_torch.serving import Request, WaveScheduler
+    from repro_torch.utils.trees import tree_leaves, tree_map
+
+    sync = torch.cuda.synchronize
+    gen = torch.Generator(dev)
+    B, HQ, HKV, HD = FLASH_SHAPE
+
+    def qkv(s, dtype, seed):
+        gen.manual_seed(seed)
+        return [torch.randn(shape, device=dev, generator=gen).to(dtype)
+                for shape in ((B, HQ, s, HD), (B, HKV, s, HD),
+                              (B, HKV, s, HD))]
+
+    # ---- 10. kernels vs plain versions at the serving shapes ----------
+    phase(f"10. flash attention and RG-LRU kernels vs their plain torch "
+          f"versions at {RG_ARCH}'s serving shapes")
+    flash_err = 0.0
+    for s, window in FLASH_CASES:
+        for name, dtype in (("bfloat16", torch.bfloat16),
+                            ("float32", torch.float32)):
+            q, k, v = qkv(s, dtype, s)
+            got = flash_attention(q, k, v, causal=True, window=window)
+            sync()
+            want = flash_attention_ref(q, k, v, causal=True, window=window)
+            err = float((got.float() - want.float()).abs().max())
+            flash_err = max(flash_err, err)
+            check(torch.allclose(got.float(), want.float(), **FLASH_TOL[name]),
+                  f"flash S={s} window={window} {name}: kernel vs plain "
+                  f"max abs err {err} beyond {FLASH_TOL[name]}")
+            print(f"flash (B, Hq, Hkv, hd) = {FLASH_SHAPE} S={s:5d} "
+                  f"window={window} {name:8s}: max abs err {err:.3e} "
+                  f"({FLASH_TOL[name]})")
+            del q, k, v, got, want
+    rglru_err = 0.0
+    for shape, name in RGLRU_CASES:
+        dtype = getattr(torch, name)
+        gen.manual_seed(shape[1])
+        a = torch.rand(shape, device=dev, generator=gen).mul_(0.2).add_(0.8)
+        u = torch.randn(shape, device=dev, generator=gen)
+        a, u = a.to(dtype), u.to(dtype)
+        got = rglru_scan(a, u)
+        sync()
+        want = rglru_scan_ref(a, u)
+        err = float((got.float() - want.float()).abs().max())
+        rglru_err = max(rglru_err, err)
+        check(torch.equal(got, want), f"RG-LRU {shape} {name}: kernel != "
+                                      f"plain version (max abs err {err})")
+        print(f"RG-LRU scan {shape} {name:8s}: exact (atol 0)")
+        del a, u, got, want
+
+    # ---- 11. full-width serving through the wave scheduler -------------
+    phase(f"11. full-width {RG_ARCH} serving on cuda: WaveScheduler("
+          f"max_batch={SERVE_MAX_BATCH}), {sum(n for _, n in SERVE_PROMPTS)}"
+          f" requests, {SERVE_NEW_TOKENS} new tokens each")
+    cfg = get_config(RG_ARCH)
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(SEED), dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(3.5e9 < n_params < 3.6e9, f"{RG_ARCH} holds {n_params} params")
+    n_triples = cfg.n_layers // 3
+    n_rec = cfg.n_layers - n_triples
+    print(f"{RG_ARCH}: {cfg.n_layers} layers ({n_triples} triples + "
+          f"{cfg.n_layers - 3 * n_triples} tails), d {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, window "
+          f"{cfg.local_attn_window}; {n_params} f32 params "
+          f"({n_params * 4 / 1e9:.2f} GB) drawn on the card in "
+          f"{init_s:.2f} s; compute dtype {cfg.dtype}")
+    rng = np_.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, plen).astype(np_.int32)
+               for plen, n in SERVE_PROMPTS for _ in range(n)]
+    reqs = [Request(rid=i, tokens=t, max_new_tokens=SERVE_NEW_TOKENS)
+            for i, t in enumerate(prompts)]
+    sched = WaveScheduler(model, params, max_batch=SERVE_MAX_BATCH)
+    for r in reqs:
+        sched.submit(r)
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0     # the counts to 0 just before the path
+    rglru_scan.launches = 0
+    t0 = time.perf_counter()
+    served = sched.run()
+    sync()
+    serve_s = time.perf_counter() - t0
+    launches_flash = flash_attention.launches    # read just after
+    launches_rglru = rglru_scan.launches
+    waves = len(sched.stats)
+    check(waves == len(SERVE_PROMPTS), f"{waves} waves")
+    check(launches_flash == n_triples * waves
+          and launches_rglru == n_rec * waves,
+          f"{launches_flash} flash / {launches_rglru} RG-LRU launches, "
+          f"expected {n_triples} / {n_rec} per prefill x {waves} prefills")
+    print(f"{launches_flash} flash_attention launches = {n_triples} per "
+          f"prefill x {waves} waves; {launches_rglru} rglru_scan launches "
+          f"= {n_rec} per prefill x {waves} (decode steps launch neither)")
+    for st in sched.stats:
+        dec_ms = (st.wall_s - st.ttft_s) / max(st.steps - 1, 1) * 1e3
+        print(f"wave {st.wave}: {st.batch} x {st.prompt_len} tokens: "
+              f"prefill {st.ttft_s * 1e3:.1f} ms (until the first tokens are"
+              f" on the host), decode {dec_ms:.2f} ms per token over "
+              f"{st.steps - 1} steps, wave {st.wall_s:.3f} s (host clock) "
+              f"[{card}]")
+    print(f"summary() {json.dumps(sched.summary())}; whole run "
+          f"{serve_s:.3f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for r in served:
+        check(r.output is not None and len(r.output) == SERVE_NEW_TOKENS
+              and bool(np_.all((r.output >= 0)
+                               & (r.output < cfg.vocab_size))),
+              f"request {r.rid}: malformed output {r.output}")
+    mismatched = []
+    for r in reqs:
+        one = WaveScheduler(model, params, max_batch=1)
+        alone = Request(rid=r.rid, tokens=r.tokens,
+                        max_new_tokens=SERVE_NEW_TOKENS)
+        one.submit(alone)
+        one.run()
+        same = np_.array_equal(alone.output, r.output)
+        where = "" if same else (f" from token "
+                                 f"{int(np_.argmax(alone.output != r.output))}")
+        if not same:
+            mismatched.append(r.rid)
+        print(f"request {r.rid} ({len(r.tokens)} tokens): batched output "
+              f"{'equals' if same else 'differs from'} its batch-1 serial "
+              f"decode{where}; first tokens {r.output[:6].tolist()}")
+    check(not mismatched, f"requests {mismatched}: batched != serial")
+
+    # where a decode step goes (the 1024-token wave's shape)
+    wave0 = torch.as_tensor(np_.stack(prompts[:SERVE_MAX_BATCH])).to(dev)
+    logits, state = model.prefill_fn(params, {"tokens": wave0})
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    sync()
+    enq, step, host = [], [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        logits, state = model.decode_fn(params, state, {"token": tok[:, None]})
+        t1 = time.perf_counter()
+        sync()
+        t2 = time.perf_counter()
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        tok.cpu().numpy()
+        host.append((time.perf_counter() - t2) * 1e3)
+        enq.append((t1 - t0) * 1e3)
+        step.append((t2 - t0) * 1e3)
+    print(f"decode step, batch {SERVE_MAX_BATCH} after {len(prompts[0])} "
+          f"tokens: "
+          f"{statistics.median(step):.2f} ms synchronised, of which the host"
+          f" spends {statistics.median(enq):.2f} ms issuing it; argmax + "
+          f"token to the host {statistics.median(host):.3f} ms (host clock, "
+          f"medians of 5) [{card}]")
+    del state, logits
+
+    # why the model fixes its shapes: does a row's result depend on the
+    # rows beside it? Each product and reduction of a decode step at
+    # M = 1 vs M = 4, and of a prefill at one sequence vs four (printed,
+    # not checked)
+    gen.manual_seed(11)
+    hd, win = cfg.resolved_head_dim, cfg.local_attn_window
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, device=dev, generator=gen).to(dtype)
+
+    def gap(fn, x, n):
+        return float((fn(x[:n]) - fn(x)[:n]).float().abs().max())
+
+    probes = []
+    for name, k_in, n_out, dtype in (
+            ("bf16 d x d", cfg.d_model, cfg.d_model, torch.bfloat16),
+            ("bf16 d x kv", cfg.d_model, cfg.n_kv_heads * hd, torch.bfloat16),
+            ("f32 d x d", cfg.d_model, cfg.d_model, torch.float32),
+            ("f32 d x d_ff", cfg.d_model, cfg.d_ff, torch.float32),
+            ("f32 d_ff x d", cfg.d_ff, cfg.d_model, torch.float32),
+            ("f32 d x vocab", cfg.d_model, cfg.padded_vocab, torch.float32)):
+        w = rand(k_in, n_out, dtype=dtype)
+        x = rand(4 * len(prompts[0]), k_in, dtype=dtype)
+        dec = gap(lambda z, w=w: z @ w, x[:4], 1)
+        pre = "-" if n_out == cfg.padded_vocab else \
+            f"{gap(lambda z, w=w: z @ w, x, len(prompts[0])):.1e}"
+        probes.append(f"{name} {dec:.1e}/{pre}")
+        del w, x
+    q, kc = rand(4, 1, cfg.n_heads, hd), rand(4, 1, hd, win)
+    probes.append(f"decode scores bmm {gap(lambda z: z @ kc[:len(z)], q, 1):.1e}")
+    sc = rand(4, 1, cfg.n_heads, win)
+    probes.append(f"softmax {gap(lambda z: torch.softmax(z, -1), sc, 1):.1e}")
+    x = rand(4 * len(prompts[0]), cfg.d_model)
+    ms = lambda z: z.square().mean(-1)   # noqa: E731
+    probes.append(f"mean square {gap(ms, x[:4], 1):.1e}/"
+                  f"{gap(ms, x, len(prompts[0])):.1e}")
+    print(f"a row alone vs beside others, max |diff| (decode M = 1 vs 4 / "
+          f"prefill {len(prompts[0])} vs {4 * len(prompts[0])} rows): "
+          f"{'; '.join(probes)} [{card}] (decode pads to {DECODE_ROWS} "
+          f"rows, prefill multiplies per sequence)")
+    del q, kc, sc, x
+
+    # prefill(t[:n]) + decode(t[n]) == prefill(t[:n + 1]) for the longest
+    # prompt (n = 4096: windowed attention, a ragged 4097-token prefill)
+    longer_prompt = np_.concatenate(
+        [prompts[-1], rng.integers(0, cfg.vocab_size, 1).astype(np_.int32)])
+    t = torch.as_tensor(longer_prompt[None]).to(dev)
+    for name in ("bfloat16", "float32"):
+        m = get_model(cfg.replace(dtype=name))
+        longer, _ = m.prefill_fn(params, {"tokens": t})
+        _, st = m.prefill_fn(params, {"tokens": t[:, :-1]})
+        stepped, _ = m.decode_fn(params, st, {"token": t[:, -1:]})
+        a, b = stepped[:, -1].float(), longer[:, -1].float()
+        err = float((a - b).abs().max())
+        check(bool(torch.isfinite(a).all()) and
+              torch.allclose(a, b, **LOGIT_TOL[name]),
+              f"{name}: prefill + decode differs from the longer prefill by "
+              f"{err} beyond {LOGIT_TOL[name]}")
+        print(f"{name:8s}: prefill({t.shape[1] - 1}) + decode vs prefill("
+              f"{t.shape[1]}) at full width: max |logit diff| {err:.3e} (logit scale "
+              f"{float(b.abs().max()):.2f}; {LOGIT_TOL[name]}); argmax "
+              f"{'agrees' if int(a.argmax()) == int(b.argmax()) else 'differs'}")
+        del m, longer, st, stepped
+
+    # ---- 12. depth cut: cuda against the CPU ----------------------------
+    phase(f"12. depth cut: full width, {DEPTH_CUT_LAYERS} layers (one triple "
+          f"+ two tails), cuda vs cpu (plain versions), a "
+          f"{DEPTH_CUT_PROMPT}-token prompt")
+    cut = cfg.replace(n_layers=DEPTH_CUT_LAYERS)
+    p_cut = dict(params, triples=tree_map(lambda x: x[:1], params["triples"]))
+    p_cpu = tree_map(lambda x: x.cpu(), p_cut)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (2, DEPTH_CUT_PROMPT + 1)),
+                           dtype=torch.int32)
+    for name in ("float32", "bfloat16"):
+        m = get_model(cut.replace(dtype=name))
+        out = {}
+        for where, p in (("cuda", p_cut), ("cpu", p_cpu)):
+            d = dev if where == "cuda" else torch.device("cpu")
+            logits, st = m.prefill_fn(p, {"tokens": toks[:, :-1].to(d)})
+            step_l, _ = m.decode_fn(p, st, {"token": toks[:, -1:].to(d)})
+            out[where] = (logits.float().cpu(), step_l.float().cpu(),
+                          st["triples"]["rec2"]["h"].cpu())
+        for what, a, b in zip(("prefill logits", "decode logits",
+                               "rec2 state"), out["cuda"], out["cpu"],
+                              strict=True):
+            err = float((a - b).abs().max())
+            check(torch.allclose(a, b, **LOGIT_TOL[name]),
+                  f"depth cut {name} {what}: cuda vs cpu {err} beyond "
+                  f"{LOGIT_TOL[name]}")
+            print(f"{name:8s} {what:14s}: cuda vs cpu max abs diff "
+                  f"{err:.3e} ({LOGIT_TOL[name]})")
+    del p_cpu, p_cut, params
+
+    # ---- 13. timings -----------------------------------------------------
+    phase(f"13. flash attention and RG-LRU timings on {card}")
+    timed = {}
+    for s, window in FLASH_TIMED:
+        q, k, v = qkv(s, torch.bfloat16, 100 + s)
+        kk = k.repeat_interleave(HQ // HKV, dim=1)
+        vv = v.repeat_interleave(HQ // HKV, dim=1)
+        i = torch.arange(s, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window) \
+            if window else None
+        k_ms = median_device_ms(torch, lambda: flash_attention(
+            q, k, v, causal=True, window=window), runs=9, per_run=5)
+        call_ms = median_event_ms(torch, lambda: flash_attention(
+            q, k, v, causal=True, window=window), runs=9, per_run=5)
+        plain_ms = median_device_ms(torch, lambda: flash_attention_ref(
+            q, k, v, causal=True, window=window), runs=5, per_run=1)
+        if window:
+            def sdpa():
+                return F.scaled_dot_product_attention(q, kk, vv,
+                                                      attn_mask=mask)
+        else:
+            def sdpa():
+                return F.scaled_dot_product_attention(q, kk, vv,
+                                                      is_causal=True)
+        lib_ms = median_device_ms(torch, sdpa, runs=9, per_run=5)
+        lib_err = float((sdpa().float() - flash_attention(
+            q, k, v, causal=True, window=window).float()).abs().max())
+        b_ms, flops, nbytes = flash_bound(B, HQ, HKV, s, HD, window, 2)
+        timed[s] = (k_ms, plain_ms, b_ms, lib_ms)
+        print(f"flash bf16 {FLASH_SHAPE} S={s} window={window}: device time "
+              f"per call: kernel {k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} "
+              f"TFLOP/s), plain torch {plain_ms:.3f} ms, SDPA "
+              f"{lib_ms:.3f} ms (differs from the kernel by {lib_err:.2e}); "
+              f"wrapper call {call_ms:.3f} ms; bound {b_ms:.4f} ms "
+              f"({flops:.3e} flops / 989 TFLOP/s; {nbytes} B / 3.35 TB/s: "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms) [{card}]")
+        del q, k, v, kk, vv, mask
+    gen.manual_seed(5)
+    shape = RGLRU_CASES[0][0]
+    a = torch.rand(shape, device=dev, generator=gen).mul_(0.2).add_(0.8)
+    u = torch.randn(shape, device=dev, generator=gen)
+    r_ms = median_device_ms(torch, lambda: rglru_scan(a, u))
+    r_call = median_event_ms(torch, lambda: rglru_scan(a, u))
+    # one call per run: the plain version queues 3 launches per time
+    # step (12,288 at T = 4096), past the device's queue of pending
+    # launches, so its time includes the host's enqueue
+    rp_ms = median_event_ms(torch, lambda: rglru_scan_ref(a, u), runs=5,
+                            per_run=1)
+    r_bytes = 3 * a.numel() * 4
+    rb_ms = r_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"RG-LRU f32 {shape}: kernel {r_ms * 1e3:.1f} us on the "
+          f"device ({rb_ms / r_ms * 100:.1f}% of the bound), wrapper call "
+          f"{r_call * 1e3:.1f} us; plain torch {rp_ms:.2f} ms per call "
+          f"(host enqueue included); bound {rb_ms * 1e3:.1f} us ({r_bytes} B"
+          f" / 3.35 TB/s) [{card}]")
+    k_ms, plain_ms, b_ms, lib_ms = timed[FLASH_TIMED[-1][0]]
+    return [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:39",
+         "launches": launches_flash, "max_abs_err": flash_err,
+         "ms": k_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+         "bound_by": "operations", "library_ms": lib_ms},
+        {"name": "rglru_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/rglru.cu",
+         "replaces": "src/repro/kernels/rglru.py:58",
+         "launches": launches_rglru, "max_abs_err": rglru_err,
+         "ms": r_ms, "plain_ms": rp_ms, "bound_ms": rb_ms,
+         "bound_by": "bytes", "library_ms": None},
+    ]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -265,6 +661,8 @@ def main() -> int:
     from repro_torch.fl.orchestrator import FederatedOrchestrator
     from repro_torch.kernels import build
     from repro_torch.kernels import fedavg as fedavg_mod
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import rglru as rglru_mod
     from repro_torch.kernels import tpd as tpd_mod
     from repro_torch.kernels.fedavg import fedavg, fedavg_batched, fedavg_rows
     from repro_torch.kernels.ref import fedavg_batched_ref, fedavg_ref, fedavg_rows_ref, tpd_ref
@@ -294,14 +692,15 @@ def main() -> int:
     # ---- 2. build --------------------------------------------------------
     phase("2. build")
     t0 = time.perf_counter()
-    libs = build.build_libraries([tpd_mod.SOURCE, fedavg_mod.SOURCE])
+    libs = build.build_libraries([tpd_mod.SOURCE, fedavg_mod.SOURCE,
+                                  flash_mod.SOURCE, rglru_mod.SOURCE])
     build_s = time.perf_counter() - t0
     for lib in libs:
         print(f"built {lib.relative_to(ROOT)}")
         log = lib.with_suffix(".log")
         if log.is_file():
             print(log.read_text().strip())
-    print(f"both builds in {build_s:.2f} s (parallel)")
+    print(f"all four builds in {build_s:.2f} s (parallel)")
 
     # ---- 3. TPD kernel vs plain version on the card ---------------------
     phase("3. TPD kernel vs its plain torch version on the card")
@@ -865,6 +1264,8 @@ def main() -> int:
     print(f"fedavg (K, N) = (5, {N_MLP}) wrapper call {flat_call_ms * 1e3:.2f}"
           f" us [{card}]")
 
+    hybrid = hybrid_phases(torch, np, dev, card)
+
     k_ms, r_ms, b_ms = rows[10]
     print(json.dumps({"kernels": [
         {"name": "tpd", "route": "cuda",
@@ -886,6 +1287,7 @@ def main() -> int:
          "launches": launches_fedavg, "max_abs_err": fedavg_max_abs_err,
          "ms": flat[0], "plain_ms": flat[1], "bound_ms": flat[2],
          "bound_by": "bytes", "library_ms": flat[3]},
+        *hybrid,
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,31 +2,32 @@
 
 ``get_config(name)`` returns the exact published configuration. The
 port carries the mlp family (the paper's own workload and its CI
-stand-in); the language-model families of the reference come with
-ROADMAP.md queue 1 item 11, and asking for one raises until then.
+stand-in) and the hybrid family (``recurrentgemma-2b``, ROADMAP.md
+queue 1 item 11a); the reference's other language-model families come
+with item 11b, and asking for one raises until then.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.configs.paper_mlp import CONFIG as _paper_mlp, CONFIG_SMOKE as _mlp_smoke
+from repro_torch.configs.recurrentgemma_2b import CONFIG as _recurrentgemma_2b
 
-_REGISTRY = {c.name: c for c in (_paper_mlp, _mlp_smoke)}
+_REGISTRY = {c.name: c for c in (_paper_mlp, _mlp_smoke, _recurrentgemma_2b)}
 
 # the reference's other architectures, not ported yet
 _LM_FAMILIES = (
     "qwen3-moe-235b-a22b", "granite-8b", "xlstm-1.3b",
     "seamless-m4t-large-v2", "granite-moe-1b-a400m",
-    "llava-next-mistral-7b", "minitron-8b", "recurrentgemma-2b",
-    "stablelm-3b", "stablelm-1.6b",
+    "llava-next-mistral-7b", "minitron-8b", "stablelm-3b", "stablelm-1.6b",
 )
 
 
 def get_config(name: str) -> ModelConfig:
     if name in _LM_FAMILIES:
         raise NotImplementedError(
-            f"{name!r} is a language-model family; the port carries the "
-            f"mlp family only so far — the others come with ROADMAP.md "
-            f"queue 1 item 11 (LM families)")
+            f"{name!r} is a language-model family the port does not carry "
+            f"yet; the dense, moe, ssm, vlm and audio families come with "
+            f"ROADMAP.md queue 1 item 11b")
     if name not in _REGISTRY:
         raise KeyError(f"unknown architecture {name!r}; known: "
                        f"{sorted(_REGISTRY)}")

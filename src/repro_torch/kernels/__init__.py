@@ -7,6 +7,11 @@ version in ``kernels.ref``.
   ``fedavg_batched``, ``fedavg``), one CUDA reduction that ports both
   ``repro/kernels/fedavg.py:fedavg_batched_pallas`` and
   ``fedavg_pallas``; ``kernels.ops`` wraps it for trees.
+* ``kernels.flash_attention.flash_attention`` — GQA attention forward
+  with causal, window and ``kv_len`` masks, the port of
+  ``repro/kernels/flash_attention.py:flash_attention_pallas``.
+* ``kernels.rglru.rglru_scan`` — the RG-LRU linear recurrence, the
+  port of ``repro/kernels/rglru.py:rglru_scan_pallas``.
 
 ``kernels.build`` compiles each ``csrc/*.cu`` at first use.
 """

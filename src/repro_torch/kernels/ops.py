@@ -1,16 +1,22 @@
 """Public kernel entry points of the port with natural shapes.
 
-The port of the FedAvg half of ``repro.kernels.ops``. There is no
-``use_pallas`` switch: a CUDA tensor always goes through the hand-written
-kernel and a CPU tensor through its plain torch version (the choice is
-the tensor's device, made in :mod:`repro_torch.kernels.fedavg`).
+The port of ``repro.kernels.ops`` (FedAvg, flash attention and the
+RG-LRU scan; the AdamW entry waits for ROADMAP.md item 10). There is no
+``use_pallas`` switch: a CUDA tensor always goes through the
+hand-written kernel and a CPU tensor through its plain torch version
+(the choice is the tensor's device, made in the kernel modules). Nothing
+is padded: the attention and scan kernels mask their own ragged edges.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import fedavg as _fedavg_kernel
+from repro_torch.kernels import flash_attention as _flash_kernel
+from repro_torch.kernels import rglru as _rglru_kernel
 from repro_torch.utils.trees import flatten_tree, tree_layout, unflatten_tree
 
 
@@ -39,3 +45,16 @@ def fedavg_tree(trees, weights):
         flatten_tree(t, layout, out=stacked[i])
     w = torch.as_tensor(np.asarray(weights, np.float32)).to(stacked.dtype)
     return unflatten_tree(fedavg(stacked, w.float()), layout)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """GQA attention, (B, Hq, S, hd) x (B, Hkv, S, hd) -> (B, Hq, S, hd)."""
+    return _flash_kernel.flash_attention(q, k, v, causal=causal,
+                                         window=window, scale=scale)
+
+
+def rglru_scan(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Gated linear recurrence h_t = a_t h_{t-1} + u_t over (B, T, D)."""
+    return _rglru_kernel.rglru_scan(a, u)

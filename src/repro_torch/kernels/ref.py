@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the port's kernels (TPD and FedAvg).
+"""Plain PyTorch versions of the port's kernels (TPD, FedAvg, flash
+attention and the RG-LRU scan).
 
 Each function here computes what its kernel computes, on any device, in
 torch ops. The CPU tests run them, ``chip_smoke.py`` holds each kernel
@@ -7,7 +8,12 @@ that lies on the CPU.
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
+
+NEG_INF = -1e30
 
 
 def tpd_ref(placements, attrs, leaf_load, kids, level_starts,
@@ -94,3 +100,62 @@ def fedavg_ref(stacked, w) -> torch.Tensor:
     for k in range(stacked.shape[0]):
         acc = acc + stacked[k].float() * w[k]
     return acc.to(stacked.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention and the linear recurrence
+# ---------------------------------------------------------------------------
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None,
+                        kv_len: Optional[int] = None) -> torch.Tensor:
+    """Dense-softmax attention, the operands of
+    ``kernels.flash_attention.flash_attention``.
+
+    q (B, Hq, S, hd); k, v (B, Hkv, S, hd), Hq a multiple of Hkv (query
+    head h reads kv head h // (Hq / Hkv)) -> like q. Key j is visible
+    from query i where j <= i (``causal``), j > i - window (``window``)
+    and j < kv_len (``kv_len``). Math in float32, the output in q's
+    dtype. A query row that sees no key at all comes out 0, as the TPU
+    kernel's guard makes it (``repro/kernels/flash_attention.py:86-89``);
+    every other row is the plain softmax.
+    """
+    b, hq, s, hd = q.shape
+    g = hq // k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    kk = torch.repeat_interleave(k, g, dim=1).float()
+    vv = torch.repeat_interleave(v, g, dim=1).float()
+    scores = torch.matmul(q.float(), kk.transpose(-1, -2)) * scale
+    i = torch.arange(s, device=q.device)
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= i[None, :] <= i[:, None]
+    if window is not None:
+        mask &= i[None, :] > i[:, None] - window
+    if kv_len is not None:
+        mask &= (i < kv_len)[None, :]
+    scores = torch.where(mask, scores, NEG_INF)
+    m = torch.clamp_min(scores.amax(dim=-1, keepdim=True), NEG_INF / 2)
+    p = torch.where(mask, torch.exp(scores - m), 0.0)
+    denom = torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+    return (torch.matmul(p, vv) / denom).to(q.dtype)
+
+
+def rglru_scan_ref(a, u, h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The gated linear recurrence h_t = a_t * h_{t-1} + u_t, in time
+    order, the operands of ``kernels.rglru.rglru_scan``.
+
+    a, u (B, T, D) -> h (B, T, D) in a's dtype; float32 math, each
+    product rounded before its add. ``h0`` (B, D), when given, is folded
+    into the first step: h_0 = a_0 * h0 + u_0 (the kernel starts from 0;
+    callers fold ``h0`` into ``u`` themselves).
+    """
+    if a.shape[1] == 0:
+        return torch.empty_like(a)
+    a32, u32 = a.float(), u.float()
+    h = torch.zeros_like(a32[:, 0]) if h0 is None else h0.float()
+    hs = []
+    for t in range(a32.shape[1]):
+        h = a32[:, t] * h + u32[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(a.dtype)

@@ -1,24 +1,179 @@
-"""Shared building blocks of the port's models (initializers so far)."""
+"""Shared building blocks of the port's models: initializers, RMSNorm,
+RoPE, embeddings, MLPs and the loss (``repro.models.common``).
+
+All are plain functions over param dicts. The float32 upcasts and the
+casts back to the input dtype sit where the reference puts them. Where
+the reference multiplies a bfloat16 array by a Python float, JAX first
+rounds the float to bfloat16 (a weak type); :func:`weak_scale` does the
+same, since torch would keep the float at full precision.
+"""
 from __future__ import annotations
 
 import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
 def dense_init(generator: torch.Generator, shape, dtype,
                scale: Optional[float] = None) -> torch.Tensor:
     """Truncated-normal fan-in init (the LLaMA/PaLM convention): a
     standard normal cut to [-3, 3], times ``scale`` or 1/sqrt(fan_in).
 
-    Drawn on the host from ``generator`` (a CPU ``torch.Generator``); it
-    follows ``repro.models.common.dense_init`` in distribution, not in
-    bits — ``jax.random`` is another stream.
+    Drawn on the generator's device (a CPU generator gives the same
+    numbers on every device; a CUDA one draws on the card, which is what
+    a multi-billion-parameter init needs); it follows
+    ``repro.models.common.dense_init`` in distribution, not in bits —
+    ``jax.random`` is another stream.
     """
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    x = torch.empty(tuple(shape), dtype=torch.float32)
+    x = torch.empty(tuple(shape), dtype=torch.float32,
+                    device=generator.device)
     torch.nn.init.trunc_normal_(x, mean=0.0, std=1.0, a=-3.0, b=3.0,
                                 generator=generator)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)
+
+
+def embed_init(generator: torch.Generator, shape, dtype) -> torch.Tensor:
+    x = torch.empty(tuple(shape), dtype=torch.float32,
+                    device=generator.device)
+    return x.normal_(generator=generator).mul_(0.02).to(dtype)
+
+
+def weak_scale(x: torch.Tensor, s: float) -> torch.Tensor:
+    """``x * s`` with ``s`` rounded to ``x``'s dtype first, as JAX does
+    for a Python scalar."""
+    return x * torch.tensor(s, dtype=x.dtype, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+def init_rmsnorm(d: int, dtype, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, head_dim); positions: broadcastable to (..., S)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)     # (half,)
+    angles = positions.to(x.device, torch.float32)[..., None] * freqs
+    cos = torch.cos(angles)[..., None, :]                       # (..., S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding (padded vocab)
+# ---------------------------------------------------------------------------
+def init_embedding(generator, vocab_padded: int, d_model: int, dtype,
+                   device) -> dict:
+    return {"table": embed_init(generator, (vocab_padded, d_model),
+                                dtype).to(device)}
+
+
+def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return params["table"][tokens.long()]
+
+
+def init_unembed(generator, vocab_padded: int, d_model: int, dtype,
+                 device) -> dict:
+    return {"proj": dense_init(generator, (d_model, vocab_padded),
+                               dtype).to(device)}
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two, as ``jnp.einsum``
+    promotes mixed bfloat16/float32 operands.
+
+    A (B, S, K) ``x`` with S > 1 is multiplied one sequence at a time, as
+    B products of (S, K) x (K, N). BLAS libraries (cuBLAS, the host's)
+    pick a kernel, and with it the order of the sums, by the product's
+    shape, so this way a sequence's prefill gives the same bits whatever
+    else shares its batch (the serving scheduler's batched == serial
+    property; tests/test_torch_hybrid.py). At S >= 1024 each product
+    still fills the card.
+    """
+    dt = torch.promote_types(x.dtype, w.dtype)
+    x, w = x.to(dt), w.to(dt)
+    if x.dim() != 3 or x.shape[0] == 1 or x.shape[1] == 1:
+        return torch.matmul(x, w)
+    out = torch.empty(x.shape[:2] + (w.shape[-1],), dtype=dt, device=x.device)
+    for b in range(x.shape[0]):
+        torch.matmul(x[b], w, out=out[b])
+    return out
+
+
+def unembed_untied(params: dict, x: torch.Tensor) -> torch.Tensor:
+    return matmul(x, params["proj"])
+
+
+# ---------------------------------------------------------------------------
+# MLP variants
+# ---------------------------------------------------------------------------
+def init_swiglu(generator, d_model: int, d_ff: int, dtype, device) -> dict:
+    return {
+        "w_gate": dense_init(generator, (d_model, d_ff), dtype).to(device),
+        "w_up": dense_init(generator, (d_model, d_ff), dtype).to(device),
+        "w_down": dense_init(generator, (d_ff, d_model), dtype).to(device),
+    }
+
+
+def init_geglu(generator, d_model: int, d_ff: int, dtype, device) -> dict:
+    return init_swiglu(generator, d_model, d_ff, dtype, device)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def geglu(params: dict, x: torch.Tensor) -> torch.Tensor:
+    g = gelu(matmul(x, params["w_gate"]))
+    up = matmul(x, params["w_up"])
+    return matmul(g * up, params["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 vocab_size: int,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-entropy with padded-vocab masking. logits (..., V_pad)."""
+    logits = logits.float()
+    v_pad = logits.shape[-1]
+    if v_pad > vocab_size:
+        ids = torch.arange(v_pad, device=logits.device)
+        logits = torch.where(ids < vocab_size, logits, -1e9)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

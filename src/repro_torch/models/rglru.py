@@ -1,0 +1,422 @@
+"""RecurrentGemma / Griffin: RG-LRU recurrent blocks + local sliding-window
+attention, pattern "2r1a" (two recurrent blocks, then one local-attention
+block). [arXiv:2402.19427] The port of ``repro.models.rglru``.
+
+RG-LRU recurrence (per channel):
+    r_t = sigmoid(W_a x_t + b_a)                    (recurrence gate)
+    i_t = sigmoid(W_x x_t + b_x)                    (input gate)
+    log a_t = -c * softplus(Lambda) * r_t           (c = 8)
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+The gates are torch ops; the recurrence over a prompt goes through
+``kernels.ops.rglru_scan`` (the CUDA scan on the card) and local
+attention through ``kernels.ops.flash_attention``; a decode step is the
+single-step update and attends to a ring KV cache in torch ops. The
+recurrent branch carries a width-4 temporal conv (shifted multiply-adds),
+whose decode state is the last 3 inputs.
+
+Params keep the reference's layout: the (r, r, a) triples stacked on a
+leading dim under ``"triples"``, the trailing recurrent blocks under
+``"tail"``; the reference's ``lax.scan`` over them is a Python loop here.
+
+Where the port parts from the reference, on purpose. The reference's
+decode writes and rotates the new token at ``state["pos"]``, which after
+prefill is the position of the last prompt token, and its prefill sizes
+the ring cache ``min(window, S)``, so the first decoded token takes the
+previous token's position and, for a prompt shorter than the window,
+evicts position 0. Here decode writes at ``state["pos"] + 1`` (as the
+reference's transformer family does) and prefill sizes the ring cache
+to ``local_attn_window`` slots, slot = absolute position mod window.
+Prefill logits and recurrent states are the reference's; the ring
+caches hold the same keys and values (equal to the reference's whenever
+the prompt is at least a window long); and ``prefill(t[:n]) +
+decode(t[n])`` equals ``prefill(t[:n + 1])``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models import attention as attn_lib, common
+from repro_torch.models.api import Model
+from repro_torch.utils.trees import tree_map
+
+RGLRU_C = 8.0
+CONV_WIDTH = 4
+# decode runs its batch padded to a multiple of this many rows, so a wave
+# of up to DECODE_ROWS requests multiplies at one shape whatever its
+# size, and each request's logits are the bits a batch of one would give
+# (BLAS and torch's reductions choose their order of sums by shape;
+# prefill gets the same from common.matmul's per-sequence products)
+DECODE_ROWS = 8
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def _init_recurrent_block(gen, cfg: ModelConfig, dtype, dev) -> dict:
+    d = cfg.d_model
+    dr = cfg.rglru_dim or d
+    lin = torch.linspace(0.9, 0.999, dr, dtype=torch.float32)
+    return {
+        "ln": common.init_rmsnorm(d, dtype, dev),
+        "w_main": common.dense_init(gen, (d, dr), dtype).to(dev),
+        "w_gate": common.dense_init(gen, (d, dr), dtype).to(dev),
+        "conv_w": common.dense_init(gen, (CONV_WIDTH, dr), dtype,
+                                    scale=0.1).to(dev),
+        "conv_b": torch.zeros((dr,), dtype=dtype, device=dev),
+        "w_a": common.dense_init(gen, (dr, dr), dtype, scale=0.01).to(dev),
+        "b_a": torch.zeros((dr,), dtype=dtype, device=dev),
+        "w_x": common.dense_init(gen, (dr, dr), dtype, scale=0.01).to(dev),
+        "b_x": torch.zeros((dr,), dtype=dtype, device=dev),
+        # Lambda: a (at r = 1) ~ U[0.9, 0.999] (the paper's range):
+        # softplus(lam) = -log(a)/c  =>  lam = log(expm1(-log(a)/c))
+        "lam": torch.log(torch.expm1(-torch.log(lin) / RGLRU_C)).to(dev),
+        "w_down": common.dense_init(gen, (dr, d), dtype).to(dev),
+        "ln_mlp": common.init_rmsnorm(d, dtype, dev),
+        "mlp": common.init_geglu(gen, d, cfg.d_ff, dtype, dev),
+    }
+
+
+def _init_attn_block(gen, cfg: ModelConfig, dtype, dev) -> dict:
+    hd = cfg.resolved_head_dim
+    d = cfg.d_model
+    return {
+        "ln": common.init_rmsnorm(d, dtype, dev),
+        "wq": common.dense_init(gen, (d, cfg.n_heads * hd), dtype).to(dev),
+        "wk": common.dense_init(gen, (d, cfg.n_kv_heads * hd), dtype).to(dev),
+        "wv": common.dense_init(gen, (d, cfg.n_kv_heads * hd), dtype).to(dev),
+        "wo": common.dense_init(gen, (cfg.n_heads * hd, d), dtype).to(dev),
+        "ln_mlp": common.init_rmsnorm(d, dtype, dev),
+        "mlp": common.init_geglu(gen, d, cfg.d_ff, dtype, dev),
+    }
+
+
+def _pattern_counts(cfg: ModelConfig):
+    n_triples = cfg.n_layers // 3
+    n_tail = cfg.n_layers - 3 * n_triples  # trailing recurrent blocks
+    return n_triples, n_tail
+
+
+def _stack(trees):
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _stacked(make, n: int):
+    """``n`` trees from ``make()`` stacked on a leading dim (a leading
+    dim of 0 when ``n`` is 0, as ``jax.vmap`` over no keys gives)."""
+    st = _stack([make() for _ in range(max(n, 1))])
+    return st if n else tree_map(lambda x: x[:0], st)
+
+
+def _layer(stacked, i: int):
+    return tree_map(lambda x: x[i], stacked)
+
+
+def _pad_rows(x: torch.Tensor, rows: int, dim: int = 0) -> torch.Tensor:
+    """``x`` with zero rows appended along ``dim`` up to ``rows``."""
+    extra = rows - x.shape[dim]
+    if extra == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = extra
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+def _row_bucket(b: int) -> int:
+    return -(-b // DECODE_ROWS) * DECODE_ROWS
+
+
+def init_rglru_params(generator: torch.Generator, cfg: ModelConfig,
+                      device="cuda") -> dict:
+    """Random params in the reference's layout, drawn from ``generator``
+    on its own device and placed on ``device``."""
+    dtype = getattr(torch, cfg.param_dtype)
+    dev = resolve_device(device)
+    n_triples, n_tail = _pattern_counts(cfg)
+    params = {
+        "embed": common.init_embedding(generator, cfg.padded_vocab,
+                                       cfg.d_model, dtype, dev),
+        "triples": _stacked(lambda: {
+            "rec1": _init_recurrent_block(generator, cfg, dtype, dev),
+            "rec2": _init_recurrent_block(generator, cfg, dtype, dev),
+            "attn": _init_attn_block(generator, cfg, dtype, dev),
+        }, n_triples),
+        "ln_f": common.init_rmsnorm(cfg.d_model, dtype, dev),
+        "lm_head": common.init_unembed(generator, cfg.padded_vocab,
+                                       cfg.d_model, dtype, dev),
+    }
+    if n_tail:
+        params["tail"] = _stacked(
+            lambda: _init_recurrent_block(generator, cfg, dtype, dev), n_tail)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU core
+# ---------------------------------------------------------------------------
+def _rglru_gates(block, xr):
+    """xr (B, S, dr) f32 -> (a, gated input), both (B, S, dr) f32."""
+    r = torch.sigmoid(common.matmul(xr, block["w_a"].float())
+                      + block["b_a"].float())
+    i = torch.sigmoid(common.matmul(xr, block["w_x"].float())
+                      + block["b_x"].float())
+    log_a = -RGLRU_C * F.softplus(block["lam"].float()) * r
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp(1.0 - a * a, 0.0, 1.0)) * (i * xr)
+    return a, gated
+
+
+def rglru_scan(block, xr, h0=None):
+    """h_t = a_t h_{t-1} + u_t over a prompt through the scan kernel.
+    xr (B, S, dr) f32; ``h0`` (B, dr) is folded into the first input."""
+    a, u = _rglru_gates(block, xr)
+    if h0 is not None:
+        # h_1 = a_1 h_0 + u_1
+        u = torch.cat([(u[:, 0] + a[:, 0] * h0)[:, None], u[:, 1:]], dim=1)
+    return ops.rglru_scan(a, u)
+
+
+def rglru_step(block, xr, h_prev):
+    """xr (B, 1, dr); h_prev (B, dr)."""
+    a, u = _rglru_gates(block, xr)
+    h = a[:, 0] * h_prev + u[:, 0]
+    return h[:, None], h
+
+
+def _conv1d(block, xr, conv_state=None):
+    """Causal width-4 depthwise conv as shifted multiply-adds. xr
+    (B, S, dr); conv_state (B, CONV_WIDTH - 1, dr) holds the previous
+    inputs (decode). Returns (out, new_conv_state)."""
+    w = block["conv_w"].to(xr.dtype)                    # (W, dr)
+    if conv_state is None:
+        pad = torch.zeros((xr.shape[0], CONV_WIDTH - 1, xr.shape[2]),
+                          dtype=xr.dtype, device=xr.device)
+    else:
+        pad = conv_state.to(xr.dtype)
+    xp = torch.cat([pad, xr], dim=1)                    # (B, S + W - 1, dr)
+    s = xr.shape[1]
+    out = xp[:, 0:s] * w[0]
+    for i in range(1, CONV_WIDTH):
+        out = out + xp[:, i:i + s] * w[i]
+    out = out + block["conv_b"].to(xr.dtype)
+    return out, xp[:, -(CONV_WIDTH - 1):].clone()
+
+
+def recurrent_block(block, x, cfg: ModelConfig, state=None, decode=False):
+    """Griffin recurrent block + its MLP. state: {"h": (B, dr), "conv":
+    (B, W - 1, dr)} or None."""
+    dt = getattr(torch, cfg.dtype)
+    xn = common.rmsnorm(block["ln"], x, cfg.norm_eps).to(dt)
+    main = common.matmul(xn, block["w_main"].to(dt))
+    gate = common.gelu(common.matmul(xn, block["w_gate"].to(dt)))
+    conv_state = state["conv"] if state is not None else None
+    main, new_conv = _conv1d(block, main, conv_state)
+    main32 = main.float()
+    if decode:
+        y, h_new = rglru_step(block, main32, state["h"])
+    else:
+        h0 = state["h"] if state is not None else None
+        y = rglru_scan(block, main32, h0)
+        h_new = y[:, -1].clone()
+    y = y.to(dt) * gate
+    out = common.matmul(y, block["w_down"].to(dt))
+    x = x + out.to(x.dtype)
+    # block-local MLP
+    h = common.geglu(block["mlp"],
+                     common.rmsnorm(block["ln_mlp"], x, cfg.norm_eps).to(dt))
+    x = x + h.to(x.dtype)
+    return x, {"h": h_new, "conv": new_conv.to(dt)}
+
+
+def local_attn_block(block, x, cfg: ModelConfig, cache=None, pos=None,
+                     decode=False):
+    """Local-attention block + its MLP. Prefill returns ``(x, (k, v))``,
+    the block's rotated keys and values (B, S, Hkv, hd); decode writes
+    the token at ``pos`` into ``cache`` and returns ``(x, new_cache)``."""
+    dt = getattr(torch, cfg.dtype)
+    hd = cfg.resolved_head_dim
+    b, s = x.shape[:2]
+    xn = common.rmsnorm(block["ln"], x, cfg.norm_eps).to(dt)
+    q = common.matmul(xn, block["wq"].to(dt)).reshape(b, s, cfg.n_heads, hd)
+    k = common.matmul(xn, block["wk"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
+    v = common.matmul(xn, block["wv"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
+    if decode:
+        posv = torch.full((1,), pos, dtype=torch.int32)
+        q = common.apply_rope(q, posv, cfg.rope_theta)
+        k = common.apply_rope(k, posv, cfg.rope_theta)
+        out_state = attn_lib.cache_update(cache, k, v, pos)
+        o = attn_lib.decode_attention(q, out_state, pos)
+    else:
+        positions = torch.arange(s)
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
+        if cfg.local_attn_window < s:
+            o = attn_lib.windowed_attention(q, k, v,
+                                            window=cfg.local_attn_window)
+        else:
+            o = attn_lib.causal_attention(q, k, v)
+        out_state = (k, v)
+    o = o.reshape(b, -1, cfg.n_heads * hd)
+    h = common.matmul(o, block["wo"].to(dt))
+    x = x + h.to(x.dtype)
+    h2 = common.geglu(block["mlp"],
+                      common.rmsnorm(block["ln_mlp"], x, cfg.norm_eps).to(dt))
+    x = x + h2.to(x.dtype)
+    return x, out_state
+
+
+def _ring_cache(k, v, window: int) -> dict:
+    """A ``window``-slot ring cache holding the last min(window, S)
+    positions of prefill's (B, S, Hkv, hd) keys and values at slot =
+    position mod window; slots no position reached stay zero."""
+    b, s = k.shape[:2]
+    n = min(window, s)
+    slots = torch.arange(s - n, s, device=k.device) % window
+    cache = attn_lib.init_cache(b, window, k.shape[2], k.shape[3], k.dtype,
+                                k.device)
+    cache["k"][:, slots] = k[:, s - n:]
+    cache["v"][:, slots] = v[:, s - n:]
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# full model
+# ---------------------------------------------------------------------------
+def _zero_rec_state(batch, dr, dt, dev):
+    return {"h": torch.zeros((batch, dr), dtype=torch.float32, device=dev),
+            "conv": torch.zeros((batch, CONV_WIDTH - 1, dr), dtype=dt,
+                                device=dev)}
+
+
+def build_rglru_model(cfg: ModelConfig) -> Model:
+    dr = cfg.rglru_dim or cfg.d_model
+    dt = getattr(torch, cfg.dtype)
+    n_triples, n_tail = _pattern_counts(cfg)
+    embed_scale = math.sqrt(cfg.d_model)
+
+    # ---------------- training / prefill forward ----------------
+    def forward(params, tokens):
+        x = common.embed(params["embed"], tokens).to(dt)
+        x = common.weak_scale(x, embed_scale)
+        for i in range(n_triples):
+            triple = _layer(params["triples"], i)
+            x, _ = recurrent_block(triple["rec1"], x, cfg)
+            x, _ = recurrent_block(triple["rec2"], x, cfg)
+            x, _ = local_attn_block(triple["attn"], x, cfg)
+        for i in range(n_tail):
+            x, _ = recurrent_block(_layer(params["tail"], i), x, cfg)
+        return common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+
+    def loss_fn(params, batch):
+        x = forward(params, batch["tokens"])
+        logits = common.unembed_untied(params["lm_head"], x)
+        loss = common.softmax_xent(logits, batch["labels"], cfg.vocab_size)
+        return loss, {"xent": loss}
+
+    # ---------------- decode ----------------
+    def decode_fn(params, state, batch):
+        b = batch["token"].shape[0]
+        rows = _row_bucket(b)
+        padded = {k: v if k == "pos" else tree_map(
+            lambda z: _pad_rows(z, rows, dim=1), v) for k, v in state.items()}
+        logits, new_state = decode_rows(
+            params, padded, _pad_rows(batch["token"], rows))
+        return logits[:b], {k: v if k == "pos" else tree_map(
+            lambda z: z[:, :b], v) for k, v in new_state.items()}
+
+    def decode_rows(params, state, token):
+        x = common.embed(params["embed"], token).to(dt)
+        x = common.weak_scale(x, embed_scale)
+        pos = state["pos"] + 1     # the incoming token's position
+        triple_states = []
+        for i in range(n_triples):
+            triple = _layer(params["triples"], i)
+            st = _layer(state["triples"], i)
+            x, r1 = recurrent_block(triple["rec1"], x, cfg, st["rec1"],
+                                    decode=True)
+            x, r2 = recurrent_block(triple["rec2"], x, cfg, st["rec2"],
+                                    decode=True)
+            x, cache = local_attn_block(triple["attn"], x, cfg,
+                                        cache=st["attn"], pos=pos,
+                                        decode=True)
+            triple_states.append({"rec1": r1, "rec2": r2, "attn": cache})
+        new_state = {"triples": _stack(triple_states) if triple_states
+                     else state["triples"], "pos": pos}
+        if n_tail:
+            tail_states = []
+            for i in range(n_tail):
+                x, r = recurrent_block(_layer(params["tail"], i), x, cfg,
+                                       _layer(state["tail"], i), decode=True)
+                tail_states.append(r)
+            new_state["tail"] = _stack(tail_states)
+        x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        logits = common.unembed_untied(params["lm_head"], x)
+        return logits, new_state
+
+    def prefill_fn(params, batch):
+        tokens = batch["tokens"]
+        s = tokens.shape[1]
+        # the reference scales before the cast here (its forward and
+        # decode cast first)
+        x = (common.embed(params["embed"], tokens) * embed_scale).to(dt)
+        triple_states = []
+        for i in range(n_triples):
+            triple = _layer(params["triples"], i)
+            x, st1 = recurrent_block(triple["rec1"], x, cfg)
+            x, st2 = recurrent_block(triple["rec2"], x, cfg)
+            x, (k, v) = local_attn_block(triple["attn"], x, cfg)
+            triple_states.append({"rec1": st1, "rec2": st2,
+                                  "attn": _ring_cache(
+                                      k, v, cfg.local_attn_window)})
+        # pos: the last prompt token's position; decode writes at pos + 1
+        state = {"triples": _stack(triple_states) if triple_states else
+                 zero_state(tokens.shape[0], cfg.local_attn_window,
+                            tokens.device)["triples"],
+                 "pos": s - 1}
+        if n_tail:
+            tail_states = []
+            for i in range(n_tail):
+                x, st = recurrent_block(_layer(params["tail"], i), x, cfg)
+                tail_states.append(st)
+            state["tail"] = _stack(tail_states)
+        x = common.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
+        b = x.shape[0]
+        logits = common.unembed_untied(params["lm_head"],
+                                       _pad_rows(x, _row_bucket(b)))[:b]
+        return logits, state
+
+    def zero_state(batch_size: int, cache_len: int, dev):
+        hd = cfg.resolved_head_dim
+
+        def stacked(tree, n):
+            return tree_map(lambda z: z.expand((n,) + tuple(z.shape)).clone(),
+                            tree)
+
+        state = {"triples": stacked({
+            "rec1": _zero_rec_state(batch_size, dr, dt, dev),
+            "rec2": _zero_rec_state(batch_size, dr, dt, dev),
+            "attn": attn_lib.init_cache(batch_size, cache_len,
+                                        cfg.n_kv_heads, hd, dt, dev),
+        }, n_triples), "pos": cache_len - 1}
+        if n_tail:
+            state["tail"] = stacked(_zero_rec_state(batch_size, dr, dt, dev),
+                                    n_tail)
+        return state
+
+    def init_decode_state(batch_size: int, cache_len: int, device="cuda"):
+        return zero_state(batch_size, min(cache_len, cfg.local_attn_window),
+                          resolve_device(device))
+
+    return Model(
+        config=cfg,
+        init=lambda generator, device="cuda": init_rglru_params(
+            generator, cfg, device),
+        loss_fn=loss_fn, prefill_fn=prefill_fn, decode_fn=decode_fn,
+        init_decode_state=init_decode_state,
+    )

@@ -154,3 +154,122 @@ def test_fig4_smoke_model_same_tpds_on_cuda_and_cpu(cuda_device):
     assert runs["cuda"].tpds == runs["cpu"].tpds
     np.testing.assert_allclose(runs["cuda"].metrics["loss"],
                                runs["cpu"].metrics["loss"], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the RG-LRU scan
+# ---------------------------------------------------------------------------
+# (b, hq, hkv, s, hd, causal, window, kv_len): recurrentgemma's MQA at hd
+# 256 (group 10), GQA group 2 at hd 64, hd 128; ragged S, windows, kv_len
+FLASH_CASES = [(2, 10, 1, 200, 256, True, None, None),
+               (2, 10, 1, 200, 256, True, 48, None),
+               (1, 10, 1, 97, 256, True, 32, 90),
+               (1, 4, 2, 129, 64, True, None, None),
+               (1, 4, 2, 129, 64, False, 40, 100),
+               (2, 2, 2, 64, 128, False, None, None),
+               (1, 2, 1, 33, 64, True, 1, 0)]
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _flash_operands(case, dtype, device):
+    b, hq, hkv, s, hd = case[:5]
+    g = torch.Generator().manual_seed(s * hq + hd)
+    return [torch.randn(shape, generator=g).to(device, dtype)
+            for shape in ((b, hq, s, hd), (b, hkv, s, hd), (b, hkv, s, hd))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version(cuda_device, case, dtype):
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels.ref import flash_attention_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _flash_operands(case, dtype, cuda_device)
+    causal, window, kv_len = case[5:]
+    before = kflash.flash_attention.launches
+    got = kflash.flash_attention(q, k, v, causal=causal, window=window,
+                                 kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert kflash.flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                               kv_len=kv_len)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 100, 70), (1, 33, 2560), (3, 16, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_equals_plain_version(cuda_device, shape, dtype):
+    from repro_torch.kernels import rglru as krglru
+    from repro_torch.kernels.ref import rglru_scan_ref
+    g = torch.Generator().manual_seed(shape[1])
+    a = torch.rand(shape, generator=g).mul(0.2).add(0.8).to(cuda_device, dtype)
+    u = torch.randn(shape, generator=g).to(cuda_device, dtype)
+    before = krglru.rglru_scan.launches
+    got = krglru.rglru_scan(a, u)
+    torch.cuda.synchronize()
+    assert krglru.rglru_scan.launches == before + 1
+    assert torch.equal(got, rglru_scan_ref(a, u))   # atol 0
+
+
+@pytest.mark.cuda
+def test_attention_and_scan_wrappers_reject_malformed_operands(cuda_device):
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import rglru as krglru
+    q, k, v = _flash_operands(FLASH_CASES[3], torch.float32, cuda_device)
+    before = (kflash.flash_attention.launches, krglru.rglru_scan.launches)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kflash.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        kflash.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                               k, v)
+    with pytest.raises(ValueError, match="is on cpu"):
+        kflash.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="Hq % Hkv"):
+        kflash.flash_attention(q[:, :3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        kflash.flash_attention(q[..., :48].contiguous(),
+                               k[..., :48].contiguous(),
+                               v[..., :48].contiguous())
+    a = torch.rand((2, 8, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        krglru.rglru_scan(a.transpose(1, 2), a.transpose(1, 2))
+    with pytest.raises(TypeError, match="both be float32"):
+        krglru.rglru_scan(a, a.bfloat16())
+    assert (kflash.flash_attention.launches,
+            krglru.rglru_scan.launches) == before
+
+
+@pytest.mark.cuda
+def test_hybrid_serving_on_cuda_matches_cpu(cuda_device):
+    """recurrentgemma-2b reduced to one triple and two tails, float32:
+    prefill and a decode step on the card (through both kernels) against
+    the same params on the CPU (plain versions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import rglru as krglru
+    from repro_torch.models import get_model
+    from repro_torch.utils.trees import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("recurrentgemma-2b").reduced().replace(
+        n_layers=5, dtype="float32", local_attn_window=16)
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    params_dev = tree_map(lambda x: x.to(cuda_device), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 41),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", params_dev)):
+        before = (kflash.flash_attention.launches, krglru.rglru_scan.launches)
+        logits, st = model.prefill_fn(p, {"tokens": toks[:, :40].to(dev)})
+        step, _ = model.decode_fn(p, st, {"token": toks[:, 40:].to(dev)})
+        launched = (kflash.flash_attention.launches - before[0],
+                    krglru.rglru_scan.launches - before[1])
+        assert launched == ((1, 4) if dev == "cuda" else (0, 0))
+        out[dev] = (logits.cpu(), step.cpu())
+    for got, want in zip(out["cuda"], out["cpu"], strict=True):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

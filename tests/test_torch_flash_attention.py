@@ -1,0 +1,177 @@
+"""The port's flash attention against the reference's, on the CPU.
+
+The reference side runs as its own tests run it: the Pallas kernel
+``flash_attention_pallas`` in interpret mode, its oracle
+``repro.kernels.ref.flash_attention_ref`` and ``repro.kernels.ops``
+with ``use_pallas=True, interpret=True`` (which pads S and masks the
+padded keys with ``kv_len``). The port side runs its plain torch
+version, which is what the kernel wrapper hands every CPU tensor to
+(the CUDA kernel itself runs on the card only: tests/test_torch_cuda.py).
+
+Tolerances are the reference's own (tests/test_kernels.py): float32
+rtol = atol = 2e-5 (online vs dense softmax: another summation order),
+bfloat16 rtol = atol = 2e-2 (one bf16 rounding of the output).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.models import attention as attn
+
+F32 = dict(rtol=2e-5, atol=2e-5)
+BF16 = dict(rtol=2e-2, atol=2e-2)
+DTYPES = {"float32": (jnp.float32, torch.float32, F32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16)}
+
+
+def _qkv(b, hq, hkv, s, hd, seed, layout="bhsd"):
+    rng = np.random.default_rng(seed)
+    if layout == "bhsd":
+        shapes = [(b, hq, s, hd), (b, hkv, s, hd), (b, hkv, s, hd)]
+    else:
+        shapes = [(b, s, hq, hd), (b, s, hkv, hd), (b, s, hkv, hd)]
+    return [rng.standard_normal(sh).astype(np.float32) for sh in shapes]
+
+
+def _pair(arrays, dtype):
+    """The same (rounded) inputs for both sides."""
+    jdt, tdt, _ = DTYPES[dtype]
+    js = [jnp.asarray(a, jdt) for a in arrays]
+    ts = [torch.tensor(np.asarray(j, np.float32)).to(tdt) for j in js]
+    return js, ts
+
+
+# (b, hq, hkv, s, hd): GQA groups 1, 2 and 10 (recurrentgemma's MQA),
+# head dims 64 and 256
+SHAPES = [(2, 2, 2, 128, 64), (1, 4, 2, 256, 64), (1, 10, 1, 128, 256)]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48),
+                                           (False, None), (False, 100)])
+def test_plain_version_matches_pallas_and_oracle(shape, causal, window):
+    b, hq, hkv, s, hd = shape
+    (jq, jk, jv), (q, k, v) = _pair(_qkv(*shape, seed=s + hq), "float32")
+    want = flash_attention_pallas(jq, jk, jv, causal=causal, window=window,
+                                  interpret=True)
+    oracle = jref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                      window=window)
+    got = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.float32 and tuple(got.shape) == tuple(q.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), **F32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,kv_len", [((1, 10, 1, 256, 256), 200),
+                                          ((2, 4, 2, 128, 64), 1)])
+def test_kv_len_matches_pallas(dtype, shape, kv_len):
+    """Keys at and past ``kv_len`` masked, as the reference's wrapper
+    masks its padding; rows that see no key come out 0 on both sides."""
+    (jq, jk, jv), (q, k, v) = _pair(_qkv(*shape, seed=kv_len), dtype)
+    for causal, window in ((True, None), (False, 64)):
+        want = flash_attention_pallas(jq, jk, jv, causal=causal,
+                                      window=window, kv_len=kv_len,
+                                      interpret=True)
+        got = kflash.flash_attention(q, k, v, causal=causal, window=window,
+                                     kv_len=kv_len)
+        assert got.dtype == DTYPES[dtype][1]
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   **DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,window", [(200, None), (200, 64), (77, 16)])
+def test_ops_ragged_length_matches_reference_ops(dtype, s, window):
+    """Ragged S through both packages' ``ops``: the reference pads to its
+    tile and masks with ``kv_len``; the port's kernel masks its own
+    ragged edge."""
+    shape = (1, 10, 1, s, 256) if s == 200 else (2, 4, 2, s, 64)
+    (jq, jk, jv), (q, k, v) = _pair(_qkv(*shape, seed=s), dtype)
+    want = ref_ops.flash_attention(jq, jk, jv, causal=True, window=window,
+                                   use_pallas=True, interpret=True)
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               **DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("s,window", [(40, None), (40, 16), (33, 8)])
+def test_model_attention_matches_reference(s, window):
+    """``causal_attention``/``windowed_attention`` at the reference's
+    (B, S, H, hd) layout against ``repro.models.attention``."""
+    from repro.models import attention as ref_attn
+    arrays = _qkv(2, 4, 1, s, 64, seed=s, layout="bshd")
+    (jq, jk, jv), (q, k, v) = _pair(arrays, "float32")
+    if window is None:
+        want = ref_attn.causal_attention(jq, jk, jv)
+        got = attn.causal_attention(q, k, v)
+    else:
+        want = ref_attn.windowed_attention(jq, jk, jv, window=window)
+        got = attn.windowed_attention(q, k, v, window=window)
+    assert tuple(got.shape) == tuple(q.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_decode_attention_and_ring_cache_match_reference():
+    from repro.models import attention as ref_attn
+    rng = np.random.default_rng(4)
+    b, t, hkv, hq, hd = 2, 8, 1, 4, 64
+    kc = rng.standard_normal((b, t, hkv, hd)).astype(np.float32)
+    vc = rng.standard_normal((b, t, hkv, hd)).astype(np.float32)
+    q = rng.standard_normal((b, 1, hq, hd)).astype(np.float32)
+    kn = rng.standard_normal((b, 1, hkv, hd)).astype(np.float32)
+    vn = rng.standard_normal((b, 1, hkv, hd)).astype(np.float32)
+    for pos in (3, 11):
+        jc = ref_attn.cache_update({"k": jnp.asarray(kc), "v": jnp.asarray(vc)},
+                                   jnp.asarray(kn), jnp.asarray(vn),
+                                   jnp.int32(pos))
+        tc = attn.cache_update({"k": torch.tensor(kc), "v": torch.tensor(vc)},
+                               torch.tensor(kn), torch.tensor(vn), pos)
+        np.testing.assert_array_equal(tc["k"].numpy(), np.asarray(jc["k"]))
+        np.testing.assert_array_equal(tc["v"].numpy(), np.asarray(jc["v"]))
+        want = ref_attn.decode_attention(jnp.asarray(q), jc, jnp.int32(pos))
+        got = attn.decode_attention(torch.tensor(q), tc, pos)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_wrapper_takes_the_plain_version_on_the_cpu():
+    (_, _, _), (q, k, v) = _pair(_qkv(1, 4, 2, 70, 64, seed=1), "float32")
+    before = kflash.flash_attention.launches
+    got = kflash.flash_attention(q, k, v, causal=True, window=20, kv_len=60)
+    assert torch.equal(got, flash_attention_ref(q, k, v, causal=True,
+                                                window=20, kv_len=60))
+    assert kflash.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("bad,err,match", [
+    (dict(q=torch.zeros((1, 3, 8, 64))), ValueError, "Hq % Hkv"),
+    (dict(q=torch.zeros((1, 4, 8, 48)), k=torch.zeros((1, 2, 8, 48)),
+          v=torch.zeros((1, 2, 8, 48))), ValueError, "head dim"),
+    (dict(q=torch.zeros((1, 4, 8, 64), dtype=torch.float16)), TypeError,
+     "is torch.float32"),
+    (dict(q=torch.zeros((1, 4, 8, 64), dtype=torch.float16),
+          k=torch.zeros((1, 2, 8, 64), dtype=torch.float16),
+          v=torch.zeros((1, 2, 8, 64), dtype=torch.float16)), TypeError,
+     "float32 or bfloat16"),
+    (dict(q=torch.zeros((1, 4, 64, 8)).transpose(2, 3)), ValueError,
+     "contiguous"),
+    (dict(k=torch.zeros((1, 2, 9, 64))), ValueError, r"k, v|do not match"),
+    (dict(kv_len=9), ValueError, "kv_len"),
+    (dict(window=0), ValueError, "window"),
+])
+def test_wrapper_rejects_malformed_operands(bad, err, match):
+    args = dict(q=torch.zeros((1, 4, 8, 64)), k=torch.zeros((1, 2, 8, 64)),
+                v=torch.zeros((1, 2, 8, 64)), window=None, kv_len=None)
+    args.update(bad)
+    with pytest.raises(err, match=match):
+        kflash.flash_attention(args["q"], args["k"], args["v"],
+                               window=args["window"], kv_len=args["kv_len"])
