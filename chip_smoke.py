@@ -10,9 +10,10 @@ checkout of the repository, it exits non-zero and prints no result.
 Phases, in order; any failed check raises and ends the run non-zero:
 
 1. card and toolchain (and both TF32 flags);
-2. build all four kernels (``src/repro_torch/csrc/tpd.cu``,
-   ``fedavg.cu``, ``flash_attention.cu`` and ``rglru.cu``), one ``nvcc``
-   each, started together;
+2. build all six kernel sources (``src/repro_torch/csrc/tpd.cu``,
+   ``fedavg.cu``, ``flash_attention.cu``, ``flash_attention_bwd.cu``,
+   ``rglru.cu`` and ``fused_adamw.cu``), one ``nvcc`` each, started
+   together;
 3. the TPD kernel against its plain torch version on the card, exactly,
    and against the float64 scalar model within rtol 2e-5, at the Fig. 3
    extremes, large-1k and large-10k;
@@ -63,20 +64,46 @@ Phases, in order; any failed check raises and ends the run non-zero:
     bf16 at the same tolerances;
 13. flash and RG-LRU timings: kernel, wrapper call, plain version and
     (flash) ``torch.nn.functional.scaled_dot_product_attention`` as the
-    yardstick, beside each bound; then the ``kernels`` JSON line (five
+    yardstick, beside each bound;
+14. the training kernels against their plain torch versions: fused
+    AdamW at N = 1, 3, 4097 and 2^24 + 5, float32 and bfloat16 params,
+    steps 1 and 1000, bit for bit; the flash backward (through the
+    autograd Function, against autograd of the dense plain version) at
+    B 1, Hq 10, Hkv 1, hd 256, S 2048 causal and S 4096 window 2048, bf16
+    (2e-2 of the gradients' scale) and f32 (1e-4); the RG-LRU adjoint at
+    (1, 2048, 2560) and ragged shapes, exactly;
+15. the training main path: ``TrainLoop(model, adamw(
+    warmup_cosine_schedule(3e-4, 2, 8)), batch_fn, TrainLoopConfig(
+    total_steps=8, log_every=1))`` on full-width, full-depth
+    recurrentgemma-2b (params from seed 0, as phase 11's), remat on, 1 x
+    2048 tokens of ``SyntheticLMDataset(256000, 2048, seed=0)`` a step:
+    losses (finite), step times, peak memory, launch counts held to the
+    expected ones, and on the last step a window of p, g, m, v past
+    element 2^31 held bit for bit to the plain AdamW;
+16. a training depth cut: those params cut to one triple and two tails,
+    1 x 128 tokens, 2 steps on ``cuda`` vs ``cpu``, float32 compute
+    (losses rtol 1e-4, update within 3% in norm, at most 0.2% of the
+    elements outside rtol 1e-3 / atol 1e-5) and bfloat16 (losses 1e-2,
+    update within 10%);
+17. timings of the three training kernels beside their bounds, the plain
+    versions and (AdamW, flash backward) ``torch._fused_adamw_`` and the
+    SDPA backward as yardsticks; then the ``kernels`` JSON line (eight
     kernels) and the final status line.
 
 Each kernel's launch count is set to 0 just before the path that runs
 it and read just after: ``tpd`` over phase 5, ``fedavg_batched`` over
 phase 6's cuda run, ``fedavg`` over phase 7's loop-engine run,
-``flash_attention`` and ``rglru_scan`` over phase 11's scheduler run.
-Comparison and timing launches never enter the JSON line's
-``launches``.
+``flash_attention`` and ``rglru_scan`` over phase 11's scheduler run
+(their training launches are printed in phase 15), and
+``fused_adamw``, ``flash_attention_bwd`` and ``rglru_scan_bwd`` over
+phase 15's ``TrainLoop.run``. Comparison and timing launches never
+enter the JSON line's ``launches``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -642,6 +669,476 @@ def hybrid_phases(torch, np_, dev, card):
     ]
 
 
+# ---- the training path: recurrentgemma-2b (phases 14-17) -----------------
+TRAIN_STEPS = 8
+TRAIN_TOKENS = 2048             # = the window: the causal attention path
+TRAIN_PEAK_LR, TRAIN_WARMUP = 3e-4, 2
+ADAMW_NS = (1, 3, 4097, 2 ** 24 + 5)
+ADAMW_WINDOW = 2 ** 20          # elements checked past 2^31 in phase 15
+ADAMW_WINDOW_START = 2 ** 31 + 5
+PLAIN_CHUNK = 2 ** 28           # the plain AdamW's chunk (its temporaries)
+# flash backward cases (B, Hq, Hkv, S, hd, window): the training shape
+# (causal: S = the window) and the windowed path
+FLASH_BWD_CASES = ((1, 10, 1, 2048, 256, None), (1, 10, 1, 4096, 256, 2048))
+# kernel vs autograd of the dense plain version, max abs error over each
+# gradient's largest value: f32 sums in other orders and P recomputed
+# from the saved log-sum-exp; bf16 one more rounding of each gradient
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+RGLRU_BWD_CASES = (((1, 2048, 2560), "float32"), ((2, 1031, 2500), "float32"),
+                   ((3, 777, 2561), "bfloat16"))
+TRAIN_CUT_TOKENS, TRAIN_CUT_STEPS = 128, 2
+# depth cut, cuda vs cpu: losses (f32: sums in other orders; bf16:
+# roundings at other points over 5 blocks); params: Adam moves a weight
+# whose gradient is within rounding of 0 by +-lr, so elementwise
+# agreement holds for all but a few (tests/test_torch_train.py); the
+# whole update is held in norm
+CUT_LOSS_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
+CUT_OUTSIDE = {"float32": 2e-3}          # share outside rtol 1e-3/atol 1e-5
+CUT_UPDATE_RTOL = {"float32": 3e-2, "bfloat16": 0.1}
+
+
+def adamw_scalars(np_, step, b1=0.9, b2=0.95):
+    """(bc1, bc2) as ``optim.adamw`` forms them on the host."""
+    t = np_.float32(step)
+    return (np_.float32(1) - np_.float32(b1) ** t,
+            np_.float32(1) - np_.float32(b2) ** t)
+
+
+def flash_bwd_bound(b, hq, hkv, s, hd, window, elem_bytes):
+    """(bound ms, flops, bytes) of one flash backward: 10 hd flops per
+    visible (query head, key) pair over the bf16 tensor-core rate; q, k,
+    v, o, do and lse read and dq, dk, dv written once over the memory
+    rate."""
+    pairs = sum(min(i + 1, window or s) for i in range(s))
+    flops = 10 * b * hq * hd * pairs
+    nbytes = elem_bytes * (5 * b * hq * s * hd + 2 * b * hkv * s * hd) \
+        + 4 * b * hq * s
+    return max(flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3, \
+        flops, nbytes
+
+
+PROFILE_GROUPS = (("flash forward", ("flash_fwd",)),
+                  ("flash backward", ("flash_bwd",)),
+                  ("RG-LRU adjoint", ("rglru_scan_bwd",)),
+                  ("RG-LRU forward", ("rglru_scan_kernel",)),
+                  ("fused AdamW", ("adamw_",)),
+                  ("matrix products", ("gemm", "xmma", "cutlass", "cublas")))
+
+
+def step_profile(torch, loop, batch, card):
+    """One more training step under ``torch.profiler``: device time by
+    kernel group and the device's busy share of the step's wall time
+    (one stream, so the kernels do not overlap). Printed, not checked."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = {k: torch.as_tensor(v).to(loop.device) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop.params, loop.opt_state, _ = loop.step_fn(
+            loop.params, loop.opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or \
+            getattr(e, "self_cuda_time_total", 0.0)
+
+    total = sum(dev_us(e) for e in kernels) / 1e3
+    if total <= 0:
+        print(f"profiled step {wall_ms:.1f} ms: the trace holds no device "
+              f"time [{card}]")
+        return
+    groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
+    launches = {name: 0 for name, _ in PROFILE_GROUPS}
+    other = 0.0
+    for e in kernels:
+        key = e.key.lower()
+        for name, subs in PROFILE_GROUPS:
+            if any(sub in key for sub in subs):
+                groups[name] += dev_us(e) / 1e3
+                launches[name] += e.count
+                break
+        else:
+            other += dev_us(e) / 1e3
+    split = "; ".join(f"{k} {v:.1f} ms ({launches[k]} launches)"
+                      for k, v in groups.items())
+    print(f"profiled step (host clock {wall_ms:.1f} ms, under the profiler): "
+          f"device busy {total:.1f} ms ({total / wall_ms * 100:.1f}%, idle "
+          f"{100 - total / wall_ms * 100:.1f}%): {split}; everything else "
+          f"(elementwise, reductions, copies) {other:.1f} ms [{card}]")
+    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    print("top kernels by device time: " + "; ".join(
+        f"{e.key[:60]} {dev_us(e) / 1e3:.1f} ms x{e.count}" for e in top))
+
+
+def training_phases(torch, np_, dev, card):
+    """Phases 14-17; returns the fused AdamW, flash backward and RG-LRU
+    adjoint entries of the ``kernels`` line."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import fused_adamw as kadamw
+    from repro_torch.kernels import rglru as krglru
+    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref, fused_adamw_ref, rglru_scan_bwd_ref
+    from repro_torch.models import get_model
+    from repro_torch.models.api import flat_params, make_train_step
+    from repro_torch.optim import Optimizer, adamw, warmup_cosine_schedule
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+    from repro_torch.utils.trees import flat_buffer_of, tree_map
+
+    sync = torch.cuda.synchronize
+    gen = torch.Generator(dev)
+
+    # ---- 14. the new kernels vs their plain versions ------------------------
+    phase("14. fused AdamW, flash backward and RG-LRU adjoint vs their "
+          "plain torch versions on the card")
+    for n in ADAMW_NS:
+        for name, dtype in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            for step in (1, 1000):
+                gen.manual_seed(n + step)
+                p = torch.randn(n, device=dev, generator=gen).to(dtype)
+                g = (torch.randn(n, device=dev, generator=gen) * 1e-2).to(dtype)
+                m = torch.randn(n, device=dev, generator=gen) * 1e-3
+                v = (torch.randn(n, device=dev, generator=gen) * 3e-3) ** 2
+                scal = (np_.float32(3e-4), *adamw_scalars(np_, step))
+                want = fused_adamw_ref(p, g, m, v, *scal)
+                kadamw.fused_adamw(p, g, m, v, *scal)
+                sync()
+                same = all(torch.equal(a, b) for a, b in zip((p, m, v), want))
+                check(same, f"fused AdamW N={n} {name} step {step}: kernel "
+                            f"!= plain version")
+        print(f"fused AdamW N={n:>9}: float32 and bfloat16 params, steps 1 "
+              f"and 1000: bit-equal to the plain version")
+    flash_bwd_err = 0.0
+    for b, hq, hkv, s, hd, window in FLASH_BWD_CASES:
+        for name, dtype in (("bfloat16", torch.bfloat16),
+                            ("float32", torch.float32)):
+            gen.manual_seed(s + hd)
+            q, k, v, do = [torch.randn(sh, device=dev, generator=gen).to(dtype)
+                           for sh in ((b, hq, s, hd), (b, hkv, s, hd),
+                                      (b, hkv, s, hd), (b, hq, s, hd))]
+            grads = []
+            for fn in (kflash.flash_attention, flash_attention_ref):
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                fn(*leaves, causal=True, window=window).backward(do)
+                grads.append([t.grad for t in leaves])
+            sync()
+            worst = 0.0
+            for got, want in zip(*grads):
+                err = float((got.float() - want.float()).abs().max())
+                flash_bwd_err = max(flash_bwd_err, err)
+                worst = max(worst, err / float(want.float().abs().max()))
+            check(worst <= FLASH_BWD_TOL[name],
+                  f"flash backward S={s} window={window} {name}: kernel vs "
+                  f"plain autograd {worst} of the gradients' scale, beyond "
+                  f"{FLASH_BWD_TOL[name]}")
+            print(f"flash backward (B, Hq, Hkv, hd) = {(b, hq, hkv, hd)} S={s}"
+                  f" window={window} {name:8s}: dq, dk, dv within {worst:.2e}"
+                  f" of the gradients' scale ({FLASH_BWD_TOL[name]})")
+            del q, k, v, do, grads
+    rglru_bwd_err = 0.0
+    for shape, name in RGLRU_BWD_CASES:
+        dtype = getattr(torch, name)
+        gen.manual_seed(shape[1] + 3)
+        a = torch.rand(shape, device=dev, generator=gen).mul_(0.2).add_(0.8)
+        h = torch.randn(shape, device=dev, generator=gen)
+        dh = torch.randn(shape, device=dev, generator=gen)
+        a, h, dh = a.to(dtype), h.to(dtype), dh.to(dtype)
+        got = krglru.rglru_scan_bwd(a, h, dh)
+        sync()
+        want = rglru_scan_bwd_ref(a, h, dh)
+        for x, y in zip(got, want):
+            rglru_bwd_err = max(rglru_bwd_err, float((x.float() - y.float())
+                                                     .abs().max()))
+            check(torch.equal(x, y), f"RG-LRU adjoint {shape} {name}: kernel "
+                                     f"!= plain version")
+        print(f"RG-LRU adjoint {shape} {name:8s}: exact (atol 0)")
+        del a, h, dh, got, want
+
+    # ---- 15. full-width training ----------------------------------------
+    cfg = get_config(RG_ARCH)
+    check(cfg.remat, f"{RG_ARCH}'s config has remat off")
+    phase(f"15. full-width {RG_ARCH} training on cuda: TrainLoop, "
+          f"{TRAIN_STEPS} steps of 1 x {TRAIN_TOKENS} tokens, "
+          f"adamw(warmup_cosine_schedule({TRAIN_PEAK_LR}, {TRAIN_WARMUP}, "
+          f"{TRAIN_STEPS})), remat on")
+    model = get_model(cfg)
+    ds = SyntheticLMDataset(cfg.vocab_size, TRAIN_TOKENS, seed=SEED)
+    stamps = []
+
+    def batch_fn(step):
+        sync()
+        stamps.append(time.perf_counter())
+        return ds.batch(1, step)
+
+    sched = warmup_cosine_schedule(TRAIN_PEAK_LR, TRAIN_WARMUP, TRAIN_STEPS)
+    inner = adamw(sched)
+    window_check = {}
+
+    def update(params, grads, state):
+        """adamw's update; on the last step, a window of p, g, m and v past
+        element 2^31 is held to the plain version."""
+        step = int(state.step) + 1
+        if step != TRAIN_STEPS:
+            return inner.update(params, grads, state)
+        flat_p = flat_buffer_of(params)
+        win = slice(ADAMW_WINDOW_START, ADAMW_WINDOW_START + ADAMW_WINDOW)
+        check(flat_p.numel() >= win.stop, f"{flat_p.numel()} params")
+        before = [flat_buffer_of(t)[win].clone()
+                  for t in (params, state.mu, state.nu)]
+        params, state = inner.update(params, grads, state)
+        g = flat_buffer_of(grads)[win].clone()      # as clipped in place
+        want = fused_adamw_ref(before[0], g, before[1], before[2],
+                               sched(step), *adamw_scalars(np_, step))
+        got = [flat_buffer_of(t)[win] for t in (params, state.mu, state.nu)]
+        window_check["same"] = all(torch.equal(a, b) for a, b in zip(got, want))
+        # the schedule's last lr is 0: p stays, the moments move
+        window_check["moved"] = not torch.equal(got[1], before[1])
+        return params, state
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loop = TrainLoop(model, Optimizer(init=inner.init, update=update),
+                     batch_fn, TrainLoopConfig(total_steps=TRAIN_STEPS,
+                                               log_every=1,
+                                               checkpoint_dir=None),
+                     seed=SEED, device=dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = flat_buffer_of(loop.params).numel()
+    print(f"{RG_ARCH}: {n_params} f32 params drawn on the card from seed "
+          f"{SEED} (the serving phase's params) and packed into one flat "
+          f"buffer, AdamW state allocated, in {init_s:.2f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    counters = {"flash_attention": kflash.flash_attention,
+                "flash_attention_bwd": kflash.flash_attention_bwd,
+                "rglru_scan": krglru.rglru_scan,
+                "rglru_scan_bwd": krglru.rglru_scan_bwd,
+                "fused_adamw": kadamw.fused_adamw}
+    for c in counters.values():
+        c.launches = 0                   # the counts to 0 just before the path
+    res = loop.run()
+    sync()
+    stamps.append(time.perf_counter())
+    launched = {k: c.launches for k, c in counters.items()}   # read just after
+    peak = torch.cuda.max_memory_allocated()
+    n_tri = cfg.n_layers // 3
+    n_rec = cfg.n_layers - n_tri
+    expected = {"flash_attention": 2 * n_tri * TRAIN_STEPS,
+                "flash_attention_bwd": 2 * n_tri * TRAIN_STEPS,
+                "rglru_scan": 2 * n_rec * TRAIN_STEPS,
+                "rglru_scan_bwd": n_rec * TRAIN_STEPS,
+                "fused_adamw": TRAIN_STEPS}
+    losses = [m["loss"] for m in res["metrics_log"]]
+    steps_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    for i, (loss, dt) in enumerate(zip(losses, steps_s), start=1):
+        print(f"step {i}: loss {loss:.6f}, lr {float(sched(i)):.3e}, "
+              f"{dt:.3f} s (host clock, synchronised) [{card}]")
+    print(f"median step {statistics.median(steps_s[1:]):.3f} s over steps "
+          f"2-{TRAIN_STEPS} (step 1 {steps_s[0]:.3f} s); peak device memory "
+          f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) [{card}]")
+    print(f"launches over the {TRAIN_STEPS} steps: {json.dumps(launched)}; "
+          f"expected {json.dumps(expected)} (flash: {n_tri} attention "
+          f"blocks, forward + remat recompute, 2 backward passes; RG-LRU: "
+          f"{n_rec} recurrent blocks)")
+    check(len(losses) == TRAIN_STEPS and all(np_.isfinite(losses)),
+          f"losses {losses}")
+    check(launched == expected, f"launches {launched} != {expected}")
+    check(window_check.get("same") and window_check.get("moved"),
+          f"AdamW window past element 2^31: {window_check}")
+    print(f"AdamW on the last step, elements [{ADAMW_WINDOW_START}, "
+          f"{ADAMW_WINDOW_START + ADAMW_WINDOW}): p, m, v bit-equal to the plain version run on "
+          f"copies of p, g, m, v with the same scalars")
+    step_profile(torch, loop, batch_fn(TRAIN_STEPS), card)
+
+    # the depth cut's params: one triple and the two tails of these
+    cut_params = {
+        "embed": loop.params["embed"], "ln_f": loop.params["ln_f"],
+        "lm_head": loop.params["lm_head"], "tail": loop.params["tail"],
+        "triples": tree_map(lambda x: x[:1], loop.params["triples"])}
+    cut_cpu = tree_map(lambda x: x.detach().cpu().clone(), cut_params)
+    del loop, res, cut_params, inner
+    torch.cuda.empty_cache()
+
+    # ---- 16. depth cut: cuda vs cpu -------------------------------------
+    cut = cfg.replace(n_layers=DEPTH_CUT_LAYERS)
+    phase(f"16. training depth cut: full width, {DEPTH_CUT_LAYERS} layers, 1 x "
+          f"{TRAIN_CUT_TOKENS} tokens, {TRAIN_CUT_STEPS} steps, cuda vs cpu")
+    cut_ds = SyntheticLMDataset(cfg.vocab_size, TRAIN_CUT_TOKENS, seed=SEED)
+    for name in ("float32", "bfloat16"):
+        m = get_model(cut.replace(dtype=name))
+        out = {}
+        for where in ("cuda", "cpu"):
+            d = dev if where == "cuda" else torch.device("cpu")
+            params = flat_params(tree_map(lambda x: x.to(d), cut_cpu))
+            opt = adamw(sched)
+            state = opt.init(params)
+            step_fn = make_train_step(m, opt)
+            t0 = time.perf_counter()
+            losses = []
+            for s in range(TRAIN_CUT_STEPS):
+                batch = {k: torch.as_tensor(v).to(d)
+                         for k, v in cut_ds.batch(1, s).items()}
+                params, state, met = step_fn(params, state, batch)
+                losses.append(float(met["loss"]))
+            out[where] = (losses, flat_buffer_of(params).detach().cpu())
+            print(f"{name:8s} {where}: losses {losses} in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            del params, state, opt, step_fn
+        (l_dev, p_dev), (l_cpu, p_cpu) = out["cuda"], out["cpu"]
+        p0 = flat_buffer_of(flat_params(cut_cpu)).detach()
+        gap2 = moved2 = worst = 0.0
+        far = 0
+        for lo in range(0, p0.numel(), PLAIN_CHUNK):       # bounded temporaries
+            a, b, z = (t[lo:lo + PLAIN_CHUNK] for t in (p_dev, p_cpu, p0))
+            d = (a - b).abs()
+            gap2 += float(d.double().square().sum())
+            moved2 += float((b - z).double().square().sum())
+            worst = max(worst, float(d.max()))
+            far += int((d > 1e-5 + 1e-3 * b.abs()).sum())
+        gap, moved = math.sqrt(gap2), math.sqrt(moved2)
+        far /= p0.numel()
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_dev, l_cpu))
+        print(f"{name:8s}: loss rel diff {loss_err:.2e} ("
+              f"{CUT_LOSS_RTOL[name]}); params: update gap {gap / moved:.2e} "
+              f"of the update's norm ({CUT_UPDATE_RTOL[name]}), "
+              f"{far:.2e} of the elements outside rtol 1e-3 / atol 1e-5, "
+              f"largest |diff| {worst:.2e}")
+        check(loss_err <= CUT_LOSS_RTOL[name], f"depth cut {name} losses "
+              f"{l_dev} vs {l_cpu}")
+        check(gap / moved <= CUT_UPDATE_RTOL[name],
+              f"depth cut {name}: update gap {gap / moved}")
+        if name in CUT_OUTSIDE:
+            check(far <= CUT_OUTSIDE[name], f"depth cut {name}: {far} of the "
+                                            f"params outside tolerance")
+        del out, p_dev, p_cpu, p0, m
+    del cut_cpu
+
+    # ---- 17. timings ---------------------------------------------------------
+    phase(f"17. fused AdamW, flash backward and RG-LRU adjoint timings on "
+          f"{card}")
+    n = n_params
+    flat = [torch.empty(n, device=dev) for _ in range(4)]
+    for i, t in enumerate(flat):
+        t.normal_(generator=gen.manual_seed(40 + i))
+    p, g, m, v = flat
+    g.mul_(1e-2)
+    m.mul_(1e-3)
+    v.mul_(v).mul_(1e-5)
+    scal = (np_.float32(3e-4), *adamw_scalars(np_, 5))
+    adamw_bytes = 28 * n
+    ab_ms = adamw_bytes / HBM_BYTES_PER_S * 1e3
+    a_ms = median_device_ms(torch, lambda: kadamw.fused_adamw(p, g, m, v,
+                                                              *scal),
+                            runs=7, per_run=3)
+    steps_t = torch.full((1,), 5.0, device=dev)
+
+    def library():
+        torch._fused_adamw_([p], [g], [m], [v], [], [steps_t], lr=3e-4,
+                            beta1=0.9, beta2=0.95, weight_decay=0.1,
+                            eps=1e-8, amsgrad=False, maximize=False)
+    al_ms = median_device_ms(torch, library, runs=7, per_run=3)
+
+    def plain_full():
+        for lo in range(0, n, PLAIN_CHUNK):
+            fused_adamw_ref(p[lo:lo + PLAIN_CHUNK], g[lo:lo + PLAIN_CHUNK],
+                            m[lo:lo + PLAIN_CHUNK], v[lo:lo + PLAIN_CHUNK],
+                            *scal)
+    # the plain version's ~170 launches and 1 GB temporaries a call keep
+    # the host busy past any device spin: its times include the host
+    ap_ms = median_event_ms(torch, plain_full, runs=3, per_run=1)
+    sub = [t[:PLAIN_CHUNK] for t in flat]
+    a28_ms = median_device_ms(torch, lambda: kadamw.fused_adamw(*sub, *scal),
+                              runs=9, per_run=5)
+    ap28_ms = median_event_ms(torch, lambda: fused_adamw_ref(*sub, *scal),
+                              runs=9, per_run=1)
+    print(f"fused AdamW N={n} f32: kernel {a_ms:.3f} ms on the device "
+          f"({ab_ms / a_ms * 100:.1f}% of the bound, "
+          f"{adamw_bytes / a_ms / 1e6:.0f} GB/s), torch._fused_adamw_ "
+          f"{al_ms:.3f} ms, plain torch {ap_ms:.3f} ms (in chunks of 2^28, "
+          f"host enqueue included); "
+          f"bound {ab_ms:.3f} ms ({adamw_bytes} B / 3.35 TB/s) [{card}]")
+    print(f"fused AdamW N=2^28 f32: kernel {a28_ms:.3f} ms, plain torch "
+          f"{ap28_ms:.3f} ms; bound "
+          f"{28 * PLAIN_CHUNK / HBM_BYTES_PER_S * 1e3:.3f} ms [{card}]")
+    del flat, p, g, m, v, sub
+    torch.cuda.empty_cache()
+
+    b, hq, hkv, s, hd, window = FLASH_BWD_CASES[0]
+    gen.manual_seed(77)
+    q, k, v, do = [torch.randn(sh, device=dev, generator=gen).bfloat16()
+                   for sh in ((b, hq, s, hd), (b, hkv, s, hd), (b, hkv, s, hd),
+                              (b, hq, s, hd))]
+    scale = 1.0 / math.sqrt(hd)
+    out, lse = flash_attention_ref(q, k, v, causal=True, scale=scale,
+                                   return_lse=True)
+    fb_ms = median_device_ms(torch, lambda: kflash.flash_attention_bwd(
+        q, k, v, out, do, lse, causal=True, scale=scale), runs=7, per_run=3)
+    fp_ms = median_device_ms(torch, lambda: flash_attention_bwd_ref(
+        q, k, v, out, do, lse, causal=True, scale=scale), runs=5, per_run=1)
+    kk = k.repeat_interleave(hq // hkv, dim=1).requires_grad_()
+    vv = v.repeat_interleave(hq // hkv, dim=1).requires_grad_()
+    qq = q.clone().requires_grad_()
+    sdpa_out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+    fl_ms = median_device_ms(torch, lambda: torch.autograd.grad(
+        sdpa_out, (qq, kk, vv), do, retain_graph=True), runs=7, per_run=3)
+    fbb_ms, f_flops, f_bytes = flash_bwd_bound(b, hq, hkv, s, hd, window, 2)
+    print(f"flash backward bf16 (B, Hq, Hkv, hd) = {(b, hq, hkv, hd)} S={s} "
+          f"causal: kernel {fb_ms:.3f} ms on the device (both passes, "
+          f"{f_flops / fb_ms / 1e9:.1f} TFLOP/s of the 10·hd a pair), plain "
+          f"torch {fp_ms:.3f} ms, SDPA backward on k, v repeated to {hq} heads"
+          f" {fl_ms:.3f} ms; bound {fbb_ms:.4f} ms ({f_flops:.3e} flops / "
+          f"989 TFLOP/s; {f_bytes} B / 3.35 TB/s) [{card}]")
+    del q, k, v, do, out, lse, kk, vv, qq, sdpa_out
+
+    shape = RGLRU_BWD_CASES[0][0]
+    gen.manual_seed(78)
+    a = torch.rand(shape, device=dev, generator=gen).mul_(0.2).add_(0.8)
+    h = torch.randn(shape, device=dev, generator=gen)
+    dh = torch.randn(shape, device=dev, generator=gen)
+    r_ms = median_device_ms(torch, lambda: krglru.rglru_scan_bwd(a, h, dh))
+    rp_ms = median_event_ms(torch, lambda: rglru_scan_bwd_ref(a, h, dh),
+                            runs=3, per_run=1)
+    r_bytes = 5 * a.numel() * 4
+    rb_ms = r_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"RG-LRU adjoint f32 {shape}: kernel {r_ms * 1e3:.1f} us on the "
+          f"device ({rb_ms / r_ms * 100:.1f}% of the bound); plain torch "
+          f"{rp_ms:.2f} ms per call (host enqueue included); bound "
+          f"{rb_ms * 1e3:.1f} us ({r_bytes} B / 3.35 TB/s) [{card}]")
+    return [
+        {"name": "fused_adamw", "route": "cuda",
+         "source": "src/repro_torch/csrc/fused_adamw.cu",
+         "replaces": "src/repro/kernels/fused_adamw.py:24",
+         "launches": launched["fused_adamw"], "max_abs_err": 0.0,
+         "ms": a_ms, "plain_ms": ap_ms, "bound_ms": ab_ms,
+         "bound_by": "bytes", "library_ms": al_ms},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:39",
+         "note": "the backward of that kernel; the TPU has none",
+         "launches": launched["flash_attention_bwd"],
+         "max_abs_err": flash_bwd_err,
+         "ms": fb_ms, "plain_ms": fp_ms, "bound_ms": fbb_ms,
+         "bound_by": "operations", "library_ms": fl_ms},
+        {"name": "rglru_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/rglru.cu",
+         "replaces": "src/repro/kernels/rglru.py:58",
+         "note": "the backward of that kernel; the TPU has none",
+         "launches": launched["rglru_scan_bwd"], "max_abs_err": rglru_bwd_err,
+         "ms": r_ms, "plain_ms": rp_ms, "bound_ms": rb_ms,
+         "bound_by": "bytes", "library_ms": None},
+    ]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -662,6 +1159,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import fedavg as fedavg_mod
     from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import fused_adamw as adamw_mod
     from repro_torch.kernels import rglru as rglru_mod
     from repro_torch.kernels import tpd as tpd_mod
     from repro_torch.kernels.fedavg import fedavg, fedavg_batched, fedavg_rows
@@ -693,14 +1191,15 @@ def main() -> int:
     phase("2. build")
     t0 = time.perf_counter()
     libs = build.build_libraries([tpd_mod.SOURCE, fedavg_mod.SOURCE,
-                                  flash_mod.SOURCE, rglru_mod.SOURCE])
+                                  flash_mod.SOURCE, flash_mod.BWD_SOURCE,
+                                  rglru_mod.SOURCE, adamw_mod.SOURCE])
     build_s = time.perf_counter() - t0
     for lib in libs:
         print(f"built {lib.relative_to(ROOT)}")
         log = lib.with_suffix(".log")
         if log.is_file():
             print(log.read_text().strip())
-    print(f"all four builds in {build_s:.2f} s (parallel)")
+    print(f"all {len(libs)} builds in {build_s:.2f} s (parallel)")
 
     # ---- 3. TPD kernel vs plain version on the card ---------------------
     phase("3. TPD kernel vs its plain torch version on the card")
@@ -1265,6 +1764,7 @@ def main() -> int:
           f" us [{card}]")
 
     hybrid = hybrid_phases(torch, np, dev, card)
+    training = training_phases(torch, np, dev, card)
 
     k_ms, r_ms, b_ms = rows[10]
     print(json.dumps({"kernels": [
@@ -1288,6 +1788,7 @@ def main() -> int:
          "ms": flat[0], "plain_ms": flat[1], "bound_ms": flat[2],
          "bound_by": "bytes", "library_ms": flat[3]},
         *hybrid,
+        *training,
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

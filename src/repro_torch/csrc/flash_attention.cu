@@ -90,7 +90,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, Params p) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, Params p) {
   constexpr int NJ = HD / 32;              // output columns per lane
   constexpr int KS = HD + 4;               // K row stride in shared memory
   extern __shared__ float4 smem4[];
@@ -207,6 +208,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + r0 + i;
     if (qi >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<long long>(b) * p.Hq + h) * S + qi] =
+          fmaxf(m[i], kNegInf / 2) + logf(denom);
     T* orow = og + static_cast<long long>(qi) * HD;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) store(&orow[lane + 32 * j], acc[i][j] / denom);
@@ -214,8 +218,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           const Params& p, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, const Params& p, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -224,17 +228,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((p.S + kBQ - 1) / kBQ, p.Hq, B);
   flash_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), p);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int hd, const Params& p, cudaStream_t s) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int hd, const Params& p, cudaStream_t s) {
   switch (hd) {
-    case 64: return launch<T, 64>(q, k, v, o, B, p, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, p, s);
-    case 256: return launch<T, 256>(q, k, v, o, B, p, s);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, p, s);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, p, s);
+    case 256: return launch<T, 256>(q, k, v, o, lse, B, p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -245,10 +249,12 @@ extern "C" {
 
 // Launches the forward on `stream`; dtype 0 = float32, 1 = bfloat16 (q,
 // k, v and o alike); hd must be 64, 128 or 256; window <= 0 means none.
-// Returns the CUDA error code of the launch (0 when it was accepted).
-// B = 0 or S = 0 launches nothing.
+// lse, when not null, receives each row's float32 log-sum-exp (B, Hq, S)
+// for the backward; serving passes null. Returns the CUDA error code of
+// the launch (0 when it was accepted). B = 0 or S = 0 launches nothing.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int B, int Hq, int Hkv, int S, int hd,
+                           void* o, float* lse, int B, int Hq, int Hkv,
+                           int S, int hd,
                            int causal, int window, int kv_len, float scale,
                            int dtype, void* stream) {
   if (B <= 0 || S <= 0) return 0;
@@ -257,8 +263,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   const Params p{S, Hq, Hkv, causal != 0, window > 0 ? window : 0,
                  kv_len, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(q, k, v, o, B, hd, p, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(q, k, v, o, B, hd, p, s);
+  if (dtype == 0) return dispatch<float>(q, k, v, o, lse, B, hd, p, s);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(q, k, v, o, lse, B, hd, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -31,6 +31,17 @@
 // over the SMs (160 blocks at the serving shape). Left for later: a
 // chunked two-pass scan over T, to put more of the card to work when
 // B * D is small.
+//
+// The adjoint (rglru_scan_bwd_launch; no TPU counterpart: the reference
+// differentiates plain jnp and has no backward kernel). Given the
+// forward's a and h and the loss's gradient dh with respect to h, the
+// same one-thread-per-channel walk runs backward in time from the last
+// step: g_t = dh_t + a_{t+1} * g_{t+1} (a_T = 0), and writes du_t = g_t
+// and da_t = g_t * h_{t-1} (h_{-1} = 0) from the saved h, so no
+// elementwise pass follows it. Float32, the product rounded before its
+// add: equal bit for bit to repro_torch/kernels/ref.py:rglru_scan_bwd_ref.
+// It reads a, h and dh and writes da and du: 5 * B * T * D * (2 or 4)
+// bytes, bound by device memory as the forward is.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,6 +94,61 @@ rglru_scan_kernel(const T* __restrict__ a, const T* __restrict__ u,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rglru_scan_bwd_kernel(const T* __restrict__ a, const T* __restrict__ h,
+                      const T* __restrict__ dh, T* __restrict__ da,
+                      T* __restrict__ du, int T_len, int D) {
+  const int d = blockIdx.x * kThreads + threadIdx.x;
+  if (d >= D) return;
+  const long long base = static_cast<long long>(blockIdx.y) * T_len * D + d;
+  const T* ap = a + base;
+  const T* hp = h + base;
+  const T* gp = dh + base;
+  T* dap = da + base;
+  T* dup = du + base;
+  float carry = 0.0f;
+  float a_next = 0.0f;                     // a_{t+1}; a_T = 0
+  int t = T_len - 1;
+  for (; t + 1 >= kUnroll; t -= kUnroll) { // steps t, t-1, ..., t-kUnroll+1
+    float av[kUnroll], hv[kUnroll], gv[kUnroll];
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const int tj = t - j;
+      const long long off = static_cast<long long>(tj) * D;
+      av[j] = load(ap + off);
+      gv[j] = load(gp + off);
+      hv[j] = tj > 0 ? load(hp + off - D) : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const long long off = static_cast<long long>(t - j) * D;
+      carry = a_next * carry + gv[j];
+      store(dup + off, carry);
+      store(dap + off, carry * hv[j]);
+      a_next = av[j];
+    }
+  }
+  for (; t >= 0; --t) {
+    const long long off = static_cast<long long>(t) * D;
+    carry = a_next * carry + load(gp + off);
+    store(dup + off, carry);
+    store(dap + off, carry * (t > 0 ? load(hp + off - D) : 0.0f));
+    a_next = load(ap + off);
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* a, const void* h, const void* dh, void* da,
+               void* du, int B, int T_len, int D, cudaStream_t stream) {
+  const dim3 grid((D + kThreads - 1) / kThreads, B);
+  rglru_scan_bwd_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(h),
+      static_cast<const T*>(dh), static_cast<T*>(da), static_cast<T*>(du),
+      T_len, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch(const void* a, const void* u, void* h, int B, int T_len, int D,
            cudaStream_t stream) {
   const dim3 grid((D + kThreads - 1) / kThreads, B);
@@ -106,6 +172,22 @@ int rglru_scan_launch(const void* a, const void* u, void* h, int B,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(a, u, h, B, T_len, D, s);
   if (dtype == 1) return launch<__nv_bfloat16>(a, u, h, B, T_len, D, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Launches the adjoint on `stream`: a, h (the forward's output) and dh
+// in, da and du out, all (B, T, D) of one dtype (0 = float32, 1 =
+// bfloat16). Returns the CUDA error code of the launch; an empty operand
+// launches nothing.
+int rglru_scan_bwd_launch(const void* a, const void* h, const void* dh,
+                          void* da, void* du, int B, int T_len, int D,
+                          int dtype, void* stream) {
+  if (B <= 0 || T_len <= 0 || D <= 0) return 0;
+  if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_bwd<float>(a, h, dh, da, du, B, T_len, D, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(a, h, dh, da, du, B, T_len, D, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

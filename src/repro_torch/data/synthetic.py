@@ -1,20 +1,66 @@
-"""Deterministic synthetic classification data for the emulated track.
+"""Deterministic synthetic data: classification for the emulated track,
+an LM token stream for training.
 
-The port's copy of the classification half of ``repro.data.synthetic``:
+The port's copy of ``repro.data.synthetic`` but its federated LM stream:
 the MNIST-shaped class-conditional Gaussian set the paper's MLP trains
 on, the Dirichlet non-IID partitioner, and ``FederatedDataset`` with its
 elastic ``resize``. Everything is numpy on the host, drawn from the same
 seeds in the same order, so the same seed gives the same arrays bit for
 bit; the orchestrator moves each round's batches to the device. The LM
-token stream (``FederatedLMDataset``) comes with ROADMAP.md queue 1
-item 11.
+token stream ``SyntheticLMDataset`` (with ``_doc_seed``) trains the
+language models; the federated LM stream (``FederatedLMDataset``) comes
+with ROADMAP.md queue 1 item 11b.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
+
+def _doc_seed(*parts) -> int:
+    """Deterministic 31-bit seed from mixed int/str stream parts.
+
+    ``hash()`` over a str is salted per process (PYTHONHASHSEED), so it
+    can never feed a seed; SeedSequence mixing is process-independent.
+    """
+    ints = [
+        int.from_bytes(p.encode(), "little") if isinstance(p, str) else int(p)
+        for p in parts
+    ]
+    return int(np.random.SeedSequence(ints).generate_state(1)[0] >> 1)
+
+
+class SyntheticLMDataset:
+    """An infinite, seeded LM token stream with mild structure.
+
+    Tokens follow a per-document affine recurrence so the loss is
+    learnable: ``t[i+1] = (a * t[i] + b) % vocab`` with per-document
+    (a, b), in closed form. numpy on the host, the same draws as the
+    reference's, so a seed gives the same batches bit for bit.
+    """
+
+    def __init__(self, vocab_size: int, seq_len: int, seed: int = 0):
+        self.vocab_size = int(vocab_size)
+        self.seq_len = int(seq_len)
+        self.seed = int(seed)
+
+    def batch(self, global_batch: int, step: int) -> dict:
+        rng = np.random.default_rng((self.seed, step))
+        a = rng.integers(1, 8, size=(global_batch, 1))
+        b = rng.integers(0, self.vocab_size, size=(global_batch, 1))
+        t0 = rng.integers(0, self.vocab_size, size=(global_batch, 1))
+        idx = np.arange(self.seq_len + 1)[None, :]
+        # closed form of the affine recurrence mod vocab
+        toks = (t0 * np.power(a, idx % 13) + b * idx) % self.vocab_size
+        toks = toks.astype(np.int32)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def batches(self, global_batch: int) -> Iterator[dict]:
+        step = 0
+        while True:
+            yield self.batch(global_batch, step)
+            step += 1
 
 
 class SyntheticClassificationDataset:

@@ -12,6 +12,12 @@ version in ``kernels.ref``.
   ``repro/kernels/flash_attention.py:flash_attention_pallas``.
 * ``kernels.rglru.rglru_scan`` — the RG-LRU linear recurrence, the
   port of ``repro/kernels/rglru.py:rglru_scan_pallas``.
+* ``kernels.fused_adamw.fused_adamw`` — one AdamW step over flat
+  buffers, in place, the port of
+  ``repro/kernels/fused_adamw.py:fused_adamw_pallas``.
+* ``kernels.flash_attention.flash_attention_bwd`` and
+  ``kernels.rglru.rglru_scan_bwd`` — the backward passes of the two
+  above (no TPU counterpart), behind autograd Functions.
 
 ``kernels.build`` compiles each ``csrc/*.cu`` at first use.
 """

@@ -16,6 +16,19 @@ launches the kernel (counted on ``flash_attention.launches``); a tensor
 on the CPU goes to the plain torch version,
 :func:`repro_torch.kernels.ref.flash_attention_ref`, with the same
 masks. There is no fallback from the card to the host.
+
+The gradient. When q, k or v requires grad, ``flash_attention`` runs
+through an autograd Function: the forward also keeps each row's float32
+log-sum-exp (B, Hq, S), and the backward is a second source,
+``repro_torch/csrc/flash_attention_bwd.cu`` (no TPU counterpart: the
+reference has no backward kernel)::
+
+    flash_attention_bwd(q, k, v, out, dout, lse, *, causal, window,
+                        scale, kv_len) -> (dq, dk, dv)
+
+two deterministic passes (dq, then dk and dv), each launch counted on
+``flash_attention_bwd.launches``, with its plain version
+:func:`repro_torch.kernels.ref.flash_attention_bwd_ref` for CPU tensors.
 """
 from __future__ import annotations
 
@@ -27,9 +40,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import CSRC_DIR, build_library
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
 SOURCE = CSRC_DIR / "flash_attention.cu"
+BWD_SOURCE = CSRC_DIR / "flash_attention_bwd.cu"
 HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -38,11 +52,23 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library(SOURCE)))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_launch.argtypes = [ptr] * 4 + [i32] * 8 + [
+    lib.flash_attention_launch.argtypes = [ptr] * 5 + [i32] * 8 + [
         ctypes.c_float, i32, ptr]
     lib.flash_attention_launch.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_library(BWD_SOURCE)))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bwd_launch.argtypes = [ptr] * 10 + [i32] * 8 + [
+        ctypes.c_float, i32, ptr]
+    lib.flash_attention_bwd_launch.restype = i32
+    lib.flash_attention_bwd_error_string.argtypes = [i32]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -85,30 +111,115 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_len: Optional[int] = None) -> torch.Tensor:
     """q (B, Hq, S, hd); k, v (B, Hkv, S, hd) -> (B, Hq, S, hd) in q's
     dtype. Key j is visible from query i where j <= i (``causal``),
-    j > i - window (``window``) and j < kv_len (``kv_len``)."""
+    j > i - window (``window``) and j < kv_len (``kv_len``).
+    Differentiable in q, k and v."""
     _check(q, k, v, window, kv_len)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    masks = (causal, window, scale, kv_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, masks)
+    return _forward(q, k, v, masks, with_lse=False)[0]
+
+
+def _forward(q, k, v, masks, with_lse: bool):
+    """(out, lse or None) of one forward launch (the plain version for a
+    CPU tensor)."""
+    causal, window, scale, kv_len = masks
     b, hq, s, hd = q.shape
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     if q.device.type == "cpu":
+        if with_lse:
+            return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       scale=scale, kv_len=kv_len,
+                                       return_lse=True)
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   scale=scale, kv_len=kv_len)
+                                   scale=scale, kv_len=kv_len), None
     out = torch.empty_like(q)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if out.numel() == 0:
-        return out
+        return out, lse
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-            k.shape[1], s, hd, int(causal), window or 0,
-            s if kv_len is None else kv_len, scale, _DTYPE_CODE[q.dtype],
-            stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None, b, hq, k.shape[1], s, hd,
+            int(causal), window or 0, s if kv_len is None else kv_len,
+            scale, _DTYPE_CODE[q.dtype], stream)
     if code != 0:
         raise RuntimeError(f"flash attention launch failed: "
                            f"{lib.flash_attention_error_string(code).decode()}"
                            f" ({code})")
     flash_attention.launches += 1
-    return out
+    return out, lse
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None,
+                        kv_len: Optional[int] = None):
+    """dq, dk, dv of :func:`flash_attention` from its operands, its
+    output ``out`` and log-sum-exp ``lse`` (B, Hq, S) float32, and the
+    output's gradient ``dout`` (like q); each gradient in q's dtype."""
+    _check(q, k, v, window, kv_len)
+    for name, t in (("out", out), ("dout", dout)):
+        if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous tensor like q")
+    b, hq, s, hd = q.shape
+    if tuple(lse.shape) != (b, hq, s) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 (B, Hq, S) = "
+                         f"{(b, hq, s)} tensor")
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, dout, lse,
+                                       causal=causal, window=window,
+                                       scale=scale, kv_len=kv_len)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk, dv
+    dsum = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    lib = _bwd_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, hq, k.shape[1], s, hd,
+            int(causal), window or 0, s if kv_len is None else kv_len,
+            scale, _DTYPE_CODE[q.dtype], stream)
+    if code != 0:
+        raise RuntimeError(
+            f"flash attention backward launch failed: "
+            f"{lib.flash_attention_bwd_error_string(code).decode()} ({code})")
+    flash_attention_bwd.launches += 2       # the dq pass and the dk/dv pass
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with the backward kernel as its backward; saves
+    q, k, v, the output and the log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, masks):
+        out, lse = _forward(q, k, v, masks, with_lse=True)
+        ctx.masks = masks
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale, kv_len = ctx.masks
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, dout.to(q.dtype).contiguous(), lse, causal=causal,
+            window=window, scale=scale, kv_len=kv_len)
+        return dq, dk, dv, None

@@ -1,11 +1,14 @@
 """Public kernel entry points of the port with natural shapes.
 
-The port of ``repro.kernels.ops`` (FedAvg, flash attention and the
-RG-LRU scan; the AdamW entry waits for ROADMAP.md item 10). There is no
+The port of ``repro.kernels.ops`` (FedAvg, fused AdamW, flash attention
+and the RG-LRU scan). There is no
 ``use_pallas`` switch: a CUDA tensor always goes through the
 hand-written kernel and a CPU tensor through its plain torch version
 (the choice is the tensor's device, made in the kernel modules). Nothing
 is padded: the attention and scan kernels mask their own ragged edges.
+Unlike the reference's ``fused_adamw``, which concatenates the tree on
+every call, the port's takes buffers that are already flat and updates
+them in place (``optim.adamw`` keeps params, grads and moments flat).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 from repro_torch.kernels import fedavg as _fedavg_kernel
 from repro_torch.kernels import flash_attention as _flash_kernel
+from repro_torch.kernels import fused_adamw as _adamw_kernel
 from repro_torch.kernels import rglru as _rglru_kernel
 from repro_torch.utils.trees import flatten_tree, tree_layout, unflatten_tree
 
@@ -58,3 +62,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def rglru_scan(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Gated linear recurrence h_t = a_t h_{t-1} + u_t over (B, T, D)."""
     return _rglru_kernel.rglru_scan(a, u)
+
+
+def fused_adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                v: torch.Tensor, lr, bc1, bc2, *, b1: float = 0.9,
+                b2: float = 0.95, eps: float = 1e-8, wd: float = 0.1):
+    """Fused AdamW over flat 1-D buffers, in place: (p, m, v)."""
+    return _adamw_kernel.fused_adamw(p, g, m, v, lr, bc1, bc2, b1=b1, b2=b2,
+                                     eps=eps, wd=wd)

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the port's kernels (TPD, FedAvg, flash
-attention and the RG-LRU scan).
+"""Plain PyTorch versions of the port's kernels (TPD, FedAvg, fused
+AdamW, flash attention and the RG-LRU scan, with the backward passes of
+the last two).
 
 Each function here computes what its kernel computes, on any device, in
 torch ops. The CPU tests run them, ``chip_smoke.py`` holds each kernel
@@ -11,6 +12,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -103,12 +105,57 @@ def fedavg_ref(stacked, w) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# fused AdamW
+# ---------------------------------------------------------------------------
+def fused_adamw_ref(p, g, m, v, lr, bc1, bc2, *, b1=0.9, b2=0.95, eps=1e-8,
+                    wd=0.1):
+    """One AdamW step over flat p, g (p's dtype) and m, v (float32), the
+    operands of ``kernels.fused_adamw.fused_adamw``; returns new (p, m,
+    v), the inputs untouched (``repro.kernels.ref.fused_adamw_ref``).
+
+    float32 math in the reference's order, every operation rounded on
+    its own: m = b1 m + (1 - b1) g; v = b2 v + (1 - b2) g^2; p -= lr
+    (m / bc1 / (sqrt(v / bc2) + eps) + wd p). The scalars are float32
+    (a Python float is rounded to float32 first, as JAX rounds a weak
+    scalar) and enter as 0-dim tensors on p's device, so a division by
+    ``bc1`` or ``bc2`` is a true division on the card too (torch's CUDA
+    division by a host scalar multiplies by its reciprocal).
+    """
+    def f32(x):
+        return torch.tensor(float(np.float32(x)), dtype=torch.float32,
+                            device=p.device)
+
+    p32, g32 = p.float(), g.float()
+    m = f32(b1) * m + f32(1 - b1) * g32
+    v = f32(b2) * v + f32(1 - b2) * (g32 * g32)
+    mhat = m / f32(bc1)
+    vhat = v / f32(bc2)
+    delta = mhat / (torch.sqrt(vhat) + f32(eps)) + f32(wd) * p32
+    return (p32 - f32(lr) * delta).to(p.dtype), m, v
+
+
+# ---------------------------------------------------------------------------
 # attention and the linear recurrence
 # ---------------------------------------------------------------------------
+def _attention_mask(s: int, causal: bool, window: Optional[int],
+                    kv_len: Optional[int], device) -> torch.Tensor:
+    """(S, S) bool: key j (column) visible from query i (row)."""
+    i = torch.arange(s, device=device)
+    mask = torch.ones((s, s), dtype=torch.bool, device=device)
+    if causal:
+        mask &= i[None, :] <= i[:, None]
+    if window is not None:
+        mask &= i[None, :] > i[:, None] - window
+    if kv_len is not None:
+        mask &= (i < kv_len)[None, :]
+    return mask
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None,
                         scale: Optional[float] = None,
-                        kv_len: Optional[int] = None) -> torch.Tensor:
+                        kv_len: Optional[int] = None,
+                        return_lse: bool = False):
     """Dense-softmax attention, the operands of
     ``kernels.flash_attention.flash_attention``.
 
@@ -119,6 +166,11 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     dtype. A query row that sees no key at all comes out 0, as the TPU
     kernel's guard makes it (``repro/kernels/flash_attention.py:86-89``);
     every other row is the plain softmax.
+
+    With ``return_lse`` it returns ``(out, lse)``, lse (B, Hq, S)
+    float32 the log of each row's softmax denominator, max included:
+    m + log(max(sum_j exp(s_j - m), 1e-30)), what the backward
+    recomputes the probabilities from.
     """
     b, hq, s, hd = q.shape
     g = hq // k.shape[1]
@@ -126,19 +178,48 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     kk = torch.repeat_interleave(k, g, dim=1).float()
     vv = torch.repeat_interleave(v, g, dim=1).float()
     scores = torch.matmul(q.float(), kk.transpose(-1, -2)) * scale
-    i = torch.arange(s, device=q.device)
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= i[None, :] <= i[:, None]
-    if window is not None:
-        mask &= i[None, :] > i[:, None] - window
-    if kv_len is not None:
-        mask &= (i < kv_len)[None, :]
+    mask = _attention_mask(s, causal, window, kv_len, q.device)
     scores = torch.where(mask, scores, NEG_INF)
     m = torch.clamp_min(scores.amax(dim=-1, keepdim=True), NEG_INF / 2)
     p = torch.where(mask, torch.exp(scores - m), 0.0)
     denom = torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
-    return (torch.matmul(p, vv) / denom).to(q.dtype)
+    out = (torch.matmul(p, vv) / denom).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(denom))[..., 0]
+    return out
+
+
+def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            scale: Optional[float] = None,
+                            kv_len: Optional[int] = None):
+    """dq, dk, dv of :func:`flash_attention_ref` under the same masks,
+    the operands of ``kernels.flash_attention.flash_attention_bwd``.
+
+    out and lse are the forward's; dout is like q. The probabilities
+    are recomputed from lse, P = exp(scale q.k - lse) on the visible
+    pairs, and D = rowsum(dout * out):
+    dv = P^T dout, dS = P (dout v^T - D), dq = scale dS k,
+    dk = scale dS^T q, dk and dv summed over each kv head's query
+    heads. float32 math; each gradient in its input's dtype.
+    """
+    b, hq, s, hd = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    q32, do = q.float(), dout.float()
+    kk = torch.repeat_interleave(k, g, dim=1).float()
+    vv = torch.repeat_interleave(v, g, dim=1).float()
+    mask = _attention_mask(s, causal, window, kv_len, q.device)
+    scores = torch.matmul(q32, kk.transpose(-1, -2)) * scale
+    p = torch.where(mask, torch.exp(scores - lse.float()[..., None]), 0.0)
+    d = torch.sum(do * out.float(), dim=-1, keepdim=True)
+    ds = p * (torch.matmul(do, vv.transpose(-1, -2)) - d)
+    dq = torch.matmul(ds, kk) * scale
+    dk = (torch.matmul(ds.transpose(-1, -2), q32) * scale).view(
+        b, hkv, g, s, hd).sum(dim=2)
+    dv = torch.matmul(p.transpose(-1, -2), do).view(b, hkv, g, s, hd).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def rglru_scan_ref(a, u, h0: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -159,3 +240,26 @@ def rglru_scan_ref(a, u, h0: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = a32[:, t] * h + u32[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1).to(a.dtype)
+
+
+def rglru_scan_bwd_ref(a, h, dh):
+    """The adjoint of the scan (h_{-1} = 0), the operands of
+    ``kernels.rglru.rglru_scan_bwd``: a, h (the forward's output) and dh
+    (the loss's gradient with respect to h), all (B, T, D) -> (da, du).
+
+    Backward in time from the last step: g_t = dh_t + a_{t+1} g_{t+1}
+    (the product rounded before its add), du_t = g_t and da_t = g_t
+    h_{t-1}; float32 math, the outputs in a's dtype.
+    """
+    a32, h32, dh32 = a.float(), h.float(), dh.float()
+    da = torch.empty_like(a32)
+    du = torch.empty_like(a32)
+    n = a32.shape[1]
+    carry = torch.zeros_like(a32[:, 0])
+    for t in range(n - 1, -1, -1):
+        a_next = a32[:, t + 1] if t + 1 < n else torch.zeros_like(carry)
+        carry = a_next * carry + dh32[:, t]
+        du[:, t] = carry
+        h_prev = h32[:, t - 1] if t > 0 else torch.zeros_like(carry)
+        da[:, t] = carry * h_prev
+    return da.to(a.dtype), du.to(a.dtype)

@@ -5,6 +5,15 @@ in the reference's layout (``repro.models.api.Model``): the FL layer and
 the serving scheduler program against this interface only. The
 reference's sharding fields come with the multi-device paths (ROADMAP.md
 queue 1 item 12).
+
+The train step keeps the reference's contract, ``(params, opt_state,
+batch) -> (params, opt_state, metrics)``, but not its copies: the params
+are views of one flat buffer (:func:`flat_params`), each leaf's ``.grad``
+a view of one flat grad buffer zeroed once per step, so ``backward()``
+accumulates in place and the optimizer (``optim.adamw``: one fused
+kernel launch) updates in place the very tensors the model reads. No
+step copies the tree; a tree that is not yet flat is packed once, on
+its first step.
 """
 from __future__ import annotations
 
@@ -14,6 +23,14 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.utils.trees import (
+    flat_buffer_of,
+    flatten_tree,
+    tree_flatten,
+    tree_layout,
+    tree_leaves,
+    unflatten_tree,
+)
 
 
 @dataclass
@@ -31,3 +48,67 @@ class Model:
     decode_fn: Optional[Callable] = None
     # (batch_size, cache_len, device) -> a zero decode state
     init_decode_state: Optional[Callable] = None
+
+
+def flat_params(params):
+    """``params`` packed into one new flat buffer: a tree of leaf views
+    into it (``flat.narrow(...).view(shape)``, detached, requiring grad).
+    The caller drops the old tree to free it."""
+    layout = tree_layout(params)
+    with torch.no_grad():
+        flat = flatten_tree(params, layout)
+    return _leaf_views(flat, layout)
+
+
+def _leaf_views(flat, layout):
+    leaves, rebuild = tree_flatten(unflatten_tree(flat, layout))
+    return rebuild([x.detach().requires_grad_() for x in leaves])
+
+
+def make_train_step(model: Model, optimizer):
+    """(params, opt_state, batch) -> (params, opt_state, metrics); the
+    params and the optimizer state are updated in place when the params
+    are already flat (as returned by an earlier step or by
+    :func:`flat_params`)."""
+    grads_of = {}          # flat param buffer's address -> flat grads
+
+    def train_step(params, opt_state, batch):
+        layout = tree_layout(params)
+        flat = flat_buffer_of(params, layout)
+        if flat is None or not all(x.requires_grad
+                                   for x in tree_leaves(params)):
+            params = flat_params(params)
+            flat = flat_buffer_of(params, layout)
+        grad = grads_of.get(flat.data_ptr())
+        if grad is None or grad.numel() != flat.numel() \
+                or grad.dtype != flat.dtype:
+            grads_of.clear()
+            grad = grads_of[flat.data_ptr()] = torch.zeros_like(flat)
+        else:
+            grad.zero_()
+        grads = unflatten_tree(grad, layout)
+        for leaf, g in zip(tree_leaves(params), tree_leaves(grads),
+                           strict=True):
+            leaf.grad = g          # backward() accumulates into the view
+        loss, metrics = model.loss_fn(params, batch)
+        loss.backward()
+        params, opt_state = optimizer.update(params, grads, opt_state)
+        metrics = {k: v.detach() for k, v in dict(metrics).items()}
+        metrics["loss"] = loss.detach()
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_grad_step(model: Model):
+    """(params, batch) -> (grads, loss): the FL clients' local step, in
+    new tensors; the params are not touched."""
+
+    def grad_step(params, batch):
+        leaves, rebuild = tree_flatten(params)
+        leaves = [x.detach().requires_grad_() for x in leaves]
+        loss, _ = model.loss_fn(rebuild(leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+        return rebuild(list(grads)), loss.detach()
+
+    return grad_step

@@ -116,12 +116,15 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     shape, so this way a sequence's prefill gives the same bits whatever
     else shares its batch (the serving scheduler's batched == serial
     property; tests/test_torch_hybrid.py). At S >= 1024 each product
-    still fills the card.
+    still fills the card. Under autograd the per-sequence products are
+    stacked (the same products, so the same bits).
     """
     dt = torch.promote_types(x.dtype, w.dtype)
     x, w = x.to(dt), w.to(dt)
     if x.dim() != 3 or x.shape[0] == 1 or x.shape[1] == 1:
         return torch.matmul(x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return torch.stack([torch.matmul(x[b], w) for b in range(x.shape[0])])
     out = torch.empty(x.shape[:2] + (w.shape[-1],), dtype=dt, device=x.device)
     for b in range(x.shape[0]):
         torch.matmul(x[b], w, out=out[b])

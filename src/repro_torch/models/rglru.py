@@ -18,6 +18,13 @@ whose decode state is the last 3 inputs.
 Params keep the reference's layout: the (r, r, a) triples stacked on a
 leading dim under ``"triples"``, the trailing recurrent blocks under
 ``"tail"``; the reference's ``lax.scan`` over them is a Python loop here.
+Each stacked leaf is split with one ``unbind`` per call, not indexed
+layer by layer: the backward of ``x[i]`` writes a zero tensor the size of
+the whole stacked leaf for every layer, the backward of ``unbind`` one
+stack. With ``cfg.remat`` the training forward runs each triple and each
+trailing block under ``torch.utils.checkpoint`` (non-reentrant), as the
+reference wraps its scan bodies in ``jax.checkpoint``: only the residual
+stream between them is kept, and the backward recomputes the rest.
 
 Where the port parts from the reference, on purpose. The reference's
 decode writes and rotates the new token at ``state["pos"]``, which after
@@ -38,13 +45,14 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib, common
 from repro_torch.models.api import Model
-from repro_torch.utils.trees import tree_map
+from repro_torch.utils.trees import tree_flatten, tree_map
 
 RGLRU_C = 8.0
 CONV_WIDTH = 4
@@ -114,8 +122,15 @@ def _stacked(make, n: int):
     return st if n else tree_map(lambda x: x[:0], st)
 
 
-def _layer(stacked, i: int):
-    return tree_map(lambda x: x[i], stacked)
+def _layers(stacked) -> list:
+    """A stacked tree as one tree per layer, from one ``unbind`` per
+    leaf."""
+    leaves, rebuild = tree_flatten(stacked)
+    if not leaves:
+        return []
+    per_leaf = [x.unbind(0) for x in leaves]
+    return [rebuild([parts[i] for parts in per_leaf])
+            for i in range(leaves[0].shape[0])]
 
 
 def _pad_rows(x: torch.Tensor, rows: int, dim: int = 0) -> torch.Tensor:
@@ -301,16 +316,27 @@ def build_rglru_model(cfg: ModelConfig) -> Model:
     embed_scale = math.sqrt(cfg.d_model)
 
     # ---------------- training / prefill forward ----------------
+    def triple_body(triple, x):
+        x, _ = recurrent_block(triple["rec1"], x, cfg)
+        x, _ = recurrent_block(triple["rec2"], x, cfg)
+        x, _ = local_attn_block(triple["attn"], x, cfg)
+        return x
+
+    def tail_body(block, x):
+        return recurrent_block(block, x, cfg)[0]
+
+    def run(body, layer, x):
+        if cfg.remat and torch.is_grad_enabled():
+            return checkpoint(body, layer, x, use_reentrant=False)
+        return body(layer, x)
+
     def forward(params, tokens):
         x = common.embed(params["embed"], tokens).to(dt)
         x = common.weak_scale(x, embed_scale)
-        for i in range(n_triples):
-            triple = _layer(params["triples"], i)
-            x, _ = recurrent_block(triple["rec1"], x, cfg)
-            x, _ = recurrent_block(triple["rec2"], x, cfg)
-            x, _ = local_attn_block(triple["attn"], x, cfg)
-        for i in range(n_tail):
-            x, _ = recurrent_block(_layer(params["tail"], i), x, cfg)
+        for triple in _layers(params["triples"]):
+            x = run(triple_body, triple, x)
+        for block in _layers(params.get("tail", {})):
+            x = run(tail_body, block, x)
         return common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
 
     def loss_fn(params, batch):
@@ -335,9 +361,8 @@ def build_rglru_model(cfg: ModelConfig) -> Model:
         x = common.weak_scale(x, embed_scale)
         pos = state["pos"] + 1     # the incoming token's position
         triple_states = []
-        for i in range(n_triples):
-            triple = _layer(params["triples"], i)
-            st = _layer(state["triples"], i)
+        for triple, st in zip(_layers(params["triples"]),
+                              _layers(state["triples"]), strict=True):
             x, r1 = recurrent_block(triple["rec1"], x, cfg, st["rec1"],
                                     decode=True)
             x, r2 = recurrent_block(triple["rec2"], x, cfg, st["rec2"],
@@ -350,9 +375,9 @@ def build_rglru_model(cfg: ModelConfig) -> Model:
                      else state["triples"], "pos": pos}
         if n_tail:
             tail_states = []
-            for i in range(n_tail):
-                x, r = recurrent_block(_layer(params["tail"], i), x, cfg,
-                                       _layer(state["tail"], i), decode=True)
+            for block, st in zip(_layers(params["tail"]),
+                                 _layers(state["tail"]), strict=True):
+                x, r = recurrent_block(block, x, cfg, st, decode=True)
                 tail_states.append(r)
             new_state["tail"] = _stack(tail_states)
         x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
@@ -366,8 +391,7 @@ def build_rglru_model(cfg: ModelConfig) -> Model:
         # decode cast first)
         x = (common.embed(params["embed"], tokens) * embed_scale).to(dt)
         triple_states = []
-        for i in range(n_triples):
-            triple = _layer(params["triples"], i)
+        for triple in _layers(params["triples"]):
             x, st1 = recurrent_block(triple["rec1"], x, cfg)
             x, st2 = recurrent_block(triple["rec2"], x, cfg)
             x, (k, v) = local_attn_block(triple["attn"], x, cfg)
@@ -381,8 +405,8 @@ def build_rglru_model(cfg: ModelConfig) -> Model:
                  "pos": s - 1}
         if n_tail:
             tail_states = []
-            for i in range(n_tail):
-                x, st = recurrent_block(_layer(params["tail"], i), x, cfg)
+            for block in _layers(params["tail"]):
+                x, st = recurrent_block(block, x, cfg)
                 tail_states.append(st)
             state["tail"] = _stack(tail_states)
         x = common.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)

@@ -94,6 +94,13 @@ def tree_weighted_sum(trees, weights):
     return tree_map(_leaf, *trees)
 
 
+def tree_global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares
+    (``repro.utils.trees.tree_global_norm``), a 0-dim float32 tensor."""
+    sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    return torch.sqrt(sum(sums))
+
+
 def tree_allclose(a, b, rtol=1e-5, atol=1e-6) -> bool:
     la, lb = tree_leaves(a), tree_leaves(b)
     if len(la) != len(lb):
@@ -156,6 +163,25 @@ def unflatten_tree(flat: torch.Tensor, layout: TreeLayout):
         size = int(np.prod(shape))
         views.append(flat[..., off:off + size].view(lead + shape))
     return layout.rebuild(views)
+
+
+def flat_buffer_of(tree, layout: Optional[TreeLayout] = None
+                   ) -> Optional[torch.Tensor]:
+    """The ``(N,)`` buffer whose :func:`unflatten_tree` views ``tree``'s
+    leaves are, when they are such views (one storage, in layout order,
+    no gaps); else None."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return None
+    layout = layout if layout is not None else tree_layout(tree)
+    first = leaves[0]
+    storage = first.untyped_storage()
+    end = (first.storage_offset() + layout.numel) * first.element_size()
+    if storage.nbytes() < end:
+        return None
+    flat = first.new_empty(0).set_(storage, first.storage_offset(),
+                                   (layout.numel,))
+    return flat if is_view_of(tree, flat, layout) else None
 
 
 def is_view_of(tree, flat: torch.Tensor, layout: TreeLayout) -> bool:

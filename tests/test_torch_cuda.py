@@ -273,3 +273,209 @@ def test_hybrid_serving_on_cuda_matches_cpu(cuda_device):
         out[dev] = (logits.cpu(), step.cpu())
     for got, want in zip(out["cuda"], out["cpu"], strict=True):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---- training: fused AdamW and the backward kernels ---------------------------
+def _adamw_operands(n, dtype, device, seed, offset=0):
+    """Flat p, g (dtype), m, v (float32) of n elements, each a view that
+    starts ``offset`` elements into its buffer."""
+    g = torch.Generator().manual_seed(seed)
+
+    def buf(scale, dt, positive=False):
+        x = torch.randn(n, generator=g) * scale
+        x = x.abs() if positive else x
+        full = torch.zeros(offset + n, dtype=dt, device=device)
+        full[offset:] = x.to(device, dt)
+        return full[offset:]
+
+    return (buf(1.0, dtype), buf(1e-2, dtype), buf(1e-3, torch.float32),
+            buf(1e-5, torch.float32, positive=True))
+
+
+def _adamw_scalars(step):
+    bc1 = np.float32(1) - np.float32(0.9) ** np.float32(step)
+    bc2 = np.float32(1) - np.float32(0.95) ** np.float32(step)
+    return np.float32(3e-4), bc1, bc2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4097, 2 ** 20 + 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("step", [1, 1000])
+@pytest.mark.parametrize("offset", [0, 1])      # 1: misaligned, scalar path
+def test_adamw_kernel_equals_plain_version(cuda_device, n, dtype, step,
+                                           offset):
+    from repro_torch.kernels import fused_adamw as kadamw
+    from repro_torch.kernels.ref import fused_adamw_ref
+    p, g, m, v = _adamw_operands(n, dtype, cuda_device, seed=n, offset=offset)
+    scalars = _adamw_scalars(step)
+    want = fused_adamw_ref(p, g, m, v, *scalars)
+    before = kadamw.fused_adamw.launches
+    got = kadamw.fused_adamw(p, g, m, v, *scalars)
+    torch.cuda.synchronize()
+    assert kadamw.fused_adamw.launches == before + 1
+    for x, y in zip(got, want, strict=True):
+        assert torch.equal(x, y)                    # bit for bit
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_beyond_element_2_31(cuda_device):
+    """One launch over N = 2^31 + 2^20 + 5 bfloat16 params (float32
+    moments: 26 GB in all): a window past element 2^31 equals the plain
+    version run on copies of it (64-bit indices)."""
+    from repro_torch.kernels import fused_adamw as kadamw
+    from repro_torch.kernels.ref import fused_adamw_ref
+    n = 2 ** 31 + 2 ** 20 + 5
+    p = torch.zeros(n, dtype=torch.bfloat16, device=cuda_device)
+    g = torch.zeros_like(p)
+    m = torch.zeros(n, dtype=torch.float32, device=cuda_device)
+    v = torch.zeros_like(m)
+    lo = 2 ** 31 + 3
+    win = slice(lo, n)
+    for dst, src in zip((p, g, m, v), _adamw_operands(
+            n - lo, torch.bfloat16, cuda_device, seed=7), strict=True):
+        dst[win] = src
+    scalars = _adamw_scalars(10)
+    want = fused_adamw_ref(p[win].clone(), g[win].clone(), m[win].clone(),
+                           v[win].clone(), *scalars)
+    kadamw.fused_adamw(p, g, m, v, *scalars)
+    torch.cuda.synchronize()
+    for x, y in zip((p[win], m[win], v[win]), want, strict=True):
+        assert torch.equal(x, y)
+    assert not p[:lo].any()      # zero state and grads leave zeros
+    del p, g, m, v
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_adamw_wrapper_rejects_malformed_operands(cuda_device):
+    from repro_torch.kernels import fused_adamw as kadamw
+    p, g, m, v = _adamw_operands(64, torch.float32, cuda_device, seed=1)
+    before = kadamw.fused_adamw.launches
+    for args, err in (((p, g.bfloat16(), m, v), TypeError),
+                      ((p, g, m.double(), v), TypeError),
+                      ((p.half(), g.half(), m, v), TypeError),
+                      ((p, g, m, v[:10]), ValueError),
+                      ((p, g.cpu(), m, v), ValueError),
+                      ((p.view(8, 8), g.view(8, 8), m.view(8, 8),
+                        v.view(8, 8)), ValueError),
+                      ((p[::2], g[::2], m[::2], v[::2]), ValueError)):
+        with pytest.raises(err):
+            kadamw.fused_adamw(*args, 1e-3, 0.1, 0.05)
+    assert kadamw.fused_adamw.launches == before
+
+
+# (B, Hq, Hkv, S, hd, causal, window, kv_len)
+FLASH_GRAD_CASES = [(1, 10, 1, 130, 256, True, None, None),
+                    (2, 4, 2, 100, 64, True, 32, None),
+                    (1, 4, 1, 77, 128, False, 20, 60),
+                    (1, 2, 2, 64, 64, True, None, 40)]
+# f32: against autograd of the dense plain version, relative to each
+# gradient's scale (P recomputed from lse, sums in other orders); bf16:
+# one bf16 rounding of each gradient and of the output D is formed from
+FLASH_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_GRAD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_matches_plain_autograd(cuda_device, case, dtype):
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels.ref import flash_attention_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _flash_operands(case, dtype, cuda_device)
+    causal, window, kv_len = case[5:]
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)
+                       ).to(cuda_device, dtype)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = (kflash.flash_attention.launches,
+                  kflash.flash_attention_bwd.launches)
+        out = kflash.flash_attention(*leaves, causal=causal, window=window,
+                                     kv_len=kv_len)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        assert (kflash.flash_attention.launches - before[0],
+                kflash.flash_attention_bwd.launches - before[1]) == (1, 2)
+        runs.append([t.grad for t in leaves])
+    for a, b in zip(*runs, strict=True):
+        assert torch.equal(a, b)                   # no atomics: repeatable
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention_ref(*leaves, causal=causal, window=window,
+                        kv_len=kv_len).backward(dout)
+    for name, got, want in zip("qkv", runs[0], (t.grad for t in leaves),
+                               strict=True):
+        assert got.dtype == dtype
+        scale = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= FLASH_GRAD_TOL[dtype] * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 100, 70), (1, 33, 2560), (3, 1, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_backward_equals_plain_autograd(cuda_device, shape, dtype):
+    from repro_torch.kernels import rglru as krglru
+    from repro_torch.kernels.ref import rglru_scan_bwd_ref, rglru_scan_ref
+    g = torch.Generator().manual_seed(shape[1] + 1)
+    a = torch.rand(shape, generator=g).mul(0.2).add(0.8).to(cuda_device, dtype)
+    u = torch.randn(shape, generator=g).to(cuda_device, dtype)
+    dh = torch.randn(shape, generator=g).to(cuda_device, dtype)
+    ta, tu = a.clone().requires_grad_(), u.clone().requires_grad_()
+    before = krglru.rglru_scan_bwd.launches
+    h = krglru.rglru_scan(ta, tu)
+    h.backward(dh)
+    torch.cuda.synchronize()
+    assert krglru.rglru_scan_bwd.launches == before + 1
+    da, du = rglru_scan_bwd_ref(a, h.detach(), dh)
+    assert torch.equal(ta.grad, da) and torch.equal(tu.grad, du)  # atol 0
+    if dtype == torch.float32:     # and the plain forward's own autograd
+        pa, pu = a.clone().requires_grad_(), u.clone().requires_grad_()
+        rglru_scan_ref(pa, pu).backward(dh)
+        assert torch.equal(ta.grad, pa.grad) and torch.equal(tu.grad, pu.grad)
+
+
+@pytest.mark.cuda
+def test_train_steps_on_cuda_match_cpu(cuda_device):
+    """recurrentgemma-2b reduced to one triple and two tails, float32,
+    96-token sequences (windowed attention), remat on: 3 TrainLoop steps
+    on the card (both forward kernels, both backward kernels, fused
+    AdamW) against the same loop on the CPU (plain versions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import fused_adamw as kadamw
+    from repro_torch.kernels import rglru as krglru
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+    from repro_torch.utils.trees import flat_buffer_of, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("recurrentgemma-2b").reduced().replace(
+        n_layers=5, dtype="float32", remat=True)
+    p0 = get_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    ds = SyntheticLMDataset(cfg.vocab_size, 96, seed=0)
+    counters = (kflash.flash_attention, kflash.flash_attention_bwd,
+                krglru.rglru_scan, krglru.rglru_scan_bwd, kadamw.fused_adamw)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        loop = TrainLoop(get_model(cfg), adamw(3e-3),
+                         lambda s: ds.batch(2, s),
+                         TrainLoopConfig(total_steps=3, log_every=1),
+                         seed=0, device=dev)
+        loop.params = tree_map(lambda x: x.to(dev), p0)   # the same start
+        loop.opt_state = loop.optimizer.init(loop.params)
+        before = [c.launches for c in counters]
+        res = loop.run()
+        torch.cuda.synchronize()
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        # per step: flash fwd 1 + 1 recompute, bwd 2 passes; RG-LRU fwd 4
+        # + 4 recompute, adjoint 4; one AdamW launch
+        assert launched == ([6, 6, 24, 12, 3] if dev == "cuda" else [0] * 5)
+        out[dev] = ([m["loss"] for m in res["metrics_log"]],
+                    flat_buffer_of(loop.params).cpu())
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    # Adam steps a weight whose gradient is within rounding of 0 by +-lr
+    # (tests/test_torch_train.py): bounded by 2 lr a step
+    assert float((out["cuda"][1] - out["cpu"][1]).abs().max()) <= 6 * 3e-3

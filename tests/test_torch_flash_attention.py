@@ -12,6 +12,7 @@ Tolerances are the reference's own (tests/test_kernels.py): float32
 rtol = atol = 2e-5 (online vs dense softmax: another summation order),
 bfloat16 rtol = atol = 2e-2 (one bf16 rounding of the output).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -175,3 +176,111 @@ def test_wrapper_rejects_malformed_operands(bad, err, match):
     with pytest.raises(err, match=match):
         kflash.flash_attention(args["q"], args["k"], args["v"],
                                window=args["window"], kv_len=args["kv_len"])
+
+
+# ---- the backward ----------------------------------------------------------
+# the plain backward version (dq, dk, dv recomputed from the saved
+# log-sum-exp) against jax.grad of the reference's dense oracle, float32:
+# rtol = atol = 2e-5 relative to the gradient's scale (sums in other
+# orders, P recomputed from lse instead of a stored softmax)
+GRAD_F32 = dict(rtol=2e-5, atol=2e-5)
+
+
+def _jax_grads(fn, arrays, dout):
+    def loss(q, k, v):
+        return jnp.sum(fn(q, k, v) * dout)
+    return jax.grad(loss, argnums=(0, 1, 2))(*arrays)
+
+
+def _port_grads(q, k, v, dout, **masks):
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    out = kflash.flash_attention(q, k, v, **masks)
+    (out * dout).sum().backward()
+    return q.grad, k.grad, v.grad
+
+
+def _assert_grads(got, want):
+    for name, g, w in zip("qkv", got, want, strict=True):
+        w = np.asarray(w, np.float32)
+        scale = float(np.abs(w).max())
+        np.testing.assert_allclose(g.float().numpy() / scale, w / scale,
+                                   **GRAD_F32, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 2, 80, 64), (1, 10, 1, 96, 256)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 24),
+                                           (False, None), (False, 40)])
+def test_backward_matches_jax_grad_of_reference(shape, causal, window):
+    arrays = _qkv(*shape, seed=shape[3] + (window or 0))
+    dout = np.random.default_rng(9).standard_normal(
+        shape[:2] + shape[3:]).astype(np.float32)
+    (jq, jk, jv), (q, k, v) = _pair(arrays, "float32")
+    want = _jax_grads(lambda a, b, c: jref.flash_attention_ref(
+        a, b, c, causal=causal, window=window), (jq, jk, jv),
+        jnp.asarray(dout))
+    got = _port_grads(q, k, v, torch.tensor(dout), causal=causal,
+                      window=window)
+    _assert_grads(got, want)
+
+
+def test_backward_kv_len_matches_jax_grad_of_reference():
+    """Causal with kv_len = S / 2: rows below kv_len are the causal
+    attention of the first half; rows from kv_len on see exactly the
+    first kv_len keys, the reference oracle's non-causal attention of
+    those rows on them (a square problem at S = 2 kv_len)."""
+    b, hq, hkv, s, hd = 1, 4, 2, 64, 64
+    half = s // 2
+    arrays = _qkv(b, hq, hkv, s, hd, seed=31)
+    dout = np.random.default_rng(10).standard_normal(
+        (b, hq, s, hd)).astype(np.float32)
+    (jq, jk, jv), (q, k, v) = _pair(arrays, "float32")
+
+    def ref(q_, k_, v_):
+        first = jref.flash_attention_ref(q_[:, :, :half], k_[:, :, :half],
+                                         v_[:, :, :half], causal=True)
+        rest = jref.flash_attention_ref(q_[:, :, half:], k_[:, :, :half],
+                                        v_[:, :, :half], causal=False)
+        return jnp.concatenate([first, rest], axis=2)
+
+    want = _jax_grads(ref, (jq, jk, jv), jnp.asarray(dout))
+    got = _port_grads(q, k, v, torch.tensor(dout), causal=True, kv_len=half)
+    _assert_grads(got, want)
+    assert not got[1][:, :, half:].any() and not got[2][:, :, half:].any()
+
+
+def test_backward_wrapper_on_the_cpu_is_the_plain_version():
+    """The autograd Function's backward on CPU tensors is
+    ``flash_attention_bwd_ref``, and neither counter moves."""
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+    (_, _, _), (q, k, v) = _pair(_qkv(1, 4, 2, 50, 64, seed=2), "float32")
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(3))
+    before = (kflash.flash_attention.launches,
+              kflash.flash_attention_bwd.launches)
+    got = _port_grads(q, k, v, dout, causal=True, window=16, kv_len=45)
+    out, lse = flash_attention_ref(q, k, v, causal=True, window=16,
+                                   kv_len=45, return_lse=True)
+    want = flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=True,
+                                   window=16, kv_len=45)
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
+    assert (kflash.flash_attention.launches,
+            kflash.flash_attention_bwd.launches) == before
+    # the backward of rows that see no key (window 16, kv_len 45: rows
+    # 60 and on see nothing) is 0, and so is their output
+    assert not out[:, :, 60:].any()
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(out=torch.zeros((1, 4, 8, 64), dtype=torch.bfloat16)), "out"),
+    (dict(dout=torch.zeros((1, 4, 9, 64))), "dout"),
+    (dict(lse=torch.zeros((1, 4, 8), dtype=torch.bfloat16)), "lse"),
+    (dict(lse=torch.zeros((1, 4, 9))), "lse"),
+])
+def test_backward_wrapper_rejects_malformed_operands(bad, match):
+    args = dict(q=torch.zeros((1, 4, 8, 64)), k=torch.zeros((1, 2, 8, 64)),
+                v=torch.zeros((1, 2, 8, 64)), out=torch.zeros((1, 4, 8, 64)),
+                dout=torch.zeros((1, 4, 8, 64)), lse=torch.zeros((1, 4, 8)))
+    args.update(bad)
+    with pytest.raises(ValueError, match=match):
+        kflash.flash_attention_bwd(args["q"], args["k"], args["v"],
+                                   args["out"], args["dout"], args["lse"])

@@ -15,6 +15,7 @@ step for step, so float32 is held at rtol 1e-6 (XLA may still contract
 a multiply-add); against the log-depth scans rtol = atol = 1e-5, the
 reference's own (tests/test_kernels.py); bfloat16 outputs at 2e-2.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -165,3 +166,65 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
 def test_wrapper_rejects_malformed_operands(a, u, err, match):
     with pytest.raises(err, match=match):
         krglru.rglru_scan(a, u)
+
+
+# ---- the adjoint ------------------------------------------------------------
+@pytest.mark.parametrize("b,t,d", [(2, 64, 24), (1, 33, 7), (3, 1, 5)])
+def test_backward_matches_jax_grad_of_reference(b, t, d):
+    """The plain adjoint (``rglru_scan_bwd_ref``, what the autograd
+    Function runs on CPU tensors) against jax.grad of the reference's
+    sequential oracle, float32 within rtol = atol = 1e-5: the same
+    recurrence, but XLA's transposed scan forms da from its own carry
+    (gradients of size ~10 here, a few ulp apart)."""
+    a, u = _au(b, t, d, seed=t * d)
+    g = np.random.default_rng(t).standard_normal((b, t, d)).astype(np.float32)
+    want = jax.grad(lambda a_, u_: jnp.sum(jref.rglru_scan_ref(a_, u_) * g),
+                    argnums=(0, 1))(jnp.asarray(a), jnp.asarray(u))
+    ta = torch.tensor(a, requires_grad=True)
+    tu = torch.tensor(u, requires_grad=True)
+    before = (krglru.rglru_scan.launches, krglru.rglru_scan_bwd.launches)
+    (krglru.rglru_scan(ta, tu) * torch.tensor(g)).sum().backward()
+    assert (krglru.rglru_scan.launches,
+            krglru.rglru_scan_bwd.launches) == before   # CPU: no launch
+    np.testing.assert_allclose(ta.grad.numpy(), np.asarray(want[0]), **SCAN)
+    np.testing.assert_allclose(tu.grad.numpy(), np.asarray(want[1]), **SCAN)
+    # and bit for bit the autograd of the plain forward
+    a2 = torch.tensor(a, requires_grad=True)
+    u2 = torch.tensor(u, requires_grad=True)
+    (rglru_scan_ref(a2, u2) * torch.tensor(g)).sum().backward()
+    assert torch.equal(ta.grad, a2.grad) and torch.equal(tu.grad, u2.grad)
+
+
+def test_model_scan_gradient_with_h0_matches_reference():
+    """Gradients through the model's scan (gates, the carry folded into
+    the first input) against jax.grad of the reference model's
+    associative scan: rtol = atol = 1e-5."""
+    jb, tb = _block(12)
+    rng = np.random.default_rng(13)
+    xr = rng.standard_normal((2, 40, 32)).astype(np.float32)
+    h0 = rng.standard_normal((2, 32)).astype(np.float32)
+    g = rng.standard_normal((2, 40, 32)).astype(np.float32)
+    want = jax.grad(lambda blk, x, h: jnp.sum(
+        ref_rglru.rglru_scan(blk, x, h) * g), argnums=(0, 1, 2))(
+        jb, jnp.asarray(xr), jnp.asarray(h0))
+    leaves = {k: v.clone().requires_grad_() for k, v in tb.items()}
+    x = torch.tensor(xr, requires_grad=True)
+    h = torch.tensor(h0, requires_grad=True)
+    (port_rglru.rglru_scan(leaves, x, h) * torch.tensor(g)).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want[1]), **SCAN)
+    np.testing.assert_allclose(h.grad.numpy(), np.asarray(want[2]), **SCAN)
+    for k in ("w_a", "w_x", "lam"):
+        np.testing.assert_allclose(leaves[k].grad.numpy(),
+                                   np.asarray(want[0][k]), **SCAN,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("a,h,dh,err,match", [
+    (torch.zeros((2, 3, 4)), torch.zeros((2, 3, 5)), torch.zeros((2, 3, 4)),
+     ValueError, "(B, T, D)"),
+    (torch.zeros((2, 3, 4)), torch.zeros((2, 3, 4)),
+     torch.zeros((2, 3, 4), dtype=torch.bfloat16), TypeError, "both be"),
+])
+def test_backward_wrapper_rejects_malformed_operands(a, h, dh, err, match):
+    with pytest.raises(err, match=match):
+        krglru.rglru_scan_bwd(a, h, dh)
