@@ -10,10 +10,14 @@ checkout of the repository, it exits non-zero and prints no result.
 Phases, in order; any failed check raises and ends the run non-zero:
 
 1. card and toolchain (and both TF32 flags);
-2. build all six kernel sources (``src/repro_torch/csrc/tpd.cu``,
+2. build all eight kernel sources (``src/repro_torch/csrc/tpd.cu``,
    ``fedavg.cu``, ``flash_attention.cu``, ``flash_attention_bwd.cu``,
+   ``flash_attention_sm90.cu``, ``flash_attention_bwd_sm90.cu``,
    ``rglru.cu`` and ``fused_adamw.cu``), one ``nvcc`` each, started
-   together;
+   together; each tensor-core kernel's registers, shared memory and
+   spills from the ``-Xptxas -v`` log, and the ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA load) instructions ``cuobjdump -sass`` finds in its
+   library, which must not be 0;
 3. the TPD kernel against its plain torch version on the card, exactly,
    and against the float64 scalar model within rtol 2e-5, at the Fig. 3
    extremes, large-1k and large-10k;
@@ -48,8 +52,10 @@ Phases, in order; any failed check raises and ends the run non-zero:
 10. the flash-attention and RG-LRU kernels against their plain torch
     versions at recurrentgemma-2b's serving shapes: flash at B = 4,
     Hq = 10, Hkv = 1, hd = 256, S = 1024 causal, S = 4096 and a ragged
-    4097 with window 2048, bf16 (rtol = atol = 2e-2) and f32 (1e-4);
-    the scan at (4, 4096, 2560) f32 and ragged T and D, exactly;
+    4097 with window 2048, bf16 (the tensor-core route, rtol = atol =
+    2e-2) and f32 (the scalar route, 1e-4), each held to have launched
+    its own route's kernel only; the scan at (4, 4096, 2560) f32 and
+    ragged T and D, exactly;
 11. the hybrid serving main path: full-width ``recurrentgemma-2b``
     (26 layers, 3.55B f32 params drawn on the card, bf16 compute)
     serving 8 requests through ``WaveScheduler(max_batch=4)``: 4 prompts
@@ -61,16 +67,20 @@ Phases, in order; any failed check raises and ends the run non-zero:
 12. a depth cut against the CPU: the same params at full width cut to
     one triple and two tails, a 64-token prompt, prefill and a decode
     step on ``cuda`` (both kernels) vs ``cpu`` (plain versions), f32 and
-    bf16 at the same tolerances;
+    bf16 at the same tolerances; the f32 run is the f32 flash route's
+    path (its launches counted from 0 over it);
 13. flash and RG-LRU timings: kernel, wrapper call, plain version and
     (flash) ``torch.nn.functional.scaled_dot_product_attention`` as the
-    yardstick, beside each bound;
+    yardstick, beside each bound: the bf16 route at both serving shapes
+    and the training shape (B 1, S 2048 causal), with TFLOP/s and share
+    of the bound, and the f32 route at S = 1024;
 14. the training kernels against their plain torch versions: fused
     AdamW at N = 1, 3, 4097 and 2^24 + 5, float32 and bfloat16 params,
     steps 1 and 1000, bit for bit; the flash backward (through the
     autograd Function, against autograd of the dense plain version) at
     B 1, Hq 10, Hkv 1, hd 256, S 2048 causal and S 4096 window 2048, bf16
-    (2e-2 of the gradients' scale) and f32 (1e-4); the RG-LRU adjoint at
+    (the tensor-core route, 2e-2 of the gradients' scale) and f32 (the
+    scalar route, 1e-4), and two bf16 runs bit-equal; the RG-LRU adjoint at
     (1, 2048, 2560) and ragged shapes, exactly;
 15. the training main path: ``TrainLoop(model, adamw(
     warmup_cosine_schedule(3e-4, 2, 8)), batch_fn, TrainLoopConfig(
@@ -84,11 +94,11 @@ Phases, in order; any failed check raises and ends the run non-zero:
     1 x 128 tokens, 2 steps on ``cuda`` vs ``cpu``, float32 compute
     (losses rtol 1e-4, update within 3% in norm, at most 0.2% of the
     elements outside rtol 1e-3 / atol 1e-5) and bfloat16 (losses 1e-2,
-    update within 10%);
+    update within 10%); the f32 run is the f32 flash backward's path;
 17. timings of the three training kernels beside their bounds, the plain
     versions and (AdamW, flash backward) ``torch._fused_adamw_`` and the
-    SDPA backward as yardsticks; then the ``kernels`` JSON line (eight
-    kernels) and the final status line.
+    SDPA backward as yardsticks, the flash backward on both routes; then
+    the ``kernels`` JSON line (ten kernels) and the final status line.
 
 Each kernel's launch count is set to 0 just before the path that runs
 it and read just after: ``tpd`` over phase 5, ``fedavg_batched`` over
@@ -96,14 +106,18 @@ phase 6's cuda run, ``fedavg`` over phase 7's loop-engine run,
 ``flash_attention`` and ``rglru_scan`` over phase 11's scheduler run
 (their training launches are printed in phase 15), and
 ``fused_adamw``, ``flash_attention_bwd`` and ``rglru_scan_bwd`` over
-phase 15's ``TrainLoop.run``. Comparison and timing launches never
-enter the JSON line's ``launches``.
+phase 15's ``TrainLoop.run``; the two flash kernels run bf16 there, so
+the f32 route's (``flash_attention_f32``, ``flash_attention_bwd_f32``)
+are counted over the float32 depth cuts on ``cuda`` (phases 12 and 16).
+Comparison and timing launches never enter the JSON line's
+``launches``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -154,6 +168,43 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_kernels(log: str):
+    """(kernel, registers, static shared memory bytes, spill store bytes,
+    spill load bytes) of each entry function in an ``-Xptxas -v`` log;
+    the kernel as its name and head-dim template argument."""
+    found, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"\d(flash_\w+?_kernel)(?:ILi(\d+)E)?",
+                          m.group(1))
+            name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+                    if k else m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name is not None:
+            found.append((name, int(m.group(1)), int(m.group(2) or 0),
+                          *spills))
+            name = None
+    return found
+
+
+def sass_counts(nvcc: str, lib) -> dict:
+    """How many HGMMA (wgmma) and UTMALDG (TMA load) instructions
+    ``cuobjdump -sass`` finds in a built library."""
+    cuobjdump = Path(nvcc).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HGMMA", "UTMALDG")}
 
 
 def tpd_bytes(ps, L, W, depth, penalty) -> int:
@@ -306,12 +357,17 @@ SERVE_MAX_BATCH = 4
 DEPTH_CUT_LAYERS = 5            # one (r, r, a) triple and the two tails
 DEPTH_CUT_PROMPT = 64
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 FLASH_SHAPE = (4, 10, 1, 256)   # serving B, Hq, Hkv, hd
 # (S, window): the 1024-token wave (causal), the 4096-token wave
-# (window 2048) and a ragged length; the last timed case is the one the
-# kernels line reports
+# (window 2048) and a ragged length
 FLASH_CASES = ((1024, None), (4096, 2048), (4097, 2048))
-FLASH_TIMED = ((1024, None), (4096, 2048))
+# (B, S, window) timed on the bf16 route: both serving waves and the
+# training shape; the kernels line reports the 4096-token wave, and the
+# f32 route is timed (and reported) at the 1024-token wave
+FLASH_TIMED = ((4, 1024, None), (4, 4096, 2048), (1, 2048, None))
+FLASH_REPORTED = (4, 4096, 2048)
+FLASH_F32_TIMED = (4, 1024, None)
 # (B, T, D): a serving prefill's scan, then ragged T and D
 RGLRU_CASES = (((4, 4096, 2560), "float32"), ((4, 1031, 2500), "float32"),
                ((3, 777, 2561), "bfloat16"))
@@ -330,13 +386,14 @@ LOGIT_TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
 
 def flash_bound(b, hq, hkv, s, hd, window, elem_bytes):
     """(bound ms, flops, bytes) of one causal flash call: 4 hd flops per
-    visible (query head, key) pair over the bf16 tensor-core rate, and
-    q, k, v read and the output written once over the memory rate."""
+    visible (query head, key) pair over the peak rate of the operands'
+    type (bf16 tensor cores, or float32 outside them), and q, k, v read
+    and the output written once over the memory rate."""
     pairs = sum(min(i + 1, window or s) for i in range(s))
     flops = 4 * b * hq * hd * pairs
     nbytes = elem_bytes * (2 * b * hq * s * hd + 2 * b * hkv * s * hd)
-    return max(flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3, \
-        flops, nbytes
+    peak = PEAK_BF16_FLOPS if elem_bytes == 2 else PEAK_F32_FLOPS
+    return max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3, flops, nbytes
 
 
 def hybrid_phases(torch, np_, dev, card):
@@ -345,7 +402,7 @@ def hybrid_phases(torch, np_, dev, card):
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import SM90_SOURCE, SOURCE, flash_attention
     from repro_torch.kernels.ref import flash_attention_ref, rglru_scan_ref
     from repro_torch.kernels.rglru import rglru_scan
     from repro_torch.models import get_model
@@ -357,31 +414,37 @@ def hybrid_phases(torch, np_, dev, card):
     gen = torch.Generator(dev)
     B, HQ, HKV, HD = FLASH_SHAPE
 
-    def qkv(s, dtype, seed):
+    def qkv(s, dtype, seed, b=B):
         gen.manual_seed(seed)
         return [torch.randn(shape, device=dev, generator=gen).to(dtype)
-                for shape in ((B, HQ, s, HD), (B, HKV, s, HD),
-                              (B, HKV, s, HD))]
+                for shape in ((b, HQ, s, HD), (b, HKV, s, HD),
+                              (b, HKV, s, HD))]
 
     # ---- 10. kernels vs plain versions at the serving shapes ----------
     phase(f"10. flash attention and RG-LRU kernels vs their plain torch "
           f"versions at {RG_ARCH}'s serving shapes")
-    flash_err = 0.0
+    flash_err = {"bfloat16": 0.0, "float32": 0.0}
+    routes = {"bfloat16": SM90_SOURCE.stem, "float32": SOURCE.stem}
     for s, window in FLASH_CASES:
         for name, dtype in (("bfloat16", torch.bfloat16),
                             ("float32", torch.float32)):
             q, k, v = qkv(s, dtype, s)
+            before = dict(flash_attention.routes)
             got = flash_attention(q, k, v, causal=True, window=window)
             sync()
+            went = {r: n - before.get(r, 0)
+                    for r, n in flash_attention.routes.items()
+                    if n != before.get(r, 0)}
+            check(went == {routes[name]: 1}, f"flash {name} launched {went}")
             want = flash_attention_ref(q, k, v, causal=True, window=window)
             err = float((got.float() - want.float()).abs().max())
-            flash_err = max(flash_err, err)
+            flash_err[name] = max(flash_err[name], err)
             check(torch.allclose(got.float(), want.float(), **FLASH_TOL[name]),
                   f"flash S={s} window={window} {name}: kernel vs plain "
                   f"max abs err {err} beyond {FLASH_TOL[name]}")
             print(f"flash (B, Hq, Hkv, hd) = {FLASH_SHAPE} S={s:5d} "
-                  f"window={window} {name:8s}: max abs err {err:.3e} "
-                  f"({FLASH_TOL[name]})")
+                  f"window={window} {name:8s}: {routes[name]}.cu, max abs "
+                  f"err {err:.3e} ({FLASH_TOL[name]})")
             del q, k, v, got, want
     rglru_err = 0.0
     for shape, name in RGLRU_CASES:
@@ -430,13 +493,17 @@ def hybrid_phases(torch, np_, dev, card):
         sched.submit(r)
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0     # the counts to 0 just before the path
+    flash_attention.routes.clear()
     rglru_scan.launches = 0
     t0 = time.perf_counter()
     served = sched.run()
     sync()
     serve_s = time.perf_counter() - t0
     launches_flash = flash_attention.launches    # read just after
+    served_routes = dict(flash_attention.routes)
     launches_rglru = rglru_scan.launches
+    check(served_routes == {SM90_SOURCE.stem: launches_flash},
+          f"bf16 serving launched the flash routes {served_routes}")
     waves = len(sched.stats)
     check(waves == len(SERVE_PROMPTS), f"{waves} waves")
     check(launches_flash == n_triples * waves
@@ -577,13 +644,21 @@ def hybrid_phases(torch, np_, dev, card):
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                         (2, DEPTH_CUT_PROMPT + 1)),
                            dtype=torch.int32)
+    cut_launches = {}
     for name in ("float32", "bfloat16"):
         m = get_model(cut.replace(dtype=name))
         out = {}
         for where, p in (("cuda", p_cut), ("cpu", p_cpu)):
             d = dev if where == "cuda" else torch.device("cpu")
+            flash_attention.routes.clear()   # counts to 0 before the path
             logits, st = m.prefill_fn(p, {"tokens": toks[:, :-1].to(d)})
             step_l, _ = m.decode_fn(p, st, {"token": toks[:, -1:].to(d)})
+            if where == "cuda":
+                sync()
+                cut_launches[name] = dict(flash_attention.routes)
+                check(cut_launches[name] == {routes[name]: 1},
+                      f"depth cut {name}: flash launches "
+                      f"{cut_launches[name]}, expected {routes[name]}: 1")
             out[where] = (logits.float().cpu(), step_l.float().cpu(),
                           st["triples"]["rec2"]["h"].cpu())
         for what, a, b in zip(("prefill logits", "decode logits",
@@ -595,13 +670,17 @@ def hybrid_phases(torch, np_, dev, card):
                   f"{LOGIT_TOL[name]}")
             print(f"{name:8s} {what:14s}: cuda vs cpu max abs diff "
                   f"{err:.3e} ({LOGIT_TOL[name]})")
+    print(f"flash launches over each depth cut's prefill + decode on cuda: "
+          f"{json.dumps(cut_launches)}")
     del p_cpu, p_cut, params
 
     # ---- 13. timings -----------------------------------------------------
     phase(f"13. flash attention and RG-LRU timings on {card}")
-    timed = {}
-    for s, window in FLASH_TIMED:
-        q, k, v = qkv(s, torch.bfloat16, 100 + s)
+
+    def time_flash(b, s, window, dtype, seed):
+        """(kernel, plain, bound, SDPA) device ms of one flash call; the
+        wrapper call's time, TFLOP/s and SDPA's difference printed."""
+        q, k, v = qkv(s, dtype, seed, b)
         kk = k.repeat_interleave(HQ // HKV, dim=1)
         vv = v.repeat_interleave(HQ // HKV, dim=1)
         i = torch.arange(s, device=dev)
@@ -624,16 +703,23 @@ def hybrid_phases(torch, np_, dev, card):
         lib_ms = median_device_ms(torch, sdpa, runs=9, per_run=5)
         lib_err = float((sdpa().float() - flash_attention(
             q, k, v, causal=True, window=window).float()).abs().max())
-        b_ms, flops, nbytes = flash_bound(B, HQ, HKV, s, HD, window, 2)
-        timed[s] = (k_ms, plain_ms, b_ms, lib_ms)
-        print(f"flash bf16 {FLASH_SHAPE} S={s} window={window}: device time "
-              f"per call: kernel {k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} "
-              f"TFLOP/s), plain torch {plain_ms:.3f} ms, SDPA "
-              f"{lib_ms:.3f} ms (differs from the kernel by {lib_err:.2e}); "
-              f"wrapper call {call_ms:.3f} ms; bound {b_ms:.4f} ms "
-              f"({flops:.3e} flops / 989 TFLOP/s; {nbytes} B / 3.35 TB/s: "
+        size = q.element_size()
+        b_ms, flops, nbytes = flash_bound(b, HQ, HKV, s, HD, window, size)
+        peak = "989 TFLOP/s bf16" if size == 2 else "67 TFLOP/s f32"
+        print(f"flash {dtype} (B, Hq, Hkv, hd) = {(b, HQ, HKV, HD)} S={s} "
+              f"window={window} ({routes[str(dtype)[6:]]}.cu): device time "
+              f"per call: kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} "
+              f"TFLOP/s, {b_ms / k_ms * 100:.1f}% of the bound), plain "
+              f"torch {plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms (differs from"
+              f" the kernel by {lib_err:.2e}); wrapper call {call_ms:.4f} "
+              f"ms; bound {b_ms:.4f} ms ({flops:.3e} flops / {peak}; "
+              f"{nbytes} B / 3.35 TB/s: "
               f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms) [{card}]")
-        del q, k, v, kk, vv, mask
+        return k_ms, plain_ms, b_ms, lib_ms
+
+    timed = {case: time_flash(*case, torch.bfloat16, 100 + case[1])
+             for case in FLASH_TIMED}
+    f32_timed = time_flash(*FLASH_F32_TIMED, torch.float32, 7)
     gen.manual_seed(5)
     shape = RGLRU_CASES[0][0]
     a = torch.rand(shape, device=dev, generator=gen).mul_(0.2).add_(0.8)
@@ -652,14 +738,26 @@ def hybrid_phases(torch, np_, dev, card):
           f"{r_call * 1e3:.1f} us; plain torch {rp_ms:.2f} ms per call "
           f"(host enqueue included); bound {rb_ms * 1e3:.1f} us ({r_bytes} B"
           f" / 3.35 TB/s) [{card}]")
-    k_ms, plain_ms, b_ms, lib_ms = timed[FLASH_TIMED[-1][0]]
+    k_ms, plain_ms, b_ms, lib_ms = timed[FLASH_REPORTED]
+    f_ms, fplain_ms, fb_ms, flib_ms = f32_timed
     return [
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention.py:39",
-         "launches": launches_flash, "max_abs_err": flash_err,
+         "note": "bf16 operands: wgmma + TMA",
+         "launches": served_routes[SM90_SOURCE.stem],
+         "max_abs_err": flash_err["bfloat16"],
          "ms": k_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
          "bound_by": "operations", "library_ms": lib_ms},
+        {"name": "flash_attention_f32", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:39",
+         "note": "float32 operands: scalar FMAs; launches over phase 12's "
+                 "float32 depth cut",
+         "launches": cut_launches["float32"][SOURCE.stem],
+         "max_abs_err": flash_err["float32"],
+         "ms": f_ms, "plain_ms": fplain_ms, "bound_ms": fb_ms,
+         "bound_by": "operations", "library_ms": flib_ms},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru.cu",
          "replaces": "src/repro/kernels/rglru.py:58",
@@ -706,15 +804,15 @@ def adamw_scalars(np_, step, b1=0.9, b2=0.95):
 
 def flash_bwd_bound(b, hq, hkv, s, hd, window, elem_bytes):
     """(bound ms, flops, bytes) of one flash backward: 10 hd flops per
-    visible (query head, key) pair over the bf16 tensor-core rate; q, k,
-    v, o, do and lse read and dq, dk, dv written once over the memory
-    rate."""
+    visible (query head, key) pair over the peak rate of the operands'
+    type; q, k, v, o, do and lse read and dq, dk, dv written once over
+    the memory rate."""
     pairs = sum(min(i + 1, window or s) for i in range(s))
     flops = 10 * b * hq * hd * pairs
     nbytes = elem_bytes * (5 * b * hq * s * hd + 2 * b * hkv * s * hd) \
         + 4 * b * hq * s
-    return max(flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3, \
-        flops, nbytes
+    peak = PEAK_BF16_FLOPS if elem_bytes == 2 else PEAK_F32_FLOPS
+    return max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3, flops, nbytes
 
 
 PROFILE_GROUPS = (("flash forward", ("flash_fwd",)),
@@ -817,7 +915,9 @@ def training_phases(torch, np_, dev, card):
                             f"!= plain version")
         print(f"fused AdamW N={n:>9}: float32 and bfloat16 params, steps 1 "
               f"and 1000: bit-equal to the plain version")
-    flash_bwd_err = 0.0
+    flash_bwd_err = {"bfloat16": 0.0, "float32": 0.0}
+    bwd_routes = {"bfloat16": (kflash.BWD_SM90_SOURCE.stem, 3),
+                  "float32": (kflash.BWD_SOURCE.stem, 2)}
     for b, hq, hkv, s, hd, window in FLASH_BWD_CASES:
         for name, dtype in (("bfloat16", torch.bfloat16),
                             ("float32", torch.float32)):
@@ -826,23 +926,36 @@ def training_phases(torch, np_, dev, card):
                            for sh in ((b, hq, s, hd), (b, hkv, s, hd),
                                       (b, hkv, s, hd), (b, hq, s, hd))]
             grads = []
-            for fn in (kflash.flash_attention, flash_attention_ref):
+            before = dict(kflash.flash_attention_bwd.routes)
+            # the kernel twice (bit-equal runs), then the plain version
+            for fn in (kflash.flash_attention, kflash.flash_attention,
+                       flash_attention_ref):
                 leaves = [t.clone().requires_grad_() for t in (q, k, v)]
                 fn(*leaves, causal=True, window=window).backward(do)
                 grads.append([t.grad for t in leaves])
             sync()
+            went = {r: n - before.get(r, 0)
+                    for r, n in kflash.flash_attention_bwd.routes.items()
+                    if n != before.get(r, 0)}
+            route, passes = bwd_routes[name]
+            check(went == {route: 2 * passes},
+                  f"flash backward {name} launched {went}")
+            check(all(torch.equal(a, c) for a, c in zip(grads[0], grads[1])),
+                  f"flash backward S={s} {name}: two runs differ")
             worst = 0.0
-            for got, want in zip(*grads):
+            for got, want in zip(grads[0], grads[2]):
                 err = float((got.float() - want.float()).abs().max())
-                flash_bwd_err = max(flash_bwd_err, err)
+                flash_bwd_err[name] = max(flash_bwd_err[name], err)
                 worst = max(worst, err / float(want.float().abs().max()))
             check(worst <= FLASH_BWD_TOL[name],
                   f"flash backward S={s} window={window} {name}: kernel vs "
                   f"plain autograd {worst} of the gradients' scale, beyond "
                   f"{FLASH_BWD_TOL[name]}")
             print(f"flash backward (B, Hq, Hkv, hd) = {(b, hq, hkv, hd)} S={s}"
-                  f" window={window} {name:8s}: dq, dk, dv within {worst:.2e}"
-                  f" of the gradients' scale ({FLASH_BWD_TOL[name]})")
+                  f" window={window} {name:8s} ({route}.cu, {passes} "
+                  f"launches): dq, dk, dv within {worst:.2e} of the "
+                  f"gradients' scale ({FLASH_BWD_TOL[name]}); two runs "
+                  f"bit-equal")
             del q, k, v, do, grads
     rglru_bwd_err = 0.0
     for shape, name in RGLRU_BWD_CASES:
@@ -926,15 +1039,19 @@ def training_phases(torch, np_, dev, card):
                 "fused_adamw": kadamw.fused_adamw}
     for c in counters.values():
         c.launches = 0                   # the counts to 0 just before the path
+    kflash.flash_attention.routes.clear()
+    kflash.flash_attention_bwd.routes.clear()
     res = loop.run()
     sync()
     stamps.append(time.perf_counter())
     launched = {k: c.launches for k, c in counters.items()}   # read just after
+    trained_routes = {**kflash.flash_attention.routes,
+                      **kflash.flash_attention_bwd.routes}
     peak = torch.cuda.max_memory_allocated()
     n_tri = cfg.n_layers // 3
     n_rec = cfg.n_layers - n_tri
     expected = {"flash_attention": 2 * n_tri * TRAIN_STEPS,
-                "flash_attention_bwd": 2 * n_tri * TRAIN_STEPS,
+                "flash_attention_bwd": 3 * n_tri * TRAIN_STEPS,
                 "rglru_scan": 2 * n_rec * TRAIN_STEPS,
                 "rglru_scan_bwd": n_rec * TRAIN_STEPS,
                 "fused_adamw": TRAIN_STEPS}
@@ -948,11 +1065,16 @@ def training_phases(torch, np_, dev, card):
           f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) [{card}]")
     print(f"launches over the {TRAIN_STEPS} steps: {json.dumps(launched)}; "
           f"expected {json.dumps(expected)} (flash: {n_tri} attention "
-          f"blocks, forward + remat recompute, 2 backward passes; RG-LRU: "
-          f"{n_rec} recurrent blocks)")
+          f"blocks, forward + remat recompute, 3 bf16 backward launches: "
+          f"dq, partial dk and dv, their sum; RG-LRU: {n_rec} recurrent "
+          f"blocks)")
     check(len(losses) == TRAIN_STEPS and all(np_.isfinite(losses)),
           f"losses {losses}")
     check(launched == expected, f"launches {launched} != {expected}")
+    check(trained_routes == {
+        kflash.SM90_SOURCE.stem: expected["flash_attention"],
+        kflash.BWD_SM90_SOURCE.stem: expected["flash_attention_bwd"]},
+        f"bf16 training launched the flash routes {trained_routes}")
     check(window_check.get("same") and window_check.get("moved"),
           f"AdamW window past element 2^31: {window_check}")
     print(f"AdamW on the last step, elements [{ADAMW_WINDOW_START}, "
@@ -974,11 +1096,13 @@ def training_phases(torch, np_, dev, card):
     phase(f"16. training depth cut: full width, {DEPTH_CUT_LAYERS} layers, 1 x "
           f"{TRAIN_CUT_TOKENS} tokens, {TRAIN_CUT_STEPS} steps, cuda vs cpu")
     cut_ds = SyntheticLMDataset(cfg.vocab_size, TRAIN_CUT_TOKENS, seed=SEED)
+    cut_bwd = {}
     for name in ("float32", "bfloat16"):
         m = get_model(cut.replace(dtype=name))
         out = {}
         for where in ("cuda", "cpu"):
             d = dev if where == "cuda" else torch.device("cpu")
+            kflash.flash_attention_bwd.routes.clear()   # counts to 0
             params = flat_params(tree_map(lambda x: x.to(d), cut_cpu))
             opt = adamw(sched)
             state = opt.init(params)
@@ -991,6 +1115,12 @@ def training_phases(torch, np_, dev, card):
                 params, state, met = step_fn(params, state, batch)
                 losses.append(float(met["loss"]))
             out[where] = (losses, flat_buffer_of(params).detach().cpu())
+            if where == "cuda":
+                cut_bwd[name] = dict(kflash.flash_attention_bwd.routes)
+                route, passes = bwd_routes[name]
+                want = {route: passes * TRAIN_CUT_STEPS}
+                check(cut_bwd[name] == want, f"depth cut {name}: flash "
+                      f"backward launches {cut_bwd[name]}, expected {want}")
             print(f"{name:8s} {where}: losses {losses} in "
                   f"{time.perf_counter() - t0:.1f} s")
             del params, state, opt, step_fn
@@ -1073,32 +1203,50 @@ def training_phases(torch, np_, dev, card):
     del flat, p, g, m, v, sub
     torch.cuda.empty_cache()
 
-    b, hq, hkv, s, hd, window = FLASH_BWD_CASES[0]
-    gen.manual_seed(77)
-    q, k, v, do = [torch.randn(sh, device=dev, generator=gen).bfloat16()
-                   for sh in ((b, hq, s, hd), (b, hkv, s, hd), (b, hkv, s, hd),
-                              (b, hq, s, hd))]
-    scale = 1.0 / math.sqrt(hd)
-    out, lse = flash_attention_ref(q, k, v, causal=True, scale=scale,
-                                   return_lse=True)
-    fb_ms = median_device_ms(torch, lambda: kflash.flash_attention_bwd(
-        q, k, v, out, do, lse, causal=True, scale=scale), runs=7, per_run=3)
-    fp_ms = median_device_ms(torch, lambda: flash_attention_bwd_ref(
-        q, k, v, out, do, lse, causal=True, scale=scale), runs=5, per_run=1)
-    kk = k.repeat_interleave(hq // hkv, dim=1).requires_grad_()
-    vv = v.repeat_interleave(hq // hkv, dim=1).requires_grad_()
-    qq = q.clone().requires_grad_()
-    sdpa_out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
-    fl_ms = median_device_ms(torch, lambda: torch.autograd.grad(
-        sdpa_out, (qq, kk, vv), do, retain_graph=True), runs=7, per_run=3)
-    fbb_ms, f_flops, f_bytes = flash_bwd_bound(b, hq, hkv, s, hd, window, 2)
-    print(f"flash backward bf16 (B, Hq, Hkv, hd) = {(b, hq, hkv, hd)} S={s} "
-          f"causal: kernel {fb_ms:.3f} ms on the device (both passes, "
-          f"{f_flops / fb_ms / 1e9:.1f} TFLOP/s of the 10·hd a pair), plain "
-          f"torch {fp_ms:.3f} ms, SDPA backward on k, v repeated to {hq} heads"
-          f" {fl_ms:.3f} ms; bound {fbb_ms:.4f} ms ({f_flops:.3e} flops / "
-          f"989 TFLOP/s; {f_bytes} B / 3.35 TB/s) [{card}]")
-    del q, k, v, do, out, lse, kk, vv, qq, sdpa_out
+    def time_flash_bwd(dtype, seed):
+        """(kernel, plain, bound, SDPA backward) device ms of one flash
+        backward at the training shape; wrapper call and TFLOP/s
+        printed."""
+        b, hq, hkv, s, hd, window = FLASH_BWD_CASES[0]
+        gen.manual_seed(seed)
+        q, k, v, do = [torch.randn(sh, device=dev, generator=gen).to(dtype)
+                       for sh in ((b, hq, s, hd), (b, hkv, s, hd),
+                                  (b, hkv, s, hd), (b, hq, s, hd))]
+        scale = 1.0 / math.sqrt(hd)
+        out, lse = flash_attention_ref(q, k, v, causal=True, scale=scale,
+                                       return_lse=True)
+
+        def kernel():
+            return kflash.flash_attention_bwd(q, k, v, out, do, lse,
+                                              causal=True, scale=scale)
+        fb_ms = median_device_ms(torch, kernel, runs=7, per_run=3)
+        call_ms = median_event_ms(torch, kernel, runs=7, per_run=3)
+        fp_ms = median_device_ms(torch, lambda: flash_attention_bwd_ref(
+            q, k, v, out, do, lse, causal=True, scale=scale), runs=5,
+            per_run=1)
+        kk = k.repeat_interleave(hq // hkv, dim=1).requires_grad_()
+        vv = v.repeat_interleave(hq // hkv, dim=1).requires_grad_()
+        qq = q.clone().requires_grad_()
+        sdpa_out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+        fl_ms = median_device_ms(torch, lambda: torch.autograd.grad(
+            sdpa_out, (qq, kk, vv), do, retain_graph=True), runs=7, per_run=3)
+        size = q.element_size()
+        fbb_ms, f_flops, f_bytes = flash_bwd_bound(b, hq, hkv, s, hd, window,
+                                                   size)
+        route, passes = bwd_routes[str(dtype)[6:]]
+        peak = "989 TFLOP/s bf16" if size == 2 else "67 TFLOP/s f32"
+        print(f"flash backward {dtype} (B, Hq, Hkv, hd) = {(b, hq, hkv, hd)} "
+              f"S={s} causal ({route}.cu): kernel {fb_ms:.4f} ms on the "
+              f"device ({passes} launches, {f_flops / fb_ms / 1e9:.1f} "
+              f"TFLOP/s of the 10·hd a pair, {fbb_ms / fb_ms * 100:.1f}% of "
+              f"the bound), wrapper call {call_ms:.4f} ms, plain torch "
+              f"{fp_ms:.3f} ms, SDPA backward on k, v repeated to {hq} heads"
+              f" {fl_ms:.4f} ms; bound {fbb_ms:.4f} ms ({f_flops:.3e} flops "
+              f"/ {peak}; {f_bytes} B / 3.35 TB/s) [{card}]")
+        return fb_ms, fp_ms, fbb_ms, fl_ms
+
+    fb_ms, fp_ms, fbb_ms, fl_ms = time_flash_bwd(torch.bfloat16, 77)
+    gb_ms, gp_ms, gbb_ms, gl_ms = time_flash_bwd(torch.float32, 79)
 
     shape = RGLRU_BWD_CASES[0][0]
     gen.manual_seed(78)
@@ -1122,13 +1270,24 @@ def training_phases(torch, np_, dev, card):
          "ms": a_ms, "plain_ms": ap_ms, "bound_ms": ab_ms,
          "bound_by": "bytes", "library_ms": al_ms},
         {"name": "flash_attention_bwd", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "source": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention.py:39",
-         "note": "the backward of that kernel; the TPU has none",
-         "launches": launched["flash_attention_bwd"],
-         "max_abs_err": flash_bwd_err,
+         "note": "the backward of that kernel (the TPU has none), bf16 "
+                 "operands: wgmma + TMA",
+         "launches": trained_routes[kflash.BWD_SM90_SOURCE.stem],
+         "max_abs_err": flash_bwd_err["bfloat16"],
          "ms": fb_ms, "plain_ms": fp_ms, "bound_ms": fbb_ms,
          "bound_by": "operations", "library_ms": fl_ms},
+        {"name": "flash_attention_bwd_f32", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:39",
+         "note": "the backward of that kernel (the TPU has none), float32 "
+                 "operands: scalar FMAs; launches over phase 16's float32 "
+                 "depth cut",
+         "launches": cut_bwd["float32"][kflash.BWD_SOURCE.stem],
+         "max_abs_err": flash_bwd_err["float32"],
+         "ms": gb_ms, "plain_ms": gp_ms, "bound_ms": gbb_ms,
+         "bound_by": "operations", "library_ms": gl_ms},
         {"name": "rglru_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru.cu",
          "replaces": "src/repro/kernels/rglru.py:58",
@@ -1190,9 +1349,10 @@ def main() -> int:
     # ---- 2. build --------------------------------------------------------
     phase("2. build")
     t0 = time.perf_counter()
-    libs = build.build_libraries([tpd_mod.SOURCE, fedavg_mod.SOURCE,
-                                  flash_mod.SOURCE, flash_mod.BWD_SOURCE,
-                                  rglru_mod.SOURCE, adamw_mod.SOURCE])
+    sources = [tpd_mod.SOURCE, fedavg_mod.SOURCE, flash_mod.SOURCE,
+               flash_mod.BWD_SOURCE, flash_mod.SM90_SOURCE,
+               flash_mod.BWD_SM90_SOURCE, rglru_mod.SOURCE, adamw_mod.SOURCE]
+    libs = build.build_libraries(sources)
     build_s = time.perf_counter() - t0
     for lib in libs:
         print(f"built {lib.relative_to(ROOT)}")
@@ -1200,6 +1360,27 @@ def main() -> int:
         if log.is_file():
             print(log.read_text().strip())
     print(f"all {len(libs)} builds in {build_s:.2f} s (parallel)")
+    fwd_lib, bwd_lib = flash_mod._sm90_library(), flash_mod._bwd_sm90_library()
+    dyn = {"flash_fwd_sm90_kernel": fwd_lib.flash_attention_sm90_smem_bytes,
+           "flash_bwd_dq_sm90_kernel":
+               lambda hd: bwd_lib.flash_attention_bwd_sm90_smem_bytes(hd, 1),
+           "flash_bwd_dkdv_sm90_kernel":
+               lambda hd: bwd_lib.flash_attention_bwd_sm90_smem_bytes(hd, 2)}
+    for src in (flash_mod.SM90_SOURCE, flash_mod.BWD_SM90_SOURCE):
+        lib = libs[sources.index(src)]
+        for name, regs, smem, st, ld in ptxas_kernels(
+                lib.with_suffix(".log").read_text()):
+            base, _, hd = name.partition("<")
+            extra = f" + {dyn[base](int(hd[:-1]))} B dynamic" \
+                if base in dyn else ""
+            print(f"{name}: {regs} registers at entry, {smem} B static "
+                  f"shared memory{extra}, spills {st} B stored / {ld} B "
+                  f"loaded")
+        counts = sass_counts(nvcc, lib)
+        print(f"{lib.name}: cuobjdump -sass finds {counts['HGMMA']} HGMMA "
+              f"and {counts['UTMALDG']} UTMALDG instructions")
+        check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+              f"{lib.name}: no wgmma or no TMA load in the SASS ({counts})")
 
     # ---- 3. TPD kernel vs plain version on the card ---------------------
     phase("3. TPD kernel vs its plain torch version on the card")

@@ -1,18 +1,21 @@
 // Blocked GQA attention forward with an online softmax (flash attention),
-// for Hopper (sm_90a).
+// for Hopper (sm_90a): the float32 route.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:39
 // _flash_kernel, reached by flash_attention_pallas (pl.pallas_call at
-// repro/kernels/flash_attention.py:135). The plain torch version beside
-// it is repro_torch/kernels/ref.py:flash_attention_ref.
+// repro/kernels/flash_attention.py:135), for float32 operands; bfloat16
+// operands go to the tensor-core kernel in flash_attention_sm90.cu. On
+// the tensor cores float32 operands would mean TF32, which the float32
+// tolerances do not allow, so this route stays on scalar float32 FMAs.
+// The plain torch version beside it is
+// repro_torch/kernels/ref.py:flash_attention_ref.
 //
 // What it computes. q (B, Hq, S, hd), k and v (B, Hkv, S, hd), all
-// contiguous, float32 or bfloat16; query head h reads kv head
+// contiguous float32; query head h reads kv head
 // h / (Hq / Hkv). Key j is visible from query i where j <= i (causal),
 // j > i - window (window > 0) and j < kv_len. For every query row:
 //   out = sum_j softmax_j(scale * q.k_j) v_j   over the visible j,
-// with the running max and denominator in float32, the output in q's
-// dtype. A row that sees no key comes out 0: its max is clamped at
+// with the running max and denominator in float32. A row that sees no key comes out 0: its max is clamped at
 // -1e30 / 2 before the exponent and its denominator at 1e-30, as the TPU
 // kernel guards it (repro/kernels/flash_attention.py:86-89).
 //
@@ -22,7 +25,7 @@
 // flops against 0.19 GB of operands, so the tensor cores' rate (989
 // TFLOP/s bf16) bounds it, not device memory.
 //
-// Design (simple first; the tensor cores are left for a later version).
+// Design (scalar float32 FMAs, no tensor cores).
 // One block of 8 warps per (q tile of 64 rows, query head, batch row);
 // the TPU grid's sequential kv axis becomes a loop inside the block over
 // the 32-key tiles this q tile can see: tiles right of the diagonal
@@ -39,10 +42,8 @@
 // never through shared memory. The p.v accumulator, 8 rows x hd columns
 // per warp, lives in registers: lane c holds columns c, c + 32, ...
 // Products use explicit fused multiply-adds (__fmaf_rn), which the
-// library-wide -fmad=false leaves alone. Scalar float32 math, no
-// tensor cores: mma.sync or wgmma with TMA staging are later work.
+// library-wide -fmad=false leaves alone.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -55,13 +56,7 @@ constexpr int kRows = kBQ / kWarps;        // query rows per warp
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -232,23 +227,13 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o,
-             float* lse, int B, int hd, const Params& p, cudaStream_t s) {
-  switch (hd) {
-    case 64: return launch<T, 64>(q, k, v, o, lse, B, p, s);
-    case 128: return launch<T, 128>(q, k, v, o, lse, B, p, s);
-    case 256: return launch<T, 256>(q, k, v, o, lse, B, p, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 }  // namespace
 
 extern "C" {
 
-// Launches the forward on `stream`; dtype 0 = float32, 1 = bfloat16 (q,
-// k, v and o alike); hd must be 64, 128 or 256; window <= 0 means none.
+// Launches the float32 forward on `stream` (q, k, v and o float32); hd
+// must be 64, 128 or 256; window <= 0 means none.
 // lse, when not null, receives each row's float32 log-sum-exp (B, Hq, S)
 // for the backward; serving passes null. Returns the CUDA error code of
 // the launch (0 when it was accepted). B = 0 or S = 0 launches nothing.
@@ -256,17 +241,19 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, float* lse, int B, int Hq, int Hkv,
                            int S, int hd,
                            int causal, int window, int kv_len, float scale,
-                           int dtype, void* stream) {
+                           void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Hq > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{S, Hq, Hkv, causal != 0, window > 0 ? window : 0,
                  kv_len, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(q, k, v, o, lse, B, hd, p, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, lse, B, hd, p, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 64: return launch<float, 64>(q, k, v, o, lse, B, p, s);
+    case 128: return launch<float, 128>(q, k, v, o, lse, B, p, s);
+    case 256: return launch<float, 256>(q, k, v, o, lse, B, p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* flash_attention_error_string(int code) {

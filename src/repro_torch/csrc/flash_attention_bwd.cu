@@ -1,5 +1,7 @@
 // Backward of the blocked GQA attention in flash_attention.cu, for Hopper
-// (sm_90a).
+// (sm_90a): the float32 route. bfloat16 operands go to the tensor-core
+// backward in flash_attention_bwd_sm90.cu; float32 ones stay on scalar
+// float32 FMAs (on the tensor cores they would mean TF32).
 //
 // No TPU counterpart: the reference differentiates plain jnp and has no
 // backward kernel. It is the gradient of the port of
@@ -16,7 +18,7 @@
 //   dq_i = scale sum_j dS_ij k_j,  dk_j = scale sum_(h, i) dS_ij q_i,
 //   dv_j = sum_(h, i) P_ij do_i,
 // where dk_j and dv_j sum over every query head of the kv head's group.
-// float32 math and accumulation; each gradient in its input's dtype.
+// float32 operands, math and accumulation.
 //
 // Bound. 10 * hd flops per visible (query head, key) pair: the scores
 // q.k are recomputed in both passes (2 * 2 hd), do.v likewise (2 * 2 hd),
@@ -53,7 +55,6 @@
 // 99,584 bytes. Both stay under the 227 KB a block may have; the launch
 // raises the 48 KB default with cudaFuncSetAttribute.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -70,13 +71,7 @@ constexpr int kBKV = kWarps * kKeysPerWarp;  // keys per block
 constexpr int kBQ2 = 32;                   // query rows per tile: one per lane
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -415,30 +410,15 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* o,
-             const void* dout, const float* lse, float* dsum, void* dq,
-             void* dk, void* dv, int B, int hd, const Params& p,
-             cudaStream_t s) {
-  switch (hd) {
-    case 64:
-      return launch<T, 64>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, p, s);
-    case 128:
-      return launch<T, 128>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, p, s);
-    case 256:
-      return launch<T, 256>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, p, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 }  // namespace
 
 extern "C" {
 
 // Launches both passes on `stream` (dq first, which also writes D into
-// dsum (B, Hq, S) float32 scratch; then dk and dv). dtype 0 = float32, 1
-// = bfloat16 (q, k, v, o, dout, dq, dk, dv alike); lse (B, Hq, S) float32
-// from the forward; hd must be 64, 128 or 256; window <= 0 means none.
+// dsum (B, Hq, S) scratch; then dk and dv), every operand float32; lse
+// (B, Hq, S) from the forward; hd must be 64, 128 or 256; window <= 0
+// means none.
 // Returns the CUDA error code of the first launch that was refused (0
 // when both were accepted). B = 0 or S = 0 launches nothing.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
@@ -446,21 +426,25 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const float* lse, float* dsum, void* dq,
                                void* dk, void* dv, int B, int Hq, int Hkv,
                                int S, int hd, int causal, int window,
-                               int kv_len, float scale, int dtype,
-                               void* stream) {
+                               int kv_len, float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Hq > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{S, Hq, Hkv, causal != 0, window > 0 ? window : 0,
                  kv_len, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, hd,
-                           p, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, dout, lse, dsum, dq, dk, dv,
-                                   B, hd, p, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 64:
+      return launch<float, 64>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, p,
+                               s);
+    case 128:
+      return launch<float, 128>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B,
+                                p, s);
+    case 256:
+      return launch<float, 256>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B,
+                                p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* flash_attention_bwd_error_string(int code) {

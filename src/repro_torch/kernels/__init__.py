@@ -9,7 +9,9 @@ version in ``kernels.ref``.
   ``fedavg_pallas``; ``kernels.ops`` wraps it for trees.
 * ``kernels.flash_attention.flash_attention`` — GQA attention forward
   with causal, window and ``kv_len`` masks, the port of
-  ``repro/kernels/flash_attention.py:flash_attention_pallas``.
+  ``repro/kernels/flash_attention.py:flash_attention_pallas``: one
+  kernel per dtype, bf16 on the tensor cores (``wgmma`` + TMA) and
+  float32 on scalar FMAs.
 * ``kernels.rglru.rglru_scan`` — the RG-LRU linear recurrence, the
   port of ``repro/kernels/rglru.py:rglru_scan_pallas``.
 * ``kernels.fused_adamw.fused_adamw`` — one AdamW step over flat

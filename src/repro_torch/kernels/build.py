@@ -43,8 +43,10 @@ def find_nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    """Where the build of ``source`` for the current flags lives."""
-    digest = hashlib.sha256(Path(source).read_bytes()
+    """Where the build of ``source`` for the current flags lives; the
+    hash covers the headers beside the sources (``csrc/*.cuh``) too."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(Path(source).read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
 

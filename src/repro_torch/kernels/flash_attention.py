@@ -2,74 +2,161 @@
 ``repro/kernels/flash_attention.py:flash_attention_pallas`` (body
 ``_flash_kernel``).
 
-One kernel, ``repro_torch/csrc/flash_attention.cu`` (its source note
-gives the design and the bound), built at first use by
-:mod:`repro_torch.kernels.build` and bound through ``ctypes``::
+Two kernels, one per dtype, each built at first use by
+:mod:`repro_torch.kernels.build` and bound through ``ctypes`` (their
+source notes give the design and the bound)::
 
     flash_attention(q (B, Hq, S, hd), k, v (B, Hkv, S, hd), *, causal,
                     window, scale, kv_len) -> (B, Hq, S, hd)
 
-float32 or bfloat16 (all three alike), hd 64, 128 or 256, Hq a multiple
-of Hkv. The kernel masks its own ragged edge, so S need not be a
-multiple of any tile and nothing is padded. A tensor on a CUDA device
-launches the kernel (counted on ``flash_attention.launches``); a tensor
-on the CPU goes to the plain torch version,
-:func:`repro_torch.kernels.ref.flash_attention_ref`, with the same
-masks. There is no fallback from the card to the host.
+- bfloat16: ``repro_torch/csrc/flash_attention_sm90.cu``, Hopper's
+  tensor cores (wgmma fed by TMA through mbarrier rings, with
+  ``csrc/flash_sm90.cuh``);
+- float32: ``repro_torch/csrc/flash_attention.cu``, scalar float32 FMAs
+  (on the tensor cores float32 would mean TF32, which the float32
+  tolerances do not allow).
+
+q, k and v alike, hd 64, 128 or 256, Hq a multiple of Hkv. The kernels
+mask their own ragged edge, so S need not be a multiple of any tile and
+nothing is padded. A tensor on a CUDA device launches its dtype's kernel
+or raises (counted on ``flash_attention.launches``, and per source on
+``flash_attention.routes``); a tensor on the CPU goes to the plain torch
+version, :func:`repro_torch.kernels.ref.flash_attention_ref`, with the
+same masks. There is no fallback from the card to the host or from one
+route to the other.
 
 The gradient. When q, k or v requires grad, ``flash_attention`` runs
 through an autograd Function: the forward also keeps each row's float32
-log-sum-exp (B, Hq, S), and the backward is a second source,
-``repro_torch/csrc/flash_attention_bwd.cu`` (no TPU counterpart: the
-reference has no backward kernel)::
+log-sum-exp (B, Hq, S), and the backward is a kernel too (no TPU
+counterpart: the reference has no backward kernel), again one per
+dtype, ``csrc/flash_attention_bwd_sm90.cu`` and
+``csrc/flash_attention_bwd.cu``::
 
     flash_attention_bwd(q, k, v, out, dout, lse, *, causal, window,
                         scale, kv_len) -> (dq, dk, dv)
 
-two deterministic passes (dq, then dk and dv), each launch counted on
-``flash_attention_bwd.launches``, with its plain version
-:func:`repro_torch.kernels.ref.flash_attention_bwd_ref` for CPU tensors.
+deterministic passes (float32: dq, then dk and dv; bfloat16: dq, then
+partial dk and dv over a split of each kv head's query heads, then their
+sum), each launch counted on ``flash_attention_bwd.launches``, with its
+plain version :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`
+for CPU tensors. :func:`launch_geometry` gives the bfloat16 kernels'
+grids.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.build import CSRC_DIR, build_library
 from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
-SOURCE = CSRC_DIR / "flash_attention.cu"
-BWD_SOURCE = CSRC_DIR / "flash_attention_bwd.cu"
+SOURCE = CSRC_DIR / "flash_attention.cu"              # float32
+BWD_SOURCE = CSRC_DIR / "flash_attention_bwd.cu"      # float32
+SM90_SOURCE = CSRC_DIR / "flash_attention_sm90.cu"    # bfloat16
+BWD_SM90_SOURCE = CSRC_DIR / "flash_attention_bwd_sm90.cu"
 HEAD_DIMS = (64, 128, 256)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = (torch.float32, torch.bfloat16)
+FWD_ROWS = 128        # query rows per bf16 forward block (2 warpgroups)
+BWD_ROWS = 64         # query rows per dq block, keys per dk/dv block
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchGeometry:
+    """Grids of the bfloat16 kernels for one shape: ``fwd_grid`` (q
+    tiles of ``FWD_ROWS``, Hq, B), ``dq_grid`` (q tiles of ``BWD_ROWS``,
+    Hq, B), ``dkdv_grid`` (key blocks of ``BWD_ROWS``, split, B * Hkv),
+    where ``split`` blocks share each kv head's query heads, and
+    ``kv_tiles``, the 64-key tiles that hold a key below kv_len."""
+    fwd_grid: Tuple[int, int, int]
+    dq_grid: Tuple[int, int, int]
+    dkdv_grid: Tuple[int, int, int]
+    split: int
+    kv_tiles: int
+
+
+def launch_geometry(b: int, hq: int, hkv: int, s: int,
+                    kv_len: Optional[int] = None,
+                    sms: int = H100_SMS) -> LaunchGeometry:
+    """The bfloat16 kernels' grids. The dk/dv pass has one block per
+    (key block, part of the group, batch row x kv head); ``split`` is the
+    smallest divisor of the group Hq / Hkv that gives at least ``sms``
+    blocks, or the whole group where none does."""
+    kv_len = s if kv_len is None else kv_len
+    group = hq // hkv
+    key_blocks = -(-s // BWD_ROWS)
+    base = key_blocks * b * hkv
+    split = next((d for d in range(1, group + 1)
+                  if group % d == 0 and base * d >= sms), group)
+    return LaunchGeometry(fwd_grid=(-(-s // FWD_ROWS), hq, b),
+                          dq_grid=(key_blocks, hq, b),
+                          dkdv_grid=(key_blocks, split, b * hkv),
+                          split=split, kv_tiles=-(-kv_len // BWD_ROWS))
+
+
+def _bind(source, name, n_ptr_head, n_int, n_tail) -> ctypes.CDLL:
+    """Build ``source`` and declare ``{name}_launch`` as ``n_ptr_head``
+    pointers, ``n_int`` ints, a float, ``n_tail`` ints and the stream,
+    returning an int; and ``{name}_error_string``."""
+    lib = ctypes.CDLL(str(build_library(source)))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = [ptr] * n_ptr_head + [i32] * n_int + [ctypes.c_float] + \
+        [i32] * n_tail + [ptr]
+    fn.restype = i32
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [i32]
+    err.restype = ctypes.c_char_p
+    return lib
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library(SOURCE)))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_launch.argtypes = [ptr] * 5 + [i32] * 8 + [
-        ctypes.c_float, i32, ptr]
-    lib.flash_attention_launch.restype = i32
-    lib.flash_attention_error_string.argtypes = [i32]
-    lib.flash_attention_error_string.restype = ctypes.c_char_p
-    return lib
+    return _bind(SOURCE, "flash_attention", 5, 8, 0)
 
 
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library(BWD_SOURCE)))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_bwd_launch.argtypes = [ptr] * 10 + [i32] * 8 + [
-        ctypes.c_float, i32, ptr]
-    lib.flash_attention_bwd_launch.restype = i32
-    lib.flash_attention_bwd_error_string.argtypes = [i32]
-    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
-    return lib
+    return _bind(BWD_SOURCE, "flash_attention_bwd", 10, 8, 0)
+
+
+@functools.cache
+def _sm90_library() -> ctypes.CDLL:
+    return _bind(SM90_SOURCE, "flash_attention_sm90", 5, 9, 3)
+
+
+@functools.cache
+def _bwd_sm90_library() -> ctypes.CDLL:
+    return _bind(BWD_SM90_SOURCE, "flash_attention_bwd_sm90", 12, 9, 7)
+
+
+def _raise_on(code: int, lib: ctypes.CDLL, name: str) -> None:
+    if code != 0:
+        msg = getattr(lib, f"{name}_error_string")(code).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({code})")
+
+
+def _count(fn, source, launches: int = 1) -> None:
+    fn.launches += launches
+    fn.routes[source.stem] = fn.routes.get(source.stem, 0) + launches
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _check_aligned(*tensors) -> None:
+    """The bf16 kernels read their operands through TMA, which needs
+    16-byte aligned bases."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("the bfloat16 flash kernels need 16-byte "
+                             "aligned operands")
 
 
 def _check(q, k, v, window, kv_len) -> None:
@@ -82,7 +169,7 @@ def _check(q, k, v, window, kv_len) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in DTYPES:
         raise TypeError(f"q, k, v must be float32 or bfloat16, got {q.dtype}")
     if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
         raise ValueError(f"q must be (B, Hq, S, hd) and k, v (B, Hkv, S, hd),"
@@ -139,23 +226,31 @@ def _forward(q, k, v, masks, with_lse: bool):
         if with_lse else None
     if out.numel() == 0:
         return out, lse
-    lib = _library()
+    kv = s if kv_len is None else kv_len
+    operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr() if with_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if with_lse else None, b, hq, k.shape[1], s, hd,
-            int(causal), window or 0, s if kv_len is None else kv_len,
-            scale, _DTYPE_CODE[q.dtype], stream)
-    if code != 0:
-        raise RuntimeError(f"flash attention launch failed: "
-                           f"{lib.flash_attention_error_string(code).decode()}"
-                           f" ({code})")
-    flash_attention.launches += 1
+        if q.dtype == torch.bfloat16:
+            _check_aligned(q, k, v, out)
+            geo = launch_geometry(b, hq, k.shape[1], s, kv, _sms(q.device))
+            source, name, lib = SM90_SOURCE, "flash_attention_sm90", \
+                _sm90_library()
+            code = lib.flash_attention_sm90_launch(
+                *operands, b, hq, k.shape[1], s, hd, int(causal),
+                window or 0, kv, geo.kv_tiles, scale, *geo.fwd_grid, stream)
+        else:
+            source, name, lib = SOURCE, "flash_attention", _library()
+            code = lib.flash_attention_launch(
+                *operands, b, hq, k.shape[1], s, hd, int(causal),
+                window or 0, kv, scale, stream)
+    _raise_on(code, lib, name)
+    _count(flash_attention, source)
     return out, lse
 
 
 flash_attention.launches = 0
+flash_attention.routes = {}     # launches per kernel source (stem)
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
@@ -183,25 +278,43 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk, dv
+    hkv = k.shape[1]
+    kv = s if kv_len is None else kv_len
     dsum = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    lib = _bwd_library()
+    operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+                dq.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.flash_attention_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, hq, k.shape[1], s, hd,
-            int(causal), window or 0, s if kv_len is None else kv_len,
-            scale, _DTYPE_CODE[q.dtype], stream)
-    if code != 0:
-        raise RuntimeError(
-            f"flash attention backward launch failed: "
-            f"{lib.flash_attention_bwd_error_string(code).decode()} ({code})")
-    flash_attention_bwd.launches += 2       # the dq pass and the dk/dv pass
+        if q.dtype == torch.bfloat16:
+            _check_aligned(q, k, v, out, dout, dq, dk, dv)
+            geo = launch_geometry(b, hq, hkv, s, kv, _sms(q.device))
+            dk_part, dv_part = (torch.empty((geo.split, b, hkv, s, hd),
+                                            dtype=torch.float32,
+                                            device=q.device)
+                                for _ in range(2))
+            source, name, lib = BWD_SM90_SOURCE, "flash_attention_bwd_sm90", \
+                _bwd_sm90_library()
+            code = lib.flash_attention_bwd_sm90_launch(
+                *operands, dk_part.data_ptr(), dv_part.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), b, hq, hkv, s, hd, int(causal),
+                window or 0, kv, geo.kv_tiles, scale, geo.split,
+                *geo.dq_grid, *geo.dkdv_grid, stream)
+            passes = 3          # dq, partial dk and dv, their sum
+        else:
+            source, name, lib = BWD_SOURCE, "flash_attention_bwd", \
+                _bwd_library()
+            code = lib.flash_attention_bwd_launch(
+                *operands, dk.data_ptr(), dv.data_ptr(), b, hq, hkv, s, hd,
+                int(causal), window or 0, kv, scale, stream)
+            passes = 2          # dq, then dk and dv
+    _raise_on(code, lib, name)
+    _count(flash_attention_bwd, source, passes)
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.routes = {}
 
 
 class _FlashAttention(torch.autograd.Function):

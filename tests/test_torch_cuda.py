@@ -396,8 +396,11 @@ def test_flash_backward_matches_plain_autograd(cuda_device, case, dtype):
                                      kv_len=kv_len)
         out.backward(dout)
         torch.cuda.synchronize()
+        # float32: the dq pass and the dk/dv pass; bfloat16: dq, partial
+        # dk and dv, their sum
         assert (kflash.flash_attention.launches - before[0],
-                kflash.flash_attention_bwd.launches - before[1]) == (1, 2)
+                kflash.flash_attention_bwd.launches - before[1]) == \
+            (1, 3 if dtype == torch.bfloat16 else 2)
         runs.append([t.grad for t in leaves])
     for a, b in zip(*runs, strict=True):
         assert torch.equal(a, b)                   # no atomics: repeatable
@@ -410,6 +413,118 @@ def test_flash_backward_matches_plain_autograd(cuda_device, case, dtype):
         scale = float(want.float().abs().max())
         err = float((got.float() - want.float()).abs().max())
         assert err <= FLASH_GRAD_TOL[dtype] * scale, (name, err, scale)
+
+
+# bf16 tensor-core kernels at every tile edge: (B, Hq, Hkv, S, hd, causal,
+# window, kv_len), S in {1, 63, 64, 65, 127, 128, 129, 2049} (64-row
+# tiles, 128-row forward blocks), windows 1, 16, 64, 2048, kv_len 0, on a
+# tile edge (64, 128, 192) and off it, hd 64, 128, 256, groups 1, 2, 10
+BF16_EDGE_CASES = [(1, 2, 1, 1, 64, True, None, None),
+                   (1, 1, 1, 63, 128, True, None, None),
+                   (2, 2, 2, 64, 256, True, None, None),
+                   (1, 10, 1, 65, 256, True, 16, None),
+                   (1, 4, 2, 127, 64, False, None, 64),
+                   (1, 2, 1, 128, 128, True, 64, None),
+                   (1, 10, 1, 129, 256, False, None, 100),
+                   (1, 2, 1, 129, 64, True, 1, None),
+                   (1, 4, 2, 100, 128, True, None, 0),
+                   (2, 1, 1, 200, 64, True, None, 192),
+                   (1, 2, 1, 2049, 64, False, None, 128),
+                   (1, 10, 1, 2049, 256, True, 2048, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_EDGE_CASES)
+def test_flash_bf16_forward_at_tile_edges(cuda_device, case):
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels.ref import flash_attention_ref
+    q, k, v = _flash_operands(case, torch.bfloat16, cuda_device)
+    causal, window, kv_len = case[5:]
+    got, lse = kflash._forward(q, k, v, (causal, window, q.shape[-1] ** -0.5,
+                                         kv_len), with_lse=True)
+    torch.cuda.synchronize()
+    want, want_lse = flash_attention_ref(q, k, v, causal=causal,
+                                         window=window, kv_len=kv_len,
+                                         return_lse=True)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **FLASH_TOL[torch.bfloat16])
+    # lse: float32 on both sides, from bf16 products summed in f32
+    torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_EDGE_CASES)
+def test_flash_bf16_backward_at_tile_edges(cuda_device, case):
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels.ref import flash_attention_ref
+    q, k, v = _flash_operands(case, torch.bfloat16, cuda_device)
+    causal, window, kv_len = case[5:]
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(6)
+                       ).to(cuda_device, torch.bfloat16)
+    grads = []
+    for fn in (kflash.flash_attention, flash_attention_ref):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*leaves, causal=causal, window=window, kv_len=kv_len
+           ).backward(dout)
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    scales = [float(w.float().abs().max()) for w in grads[1]]
+    if case[3] == 1 or case[6] == 1:
+        # S 1 or window 1, one key per row: P = 1 and dS = do.v - D = 0
+        # in exact arithmetic, so dq and dk are rounding noise with no
+        # scale of their own; they are held to dv's
+        scales = [scales[2]] * 3
+    for name, got, want, scale in zip("qkv", *grads, scales, strict=True):
+        assert got.dtype == torch.bfloat16
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= FLASH_GRAD_TOL[torch.bfloat16] * scale, (name, err,
+                                                               scale)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_backward_is_bit_reproducible(cuda_device):
+    """The training shape (group 10 split over blocks, float32 partials
+    summed in a fixed order): two runs give bit-equal dq, dk and dv."""
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels.ref import flash_attention_ref
+    case = (1, 10, 1, 2048, 256, True, None, None)
+    q, k, v = _flash_operands(case, torch.bfloat16, cuda_device)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(7)
+                       ).to(cuda_device, torch.bfloat16)
+    out, lse = flash_attention_ref(q, k, v, causal=True, return_lse=True)
+    assert kflash.launch_geometry(1, 10, 1, 2048).split > 1
+    runs = [kflash.flash_attention_bwd(q, k, v, out, dout, lse, causal=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs, strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_each_dtype_reaches_only_its_own_kernel(cuda_device):
+    """bf16 operands launch the tensor-core sources and never the float32
+    ones, and float32 operands the reverse (the per-source counters)."""
+    from repro_torch.kernels import flash_attention as kflash
+    case = (1, 4, 2, 129, 64, True, 40, None)
+    sources = {torch.bfloat16: (kflash.SM90_SOURCE.stem,
+                                kflash.BWD_SM90_SOURCE.stem),
+               torch.float32: (kflash.SOURCE.stem, kflash.BWD_SOURCE.stem)}
+    for dtype, (fwd, bwd) in sources.items():
+        other = sources[torch.float32 if dtype == torch.bfloat16
+                        else torch.bfloat16]
+        before = (dict(kflash.flash_attention.routes),
+                  dict(kflash.flash_attention_bwd.routes))
+        leaves = [t.requires_grad_() for t in
+                  _flash_operands(case, dtype, cuda_device)]
+        kflash.flash_attention(*leaves, causal=True, window=40).sum().backward()
+        torch.cuda.synchronize()
+        after = (kflash.flash_attention.routes,
+                 kflash.flash_attention_bwd.routes)
+        assert after[0].get(fwd, 0) - before[0].get(fwd, 0) == 1
+        assert after[1].get(bwd, 0) - before[1].get(bwd, 0) == \
+            (3 if dtype == torch.bfloat16 else 2)
+        assert after[0].get(other[0], 0) == before[0].get(other[0], 0)
+        assert after[1].get(other[1], 0) == before[1].get(other[1], 0)
 
 
 @pytest.mark.cuda

@@ -284,3 +284,55 @@ def test_backward_wrapper_rejects_malformed_operands(bad, match):
     with pytest.raises(ValueError, match=match):
         kflash.flash_attention_bwd(args["q"], args["k"], args["v"],
                                    args["out"], args["dout"], args["lse"])
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 kernels' launch geometry (computed on the host, no card)
+# ---------------------------------------------------------------------------
+# (b, hq, hkv, s, kv_len): recurrentgemma-2b's training shape (group 10
+# on one kv head) and serving waves, ragged S, GQA groups, kv_len on and
+# off a tile edge and 0, a prime group, a grid already past the SMs
+GEOMETRY_SHAPES = [(1, 10, 1, 2048, None), (4, 10, 1, 1024, None),
+                   (4, 10, 1, 4096, None), (1, 10, 1, 4097, 4000),
+                   (1, 4, 2, 129, 100), (2, 2, 2, 64, 0), (1, 1, 1, 1, None),
+                   (1, 2, 1, 63, 63), (1, 7, 1, 300, 128), (1, 12, 1, 65, 64),
+                   (8, 16, 4, 4096, None), (1, 10, 1, 2049, 2048)]
+
+
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+def test_launch_geometry_splits_the_group_and_covers_the_tiles(shape):
+    b, hq, hkv, s, kv_len = shape
+    sms = kflash.H100_SMS
+    geo = kflash.launch_geometry(b, hq, hkv, s, kv_len, sms)
+    group = hq // hkv
+    key_blocks = -(-s // kflash.BWD_ROWS)
+    # the split divides the group, and is the least that fills the SMs
+    assert group % geo.split == 0
+    blocks = geo.dkdv_grid[0] * geo.dkdv_grid[1] * geo.dkdv_grid[2]
+    if key_blocks * b * hkv * group >= sms:
+        assert blocks >= sms
+        assert all(key_blocks * b * hkv * d < sms
+                   for d in range(1, geo.split) if group % d == 0)
+    else:
+        assert geo.split == group
+    assert geo.dkdv_grid == (key_blocks, geo.split, b * hkv)
+    # every grid's tiles cover S exactly: the last tile holds row S - 1
+    for grid, rows in ((geo.fwd_grid, kflash.FWD_ROWS),
+                       (geo.dq_grid, kflash.BWD_ROWS),
+                       (geo.dkdv_grid, kflash.BWD_ROWS)):
+        assert grid[0] * rows >= s > (grid[0] - 1) * rows
+    assert geo.fwd_grid[1:] == (hq, b) and geo.dq_grid[1:] == (hq, b)
+    # the key tiles the kernels visit cover kv_len exactly
+    kv = s if kv_len is None else kv_len
+    assert geo.kv_tiles * kflash.BWD_ROWS >= kv
+    assert kv == 0 and geo.kv_tiles == 0 or \
+        (geo.kv_tiles - 1) * kflash.BWD_ROWS < kv
+
+
+def test_launch_geometry_at_the_training_shape():
+    """recurrentgemma-2b training (B 1, Hq 10, Hkv 1, S 2048): 32 key
+    blocks alone leave 100 of 132 SMs idle; splitting the 10 query heads
+    5 ways gives 160 blocks."""
+    geo = kflash.launch_geometry(1, 10, 1, 2048)
+    assert (geo.split, geo.dkdv_grid) == (5, (32, 5, 1))
+    assert geo.fwd_grid == (16, 10, 1) and geo.dq_grid == (32, 10, 1)
