@@ -17,7 +17,10 @@ Phases, in order; any failed check raises and ends the run non-zero:
    together; each tensor-core kernel's registers, shared memory and
    spills from the ``-Xptxas -v`` log, and the ``HGMMA`` (wgmma) and
    ``UTMALDG`` (TMA load) instructions ``cuobjdump -sass`` finds in its
-   library, which must not be 0;
+   library, which must not be 0; the RG-LRU kernels' registers, shared
+   memory and spills, and the plan (blocks, stages, dynamic shared
+   memory, held to the kernel's own count) at the training and serving
+   shapes;
 3. the TPD kernel against its plain torch version on the card, exactly,
    and against the float64 scalar model within rtol 2e-5, at the Fig. 3
    extremes, large-1k and large-10k;
@@ -54,13 +57,17 @@ Phases, in order; any failed check raises and ends the run non-zero:
     Hq = 10, Hkv = 1, hd = 256, S = 1024 causal, S = 4096 and a ragged
     4097 with window 2048, bf16 (the tensor-core route, rtol = atol =
     2e-2) and f32 (the scalar route, 1e-4), each held to have launched
-    its own route's kernel only; the scan at (4, 4096, 2560) f32 and
-    ragged T and D, exactly;
+    its own route's kernel only; flash at hd 80 (stablelm-3b's 32 x 80,
+    B 2, S 1024 causal: zero-padded to the hd-128 kernels), both dtypes,
+    at the same tolerances; the scan at (4, 4096, 2560) f32, ragged T
+    and D, and the training shape (1, 2048, 2560) f32 and bf16, exactly,
+    with both copy routes (TMA, cp.async) launched;
 11. the hybrid serving main path: full-width ``recurrentgemma-2b``
     (26 layers, 3.55B f32 params drawn on the card, bf16 compute)
     serving 8 requests through ``WaveScheduler(max_batch=4)``: 4 prompts
     of 1024 tokens and 4 of 4096 (tokens from numpy, seed 0), 32 new
-    tokens each; every output equal to its batch-1 serial decode; prefill
+    tokens each, the RG-LRU scan on the TMA route only; every output
+    equal to its batch-1 serial decode; prefill
     time, decode time per token and ``summary()``; where a decode step
     goes; and prefill(4096) + decode equal to prefill(4097) (f32 rtol =
     atol = 2e-3, bf16 atol 0.5 on logits of scale ~5);
@@ -73,7 +80,11 @@ Phases, in order; any failed check raises and ends the run non-zero:
     (flash) ``torch.nn.functional.scaled_dot_product_attention`` as the
     yardstick, beside each bound: the bf16 route at both serving shapes
     and the training shape (B 1, S 2048 causal), with TFLOP/s and share
-    of the bound, and the f32 route at S = 1024;
+    of the bound, and the f32 route at S = 1024; the scan at the serving
+    shape and the training shape (1, 2048, 2560), and at the serving
+    shape also on the cp.async route (operands one element past an
+    aligned base) beside copying them to fresh aligned tensors first and
+    taking the TMA route;
 14. the training kernels against their plain torch versions: fused
     AdamW at N = 1, 3, 4097 and 2^24 + 5, float32 and bfloat16 params,
     steps 1 and 1000, bit for bit; the flash backward (through the
@@ -81,14 +92,15 @@ Phases, in order; any failed check raises and ends the run non-zero:
     B 1, Hq 10, Hkv 1, hd 256, S 2048 causal and S 4096 window 2048, bf16
     (the tensor-core route, 2e-2 of the gradients' scale) and f32 (the
     scalar route, 1e-4), and two bf16 runs bit-equal; the RG-LRU adjoint at
-    (1, 2048, 2560) and ragged shapes, exactly;
+    (1, 2048, 2560) and ragged shapes, exactly, both copy routes launched;
 15. the training main path: ``TrainLoop(model, adamw(
     warmup_cosine_schedule(3e-4, 2, 8)), batch_fn, TrainLoopConfig(
     total_steps=8, log_every=1))`` on full-width, full-depth
     recurrentgemma-2b (params from seed 0, as phase 11's), remat on, 1 x
     2048 tokens of ``SyntheticLMDataset(256000, 2048, seed=0)`` a step:
     losses (finite), step times, peak memory, launch counts held to the
-    expected ones, and on the last step a window of p, g, m, v past
+    expected ones (both RG-LRU kernels on the TMA route only), and on
+    the last step a window of p, g, m, v past
     element 2^31 held bit for bit to the plain AdamW;
 16. a training depth cut: those params cut to one triple and two tails,
     1 x 128 tokens, 2 steps on ``cuda`` vs ``cpu``, float32 compute
@@ -180,8 +192,15 @@ def ptxas_kernels(log: str):
         if m:
             k = re.search(r"\d(flash_\w+?_kernel)(?:ILi(\d+)E)?",
                           m.group(1))
-            name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
-                    if k else m.group(1))
+            r = re.search(r"(rglru_scan(?:_bwd)?_kernel)I(f|13__nv_bfloat16)"
+                          r"Li(\d)E", m.group(1))
+            if r:
+                dtype = "float" if r.group(2) == "f" else "bf16"
+                route = ("tma", "cp_async")[int(r.group(3))]
+                name = f"{r.group(1)}<{dtype}, {route}>"
+            else:
+                name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+                        if k else m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -368,9 +387,15 @@ FLASH_CASES = ((1024, None), (4096, 2048), (4097, 2048))
 FLASH_TIMED = ((4, 1024, None), (4, 4096, 2048), (1, 2048, None))
 FLASH_REPORTED = (4, 4096, 2048)
 FLASH_F32_TIMED = (4, 1024, None)
-# (B, T, D): a serving prefill's scan, then ragged T and D
+# (B, T, D): a serving prefill's scan, then ragged T and D (the last on
+# the cp.async route: 5,122-byte rows), then the training shape
 RGLRU_CASES = (((4, 4096, 2560), "float32"), ((4, 1031, 2500), "float32"),
-               ((3, 777, 2561), "bfloat16"))
+               ((3, 777, 2561), "bfloat16"), ((1, 2048, 2560), "float32"),
+               ((1, 2048, 2560), "bfloat16"))
+RGLRU_TRAIN_SHAPE = (1, 2048, 2560)
+# flash at a head dim the kernels are not built for: stablelm-3b's (32
+# heads of 80, padded to 128 on the card), B 2, S 1024 causal
+FLASH_HD80 = (2, 32, 32, 1024, 80)
 # flash kernel vs the dense plain version: f32, online vs dense softmax
 # over up to 2048 keys summed in other orders; bf16, one more rounding
 # of the output (the reference's own kernel tests use 2e-5 and 2e-2)
@@ -404,7 +429,7 @@ def hybrid_phases(torch, np_, dev, card):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import SM90_SOURCE, SOURCE, flash_attention
     from repro_torch.kernels.ref import flash_attention_ref, rglru_scan_ref
-    from repro_torch.kernels.rglru import rglru_scan
+    from repro_torch.kernels.rglru import plan_for, rglru_scan
     from repro_torch.models import get_model
     from repro_torch.models.rglru import DECODE_ROWS
     from repro_torch.serving import Request, WaveScheduler
@@ -446,7 +471,33 @@ def hybrid_phases(torch, np_, dev, card):
                   f"window={window} {name:8s}: {routes[name]}.cu, max abs "
                   f"err {err:.3e} ({FLASH_TOL[name]})")
             del q, k, v, got, want
+    b8, hq8, hkv8, s8, hd8 = FLASH_HD80
+    for name, dtype in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        gen.manual_seed(hd8)
+        q, k, v = [torch.randn(sh, device=dev, generator=gen).to(dtype)
+                   for sh in ((b8, hq8, s8, hd8), (b8, hkv8, s8, hd8),
+                              (b8, hkv8, s8, hd8))]
+        before = dict(flash_attention.routes)
+        got = flash_attention(q, k, v, causal=True)
+        sync()
+        went = {r: n - before.get(r, 0)
+                for r, n in flash_attention.routes.items()
+                if n != before.get(r, 0)}
+        check(went == {routes[name]: 1}, f"flash hd 80 {name} launched {went}")
+        want = flash_attention_ref(q, k, v, causal=True)
+        err = float((got.float() - want.float()).abs().max())
+        flash_err[name] = max(flash_err[name], err)
+        check(got.shape == q.shape and torch.allclose(
+            got.float(), want.float(), **FLASH_TOL[name]),
+            f"flash hd 80 {name}: kernel vs plain max abs err {err} beyond "
+            f"{FLASH_TOL[name]}")
+        print(f"flash (B, Hq, Hkv, hd) = {(b8, hq8, hkv8, hd8)} S={s8} causal "
+              f"{name:8s}: {routes[name]}.cu at hd 128 on zero-padded "
+              f"operands, max abs err {err:.3e} ({FLASH_TOL[name]})")
+        del q, k, v, got, want
     rglru_err = 0.0
+    scan_routes = dict(rglru_scan.routes)
     for shape, name in RGLRU_CASES:
         dtype = getattr(torch, name)
         gen.manual_seed(shape[1])
@@ -460,8 +511,13 @@ def hybrid_phases(torch, np_, dev, card):
         rglru_err = max(rglru_err, err)
         check(torch.equal(got, want), f"RG-LRU {shape} {name}: kernel != "
                                       f"plain version (max abs err {err})")
-        print(f"RG-LRU scan {shape} {name:8s}: exact (atol 0)")
+        print(f"RG-LRU scan {shape} {name:8s} ({plan_for((a, u))}): exact "
+              f"(atol 0)")
         del a, u, got, want
+    went = {r: n - scan_routes.get(r, 0) for r, n in rglru_scan.routes.items()}
+    check(all(went.get(r, 0) > 0 for r in ("tma", "cp_async")),
+          f"RG-LRU scan routes launched {went}: both must be")
+    print(f"RG-LRU scan launches per copy route: {json.dumps(went)}")
 
     # ---- 11. full-width serving through the wave scheduler -------------
     phase(f"11. full-width {RG_ARCH} serving on cuda: WaveScheduler("
@@ -495,6 +551,7 @@ def hybrid_phases(torch, np_, dev, card):
     flash_attention.launches = 0     # the counts to 0 just before the path
     flash_attention.routes.clear()
     rglru_scan.launches = 0
+    rglru_scan.routes.clear()
     t0 = time.perf_counter()
     served = sched.run()
     sync()
@@ -502,8 +559,11 @@ def hybrid_phases(torch, np_, dev, card):
     launches_flash = flash_attention.launches    # read just after
     served_routes = dict(flash_attention.routes)
     launches_rglru = rglru_scan.launches
+    scan_routes = dict(rglru_scan.routes)
     check(served_routes == {SM90_SOURCE.stem: launches_flash},
           f"bf16 serving launched the flash routes {served_routes}")
+    check(scan_routes == {"tma": launches_rglru},
+          f"serving launched the RG-LRU scan routes {scan_routes}")
     waves = len(sched.stats)
     check(waves == len(SERVE_PROMPTS), f"{waves} waves")
     check(launches_flash == n_triples * waves
@@ -512,7 +572,8 @@ def hybrid_phases(torch, np_, dev, card):
           f"expected {n_triples} / {n_rec} per prefill x {waves} prefills")
     print(f"{launches_flash} flash_attention launches = {n_triples} per "
           f"prefill x {waves} waves; {launches_rglru} rglru_scan launches "
-          f"= {n_rec} per prefill x {waves} (decode steps launch neither)")
+          f"= {n_rec} per prefill x {waves} (decode steps launch neither); "
+          f"RG-LRU launches per copy route {json.dumps(scan_routes)}")
     for st in sched.stats:
         dec_ms = (st.wall_s - st.ttft_s) / max(st.steps - 1, 1) * 1e3
         print(f"wave {st.wave}: {st.batch} x {st.prompt_len} tokens: "
@@ -720,24 +781,54 @@ def hybrid_phases(torch, np_, dev, card):
     timed = {case: time_flash(*case, torch.bfloat16, 100 + case[1])
              for case in FLASH_TIMED}
     f32_timed = time_flash(*FLASH_F32_TIMED, torch.float32, 7)
-    gen.manual_seed(5)
-    shape = RGLRU_CASES[0][0]
-    a = torch.rand(shape, device=dev, generator=gen).mul_(0.2).add_(0.8)
-    u = torch.randn(shape, device=dev, generator=gen)
-    r_ms = median_device_ms(torch, lambda: rglru_scan(a, u))
-    r_call = median_event_ms(torch, lambda: rglru_scan(a, u))
-    # one call per run: the plain version queues 3 launches per time
-    # step (12,288 at T = 4096), past the device's queue of pending
-    # launches, so its time includes the host's enqueue
-    rp_ms = median_event_ms(torch, lambda: rglru_scan_ref(a, u), runs=5,
-                            per_run=1)
-    r_bytes = 3 * a.numel() * 4
-    rb_ms = r_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"RG-LRU f32 {shape}: kernel {r_ms * 1e3:.1f} us on the "
-          f"device ({rb_ms / r_ms * 100:.1f}% of the bound), wrapper call "
-          f"{r_call * 1e3:.1f} us; plain torch {rp_ms:.2f} ms per call "
-          f"(host enqueue included); bound {rb_ms * 1e3:.1f} us ({r_bytes} B"
-          f" / 3.35 TB/s) [{card}]")
+    def time_scan(shape, seed):
+        """(kernel, plain, bound) ms of one f32 scan at ``shape``, the
+        wrapper call's time printed; at the serving shape also the
+        cp.async route and the copy to aligned tensors that would avoid
+        it, printed."""
+        gen.manual_seed(seed)
+        a = torch.rand(shape, device=dev, generator=gen).mul_(0.2).add_(0.8)
+        u = torch.randn(shape, device=dev, generator=gen)
+        ms = median_device_ms(torch, lambda: rglru_scan(a, u))
+        call = median_event_ms(torch, lambda: rglru_scan(a, u))
+        # one call per run: the plain version queues 3 launches per time
+        # step (12,288 at T = 4096), past the device's queue of pending
+        # launches, so its time includes the host's enqueue
+        plain = median_event_ms(torch, lambda: rglru_scan_ref(a, u), runs=5,
+                                per_run=1)
+        nbytes = 3 * a.numel() * 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"RG-LRU f32 {shape} ({plan_for((a, u))}): kernel "
+              f"{ms * 1e3:.1f} us on the device ({bound / ms * 100:.1f}% of "
+              f"the bound), wrapper call {call * 1e3:.1f} us; plain torch "
+              f"{plain:.2f} ms per call (host enqueue included); bound "
+              f"{bound * 1e3:.1f} us ({nbytes} B / 3.35 TB/s) [{card}]")
+        if shape == RGLRU_CASES[0][0]:
+            # the same operands one element past an aligned base: the
+            # cp.async route, against copying them to fresh (aligned)
+            # tensors and taking the TMA route
+            am, um = (torch.empty(x.numel() + 1, device=dev)[1:].view(shape)
+                      .copy_(x) for x in (a, u))
+            check(plan_for((am, um)).route == "cp_async"
+                  and torch.equal(rglru_scan(am, um), rglru_scan(a, u)),
+                  "RG-LRU misaligned operands: not the cp.async route, or "
+                  "not equal to the TMA route's result")
+            cp_ms = median_device_ms(torch, lambda: rglru_scan(am, um))
+            copy_ms = median_device_ms(
+                torch, lambda: rglru_scan(am.clone(), um.clone()))
+            print(f"RG-LRU f32 {shape} one element past an aligned base: "
+                  f"cp.async route {cp_ms * 1e3:.1f} us on the device "
+                  f"({bound / cp_ms * 100:.1f}% of the bound); copied to "
+                  f"aligned tensors, then the TMA route {copy_ms * 1e3:.1f} "
+                  f"us [{card}]")
+            del am, um
+        return ms, plain, bound
+
+    scan_timed = {shape: time_scan(shape, 5 + i)
+                  for i, shape in enumerate((RGLRU_CASES[0][0],
+                                             RGLRU_TRAIN_SHAPE))}
+    r_ms, rp_ms, rb_ms = scan_timed[RGLRU_CASES[0][0]]
+    t_ms, _, tb_ms = scan_timed[RGLRU_TRAIN_SHAPE]
     k_ms, plain_ms, b_ms, lib_ms = timed[FLASH_REPORTED]
     f_ms, fplain_ms, fb_ms, flib_ms = f32_timed
     return [
@@ -761,6 +852,9 @@ def hybrid_phases(torch, np_, dev, card):
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru.cu",
          "replaces": "src/repro/kernels/rglru.py:58",
+         "note": f"times at the serving shape {RGLRU_CASES[0][0]}; at the "
+                 f"training shape {RGLRU_TRAIN_SHAPE} {t_ms} ms against a "
+                 f"{tb_ms} ms bound",
          "launches": launches_rglru, "max_abs_err": rglru_err,
          "ms": r_ms, "plain_ms": rp_ms, "bound_ms": rb_ms,
          "bound_by": "bytes", "library_ms": None},
@@ -958,6 +1052,7 @@ def training_phases(torch, np_, dev, card):
                   f"bit-equal")
             del q, k, v, do, grads
     rglru_bwd_err = 0.0
+    adj_routes = dict(krglru.rglru_scan_bwd.routes)
     for shape, name in RGLRU_BWD_CASES:
         dtype = getattr(torch, name)
         gen.manual_seed(shape[1] + 3)
@@ -973,8 +1068,14 @@ def training_phases(torch, np_, dev, card):
                                                      .abs().max()))
             check(torch.equal(x, y), f"RG-LRU adjoint {shape} {name}: kernel "
                                      f"!= plain version")
-        print(f"RG-LRU adjoint {shape} {name:8s}: exact (atol 0)")
+        print(f"RG-LRU adjoint {shape} {name:8s} "
+              f"({krglru.plan_for((a, h, dh))}): exact (atol 0)")
         del a, h, dh, got, want
+    went = {r: n - adj_routes.get(r, 0)
+            for r, n in krglru.rglru_scan_bwd.routes.items()}
+    check(all(went.get(r, 0) > 0 for r in ("tma", "cp_async")),
+          f"RG-LRU adjoint routes launched {went}: both must be")
+    print(f"RG-LRU adjoint launches per copy route: {json.dumps(went)}")
 
     # ---- 15. full-width training ----------------------------------------
     cfg = get_config(RG_ARCH)
@@ -1039,14 +1140,17 @@ def training_phases(torch, np_, dev, card):
                 "fused_adamw": kadamw.fused_adamw}
     for c in counters.values():
         c.launches = 0                   # the counts to 0 just before the path
-    kflash.flash_attention.routes.clear()
-    kflash.flash_attention_bwd.routes.clear()
+    for c in (kflash.flash_attention, kflash.flash_attention_bwd,
+              krglru.rglru_scan, krglru.rglru_scan_bwd):
+        c.routes.clear()
     res = loop.run()
     sync()
     stamps.append(time.perf_counter())
     launched = {k: c.launches for k, c in counters.items()}   # read just after
     trained_routes = {**kflash.flash_attention.routes,
                       **kflash.flash_attention_bwd.routes}
+    rglru_routes = {"rglru_scan": dict(krglru.rglru_scan.routes),
+                    "rglru_scan_bwd": dict(krglru.rglru_scan_bwd.routes)}
     peak = torch.cuda.max_memory_allocated()
     n_tri = cfg.n_layers // 3
     n_rec = cfg.n_layers - n_tri
@@ -1067,7 +1171,7 @@ def training_phases(torch, np_, dev, card):
           f"expected {json.dumps(expected)} (flash: {n_tri} attention "
           f"blocks, forward + remat recompute, 3 bf16 backward launches: "
           f"dq, partial dk and dv, their sum; RG-LRU: {n_rec} recurrent "
-          f"blocks)")
+          f"blocks); RG-LRU launches per copy route {json.dumps(rglru_routes)}")
     check(len(losses) == TRAIN_STEPS and all(np_.isfinite(losses)),
           f"losses {losses}")
     check(launched == expected, f"launches {launched} != {expected}")
@@ -1075,6 +1179,8 @@ def training_phases(torch, np_, dev, card):
         kflash.SM90_SOURCE.stem: expected["flash_attention"],
         kflash.BWD_SM90_SOURCE.stem: expected["flash_attention_bwd"]},
         f"bf16 training launched the flash routes {trained_routes}")
+    check(rglru_routes == {k: {"tma": expected[k]} for k in rglru_routes},
+          f"training launched the RG-LRU routes {rglru_routes}")
     check(window_check.get("same") and window_check.get("moved"),
           f"AdamW window past element 2^31: {window_check}")
     print(f"AdamW on the last step, elements [{ADAMW_WINDOW_START}, "
@@ -1258,10 +1364,11 @@ def training_phases(torch, np_, dev, card):
                             runs=3, per_run=1)
     r_bytes = 5 * a.numel() * 4
     rb_ms = r_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"RG-LRU adjoint f32 {shape}: kernel {r_ms * 1e3:.1f} us on the "
-          f"device ({rb_ms / r_ms * 100:.1f}% of the bound); plain torch "
-          f"{rp_ms:.2f} ms per call (host enqueue included); bound "
-          f"{rb_ms * 1e3:.1f} us ({r_bytes} B / 3.35 TB/s) [{card}]")
+    print(f"RG-LRU adjoint f32 {shape} ({krglru.plan_for((a, h, dh))}): "
+          f"kernel {r_ms * 1e3:.1f} us on the device ({rb_ms / r_ms * 100:.1f}"
+          f"% of the bound); plain torch {rp_ms:.2f} ms per call (host "
+          f"enqueue included); bound {rb_ms * 1e3:.1f} us ({r_bytes} B / "
+          f"3.35 TB/s) [{card}]")
     return [
         {"name": "fused_adamw", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_adamw.cu",
@@ -1381,6 +1488,24 @@ def main() -> int:
               f"and {counts['UTMALDG']} UTMALDG instructions")
         check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
               f"{lib.name}: no wgmma or no TMA load in the SASS ({counts})")
+
+    rg_lib = rglru_mod._library()
+    for name, regs, smem, st, ld in ptxas_kernels(
+            libs[sources.index(rglru_mod.SOURCE)].with_suffix(".log")
+            .read_text()):
+        print(f"{name}: {regs} registers, {smem} B static shared memory, "
+              f"spills {st} B stored / {ld} B loaded")
+    for shape, ops in ((RGLRU_TRAIN_SHAPE, 2), (RGLRU_TRAIN_SHAPE, 3),
+                       (RGLRU_CASES[0][0], 2)):
+        plan = rglru_mod.launch_plan(*shape, 4, ops, "tma",
+                                     torch.cuda.get_device_properties(0)
+                                     .multi_processor_count)
+        dyn = rg_lib.rglru_smem_bytes(ops == 3, 0, 0, plan.stages)
+        check(dyn == plan.smem_bytes, f"RG-LRU shared memory: kernel {dyn}, "
+                                      f"plan {plan.smem_bytes}")
+        print(f"RG-LRU {'adjoint' if ops == 3 else 'scan'} {shape} f32: "
+              f"{plan.blocks} blocks of {rglru_mod.GROUP} channels, "
+              f"{plan.stages} stages, {dyn} B dynamic shared memory a block")
 
     # ---- 3. TPD kernel vs plain version on the card ---------------------
     phase("3. TPD kernel vs its plain torch version on the card")

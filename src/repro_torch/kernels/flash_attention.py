@@ -16,14 +16,20 @@ source notes give the design and the bound)::
   (on the tensor cores float32 would mean TF32, which the float32
   tolerances do not allow).
 
-q, k and v alike, hd 64, 128 or 256, Hq a multiple of Hkv. The kernels
-mask their own ragged edge, so S need not be a multiple of any tile and
-nothing is padded. A tensor on a CUDA device launches its dtype's kernel
-or raises (counted on ``flash_attention.launches``, and per source on
-``flash_attention.routes``); a tensor on the CPU goes to the plain torch
-version, :func:`repro_torch.kernels.ref.flash_attention_ref`, with the
-same masks. There is no fallback from the card to the host or from one
-route to the other.
+q, k and v alike, Hq a multiple of Hkv. The kernels are built for head
+dims 64, 128 and 256 and mask their own ragged edge, so S need not be a
+multiple of any tile. On the card any other hd up to 256 is zero-padded
+on the last axis to the next of those widths (hd 80 -> 128), with the
+scale of the real hd, and the output sliced back: the zero columns add
+exact zeros to every q.k and every product with V, so the result is the
+unpadded one (:func:`padded_head_dim`); hd > 256 raises there. A tensor
+on a CUDA device launches its dtype's kernel or raises (counted on
+``flash_attention.launches``, and per source on
+``flash_attention.routes``); a tensor on the CPU, of any hd >= 1, goes
+to the plain torch version,
+:func:`repro_torch.kernels.ref.flash_attention_ref`, with the same
+masks. There is no fallback from the card to the host or from one route
+to the other.
 
 The gradient. When q, k or v requires grad, ``flash_attention`` runs
 through an autograd Function: the forward also keeps each row's float32
@@ -37,7 +43,8 @@ dtype, ``csrc/flash_attention_bwd_sm90.cu`` and
 
 deterministic passes (float32: dq, then dk and dv; bfloat16: dq, then
 partial dk and dv over a split of each kv head's query heads, then their
-sum), each launch counted on ``flash_attention_bwd.launches``, with its
+sum), padded as the forward is, each launch counted on
+``flash_attention_bwd.launches``, with its
 plain version :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`
 for CPU tensors. :func:`launch_geometry` gives the bfloat16 kernels'
 grids.
@@ -159,6 +166,26 @@ def _check_aligned(*tensors) -> None:
                              "aligned operands")
 
 
+def padded_head_dim(hd: int) -> int:
+    """The head dim the card's kernels run an hd-wide call at: the least
+    of ``HEAD_DIMS`` that holds it."""
+    for width in HEAD_DIMS:
+        if hd <= width:
+            return width
+    raise ValueError(f"head dim {hd} is above {HEAD_DIMS[-1]}, the widest "
+                     f"the flash kernels take on the card")
+
+
+def _pad_head(hd: int, *tensors):
+    """``tensors`` zero-padded on the last axis from hd to
+    :func:`padded_head_dim` (the same tensors where hd is a kernel's
+    own)."""
+    width = padded_head_dim(hd)
+    if width == hd:
+        return tensors
+    return tuple(torch.nn.functional.pad(t, (0, width - hd)) for t in tensors)
+
+
 def _check(q, k, v, window, kv_len) -> None:
     """Raise on anything the kernel does not take."""
     if q.device.type not in ("cuda", "cpu"):
@@ -182,8 +209,10 @@ def _check(q, k, v, window, kv_len) -> None:
     if k.shape[1] < 1 or hq % k.shape[1]:
         raise ValueError(f"GQA needs Hq % Hkv == 0, got Hq={hq}, "
                          f"Hkv={k.shape[1]}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim must be one of {HEAD_DIMS}, got {hd}")
+    if hd < 1:
+        raise ValueError(f"head dim must be >= 1, got {hd}")
+    if q.device.type == "cuda":
+        padded_head_dim(hd)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     if window is not None and window < 1:
@@ -221,11 +250,12 @@ def _forward(q, k, v, masks, with_lse: bool):
                                        return_lse=True)
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale, kv_len=kv_len), None
-    out = torch.empty_like(q)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device) \
         if with_lse else None
-    if out.numel() == 0:
-        return out, lse
+    if q.numel() == 0:
+        return torch.empty_like(q), lse
+    q, k, v = _pad_head(hd, q, k, v)
+    out = torch.empty_like(q)
     kv = s if kv_len is None else kv_len
     operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr() if with_lse else None)
@@ -237,15 +267,17 @@ def _forward(q, k, v, masks, with_lse: bool):
             source, name, lib = SM90_SOURCE, "flash_attention_sm90", \
                 _sm90_library()
             code = lib.flash_attention_sm90_launch(
-                *operands, b, hq, k.shape[1], s, hd, int(causal),
+                *operands, b, hq, k.shape[1], s, q.shape[-1], int(causal),
                 window or 0, kv, geo.kv_tiles, scale, *geo.fwd_grid, stream)
         else:
             source, name, lib = SOURCE, "flash_attention", _library()
             code = lib.flash_attention_launch(
-                *operands, b, hq, k.shape[1], s, hd, int(causal),
+                *operands, b, hq, k.shape[1], s, q.shape[-1], int(causal),
                 window or 0, kv, scale, stream)
     _raise_on(code, lib, name)
     _count(flash_attention, source)
+    if out.shape[-1] != hd:
+        out = out[..., :hd].contiguous()
     return out, lse
 
 
@@ -275,9 +307,11 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
         return flash_attention_bwd_ref(q, k, v, out, dout, lse,
                                        causal=causal, window=window,
                                        scale=scale, kv_len=kv_len)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
-        return dq, dk, dv
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    q, k, v, out, dout = _pad_head(hd, q, k, v, out, dout)
+    width = q.shape[-1]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     hkv = k.shape[1]
     kv = s if kv_len is None else kv_len
     dsum = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
@@ -289,7 +323,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
         if q.dtype == torch.bfloat16:
             _check_aligned(q, k, v, out, dout, dq, dk, dv)
             geo = launch_geometry(b, hq, hkv, s, kv, _sms(q.device))
-            dk_part, dv_part = (torch.empty((geo.split, b, hkv, s, hd),
+            dk_part, dv_part = (torch.empty((geo.split, b, hkv, s, width),
                                             dtype=torch.float32,
                                             device=q.device)
                                 for _ in range(2))
@@ -297,19 +331,21 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                 _bwd_sm90_library()
             code = lib.flash_attention_bwd_sm90_launch(
                 *operands, dk_part.data_ptr(), dv_part.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), b, hq, hkv, s, hd, int(causal),
-                window or 0, kv, geo.kv_tiles, scale, geo.split,
+                dk.data_ptr(), dv.data_ptr(), b, hq, hkv, s, width,
+                int(causal), window or 0, kv, geo.kv_tiles, scale, geo.split,
                 *geo.dq_grid, *geo.dkdv_grid, stream)
             passes = 3          # dq, partial dk and dv, their sum
         else:
             source, name, lib = BWD_SOURCE, "flash_attention_bwd", \
                 _bwd_library()
             code = lib.flash_attention_bwd_launch(
-                *operands, dk.data_ptr(), dv.data_ptr(), b, hq, hkv, s, hd,
+                *operands, dk.data_ptr(), dv.data_ptr(), b, hq, hkv, s, width,
                 int(causal), window or 0, kv, scale, stream)
             passes = 2          # dq, then dk and dv
     _raise_on(code, lib, name)
     _count(flash_attention_bwd, source, passes)
+    if width != hd:
+        dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 

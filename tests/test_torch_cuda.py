@@ -160,14 +160,17 @@ def test_fig4_smoke_model_same_tpds_on_cuda_and_cpu(cuda_device):
 # flash attention and the RG-LRU scan
 # ---------------------------------------------------------------------------
 # (b, hq, hkv, s, hd, causal, window, kv_len): recurrentgemma's MQA at hd
-# 256 (group 10), GQA group 2 at hd 64, hd 128; ragged S, windows, kv_len
+# 256 (group 10), GQA group 2 at hd 64, hd 128; ragged S, windows, kv_len;
+# hd 80 (stablelm-3b's, padded to 128 on the card)
 FLASH_CASES = [(2, 10, 1, 200, 256, True, None, None),
                (2, 10, 1, 200, 256, True, 48, None),
                (1, 10, 1, 97, 256, True, 32, 90),
                (1, 4, 2, 129, 64, True, None, None),
                (1, 4, 2, 129, 64, False, 40, 100),
                (2, 2, 2, 64, 128, False, None, None),
-               (1, 2, 1, 33, 64, True, 1, 0)]
+               (1, 2, 1, 33, 64, True, 1, 0),
+               (1, 4, 2, 129, 80, True, None, None),
+               (2, 8, 8, 200, 80, False, 48, 150)]
 FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
              torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 
@@ -199,20 +202,119 @@ def test_flash_kernel_matches_plain_version(cuda_device, case, dtype):
     torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
 
 
+# (B, T, D): ragged D (the cp.async route: 280-byte f32 rows), a model
+# width, a narrow one; recurrentgemma-2b's training shape; T not a
+# multiple of the ring's 64-step stages; odd D (bf16 rows of 5,122 bytes)
+RGLRU_SHAPES = [(2, 100, 70), (1, 33, 2560), (3, 16, 64), (1, 2048, 2560),
+                (1, 1000, 2560), (2, 77, 2561)]
+
+
+def _rglru_operands(shape, dtype, device, n, seed, offset=0):
+    """``n`` (B, T, D) operands, a in [0.8, 1] then standard normals;
+    ``offset`` elements into a fresh buffer (a misaligned base)."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for i in range(n):
+        x = torch.rand(shape, generator=g).mul(0.2).add(0.8) if i == 0 \
+            else torch.randn(shape, generator=g)
+        buf = torch.empty(x.numel() + offset, dtype=dtype, device=device)
+        view = buf[offset:].view(shape)
+        view.copy_(x)
+        out.append(view)
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 100, 70), (1, 33, 2560), (3, 16, 64)])
+@pytest.mark.parametrize("shape", RGLRU_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rglru_kernel_equals_plain_version(cuda_device, shape, dtype):
     from repro_torch.kernels import rglru as krglru
     from repro_torch.kernels.ref import rglru_scan_ref
-    g = torch.Generator().manual_seed(shape[1])
-    a = torch.rand(shape, generator=g).mul(0.2).add(0.8).to(cuda_device, dtype)
-    u = torch.randn(shape, generator=g).to(cuda_device, dtype)
-    before = krglru.rglru_scan.launches
+    a, u = _rglru_operands(shape, dtype, cuda_device, 2, shape[1])
+    route = krglru.copy_route(shape[2], a.element_size(),
+                              (a.data_ptr(), u.data_ptr()))
+    before = (krglru.rglru_scan.launches,
+              krglru.rglru_scan.routes.get(route, 0))
     got = krglru.rglru_scan(a, u)
     torch.cuda.synchronize()
-    assert krglru.rglru_scan.launches == before + 1
+    assert (krglru.rglru_scan.launches,
+            krglru.rglru_scan.routes.get(route, 0)) == \
+        (before[0] + 1, before[1] + 1)
     assert torch.equal(got, rglru_scan_ref(a, u))   # atol 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,offset", [("tma", 0), ("cp_async", 1)])
+@pytest.mark.parametrize("t,depth", [(100, 2), (150, 3), (1000, 4)])
+def test_rglru_kernel_at_every_route_and_depth(cuda_device, route, offset,
+                                               t, depth):
+    """Both walks at one TMA-able width (D 80, a partial group of 32; B
+    2) through each route, the cp.async one reached by operands one
+    element past an aligned base, at T whose plan picks ring depths 2, 3
+    and 4 for the f32 scan (bf16 and the adjoint take their own, up to
+    7: ``tests/test_torch_rglru.py::DEPTH_CASES``), bit-equal to the
+    plain versions."""
+    from repro_torch.kernels import rglru as krglru
+    from repro_torch.kernels.ref import rglru_scan_bwd_ref, rglru_scan_ref
+    for dtype in (torch.float32, torch.bfloat16):
+        a, u, dh = _rglru_operands((2, t, 80), dtype, cuda_device, 3, t,
+                                   offset=offset)
+        plan = krglru.plan_for((a, u))
+        assert plan.route == route
+        if dtype == torch.float32:
+            assert plan.stages == depth
+        before = (krglru.rglru_scan.routes.get(route, 0),
+                  krglru.rglru_scan_bwd.routes.get(route, 0))
+        h = krglru.rglru_scan(a, u)
+        da, du = krglru.rglru_scan_bwd(a, h, dh)
+        torch.cuda.synchronize()
+        assert (krglru.rglru_scan.routes.get(route, 0),
+                krglru.rglru_scan_bwd.routes.get(route, 0)) == \
+            (before[0] + 1, before[1] + 1)
+        assert torch.equal(h, rglru_scan_ref(a, u))
+        want = rglru_scan_bwd_ref(a, h, dh)
+        assert torch.equal(da, want[0]) and torch.equal(du, want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2])
+def test_rglru_kernel_on_misaligned_bf16_operands(cuda_device, offset):
+    """bf16 operands 2 (or 4) bytes past an aligned base take the
+    cp.async route, whose 4-byte words then hold each element in the
+    other half: both walks still bit-equal to the plain versions."""
+    from repro_torch.kernels import rglru as krglru
+    from repro_torch.kernels.ref import rglru_scan_bwd_ref, rglru_scan_ref
+    for shape in [(1, 130, 2560), (2, 77, 2561)]:
+        a, u, dh = _rglru_operands(shape, torch.bfloat16, cuda_device, 3,
+                                   offset, offset=offset)
+        assert krglru.copy_route(shape[2], 2, (a.data_ptr(),)) == "cp_async"
+        before = krglru.rglru_scan.routes.get("cp_async", 0)
+        h = krglru.rglru_scan(a, u)
+        da, du = krglru.rglru_scan_bwd(a, h, dh)
+        torch.cuda.synchronize()
+        assert krglru.rglru_scan.routes["cp_async"] == before + 1
+        assert torch.equal(h, rglru_scan_ref(a, u))
+        want = rglru_scan_bwd_ref(a, h, dh)
+        assert torch.equal(da, want[0]) and torch.equal(du, want[1])
+
+
+@pytest.mark.cuda
+def test_rglru_reaches_both_copy_routes(cuda_device):
+    """A model width launches the TMA route and a 280-byte row the
+    cp.async route, for the scan and for its adjoint, and neither
+    launches the other."""
+    from repro_torch.kernels import rglru as krglru
+    for shape, route in (((1, 300, 2560), "tma"), ((2, 100, 70), "cp_async")):
+        before = (dict(krglru.rglru_scan.routes),
+                  dict(krglru.rglru_scan_bwd.routes))
+        a, u = _rglru_operands(shape, torch.float32, cuda_device, 2, 1)
+        krglru.rglru_scan(a.clone().requires_grad_(), u).sum().backward()
+        torch.cuda.synchronize()
+        for fn, was in zip((krglru.rglru_scan, krglru.rglru_scan_bwd),
+                           before, strict=True):
+            went = {r: n - was.get(r, 0) for r, n in fn.routes.items()
+                    if n != was.get(r, 0)}
+            assert went == {route: 1}, (fn.__name__, went)
 
 
 @pytest.mark.cuda
@@ -230,10 +332,10 @@ def test_attention_and_scan_wrappers_reject_malformed_operands(cuda_device):
         kflash.flash_attention(q, k.cpu(), v)
     with pytest.raises(ValueError, match="Hq % Hkv"):
         kflash.flash_attention(q[:, :3].contiguous(), k, v)
-    with pytest.raises(ValueError, match="head dim"):
-        kflash.flash_attention(q[..., :48].contiguous(),
-                               k[..., :48].contiguous(),
-                               v[..., :48].contiguous())
+    q3, k3, v3 = (torch.zeros(t.shape[:3] + (300,), device=cuda_device)
+                  for t in (q, k, v))
+    with pytest.raises(ValueError, match="head dim 300 is above 256"):
+        kflash.flash_attention(q3, k3, v3)
     a = torch.rand((2, 8, 16), device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         krglru.rglru_scan(a.transpose(1, 2), a.transpose(1, 2))
@@ -369,7 +471,8 @@ def test_adamw_wrapper_rejects_malformed_operands(cuda_device):
 FLASH_GRAD_CASES = [(1, 10, 1, 130, 256, True, None, None),
                     (2, 4, 2, 100, 64, True, 32, None),
                     (1, 4, 1, 77, 128, False, 20, 60),
-                    (1, 2, 2, 64, 64, True, None, 40)]
+                    (1, 2, 2, 64, 64, True, None, 40),
+                    (1, 4, 2, 129, 80, True, 48, None)]
 # f32: against autograd of the dense plain version, relative to each
 # gradient's scale (P recomputed from lse, sums in other orders); bf16:
 # one bf16 rounding of each gradient and of the output D is formed from
@@ -528,7 +631,8 @@ def test_each_dtype_reaches_only_its_own_kernel(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 100, 70), (1, 33, 2560), (3, 1, 64)])
+@pytest.mark.parametrize("shape", [(2, 100, 70), (1, 33, 2560), (3, 1, 64),
+                                   (1, 2048, 2560), (1, 1000, 2561)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rglru_backward_equals_plain_autograd(cuda_device, shape, dtype):
     from repro_torch.kernels import rglru as krglru

@@ -144,6 +144,84 @@ def test_decode_attention_and_ring_cache_match_reference():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
 
 
+# head dims the card's kernels are not built for: stablelm-3b's 80 (d_model
+# 2560 over 32 heads) and 48; the reference kernel takes any hd
+@pytest.mark.parametrize("hd", [80, 48])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48),
+                                           (False, 100)])
+def test_other_head_dims_match_pallas_and_oracle(hd, causal, window):
+    shape = (1, 4, 2, 128, hd)
+    (jq, jk, jv), (q, k, v) = _pair(_qkv(*shape, seed=hd), "float32")
+    want = flash_attention_pallas(jq, jk, jv, causal=causal, window=window,
+                                  interpret=True)
+    oracle = jref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                      window=window)
+    got = kflash.flash_attention(q, k, v, causal=causal, window=window)
+    assert tuple(got.shape) == tuple(q.shape) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), **F32)
+
+
+def test_head_dim_80_bfloat16_matches_pallas():
+    (jq, jk, jv), (q, k, v) = _pair(_qkv(1, 4, 2, 128, 80, seed=8),
+                                    "bfloat16")
+    want = flash_attention_pallas(jq, jk, jv, causal=True, window=32,
+                                  interpret=True)
+    got = kflash.flash_attention(q, k, v, causal=True, window=32)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **BF16)
+
+
+@pytest.mark.parametrize("hd,width", [(1, 64), (48, 64), (64, 64), (65, 128),
+                                      (80, 128), (200, 256), (256, 256)])
+def test_padded_head_dim_is_the_next_kernel_width(hd, width):
+    assert kflash.padded_head_dim(hd) == width
+
+
+def test_padded_head_dim_above_256_raises():
+    with pytest.raises(ValueError, match="head dim 300 is above 256"):
+        kflash.padded_head_dim(300)
+
+
+@pytest.mark.parametrize("hd", [80, 48])
+def test_zero_padding_the_head_dim_leaves_attention_and_gradients(hd):
+    """What the wrapper does on the card for a head dim the kernels are
+    not built for, run through the plain versions: q, k, v (and out,
+    dout) zero-padded to the next kernel width, the scale of the real hd,
+    the result sliced back, equals the unpadded computation (exact in
+    exact arithmetic: the zero columns add zeros to every q.k and every
+    product with V; here within F32, since the host's matmuls may sum in
+    another order at the padded width)."""
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+    (_, _, _), (q, k, v) = _pair(_qkv(1, 4, 2, 96, hd, seed=hd + 1),
+                                 "float32")
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(hd))
+    masks = dict(causal=True, window=40, scale=hd ** -0.5)
+    out, lse = flash_attention_ref(q, k, v, return_lse=True, **masks)
+    pq, pk, pv, pout, pdout = kflash._pad_head(hd, q, k, v, out, dout)
+    assert pq.shape[-1] == kflash.padded_head_dim(hd) and pq.is_contiguous()
+    assert not pq[..., hd:].any()
+    got, got_lse = flash_attention_ref(pq, pk, pv, return_lse=True, **masks)
+    np.testing.assert_allclose(got[..., :hd].numpy(), out.numpy(), **F32)
+    assert not got[..., hd:].any()
+    np.testing.assert_allclose(got_lse.numpy(), lse.numpy(), **F32)
+    want = flash_attention_bwd_ref(q, k, v, out, dout, lse, **masks)
+    grads = flash_attention_bwd_ref(pq, pk, pv, pout, pdout, lse, **masks)
+    for name, g, w in zip("qkv", grads, want, strict=True):
+        assert not g[..., hd:].any(), name
+        np.testing.assert_allclose(g[..., :hd].numpy(), w.numpy(), **F32,
+                                   err_msg=f"d{name}")
+
+
+def test_cpu_takes_any_head_dim():
+    """The plain version has no width of its own: hd 300, above what the
+    card takes, runs on the CPU."""
+    (_, _, _), (q, k, v) = _pair(_qkv(1, 2, 1, 20, 300, seed=3), "float32")
+    got = kflash.flash_attention(q, k, v, causal=True)
+    assert torch.equal(got, flash_attention_ref(q, k, v, causal=True))
+
+
 def test_wrapper_takes_the_plain_version_on_the_cpu():
     (_, _, _), (q, k, v) = _pair(_qkv(1, 4, 2, 70, 64, seed=1), "float32")
     before = kflash.flash_attention.launches
@@ -155,8 +233,8 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
 
 @pytest.mark.parametrize("bad,err,match", [
     (dict(q=torch.zeros((1, 3, 8, 64))), ValueError, "Hq % Hkv"),
-    (dict(q=torch.zeros((1, 4, 8, 48)), k=torch.zeros((1, 2, 8, 48)),
-          v=torch.zeros((1, 2, 8, 48))), ValueError, "head dim"),
+    (dict(q=torch.zeros((1, 4, 8, 0)), k=torch.zeros((1, 2, 8, 0)),
+          v=torch.zeros((1, 2, 8, 0))), ValueError, "head dim"),
     (dict(q=torch.zeros((1, 4, 8, 64), dtype=torch.float16)), TypeError,
      "is torch.float32"),
     (dict(q=torch.zeros((1, 4, 8, 64), dtype=torch.float16),
@@ -207,7 +285,9 @@ def _assert_grads(got, want):
                                    **GRAD_F32, err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("shape", [(2, 4, 2, 80, 64), (1, 10, 1, 96, 256)])
+# the last shape: head dim 80 (stablelm-3b's)
+@pytest.mark.parametrize("shape", [(2, 4, 2, 80, 64), (1, 10, 1, 96, 256),
+                                   (1, 4, 2, 72, 80)])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 24),
                                            (False, None), (False, 40)])
 def test_backward_matches_jax_grad_of_reference(shape, causal, window):

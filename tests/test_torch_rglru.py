@@ -228,3 +228,106 @@ def test_model_scan_gradient_with_h0_matches_reference():
 def test_backward_wrapper_rejects_malformed_operands(a, h, dh, err, match):
     with pytest.raises(err, match=match):
         krglru.rglru_scan_bwd(a, h, dh)
+
+
+# ---- the kernel's launch plan (computed on the host, no card) --------------
+@pytest.mark.parametrize("d,elem,ptrs,route", [
+    (2560, 4, (0, 256), "tma"),            # recurrentgemma-2b, float32
+    (2560, 2, (0, 256), "tma"),            # and bfloat16
+    (2500, 4, (), "tma"),                  # 10,000-byte rows
+    (70, 4, (), "cp_async"),               # 280-byte rows
+    (2561, 2, (), "cp_async"),             # 5,122-byte rows
+    (2560, 2, (0, 2), "cp_async"),         # a misaligned operand
+    (5, 4, (), "cp_async")])
+def test_copy_route_follows_the_tensor_map_rules(d, elem, ptrs, route):
+    assert krglru.copy_route(d, elem, ptrs) == route
+
+
+# (b, t, d, element bytes, operands): the training and serving shapes of
+# recurrentgemma-2b, both walks, bf16, ragged and small shapes, a grid
+# many times the SMs
+PLAN_SHAPES = [(1, 2048, 2560, 4, 2), (1, 2048, 2560, 4, 3),
+               (4, 4096, 2560, 4, 2), (4, 4096, 2560, 2, 2),
+               (1, 2048, 2560, 2, 3), (2, 1031, 2500, 4, 3),
+               (3, 777, 2561, 2, 2), (1, 33, 70, 4, 2), (3, 1, 64, 4, 3),
+               (64, 4096, 2560, 4, 3)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_launch_plan_keeps_every_block_resident(shape):
+    """The ring is 2-8 stages, no deeper than the walk has tiles, fits a
+    block's shared memory with every block of the grid resident at once
+    on the H100's 132 SMs, and keeps about ``INFLIGHT_PER_SM`` of loads
+    in flight an SM (stages - 1 tiles a block) where those bounds allow."""
+    b, t, d, elem, ops = shape
+    route = krglru.copy_route(d, elem)
+    plan = krglru.launch_plan(b, t, d, elem, ops, route)
+    tiles = -(-t // krglru.TILE_STEPS)
+    assert plan.route == route
+    assert plan.blocks == -(-d // krglru.GROUP) * b
+    assert krglru.MIN_STAGES <= plan.stages <= krglru.MAX_STAGES
+    assert plan.stages <= max(krglru.MIN_STAGES, tiles)
+    assert plan.smem_bytes == krglru.ring_bytes(ops, elem, route,
+                                                plan.stages)
+    assert plan.smem_bytes <= krglru.SMEM_PER_BLOCK
+    per_sm = -(-plan.blocks // krglru.H100_SMS)
+    stage = krglru.ring_bytes(ops, elem, route, 1) - \
+        krglru.ring_bytes(ops, elem, route, 0)
+    if plan.stages > krglru.MIN_STAGES:
+        assert per_sm * (plan.smem_bytes + krglru.SMEM_RESERVED) \
+            <= krglru.SMEM_PER_SM
+        assert (plan.stages - 2) * stage * per_sm < krglru.INFLIGHT_PER_SM
+    deeper = krglru.ring_bytes(ops, elem, route, plan.stages + 1)
+    assert plan.stages == min(krglru.MAX_STAGES, max(krglru.MIN_STAGES,
+                                                     tiles)) \
+        or plan.stages * stage * per_sm > krglru.INFLIGHT_PER_SM \
+        or per_sm * (deeper + krglru.SMEM_RESERVED) > krglru.SMEM_PER_SM \
+        or deeper > krglru.SMEM_PER_BLOCK
+
+
+def test_launch_plan_at_the_training_shape():
+    """recurrentgemma-2b training (1, 2048, 2560) f32: 80 blocks of 32
+    channels, one a SM; the scan's 16 KB stages (a, u) 4 deep, 3
+    loading, the adjoint's 24 KB (a, h, dh) 3 deep; the serving shape
+    (4, 4096, 2560): 320 blocks, 3 a SM, 2 stages each."""
+    fwd = krglru.launch_plan(1, 2048, 2560, 4, 2, "tma")
+    bwd = krglru.launch_plan(1, 2048, 2560, 4, 3, "tma")
+    # ring + two staging tiles of each output + the alignment slack
+    assert (fwd.blocks, fwd.stages, fwd.smem_bytes) == \
+        (80, 4, (4 * 2 + 2) * 8192 + 128)
+    assert (bwd.blocks, bwd.stages, bwd.smem_bytes) == \
+        (80, 3, (3 * 3 + 4) * 8192 + 128)
+    serve = krglru.launch_plan(4, 4096, 2560, 4, 2, "tma")
+    assert (serve.blocks, serve.stages) == (320, 2)
+    # the cp.async route: 4-byte words and no staging tiles
+    assert krglru.ring_bytes(2, 2, "cp_async", 3) == 3 * 2 * 2048 * 4 + 128
+
+
+# (b, t, d, element bytes, operands, route) -> the ring depth the plan
+# picks: the card tests reach depths 2, 3, 4, 5 and 7 through these
+# shapes (B 2, D 80: 6 blocks), the model shapes theirs
+DEPTH_CASES = [
+    ((2, 100, 80, 4, 2, "tma"), 2),         # 2 tiles
+    ((2, 150, 80, 4, 2, "tma"), 3),         # 3 tiles
+    ((2, 1000, 80, 4, 2, "tma"), 4),        # 16 KB stages: 1 + 48 / 16
+    ((2, 1000, 80, 2, 2, "tma"), 7),        # 8 KB stages
+    ((2, 1000, 80, 4, 3, "tma"), 3),        # 24 KB stages
+    ((2, 1000, 80, 2, 3, "tma"), 5),        # 12 KB stages
+    ((2, 1000, 80, 2, 2, "cp_async"), 4),   # 4-byte words: 16 KB stages
+    ((2, 1000, 80, 4, 3, "cp_async"), 3),
+    ((2, 150, 80, 4, 3, "cp_async"), 3),
+    ((1, 2048, 2560, 2, 2, "tma"), 7),      # training, bf16
+    ((4, 4096, 2560, 4, 3, "tma"), 2),      # 3 blocks a SM
+    ((64, 4096, 2560, 4, 3, "tma"), 2),     # blocks past residency
+]
+
+
+@pytest.mark.parametrize("shape,depth", DEPTH_CASES)
+def test_launch_plan_ring_depth_follows_the_shape(shape, depth):
+    assert krglru.launch_plan(*shape).stages == depth
+
+
+@pytest.mark.parametrize("route", ["ldg", "TMA", "cp.async"])
+def test_launch_plan_rejects_what_the_kernel_does_not_take(route):
+    with pytest.raises(ValueError, match="route"):
+        krglru.launch_plan(1, 64, 64, 4, 2, route)
