@@ -16,9 +16,10 @@ Phases, in order; any failed check raises and ends the run non-zero:
    ``rglru.cu`` and ``fused_adamw.cu``), one ``nvcc`` each, started
    together; each tensor-core kernel's registers, shared memory and
    spills from the ``-Xptxas -v`` log, and the ``HGMMA`` (wgmma) and
-   ``UTMALDG`` (TMA load) instructions ``cuobjdump -sass`` finds in its
-   library, which must not be 0; the RG-LRU kernels' registers, shared
-   memory and spills, and the plan (blocks, stages, dynamic shared
+   ``UTMALDG`` (TMA load) instructions ``cuobjdump -sass`` finds in the
+   bf16 libraries and the ``HMMA`` (mma.sync) instructions it finds in
+   the float32 ones, which must not be 0; the RG-LRU kernels'
+   registers, shared memory and spills, and the plan (blocks, stages, dynamic shared
    memory, held to the kernel's own count) at the training and serving
    shapes;
 3. the TPD kernel against its plain torch version on the card, exactly,
@@ -55,11 +56,12 @@ Phases, in order; any failed check raises and ends the run non-zero:
 10. the flash-attention and RG-LRU kernels against their plain torch
     versions at recurrentgemma-2b's serving shapes: flash at B = 4,
     Hq = 10, Hkv = 1, hd = 256, S = 1024 causal, S = 4096 and a ragged
-    4097 with window 2048, bf16 (the tensor-core route, rtol = atol =
-    2e-2) and f32 (the scalar route, 1e-4), each held to have launched
+    4097 with window 2048, bf16 (the sm90 route, rtol = atol = 2e-2)
+    and f32 (the split-TF32 route, 1e-4), each held to have launched
     its own route's kernel only; flash at hd 80 (stablelm-3b's 32 x 80,
-    B 2, S 1024 causal: zero-padded to the hd-128 kernels), both dtypes,
-    at the same tolerances; the scan at (4, 4096, 2560) f32, ragged T
+    B 2, S 1024 causal: bf16 zero-padded to the hd-128 kernel, f32
+    native) and hd 320 (B 1, 10 heads on 1, S 1024 causal: both dtypes
+    on the f32 kernel), at the same tolerances; the scan at (4, 4096, 2560) f32, ragged T
     and D, and the training shape (1, 2048, 2560) f32 and bf16, exactly,
     with both copy routes (TMA, cp.async) launched;
 11. the hybrid serving main path: full-width ``recurrentgemma-2b``
@@ -80,8 +82,9 @@ Phases, in order; any failed check raises and ends the run non-zero:
     (flash) ``torch.nn.functional.scaled_dot_product_attention`` as the
     yardstick, beside each bound: the bf16 route at both serving shapes
     and the training shape (B 1, S 2048 causal), with TFLOP/s and share
-    of the bound, and the f32 route at S = 1024; the scan at the serving
-    shape and the training shape (1, 2048, 2560), and at the serving
+    of the bound, the f32 route at S = 1024 and at the training shape
+    (its split-TF32 and scalar-FMA bounds both printed), and both
+    routes at hd 80; the scan at the serving shape and the training shape (1, 2048, 2560), and at the serving
     shape also on the cp.async route (operands one element past an
     aligned base) beside copying them to fresh aligned tensors first and
     taking the TMA route;
@@ -90,8 +93,8 @@ Phases, in order; any failed check raises and ends the run non-zero:
     steps 1 and 1000, bit for bit; the flash backward (through the
     autograd Function, against autograd of the dense plain version) at
     B 1, Hq 10, Hkv 1, hd 256, S 2048 causal and S 4096 window 2048, bf16
-    (the tensor-core route, 2e-2 of the gradients' scale) and f32 (the
-    scalar route, 1e-4), and two bf16 runs bit-equal; the RG-LRU adjoint at
+    (the sm90 route, 2e-2 of the gradients' scale) and f32 (the
+    split-TF32 route, 1e-4), two runs bit-equal on each; the RG-LRU adjoint at
     (1, 2048, 2560) and ragged shapes, exactly, both copy routes launched;
 15. the training main path: ``TrainLoop(model, adamw(
     warmup_cosine_schedule(3e-4, 2, 8)), batch_fn, TrainLoopConfig(
@@ -109,7 +112,8 @@ Phases, in order; any failed check raises and ends the run non-zero:
     update within 10%); the f32 run is the f32 flash backward's path;
 17. timings of the three training kernels beside their bounds, the plain
     versions and (AdamW, flash backward) ``torch._fused_adamw_`` and the
-    SDPA backward as yardsticks, the flash backward on both routes; then
+    SDPA backward as yardsticks, the flash backward on both routes (f32
+    also at S 1024, B 4; both at hd 80); then
     the ``kernels`` JSON line (ten kernels) and the final status line.
 
 Each kernel's launch count is set to 0 just before the path that runs
@@ -127,6 +131,7 @@ Comparison and timing launches never enter the JSON line's
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import re
@@ -216,14 +221,14 @@ def ptxas_kernels(log: str):
 
 
 def sass_counts(nvcc: str, lib) -> dict:
-    """How many HGMMA (wgmma) and UTMALDG (TMA load) instructions
-    ``cuobjdump -sass`` finds in a built library."""
+    """How many HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync)
+    instructions ``cuobjdump -sass`` finds in a built library."""
     cuobjdump = Path(nvcc).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
     return {op: len(re.findall(rf"\b{op}\b", sass))
-            for op in ("HGMMA", "UTMALDG")}
+            for op in ("HGMMA", "UTMALDG", "HMMA")}
 
 
 def tpd_bytes(ps, L, W, depth, penalty) -> int:
@@ -376,26 +381,35 @@ SERVE_MAX_BATCH = 4
 DEPTH_CUT_LAYERS = 5            # one (r, r, a) triple and the two tails
 DEPTH_CUT_PROMPT = 64
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core rate
-PEAK_F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+# the float32 rate the f32 flash kernels are held to: split TF32 runs
+# three TF32 products per float32-accurate one, a third of the H100 SXM
+# dense TF32 tensor-core rate (495 TFLOP/s)
+PEAK_F32_FLOPS = 495e12 / 3
+PEAK_F32_FMA_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
 FLASH_SHAPE = (4, 10, 1, 256)   # serving B, Hq, Hkv, hd
 # (S, window): the 1024-token wave (causal), the 4096-token wave
 # (window 2048) and a ragged length
 FLASH_CASES = ((1024, None), (4096, 2048), (4097, 2048))
 # (B, S, window) timed on the bf16 route: both serving waves and the
 # training shape; the kernels line reports the 4096-token wave, and the
-# f32 route is timed (and reported) at the 1024-token wave
+# f32 route is timed at the 1024-token wave (reported) and the training
+# shape
 FLASH_TIMED = ((4, 1024, None), (4, 4096, 2048), (1, 2048, None))
 FLASH_REPORTED = (4, 4096, 2048)
 FLASH_F32_TIMED = (4, 1024, None)
+FLASH_F32_TRAIN = (1, 2048, None)
 # (B, T, D): a serving prefill's scan, then ragged T and D (the last on
 # the cp.async route: 5,122-byte rows), then the training shape
 RGLRU_CASES = (((4, 4096, 2560), "float32"), ((4, 1031, 2500), "float32"),
                ((3, 777, 2561), "bfloat16"), ((1, 2048, 2560), "float32"),
                ((1, 2048, 2560), "bfloat16"))
 RGLRU_TRAIN_SHAPE = (1, 2048, 2560)
-# flash at a head dim the kernels are not built for: stablelm-3b's (32
-# heads of 80, padded to 128 on the card), B 2, S 1024 causal
+# flash at a head dim the sm90 kernels are not built for: stablelm-3b's
+# (32 heads of 80; bf16 padded to 128, f32 native), B 2, S 1024 causal;
+# and above what they take: hd 320 (both dtypes on the f32 kernels, two
+# column blocks of 160) at recurrentgemma's MQA, B 1, S 1024 causal
 FLASH_HD80 = (2, 32, 32, 1024, 80)
+FLASH_HD320 = (1, 10, 1, 1024, 320)
 # flash kernel vs the dense plain version: f32, online vs dense softmax
 # over up to 2048 keys summed in other orders; bf16, one more rounding
 # of the output (the reference's own kernel tests use 2e-5 and 2e-2)
@@ -409,15 +423,16 @@ LOGIT_TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
              "bfloat16": dict(rtol=0.05, atol=0.5)}
 
 
-def flash_bound(b, hq, hkv, s, hd, window, elem_bytes):
+def flash_bound(b, hq, hkv, s, hd, window, elem_bytes, peak=None):
     """(bound ms, flops, bytes) of one causal flash call: 4 hd flops per
-    visible (query head, key) pair over the peak rate of the operands'
-    type (bf16 tensor cores, or float32 outside them), and q, k, v read
-    and the output written once over the memory rate."""
+    visible (query head, key) pair over ``peak``, by default the rate of
+    the operands' type (bf16 tensor cores, or float32 in split TF32),
+    and q, k, v read and the output written once over the memory
+    rate."""
     pairs = sum(min(i + 1, window or s) for i in range(s))
     flops = 4 * b * hq * hd * pairs
     nbytes = elem_bytes * (2 * b * hq * s * hd + 2 * b * hkv * s * hd)
-    peak = PEAK_BF16_FLOPS if elem_bytes == 2 else PEAK_F32_FLOPS
+    peak = peak or (PEAK_BF16_FLOPS if elem_bytes == 2 else PEAK_F32_FLOPS)
     return max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3, flops, nbytes
 
 
@@ -427,7 +442,8 @@ def hybrid_phases(torch, np_, dev, card):
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import SM90_SOURCE, SOURCE, flash_attention
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import SM90_SOURCE, SOURCE, flash_attention, head_route
     from repro_torch.kernels.ref import flash_attention_ref, rglru_scan_ref
     from repro_torch.kernels.rglru import plan_for, rglru_scan
     from repro_torch.models import get_model
@@ -439,11 +455,11 @@ def hybrid_phases(torch, np_, dev, card):
     gen = torch.Generator(dev)
     B, HQ, HKV, HD = FLASH_SHAPE
 
-    def qkv(s, dtype, seed, b=B):
+    def qkv(s, dtype, seed, b=B, hq=HQ, hkv=HKV, hd=HD):
         gen.manual_seed(seed)
         return [torch.randn(shape, device=dev, generator=gen).to(dtype)
-                for shape in ((b, HQ, s, HD), (b, HKV, s, HD),
-                              (b, HKV, s, HD))]
+                for shape in ((b, hq, s, hd), (b, hkv, s, hd),
+                              (b, hkv, s, hd))]
 
     # ---- 10. kernels vs plain versions at the serving shapes ----------
     phase(f"10. flash attention and RG-LRU kernels vs their plain torch "
@@ -471,9 +487,9 @@ def hybrid_phases(torch, np_, dev, card):
                   f"window={window} {name:8s}: {routes[name]}.cu, max abs "
                   f"err {err:.3e} ({FLASH_TOL[name]})")
             del q, k, v, got, want
-    b8, hq8, hkv8, s8, hd8 = FLASH_HD80
-    for name, dtype in (("bfloat16", torch.bfloat16),
-                        ("float32", torch.float32)):
+    for (b8, hq8, hkv8, s8, hd8), (name, dtype) in itertools.product(
+            (FLASH_HD80, FLASH_HD320), (("bfloat16", torch.bfloat16),
+                                        ("float32", torch.float32))):
         gen.manual_seed(hd8)
         q, k, v = [torch.randn(sh, device=dev, generator=gen).to(dtype)
                    for sh in ((b8, hq8, s8, hd8), (b8, hkv8, s8, hd8),
@@ -484,17 +500,19 @@ def hybrid_phases(torch, np_, dev, card):
         went = {r: n - before.get(r, 0)
                 for r, n in flash_attention.routes.items()
                 if n != before.get(r, 0)}
-        check(went == {routes[name]: 1}, f"flash hd 80 {name} launched {went}")
+        route, width = head_route(hd8, dtype)
+        source = SOURCE.stem if route == "f32" else SM90_SOURCE.stem
+        check(went == {source: 1}, f"flash hd {hd8} {name} launched {went}")
         want = flash_attention_ref(q, k, v, causal=True)
         err = float((got.float() - want.float()).abs().max())
         flash_err[name] = max(flash_err[name], err)
-        check(got.shape == q.shape and torch.allclose(
+        check(got.shape == q.shape and got.dtype == dtype and torch.allclose(
             got.float(), want.float(), **FLASH_TOL[name]),
-            f"flash hd 80 {name}: kernel vs plain max abs err {err} beyond "
-            f"{FLASH_TOL[name]}")
+            f"flash hd {hd8} {name}: kernel vs plain max abs err {err} "
+            f"beyond {FLASH_TOL[name]}")
         print(f"flash (B, Hq, Hkv, hd) = {(b8, hq8, hkv8, hd8)} S={s8} causal "
-              f"{name:8s}: {routes[name]}.cu at hd 128 on zero-padded "
-              f"operands, max abs err {err:.3e} ({FLASH_TOL[name]})")
+              f"{name:8s}: {source}.cu at width {width}, max abs err "
+              f"{err:.3e} ({FLASH_TOL[name]})")
         del q, k, v, got, want
     rglru_err = 0.0
     scan_routes = dict(rglru_scan.routes)
@@ -738,12 +756,13 @@ def hybrid_phases(torch, np_, dev, card):
     # ---- 13. timings -----------------------------------------------------
     phase(f"13. flash attention and RG-LRU timings on {card}")
 
-    def time_flash(b, s, window, dtype, seed):
+    def time_flash(b, s, window, dtype, seed, hq=HQ, hkv=HKV, hd=HD):
         """(kernel, plain, bound, SDPA) device ms of one flash call; the
-        wrapper call's time, TFLOP/s and SDPA's difference printed."""
-        q, k, v = qkv(s, dtype, seed, b)
-        kk = k.repeat_interleave(HQ // HKV, dim=1)
-        vv = v.repeat_interleave(HQ // HKV, dim=1)
+        wrapper call's time, TFLOP/s and SDPA's difference printed (for
+        f32, the scalar-FMA bound too)."""
+        q, k, v = qkv(s, dtype, seed, b, hq, hkv, hd)
+        kk = k.repeat_interleave(hq // hkv, dim=1)
+        vv = v.repeat_interleave(hq // hkv, dim=1)
         i = torch.arange(s, device=dev)
         mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window) \
             if window else None
@@ -765,10 +784,18 @@ def hybrid_phases(torch, np_, dev, card):
         lib_err = float((sdpa().float() - flash_attention(
             q, k, v, causal=True, window=window).float()).abs().max())
         size = q.element_size()
-        b_ms, flops, nbytes = flash_bound(b, HQ, HKV, s, HD, window, size)
-        peak = "989 TFLOP/s bf16" if size == 2 else "67 TFLOP/s f32"
-        print(f"flash {dtype} (B, Hq, Hkv, hd) = {(b, HQ, HKV, HD)} S={s} "
-              f"window={window} ({routes[str(dtype)[6:]]}.cu): device time "
+        b_ms, flops, nbytes = flash_bound(b, hq, hkv, s, hd, window, size)
+        route, width = head_route(hd, dtype)
+        if size == 2:
+            peak = "989 TFLOP/s bf16"
+        else:
+            fma_ms = flash_bound(b, hq, hkv, s, hd, window, size,
+                                 PEAK_F32_FMA_FLOPS)[0]
+            peak = (f"165 TFLOP/s f32 in split TF32; scalar-FMA bound "
+                    f"{fma_ms:.4f} ms at 67 TFLOP/s")
+        source = (SOURCE if route == "f32" else SM90_SOURCE).stem
+        print(f"flash {dtype} (B, Hq, Hkv, hd) = {(b, hq, hkv, hd)} S={s} "
+              f"window={window} ({source}.cu at width {width}): device time "
               f"per call: kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} "
               f"TFLOP/s, {b_ms / k_ms * 100:.1f}% of the bound), plain "
               f"torch {plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms (differs from"
@@ -781,6 +808,10 @@ def hybrid_phases(torch, np_, dev, card):
     timed = {case: time_flash(*case, torch.bfloat16, 100 + case[1])
              for case in FLASH_TIMED}
     f32_timed = time_flash(*FLASH_F32_TIMED, torch.float32, 7)
+    time_flash(*FLASH_F32_TRAIN, torch.float32, 8)
+    b8, hq8, hkv8, s8, hd8 = FLASH_HD80
+    for dtype in (torch.bfloat16, torch.float32):
+        time_flash(b8, s8, None, dtype, 9, hq8, hkv8, hd8)
     def time_scan(shape, seed):
         """(kernel, plain, bound) ms of one f32 scan at ``shape``, the
         wrapper call's time printed; at the serving shape also the
@@ -843,8 +874,9 @@ def hybrid_phases(torch, np_, dev, card):
         {"name": "flash_attention_f32", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:39",
-         "note": "float32 operands: scalar FMAs; launches over phase 12's "
-                 "float32 depth cut",
+         "note": "float32 operands (and bf16 above hd 256): split TF32 on "
+                 "mma.sync; launches over phase 12's float32 depth cut; "
+                 "bound_ms at 165 TFLOP/s (a third of dense TF32)",
          "launches": cut_launches["float32"][SOURCE.stem],
          "max_abs_err": flash_err["float32"],
          "ms": f_ms, "plain_ms": fplain_ms, "bound_ms": fb_ms,
@@ -896,16 +928,16 @@ def adamw_scalars(np_, step, b1=0.9, b2=0.95):
             np_.float32(1) - np_.float32(b2) ** t)
 
 
-def flash_bwd_bound(b, hq, hkv, s, hd, window, elem_bytes):
+def flash_bwd_bound(b, hq, hkv, s, hd, window, elem_bytes, peak=None):
     """(bound ms, flops, bytes) of one flash backward: 10 hd flops per
-    visible (query head, key) pair over the peak rate of the operands'
-    type; q, k, v, o, do and lse read and dq, dk, dv written once over
-    the memory rate."""
+    visible (query head, key) pair over ``peak``, by default the rate of
+    the operands' type, as :func:`flash_bound`; q, k, v, o, do and lse
+    read and dq, dk, dv written once over the memory rate."""
     pairs = sum(min(i + 1, window or s) for i in range(s))
     flops = 10 * b * hq * hd * pairs
     nbytes = elem_bytes * (5 * b * hq * s * hd + 2 * b * hkv * s * hd) \
         + 4 * b * hq * s
-    peak = PEAK_BF16_FLOPS if elem_bytes == 2 else PEAK_F32_FLOPS
+    peak = peak or (PEAK_BF16_FLOPS if elem_bytes == 2 else PEAK_F32_FLOPS)
     return max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3, flops, nbytes
 
 
@@ -1011,7 +1043,7 @@ def training_phases(torch, np_, dev, card):
               f"and 1000: bit-equal to the plain version")
     flash_bwd_err = {"bfloat16": 0.0, "float32": 0.0}
     bwd_routes = {"bfloat16": (kflash.BWD_SM90_SOURCE.stem, 3),
-                  "float32": (kflash.BWD_SOURCE.stem, 2)}
+                  "float32": (kflash.BWD_SOURCE.stem, 3)}
     for b, hq, hkv, s, hd, window in FLASH_BWD_CASES:
         for name, dtype in (("bfloat16", torch.bfloat16),
                             ("float32", torch.float32)):
@@ -1309,11 +1341,11 @@ def training_phases(torch, np_, dev, card):
     del flat, p, g, m, v, sub
     torch.cuda.empty_cache()
 
-    def time_flash_bwd(dtype, seed):
+    def time_flash_bwd(dtype, seed, shape=FLASH_BWD_CASES[0]):
         """(kernel, plain, bound, SDPA backward) device ms of one flash
-        backward at the training shape; wrapper call and TFLOP/s
-        printed."""
-        b, hq, hkv, s, hd, window = FLASH_BWD_CASES[0]
+        backward, by default at the training shape; wrapper call and
+        TFLOP/s printed (for f32, the scalar-FMA bound too)."""
+        b, hq, hkv, s, hd, window = shape
         gen.manual_seed(seed)
         q, k, v, do = [torch.randn(sh, device=dev, generator=gen).to(dtype)
                        for sh in ((b, hq, s, hd), (b, hkv, s, hd),
@@ -1339,11 +1371,20 @@ def training_phases(torch, np_, dev, card):
         size = q.element_size()
         fbb_ms, f_flops, f_bytes = flash_bwd_bound(b, hq, hkv, s, hd, window,
                                                    size)
-        route, passes = bwd_routes[str(dtype)[6:]]
-        peak = "989 TFLOP/s bf16" if size == 2 else "67 TFLOP/s f32"
+        on_f32, width = kflash.head_route(hd, dtype)
+        route = (kflash.BWD_SOURCE if on_f32 == "f32"
+                 else kflash.BWD_SM90_SOURCE).stem
+        if size == 2:
+            peak = "989 TFLOP/s bf16"
+        else:
+            fma_ms = flash_bwd_bound(b, hq, hkv, s, hd, window, size,
+                                     PEAK_F32_FMA_FLOPS)[0]
+            peak = (f"165 TFLOP/s f32 in split TF32; scalar-FMA bound "
+                    f"{fma_ms:.4f} ms at 67 TFLOP/s")
         print(f"flash backward {dtype} (B, Hq, Hkv, hd) = {(b, hq, hkv, hd)} "
-              f"S={s} causal ({route}.cu): kernel {fb_ms:.4f} ms on the "
-              f"device ({passes} launches, {f_flops / fb_ms / 1e9:.1f} "
+              f"S={s} causal ({route}.cu at width {width}): kernel "
+              f"{fb_ms:.4f} ms on the device (3 launches, "
+              f"{f_flops / fb_ms / 1e9:.1f} "
               f"TFLOP/s of the 10·hd a pair, {fbb_ms / fb_ms * 100:.1f}% of "
               f"the bound), wrapper call {call_ms:.4f} ms, plain torch "
               f"{fp_ms:.3f} ms, SDPA backward on k, v repeated to {hq} heads"
@@ -1353,6 +1394,12 @@ def training_phases(torch, np_, dev, card):
 
     fb_ms, fp_ms, fbb_ms, fl_ms = time_flash_bwd(torch.bfloat16, 77)
     gb_ms, gp_ms, gbb_ms, gl_ms = time_flash_bwd(torch.float32, 79)
+    fb4, hq4, hkv4, hd4 = FLASH_SHAPE
+    time_flash_bwd(torch.float32, 80, (fb4, hq4, hkv4, FLASH_F32_TIMED[1],
+                                       hd4, FLASH_F32_TIMED[2]))
+    b8, hq8, hkv8, s8, hd8 = FLASH_HD80
+    for dtype in (torch.bfloat16, torch.float32):
+        time_flash_bwd(dtype, 81, (b8, hq8, hkv8, s8, hd8, None))
 
     shape = RGLRU_BWD_CASES[0][0]
     gen.manual_seed(78)
@@ -1389,8 +1436,9 @@ def training_phases(torch, np_, dev, card):
          "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:39",
          "note": "the backward of that kernel (the TPU has none), float32 "
-                 "operands: scalar FMAs; launches over phase 16's float32 "
-                 "depth cut",
+                 "operands (and bf16 above hd 256): split TF32 on mma.sync; "
+                 "launches over phase 16's float32 depth cut; bound_ms at "
+                 "165 TFLOP/s (a third of dense TF32)",
          "launches": cut_bwd["float32"][kflash.BWD_SOURCE.stem],
          "max_abs_err": flash_bwd_err["float32"],
          "ms": gb_ms, "plain_ms": gp_ms, "bound_ms": gbb_ms,
@@ -1488,6 +1536,19 @@ def main() -> int:
               f"and {counts['UTMALDG']} UTMALDG instructions")
         check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
               f"{lib.name}: no wgmma or no TMA load in the SASS ({counts})")
+    # the f32 route: split-TF32 mma.sync (HMMA), 8 instantiations each,
+    # by output n-tiles (<32> holds 256 columns)
+    for src in (flash_mod.SOURCE, flash_mod.BWD_SOURCE):
+        lib = libs[sources.index(src)]
+        for name, regs, smem, st, ld in ptxas_kernels(
+                lib.with_suffix(".log").read_text()):
+            print(f"{name}: {regs} registers, {smem} B static shared "
+                  f"memory, spills {st} B stored / {ld} B loaded")
+        counts = sass_counts(nvcc, lib)
+        print(f"{lib.name}: cuobjdump -sass finds {counts['HMMA']} HMMA "
+              f"instructions")
+        check(counts["HMMA"] > 0,
+              f"{lib.name}: no mma.sync in the SASS ({counts})")
 
     rg_lib = rglru_mod._library()
     for name, regs, smem, st, ld in ptxas_kernels(

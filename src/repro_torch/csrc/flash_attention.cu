@@ -1,120 +1,122 @@
 // Blocked GQA attention forward with an online softmax (flash attention),
-// for Hopper (sm_90a): the float32 route.
+// for Hopper (sm_90a): the float32 route, on the tensor cores in split
+// TF32 (csrc/flash_tf32.cuh).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:39
 // _flash_kernel, reached by flash_attention_pallas (pl.pallas_call at
-// repro/kernels/flash_attention.py:135), for float32 operands; bfloat16
-// operands go to the tensor-core kernel in flash_attention_sm90.cu. On
-// the tensor cores float32 operands would mean TF32, which the float32
-// tolerances do not allow, so this route stays on scalar float32 FMAs.
-// The plain torch version beside it is
-// repro_torch/kernels/ref.py:flash_attention_ref.
+// repro/kernels/flash_attention.py:135), for float32 operands, and for
+// bfloat16 operands at hd > 256, which the wrapper reads as float32 (the
+// reference computes in float32 for both: flash_attention.py:66-98);
+// bfloat16 at hd <= 256 goes to the wgmma kernel in
+// flash_attention_sm90.cu. Plain TF32 would keep about 2^-11 of each
+// product, which the float32 tolerances do not allow; split TF32 keeps
+// float32 accuracy on the tensor cores. The plain torch version beside
+// it is repro_torch/kernels/ref.py:flash_attention_ref.
 //
 // What it computes. q (B, Hq, S, hd), k and v (B, Hkv, S, hd), all
-// contiguous float32; query head h reads kv head
-// h / (Hq / Hkv). Key j is visible from query i where j <= i (causal),
-// j > i - window (window > 0) and j < kv_len. For every query row:
+// contiguous float32, hd a multiple of 8 (the wrapper zero-pads any
+// other: the zero columns add exact zeros to every product); query head
+// h reads kv head h / (Hq / Hkv). Key j is visible from query i where
+// j <= i (causal), j > i - window (window > 0) and j < kv_len. For every
+// query row:
 //   out = sum_j softmax_j(scale * q.k_j) v_j   over the visible j,
-// with the running max and denominator in float32. A row that sees no key comes out 0: its max is clamped at
-// -1e30 / 2 before the exponent and its denominator at 1e-30, as the TPU
-// kernel guards it (repro/kernels/flash_attention.py:86-89).
+// with the running max and denominator in float32. A row that sees no
+// key comes out 0: its max is clamped at -1e30 / 2 before the exponent
+// and its denominator at 1e-30, as the TPU kernel guards it
+// (repro/kernels/flash_attention.py:86-89).
 //
 // Bound. 4 * hd flops per visible (query head, key) pair: 2 * hd for
-// q.k and 2 * hd for p.v; recurrentgemma-2b's serving shapes (B = 4,
-// Hq = 10, Hkv = 1, hd = 256) at S = 4096 with window 2048 do 2.6e11
-// flops against 0.19 GB of operands, so the tensor cores' rate (989
-// TFLOP/s bf16) bounds it, not device memory.
+// q.k and 2 * hd for p.v. Split TF32 runs three TF32 products for each
+// float32-accurate one, so the card's dense TF32 rate (495 TFLOP/s)
+// gives 165 TFLOP/s of them. (4, 10, 1, 256) at S = 1024 causal does
+// 2.149e10 flops against 92 MB of operands: 0.130 ms at 165 TFLOP/s
+// (0.3208 ms at the 67 TFLOP/s of scalar float32 FMAs), not device
+// memory (0.0275 ms). mma.sync, which this kernel issues, runs TF32
+// below the dense rate; a third of its rate is the most this design can
+// get.
 //
-// Design (scalar float32 FMAs, no tensor cores).
-// One block of 8 warps per (q tile of 64 rows, query head, batch row);
-// the TPU grid's sequential kv axis becomes a loop inside the block over
-// the 32-key tiles this q tile can see: tiles right of the diagonal
-// (causal) and left of the window of the tile's first row are never
-// visited, and keys past kv_len or S are masked. The q tile, one K tile
-// and one V tile sit in dynamic shared memory as float32 (131.6 KB at
-// hd = 256: above the 48 KB a block gets by default, so the launch raises
-// the limit with cudaFuncSetAttribute). Each warp owns 8 query rows, and
-// for a K tile each lane owns one key: a lane forms its key's 8 scores
-// from broadcast float4 reads of q and its own float4 reads of k (the K
-// rows are padded to hd + 4 floats, so a quarter-warp's 16-byte reads
-// fall in distinct banks), the warp reduces the row max and sum with
-// shuffles, and the probabilities move to the p.v product by shuffle,
-// never through shared memory. The p.v accumulator, 8 rows x hd columns
-// per warp, lives in registers: lane c holds columns c, c + 32, ...
-// Products use explicit fused multiply-adds (__fmaf_rn), which the
-// library-wide -fmad=false leaves alone.
+// Design. One block of 4 warps per (query head x column block, batch
+// row, 64 query rows), the q tiles launched last to first so that, under
+// the causal mask, the blocks that see the most keys start first and the
+// grid's tail is short; each warp owns 16 rows (an m16 tile). The TPU
+// grid's sequential kv axis becomes a loop inside the block over the
+// 32-key tiles this q tile can see: tiles right of the diagonal (causal)
+// and left of the window of the tile's first row are never visited, and
+// keys past kv_len or S are masked. For each key tile:
+//  - score units (64 head-dim columns of K each): S = Q K^T, 16 rows x
+//    32 keys a warp, in split-TF32 mma.sync; Q is resident in shared
+//    memory at hd <= 256 and streamed with each unit above;
+//  - the online softmax on the accumulators (rows g and g + 8 of each
+//    thread, reduced over the quad by shuffles), which rescales the
+//    output accumulator and leaves P in the same registers;
+//  - value units (64 output columns of V each): acc += P V, P split once
+//    a tile, V read down its columns (N-major).
+// K and V units stream through a 2-slot cp.async ring, each split into
+// TF32 big and small planes in place by the threads that copied it (so
+// once a block, not once a warp). The output accumulator (16 rows x up
+// to 256 columns a warp, 128 registers a thread at 256) stays in
+// registers; a wider hd is split over column blocks (at most 256 columns
+// each), which each recompute the scores. Shared memory at hd = 256:
+// resident Q (64 x 264 floats) and 2 units of 2 x 32 x 72 floats,
+// 104,448 bytes: two blocks an SM.
 
-#include <cuda_runtime.h>
+#include "flash_tf32.cuh"
 
 namespace {
 
+using namespace tf32;
+
+constexpr int kThreads = 128;              // 4 warps
 constexpr int kBQ = 64;                    // query rows per block
-constexpr int kBK = 32;                    // keys per tile: one per lane
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kBQ / kWarps;        // query rows per warp
-constexpr float kNegInf = -1e30f;
+constexpr int kBK = 32;                    // keys per tile
+constexpr int kStages = 2;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// floats of one ring unit: a score unit (K's two planes, and Q when not
+// resident) or a value unit (V's two planes)
+__host__ __device__ inline int unit_floats(bool resident) {
+  const int score = 2 * kBK * kKStride + (resident ? 0 : kBQ * kKStride);
+  const int value = 2 * kBK * kNStride;
+  return score > value ? score : value;
 }
 
-struct Params {
-  int S, Hq, Hkv;
-  int causal;    // 0 or 1
-  int window;    // 0: no window
-  int kv_len;    // keys at and past kv_len are masked (S when none)
-  float scale;
-};
-
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBQ * HD + kBK * (HD + 4) + kBK * HD);
+__host__ __device__ inline int smem_floats(int hd, bool resident) {
+  return (resident ? kBQ * resident_stride(hd) : 0) +
+         kStages * unit_floats(resident);
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, Params p) {
-  constexpr int NJ = HD / 32;              // output columns per lane
-  constexpr int KS = HD + 4;               // K row stride in shared memory
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);   // kBQ x HD
-  float* sK = sQ + kBQ * HD;                     // kBK x KS
-  float* sV = sK + kBK * KS;                     // kBK x HD
+template <int NT>  // output n-tiles of 8 columns a block holds
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, Params p) {
+  constexpr int NJ = (NT + 7) / 8;         // value units a key tile
+  extern __shared__ __align__(16) float smem[];
+  const int HD = p.hd, S = p.S;
+  const bool resident = p.col_blocks == 1;
+  const int rld = resident_stride(HD);
+  float* sQ = smem;
+  float* ring = smem + (resident ? kBQ * rld : 0);
+  const int unit = unit_floats(resident);
 
-  const int S = p.S;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // q tiles run last to first (the slowest grid axis): under the causal
+  // mask the last tiles see the most keys, so the longest blocks start
+  // first and the tail of the grid is short
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;
+  const int h = blockIdx.x / p.col_blocks;
+  const int c0 = (blockIdx.x % p.col_blocks) * p.cols;
+  const int c_end = min(HD, c0 + p.cols);
+  const int b = blockIdx.y;
   const int hk = h / (p.Hq / p.Hkv);
-  const long long q_off = (static_cast<long long>(b) * p.Hq + h) * S * HD;
-  const long long kv_off = (static_cast<long long>(b) * p.Hkv + hk) * S * HD;
-  const T* qg = q + q_off;
-  const T* kg = k + kv_off;
-  const T* vg = v + kv_off;
-  T* og = o + q_off;
+  const long long row0 = (static_cast<long long>(b) * p.Hq + h) * S;
+  const float* qg = q + row0 * HD;
+  const float* kg = k + (static_cast<long long>(b) * p.Hkv + hk) * S * HD;
+  const float* vg = v + (static_cast<long long>(b) * p.Hkv + hk) * S * HD;
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int r0 = (tid >> 5) * kRows;       // this warp's first row
-
-  for (int e = tid; e < kBQ * HD; e += kThreads) {
-    const int qi = q0 + e / HD;
-    sQ[e] = qi < S ? to_f32(qg[static_cast<long long>(qi) * HD + e % HD])
-                   : 0.0f;
-  }
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = (tid >> 5) * 16;          // this warp's first row
+  const int nkc = (HD + kChunk - 1) / kChunk;
+  const int per_tile = nkc + NJ;
 
   // the keys this tile of queries can see: [k_begin, k_end)
   const int q_last = min(q0 + kBQ, S) - 1;
@@ -123,135 +125,216 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
   const int t_begin = k_begin / kBK;
   const int t_end = k_end > 0 ? (k_end + kBK - 1) / kBK : 0;
+  const int n_units = max(0, t_end - t_begin) * per_tile;
 
-  float m[kRows], l[kRows], acc[kRows][NJ];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
-  }
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();                       // the last tile is consumed
-    for (int e = tid; e < kBK * HD; e += kThreads) {
-      const int r = e / HD, c = e % HD;
-      const int kj = k0 + r;
-      const long long g = static_cast<long long>(kj) * HD + c;
-      sK[r * KS + c] = kj < S ? to_f32(kg[g]) : 0.0f;
-      sV[e] = kj < S ? to_f32(vg[g]) : 0.0f;
+  // the next unit to issue: key tile, and its place in the tile (score
+  // chunks, then value chunks)
+  int next = 0, next_tile = t_begin, next_r = 0;
+  const int r_t = tid >> 4, c_t = (tid & 15) * 4;
+  auto issue = [&]() {
+    float* dst = ring + (next % kStages) * unit;
+    const int k0 = next_tile * kBK;
+    if (next_r < nkc) {
+      const int col = next_r * kChunk;
+      const bool col_ok = col + c_t < HD;
+      copy_unit<kBK, kThreads>(dst, kKStride,
+                               kg + static_cast<long long>(k0) * HD + col, HD,
+                               S - k0, col_ok, r_t, c_t, kg);
+      if (!resident)
+        copy_unit<kBQ, kThreads>(dst + 2 * kBK * kKStride, kKStride,
+                                 qg + static_cast<long long>(q0) * HD + col,
+                                 HD, S - q0, col_ok, r_t, c_t, qg);
+    } else {
+      const int col = c0 + (next_r - nkc) * kChunk;
+      copy_unit<kBK, kThreads>(dst, kNStride,
+                               vg + static_cast<long long>(k0) * HD + col, HD,
+                               S - k0, col + c_t < c_end, r_t, c_t, vg);
     }
+    ++next;
+    if (++next_r == per_tile) {
+      next_r = 0;
+      ++next_tile;
+    }
+  };
+  // before unit u: this thread's pieces of it have landed and it splits
+  // them (K or V: the B operand); after the barrier the whole unit is
+  // split, and the slot of unit u - 1 takes unit u + 1
+  auto step = [&](int u, bool value) {
+    cp_async_wait<0>();
+    float* cur = ring + (u % kStages) * unit;
+    if (value)
+      split_unit<kBK, kThreads>(cur, kNStride, kBK * kNStride, r_t, c_t);
+    else
+      split_unit<kBK, kThreads>(cur, kKStride, kBK * kKStride, r_t, c_t);
     __syncthreads();
+    if (next < n_units) issue();
+    cp_async_commit();
+  };
 
-    // scores of this lane's key against the warp's rows
-    float s[kRows];
+  if (resident)
+    copy_tile(sQ, rld, qg + static_cast<long long>(q0) * HD, HD, kBQ, S - q0,
+              (rld - 8) / 4, HD / 4, qg, tid, kThreads);
+  if (n_units > 0) issue();
+  cp_async_commit();
+
+  float acc[NT][4];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) s[i] = 0.0f;
-    const float* krow = sK + lane * KS;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(krow + d);
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float4 qv = *reinterpret_cast<const float4*>(sQ + (r0 + i) * HD + d);
-        s[i] = __fmaf_rn(qv.x, kv.x, s[i]);
-        s[i] = __fmaf_rn(qv.y, kv.y, s[i]);
-        s[i] = __fmaf_rn(qv.z, kv.z, s[i]);
-        s[i] = __fmaf_rn(qv.w, kv.w, s[i]);
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+
+  int u = 0;
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int k0 = tile * kBK;
+    float s[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+
+    for (int c = 0; c < nkc; ++c, ++u) {
+      step(u, false);
+      const float* Kc = ring + (u % kStages) * unit;
+      const float* Qc = resident ? sQ + r0 * rld + c * kChunk
+                                 : Kc + 2 * kBK * kKStride + r0 * kKStride;
+      const int qld = resident ? rld : kKStride;
+#pragma unroll
+      for (int ks = 0; ks < kChunk / 8; ++ks) {
+        const FragA a = load_a(Qc, qld, ks * 8, lane);
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          mma3(s[n], a, load_b_kmajor(Kc, kBK * kKStride, kKStride, n * 8,
+                                      ks * 8, lane));
       }
     }
 
-    // online softmax over the tile, one row at a time across the warp
-    const int kj = k0 + lane;
+    // the online softmax on rows g and g + 8 of the warp's 16
+    uint32_t vis = 0;
+    float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qi = q0 + r0 + i;
-      bool vis = kj < S && kj < p.kv_len;
-      if (p.causal) vis = vis && kj <= qi;
-      if (p.window > 0) vis = vis && kj > qi - p.window;
-      const float sc = vis ? s[i] * p.scale : kNegInf;
-      const float m_new = fmaxf(m[i], warp_max(sc));
-      const float m_safe = fmaxf(m_new, kNegInf / 2);
-      const float pe = vis ? expf(sc - m_safe) : 0.0f;
-      const float alpha = expf(m[i] - m_safe);
-      l[i] = l[i] * alpha + warp_sum(pe);
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = q0 + r0 + g + (e >> 1) * 8;
+        const int kj = k0 + n * 8 + 2 * t4 + (e & 1);
+        const bool on = visible(p, qi, kj);
+        vis |= static_cast<uint32_t>(on) << (n * 4 + e);
+        s[n][e] = on ? s[n][e] * p.scale : kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    float m_safe[2], alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mx[i]));
+      m_safe[i] = fmaxf(m_new, kNegInf / 2);
+      alpha[i] = expf(m[i] - m_safe[i]);
       m[i] = m_new;
-      s[i] = pe;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
     }
-
-    // acc += p v: key c's probability comes from lane c by shuffle
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float vv[NJ];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) vv[j] = sV[c * HD + lane + 32 * j];
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float pc = __shfl_sync(0xffffffffu, s[i], c);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = __fmaf_rn(pc, vv[j], acc[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        const float pe =
+            (vis >> (n * 4 + e)) & 1u ? expf(s[n][e] - m_safe[e >> 1]) : 0.0f;
+        s[n][e] = pe;
+        sum[e >> 1] += pe;
       }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+    FragA pa[4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) pa[n] = frag_of_acc(s[n]);
+
+    // acc += P V, 64 output columns a unit
+#pragma unroll
+    for (int j = 0; j < NJ; ++j, ++u) {
+      step(u, true);
+      const float* Vc = ring + (u % kStages) * unit;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int nn = 0; nn < 8; ++nn)
+          if (j * 8 + nn < NT)
+            mma3(acc[j * 8 + nn], pa[n],
+                 load_b_nmajor(Vc, kBK * kNStride, kNStride, n * 8, nn * 8,
+                               lane));
     }
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qi = q0 + r0 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + r0 + g + 8 * i;
     if (qi >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    if (lse != nullptr && lane == 0)
-      lse[(static_cast<long long>(b) * p.Hq + h) * S + qi] =
-          fmaxf(m[i], kNegInf / 2) + logf(denom);
-    T* orow = og + static_cast<long long>(qi) * HD;
+    if (lse != nullptr && c0 == 0 && t4 == 0)
+      lse[row0 + qi] = fmaxf(m[i], kNegInf / 2) + logf(denom);
+    float* orow = o + (row0 + qi) * HD;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) store(&orow[lane + 32 * j], acc[i][j] / denom);
+    for (int n = 0; n < NT; ++n) {
+      const int col = c0 + n * 8 + 2 * t4;
+      if (col < c_end)
+        *reinterpret_cast<float2*>(orow + col) =
+            make_float2(acc[n][2 * i] / denom, acc[n][2 * i + 1] / denom);
+    }
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+template <int NT>
+int launch(const float* q, const float* k, const float* v, float* o,
+           float* lse, int B, const Params& p, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * smem_floats(p.hd, p.col_blocks == 1);
+  const cudaError_t err =
+      set_smem(flash_fwd_tf32_kernel<NT>, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.S + kBQ - 1) / kBQ, p.Hq, B);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, p);
+  const dim3 grid(p.Hq * p.col_blocks, B, (p.S + kBQ - 1) / kBQ);
+  flash_fwd_tf32_kernel<NT><<<grid, kThreads, smem, stream>>>(q, k, v, o, lse,
+                                                             p);
   return static_cast<int>(cudaGetLastError());
 }
-
 
 }  // namespace
 
 extern "C" {
 
-// Launches the float32 forward on `stream` (q, k, v and o float32); hd
-// must be 64, 128 or 256; window <= 0 means none.
-// lse, when not null, receives each row's float32 log-sum-exp (B, Hq, S)
-// for the backward; serving passes null. Returns the CUDA error code of
-// the launch (0 when it was accepted). B = 0 or S = 0 launches nothing.
+// Launches the float32 forward on `stream` (q, k, v and o float32,
+// 16-byte aligned); hd a multiple of 8; the output columns split over
+// col_blocks blocks of `cols` (a multiple of 8, at most 256; col_blocks
+// 1 needs hd <= 256); window <= 0 means none. lse, when not null,
+// receives each row's float32 log-sum-exp (B, Hq, S) for the backward;
+// serving passes null. Returns the CUDA error code of the launch (0 when
+// it was accepted). B = 0 or S = 0 launches nothing.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, float* lse, int B, int Hq, int Hkv,
-                           int S, int hd,
-                           int causal, int window, int kv_len, float scale,
+                           void* o, float* lse, int B, int Hq, int Hkv, int S,
+                           int hd, int causal, int window, int kv_len,
+                           float scale, int col_blocks, int cols,
                            void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0 || Hq > 65535 || B > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{S, Hq, Hkv, causal != 0, window > 0 ? window : 0,
-                 kv_len, scale};
+  const Params p{S, Hq, Hkv, hd, causal != 0, window > 0 ? window : 0,
+                 kv_len, scale, col_blocks, cols, 1};
+  if (!params_ok(B, p)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  auto* of = static_cast<float*>(o);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 64: return launch<float, 64>(q, k, v, o, lse, B, p, s);
-    case 128: return launch<float, 128>(q, k, v, o, lse, B, p, s);
-    case 256: return launch<float, 256>(q, k, v, o, lse, B, p, s);
+  switch (n_tiles(cols)) {
+    case 4: return launch<4>(qf, kf, vf, of, lse, B, p, s);
+    case 8: return launch<8>(qf, kf, vf, of, lse, B, p, s);
+    case 12: return launch<12>(qf, kf, vf, of, lse, B, p, s);
+    case 16: return launch<16>(qf, kf, vf, of, lse, B, p, s);
+    case 20: return launch<20>(qf, kf, vf, of, lse, B, p, s);
+    case 24: return launch<24>(qf, kf, vf, of, lse, B, p, s);
+    case 28: return launch<28>(qf, kf, vf, of, lse, B, p, s);
+    case 32: return launch<32>(qf, kf, vf, of, lse, B, p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -2,29 +2,35 @@
 ``repro/kernels/flash_attention.py:flash_attention_pallas`` (body
 ``_flash_kernel``).
 
-Two kernels, one per dtype, each built at first use by
+Two kernels, both on Hopper's tensor cores, each built at first use by
 :mod:`repro_torch.kernels.build` and bound through ``ctypes`` (their
 source notes give the design and the bound)::
 
     flash_attention(q (B, Hq, S, hd), k, v (B, Hkv, S, hd), *, causal,
                     window, scale, kv_len) -> (B, Hq, S, hd)
 
-- bfloat16: ``repro_torch/csrc/flash_attention_sm90.cu``, Hopper's
-  tensor cores (wgmma fed by TMA through mbarrier rings, with
-  ``csrc/flash_sm90.cuh``);
-- float32: ``repro_torch/csrc/flash_attention.cu``, scalar float32 FMAs
-  (on the tensor cores float32 would mean TF32, which the float32
-  tolerances do not allow).
+- ``sm90``: ``repro_torch/csrc/flash_attention_sm90.cu``, bfloat16
+  operands at hd <= 256 (wgmma fed by TMA through mbarrier rings, with
+  ``csrc/flash_sm90.cuh``), built for hd 64, 128 and 256: any other hd
+  up to 256 is zero-padded on the last axis to the next of those (hd
+  80 -> 128);
+- ``f32``: ``repro_torch/csrc/flash_attention.cu``, float32 operands
+  of any hd, and bfloat16 ones above hd 256, read as float32 and the
+  result cast back (the reference computes in float32 for both). Its
+  products run in split TF32 on mma.sync (``csrc/flash_tf32.cuh``):
+  each operand split into two TF32 halves and three TF32 products
+  summed in float32, which keeps float32 accuracy (one TF32 product
+  would not meet the float32 tolerances). hd is zero-padded to a
+  multiple of 8, and above 256 the output columns are split over
+  blocks that each recompute the scores (:func:`f32_geometry`).
 
-q, k and v alike, Hq a multiple of Hkv. The kernels are built for head
-dims 64, 128 and 256 and mask their own ragged edge, so S need not be a
-multiple of any tile. On the card any other hd up to 256 is zero-padded
-on the last axis to the next of those widths (hd 80 -> 128), with the
-scale of the real hd, and the output sliced back: the zero columns add
-exact zeros to every q.k and every product with V, so the result is the
-unpadded one (:func:`padded_head_dim`); hd > 256 raises there. A tensor
-on a CUDA device launches its dtype's kernel or raises (counted on
-``flash_attention.launches``, and per source on
+The zero columns add exact zeros to every q.k and every product with
+V, and the scale is the real hd's, so the output sliced back is the
+unpadded one. :func:`head_route` gives the route and the width from the
+head dim and the dtype. q, k and v alike, Hq a multiple of Hkv; the
+kernels mask their own ragged edge, so S need not be a multiple of any
+tile. A tensor on a CUDA device launches its route's kernel or raises
+(counted on ``flash_attention.launches``, and per source on
 ``flash_attention.routes``); a tensor on the CPU, of any hd >= 1, goes
 to the plain torch version,
 :func:`repro_torch.kernels.ref.flash_attention_ref`, with the same
@@ -35,17 +41,16 @@ The gradient. When q, k or v requires grad, ``flash_attention`` runs
 through an autograd Function: the forward also keeps each row's float32
 log-sum-exp (B, Hq, S), and the backward is a kernel too (no TPU
 counterpart: the reference has no backward kernel), again one per
-dtype, ``csrc/flash_attention_bwd_sm90.cu`` and
+route, ``csrc/flash_attention_bwd_sm90.cu`` and
 ``csrc/flash_attention_bwd.cu``::
 
     flash_attention_bwd(q, k, v, out, dout, lse, *, causal, window,
                         scale, kv_len) -> (dq, dk, dv)
 
-deterministic passes (float32: dq, then dk and dv; bfloat16: dq, then
-partial dk and dv over a split of each kv head's query heads, then their
-sum), padded as the forward is, each launch counted on
-``flash_attention_bwd.launches``, with its
-plain version :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`
+three deterministic launches on either route (dq, then partial dk and
+dv over a split of each kv head's query heads, then their sum), padded
+as the forward is, counted on ``flash_attention_bwd.launches``, with
+its plain version :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`
 for CPU tensors. :func:`launch_geometry` gives the bfloat16 kernels'
 grids.
 """
@@ -62,14 +67,17 @@ import torch
 from repro_torch.kernels.build import CSRC_DIR, build_library
 from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
-SOURCE = CSRC_DIR / "flash_attention.cu"              # float32
-BWD_SOURCE = CSRC_DIR / "flash_attention_bwd.cu"      # float32
-SM90_SOURCE = CSRC_DIR / "flash_attention_sm90.cu"    # bfloat16
+SOURCE = CSRC_DIR / "flash_attention.cu"              # route f32
+BWD_SOURCE = CSRC_DIR / "flash_attention_bwd.cu"      # route f32
+SM90_SOURCE = CSRC_DIR / "flash_attention_sm90.cu"    # route sm90
 BWD_SM90_SOURCE = CSRC_DIR / "flash_attention_bwd_sm90.cu"
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128, 256)   # the sm90 kernels' widths
 DTYPES = (torch.float32, torch.bfloat16)
 FWD_ROWS = 128        # query rows per bf16 forward block (2 warpgroups)
 BWD_ROWS = 64         # query rows per dq block, keys per dk/dv block
+F32_DEPTH = 8         # the f32 route pads hd to a multiple of the MMA depth
+F32_MAX_COLS = 256    # output columns one f32 block accumulates at most
+F32_KEY_BLOCK = 64    # keys per f32 dk/dv block
 H100_SMS = 132
 
 
@@ -106,6 +114,34 @@ def launch_geometry(b: int, hq: int, hkv: int, s: int,
                           split=split, kv_tiles=-(-kv_len // BWD_ROWS))
 
 
+@dataclasses.dataclass(frozen=True)
+class F32Geometry:
+    """How the f32 route splits one shape: the output columns of a head
+    over ``col_blocks`` blocks of ``cols`` (a multiple of 8, at most
+    ``F32_MAX_COLS``), and each kv head's query heads over ``split``
+    dk/dv blocks."""
+    col_blocks: int
+    cols: int
+    split: int
+
+
+def f32_geometry(b: int, hq: int, hkv: int, s: int, width: int,
+                 sms: int = H100_SMS) -> F32Geometry:
+    """The f32 kernels' column blocks and group split. The dk/dv pass
+    has one block per (64 keys, column block, part of the group, batch
+    row x kv head), one an SM; ``split`` is the divisor d of the group
+    Hq / Hkv with the fewest waves of work, ceil(blocks(d) / sms) / d,
+    and the largest d of those that tie: the blocks launch longest first,
+    so more and shorter blocks even out the causal mask's uneven work."""
+    col_blocks = -(-width // F32_MAX_COLS)
+    cols = -(-width // (col_blocks * F32_DEPTH)) * F32_DEPTH
+    group = hq // hkv
+    base = -(-s // F32_KEY_BLOCK) * b * hkv * col_blocks
+    split = min((d for d in range(1, group + 1) if group % d == 0),
+                key=lambda d: (-(-base * d // sms) / d, -d))
+    return F32Geometry(col_blocks=col_blocks, cols=cols, split=split)
+
+
 def _bind(source, name, n_ptr_head, n_int, n_tail) -> ctypes.CDLL:
     """Build ``source`` and declare ``{name}_launch`` as ``n_ptr_head``
     pointers, ``n_int`` ints, a float, ``n_tail`` ints and the stream,
@@ -124,12 +160,12 @@ def _bind(source, name, n_ptr_head, n_int, n_tail) -> ctypes.CDLL:
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    return _bind(SOURCE, "flash_attention", 5, 8, 0)
+    return _bind(SOURCE, "flash_attention", 5, 8, 2)
 
 
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
-    return _bind(BWD_SOURCE, "flash_attention_bwd", 10, 8, 0)
+    return _bind(BWD_SOURCE, "flash_attention_bwd", 12, 8, 3)
 
 
 @functools.cache
@@ -166,24 +202,31 @@ def _check_aligned(*tensors) -> None:
                              "aligned operands")
 
 
-def padded_head_dim(hd: int) -> int:
-    """The head dim the card's kernels run an hd-wide call at: the least
-    of ``HEAD_DIMS`` that holds it."""
-    for width in HEAD_DIMS:
-        if hd <= width:
-            return width
-    raise ValueError(f"head dim {hd} is above {HEAD_DIMS[-1]}, the widest "
-                     f"the flash kernels take on the card")
+def head_route(hd: int, dtype: torch.dtype) -> Tuple[str, int]:
+    """(route, width) of an hd-wide call with ``dtype`` operands on the
+    card: ``("sm90", the least of HEAD_DIMS that holds hd)`` for
+    bfloat16 up to hd 256, else ``("f32", hd rounded up to a multiple of
+    8)``, for float32 at any hd and bfloat16 above 256."""
+    if dtype == torch.bfloat16 and hd <= HEAD_DIMS[-1]:
+        return "sm90", next(w for w in HEAD_DIMS if hd <= w)
+    return "f32", -(-hd // F32_DEPTH) * F32_DEPTH
 
 
-def _pad_head(hd: int, *tensors):
-    """``tensors`` zero-padded on the last axis from hd to
-    :func:`padded_head_dim` (the same tensors where hd is a kernel's
-    own)."""
-    width = padded_head_dim(hd)
-    if width == hd:
-        return tensors
-    return tuple(torch.nn.functional.pad(t, (0, width - hd)) for t in tensors)
+def _pad_head(width: int, *tensors):
+    """``tensors`` zero-padded on the last axis to ``width`` (the same
+    tensors where that is their own)."""
+    return tuple(t if t.shape[-1] == width else
+                 torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+                 for t in tensors)
+
+
+def _f32_operands(width: int, *tensors):
+    """The f32 route's operands: float32, zero-padded to ``width``, and
+    16-byte aligned for cp.async (a view off alignment is copied)."""
+    out = []
+    for t in _pad_head(width, *(t.float() for t in tensors)):
+        out.append(t.clone() if t.data_ptr() % 16 else t)
+    return tuple(out)
 
 
 def _check(q, k, v, window, kv_len) -> None:
@@ -211,8 +254,6 @@ def _check(q, k, v, window, kv_len) -> None:
                          f"Hkv={k.shape[1]}")
     if hd < 1:
         raise ValueError(f"head dim must be >= 1, got {hd}")
-    if q.device.type == "cuda":
-        padded_head_dim(hd)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     if window is not None and window < 1:
@@ -254,31 +295,35 @@ def _forward(q, k, v, masks, with_lse: bool):
         if with_lse else None
     if q.numel() == 0:
         return torch.empty_like(q), lse
-    q, k, v = _pad_head(hd, q, k, v)
+    dtype = q.dtype
+    route, width = head_route(hd, dtype)
+    q, k, v = (_pad_head(width, q, k, v) if route == "sm90"
+               else _f32_operands(width, q, k, v))
     out = torch.empty_like(q)
     kv = s if kv_len is None else kv_len
     operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr() if with_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if q.dtype == torch.bfloat16:
+        if route == "sm90":
             _check_aligned(q, k, v, out)
             geo = launch_geometry(b, hq, k.shape[1], s, kv, _sms(q.device))
             source, name, lib = SM90_SOURCE, "flash_attention_sm90", \
                 _sm90_library()
             code = lib.flash_attention_sm90_launch(
-                *operands, b, hq, k.shape[1], s, q.shape[-1], int(causal),
+                *operands, b, hq, k.shape[1], s, width, int(causal),
                 window or 0, kv, geo.kv_tiles, scale, *geo.fwd_grid, stream)
         else:
+            geo = f32_geometry(b, hq, k.shape[1], s, width, _sms(q.device))
             source, name, lib = SOURCE, "flash_attention", _library()
             code = lib.flash_attention_launch(
-                *operands, b, hq, k.shape[1], s, q.shape[-1], int(causal),
-                window or 0, kv, scale, stream)
+                *operands, b, hq, k.shape[1], s, width, int(causal),
+                window or 0, kv, scale, geo.col_blocks, geo.cols, stream)
     _raise_on(code, lib, name)
     _count(flash_attention, source)
-    if out.shape[-1] != hd:
+    if width != hd:
         out = out[..., :hd].contiguous()
-    return out, lse
+    return out.to(dtype), lse
 
 
 flash_attention.launches = 0
@@ -309,8 +354,11 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                                        scale=scale, kv_len=kv_len)
     if q.numel() == 0:
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    q, k, v, out, dout = _pad_head(hd, q, k, v, out, dout)
-    width = q.shape[-1]
+    dtype = q.dtype
+    route, width = head_route(hd, dtype)
+    q, k, v, out, dout = (_pad_head(width, q, k, v, out, dout)
+                          if route == "sm90" else
+                          _f32_operands(width, q, k, v, out, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     hkv = k.shape[1]
     kv = s if kv_len is None else kv_len
@@ -320,33 +368,34 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                 dq.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if q.dtype == torch.bfloat16:
+        if route == "sm90":
             _check_aligned(q, k, v, out, dout, dq, dk, dv)
             geo = launch_geometry(b, hq, hkv, s, kv, _sms(q.device))
-            dk_part, dv_part = (torch.empty((geo.split, b, hkv, s, width),
-                                            dtype=torch.float32,
-                                            device=q.device)
-                                for _ in range(2))
+        else:
+            geo = f32_geometry(b, hq, hkv, s, width, _sms(q.device))
+        dk_part, dv_part = (torch.empty((geo.split, b, hkv, s, width),
+                                        dtype=torch.float32, device=q.device)
+                            for _ in range(2))
+        parts = (dk_part.data_ptr(), dv_part.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, hq, hkv, s, width, int(causal),
+                 window or 0, kv)
+        if route == "sm90":
             source, name, lib = BWD_SM90_SOURCE, "flash_attention_bwd_sm90", \
                 _bwd_sm90_library()
             code = lib.flash_attention_bwd_sm90_launch(
-                *operands, dk_part.data_ptr(), dv_part.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), b, hq, hkv, s, width,
-                int(causal), window or 0, kv, geo.kv_tiles, scale, geo.split,
+                *operands, *parts, geo.kv_tiles, scale, geo.split,
                 *geo.dq_grid, *geo.dkdv_grid, stream)
-            passes = 3          # dq, partial dk and dv, their sum
         else:
             source, name, lib = BWD_SOURCE, "flash_attention_bwd", \
                 _bwd_library()
             code = lib.flash_attention_bwd_launch(
-                *operands, dk.data_ptr(), dv.data_ptr(), b, hq, hkv, s, width,
-                int(causal), window or 0, kv, scale, stream)
-            passes = 2          # dq, then dk and dv
+                *operands, *parts, scale, geo.col_blocks, geo.cols,
+                geo.split, stream)
     _raise_on(code, lib, name)
-    _count(flash_attention_bwd, source, passes)
+    _count(flash_attention_bwd, source, 3)   # dq, partial dk and dv, sum
     if width != hd:
         dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
-    return dq, dk, dv
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
 
 
 flash_attention_bwd.launches = 0

@@ -161,7 +161,7 @@ def test_fig4_smoke_model_same_tpds_on_cuda_and_cpu(cuda_device):
 # ---------------------------------------------------------------------------
 # (b, hq, hkv, s, hd, causal, window, kv_len): recurrentgemma's MQA at hd
 # 256 (group 10), GQA group 2 at hd 64, hd 128; ragged S, windows, kv_len;
-# hd 80 (stablelm-3b's, padded to 128 on the card)
+# hd 80 (stablelm-3b's: padded to 128 on the bf16 route, native on f32)
 FLASH_CASES = [(2, 10, 1, 200, 256, True, None, None),
                (2, 10, 1, 200, 256, True, 48, None),
                (1, 10, 1, 97, 256, True, 32, 90),
@@ -332,10 +332,6 @@ def test_attention_and_scan_wrappers_reject_malformed_operands(cuda_device):
         kflash.flash_attention(q, k.cpu(), v)
     with pytest.raises(ValueError, match="Hq % Hkv"):
         kflash.flash_attention(q[:, :3].contiguous(), k, v)
-    q3, k3, v3 = (torch.zeros(t.shape[:3] + (300,), device=cuda_device)
-                  for t in (q, k, v))
-    with pytest.raises(ValueError, match="head dim 300 is above 256"):
-        kflash.flash_attention(q3, k3, v3)
     a = torch.rand((2, 8, 16), device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         krglru.rglru_scan(a.transpose(1, 2), a.transpose(1, 2))
@@ -499,11 +495,9 @@ def test_flash_backward_matches_plain_autograd(cuda_device, case, dtype):
                                      kv_len=kv_len)
         out.backward(dout)
         torch.cuda.synchronize()
-        # float32: the dq pass and the dk/dv pass; bfloat16: dq, partial
-        # dk and dv, their sum
+        # both routes: dq, partial dk and dv, their sum
         assert (kflash.flash_attention.launches - before[0],
-                kflash.flash_attention_bwd.launches - before[1]) == \
-            (1, 3 if dtype == torch.bfloat16 else 2)
+                kflash.flash_attention_bwd.launches - before[1]) == (1, 3)
         runs.append([t.grad for t in leaves])
     for a, b in zip(*runs, strict=True):
         assert torch.equal(a, b)                   # no atomics: repeatable
@@ -603,10 +597,154 @@ def test_flash_bf16_backward_is_bit_reproducible(cuda_device):
         assert torch.equal(a, b)
 
 
+# f32 split-TF32 kernels at every tile edge: (B, Hq, Hkv, S, hd, causal,
+# window, kv_len), S in {1, 31, 32, 33, 63, 64, 65, 129, 2049} (32-key
+# tiles, 64-row blocks, 32-row dk/dv tiles), windows 1, 16, 64, 2048,
+# kv_len 0, on a tile edge and off it, groups 1, 2 and 10, hd 64, 80,
+# 128, 256 (resident rows), 320 and 512 (two column blocks, streamed)
+F32_EDGE_CASES = [(1, 2, 1, 1, 64, True, None, None),
+                  (1, 1, 1, 31, 80, True, None, None),
+                  (2, 2, 2, 32, 128, True, None, None),
+                  (1, 10, 1, 33, 256, True, 16, None),
+                  (1, 4, 2, 63, 64, False, None, 32),
+                  (1, 2, 1, 64, 320, True, 64, None),
+                  (1, 10, 1, 65, 512, False, None, 40),
+                  (1, 2, 1, 129, 80, True, 1, None),
+                  (1, 4, 2, 100, 128, True, None, 0),
+                  (2, 1, 1, 200, 256, True, None, 192),
+                  (1, 2, 2, 129, 320, False, 16, 100),
+                  (1, 10, 1, 2049, 256, True, 2048, None),
+                  (1, 2, 1, 2049, 64, False, None, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_EDGE_CASES)
+def test_flash_f32_forward_at_tile_edges(cuda_device, case):
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels.ref import flash_attention_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _flash_operands(case, torch.float32, cuda_device)
+    causal, window, kv_len = case[5:]
+    before = kflash.flash_attention.routes.get(kflash.SOURCE.stem, 0)
+    got, lse = kflash._forward(q, k, v, (causal, window, q.shape[-1] ** -0.5,
+                                         kv_len), with_lse=True)
+    torch.cuda.synchronize()
+    assert kflash.flash_attention.routes[kflash.SOURCE.stem] == before + 1
+    want, want_lse = flash_attention_ref(q, k, v, causal=causal,
+                                         window=window, kv_len=kv_len,
+                                         return_lse=True)
+    torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
+    torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_EDGE_CASES)
+def test_flash_f32_backward_at_tile_edges(cuda_device, case):
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels.ref import flash_attention_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _flash_operands(case, torch.float32, cuda_device)
+    causal, window, kv_len = case[5:]
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(8)
+                       ).to(cuda_device)
+    grads = []
+    for fn in (kflash.flash_attention, flash_attention_ref):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*leaves, causal=causal, window=window, kv_len=kv_len
+           ).backward(dout)
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    scales = [float(w.abs().max()) for w in grads[1]]
+    if case[3] == 1 or case[6] == 1:
+        # one key per row: dq and dk are rounding noise (see the bf16
+        # test above), held to dv's scale
+        scales = [scales[2]] * 3
+    for name, got, want, scale in zip("qkv", *grads, scales, strict=True):
+        assert got.dtype == torch.float32
+        err = float((got - want).abs().max())
+        assert err <= FLASH_GRAD_TOL[torch.float32] * scale, (name, err,
+                                                              scale)
+
+
+@pytest.mark.cuda
+def test_flash_f32_backward_is_bit_reproducible(cuda_device):
+    """The training shape in float32 (group 10 split over blocks,
+    partials summed in a fixed order): two runs give bit-equal dq, dk
+    and dv."""
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels.ref import flash_attention_ref
+    case = (1, 10, 1, 2048, 256, True, None, None)
+    q, k, v = _flash_operands(case, torch.float32, cuda_device)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(7)
+                       ).to(cuda_device)
+    out, lse = flash_attention_ref(q, k, v, causal=True, return_lse=True)
+    assert kflash.f32_geometry(1, 10, 1, 2048, 256).split > 1
+    runs = [kflash.flash_attention_bwd(q, k, v, out, dout, lse, causal=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs, strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [0x7FFFFFFF, 0x7FC00000, 0x7F800001,
+                                  0xFFFFF001])
+def test_flash_f32_forward_keeps_a_nan_operand(cuda_device, bits):
+    """A NaN in one query row makes that row NaN and no other, as in the
+    plain version, whatever its payload: the split into TF32 halves must
+    not round it to a number (0x7fffffff, the NaN the card's arithmetic
+    makes, would round to -0)."""
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels.ref import flash_attention_ref
+    case = (1, 2, 1, 65, 80, True, None, None)
+    q, k, v = _flash_operands(case, torch.float32, cuda_device)
+    q.view(torch.int32)[0, 1, 40, 3] = int(np.uint32(bits).view(np.int32))
+    assert torch.isnan(q).sum() == 1
+    got = kflash.flash_attention(q, k, v, causal=True)
+    want = flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.isnan(want[0, 1, 40]).all()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    finite = ~torch.isnan(want)
+    torch.testing.assert_close(got[finite], want[finite],
+                               **FLASH_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [320, 512])
+def test_flash_bf16_above_256_on_the_f32_kernels(cuda_device, hd):
+    """bf16 operands above hd 256 run the f32 kernels on their float32
+    values, the result cast back: within bf16's tolerance of the plain
+    version, forward and backward."""
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels.ref import flash_attention_ref
+    case = (1, 4, 2, 129, hd, True, 48, None)
+    q, k, v = _flash_operands(case, torch.bfloat16, cuda_device)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)
+                       ).to(cuda_device, torch.bfloat16)
+    outs, grads = [], []
+    for fn in (kflash.flash_attention, flash_attention_ref):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, causal=True, window=48)
+        out.backward(dout)
+        outs.append(out.detach())
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    assert outs[0].dtype == torch.bfloat16
+    torch.testing.assert_close(outs[0].float(), outs[1].float(),
+                               **FLASH_TOL[torch.bfloat16])
+    for name, got, want in zip("qkv", *grads, strict=True):
+        assert got.dtype == torch.bfloat16
+        scale = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= FLASH_GRAD_TOL[torch.bfloat16] * scale, (name, err)
+
+
 @pytest.mark.cuda
 def test_each_dtype_reaches_only_its_own_kernel(cuda_device):
-    """bf16 operands launch the tensor-core sources and never the float32
-    ones, and float32 operands the reverse (the per-source counters)."""
+    """bf16 operands launch the sm90 sources and never the float32 ones,
+    float32 operands the reverse, and bf16 above hd 256 the float32 ones
+    (the per-source counters)."""
     from repro_torch.kernels import flash_attention as kflash
     case = (1, 4, 2, 129, 64, True, 40, None)
     sources = {torch.bfloat16: (kflash.SM90_SOURCE.stem,
@@ -624,10 +762,24 @@ def test_each_dtype_reaches_only_its_own_kernel(cuda_device):
         after = (kflash.flash_attention.routes,
                  kflash.flash_attention_bwd.routes)
         assert after[0].get(fwd, 0) - before[0].get(fwd, 0) == 1
-        assert after[1].get(bwd, 0) - before[1].get(bwd, 0) == \
-            (3 if dtype == torch.bfloat16 else 2)
+        assert after[1].get(bwd, 0) - before[1].get(bwd, 0) == 3
         assert after[0].get(other[0], 0) == before[0].get(other[0], 0)
         assert after[1].get(other[1], 0) == before[1].get(other[1], 0)
+    # bf16 above hd 256 reaches the float32 sources and nothing else
+    f32 = sources[torch.float32]
+    before = (dict(kflash.flash_attention.routes),
+              dict(kflash.flash_attention_bwd.routes))
+    leaves = [t.requires_grad_() for t in _flash_operands(
+        (1, 4, 2, 129, 320, True, 40, None), torch.bfloat16, cuda_device)]
+    kflash.flash_attention(*leaves, causal=True, window=40).sum().backward()
+    torch.cuda.synchronize()
+    went = [{r: n - was.get(r, 0) for r, n in fn.routes.items()
+             if n != was.get(r, 0)}
+            for fn, was in zip((kflash.flash_attention,
+                                kflash.flash_attention_bwd), before,
+                               strict=True)]
+    assert went == [{f32[0]: 1}, {f32[1]: 3}]
+    assert all(t.grad.dtype == torch.bfloat16 for t in leaves)
 
 
 @pytest.mark.cuda
@@ -689,9 +841,9 @@ def test_train_steps_on_cuda_match_cpu(cuda_device):
         res = loop.run()
         torch.cuda.synchronize()
         launched = [c.launches - b for c, b in zip(counters, before)]
-        # per step: flash fwd 1 + 1 recompute, bwd 2 passes; RG-LRU fwd 4
-        # + 4 recompute, adjoint 4; one AdamW launch
-        assert launched == ([6, 6, 24, 12, 3] if dev == "cuda" else [0] * 5)
+        # per step: flash fwd 1 + 1 recompute, bwd 3 launches; RG-LRU fwd
+        # 4 + 4 recompute, adjoint 4; one AdamW launch
+        assert launched == ([6, 9, 24, 12, 3] if dev == "cuda" else [0] * 5)
         out[dev] = ([m["loss"] for m in res["metrics_log"]],
                     flat_buffer_of(loop.params).cpu())
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)

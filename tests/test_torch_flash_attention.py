@@ -23,7 +23,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 from repro_torch.models import attention as attn
 
 F32 = dict(rtol=2e-5, atol=2e-5)
@@ -176,12 +176,73 @@ def test_head_dim_80_bfloat16_matches_pallas():
 @pytest.mark.parametrize("hd,width", [(1, 64), (48, 64), (64, 64), (65, 128),
                                       (80, 128), (200, 256), (256, 256)])
 def test_padded_head_dim_is_the_next_kernel_width(hd, width):
-    assert kflash.padded_head_dim(hd) == width
+    """bfloat16 up to hd 256: the sm90 route at the next of its widths."""
+    assert kflash.head_route(hd, torch.bfloat16) == ("sm90", width)
 
 
 def test_padded_head_dim_above_256_raises():
-    with pytest.raises(ValueError, match="head dim 300 is above 256"):
-        kflash.padded_head_dim(300)
+    """Nothing raises above hd 256 any more (the name is from when it
+    did): hd 300 and 512 take the f32 route in both dtypes, padded to a
+    multiple of 8 (304, 512) and split over two column blocks of at most
+    256 output columns."""
+    for hd, width, cols in ((300, 304, 152), (512, 512, 256)):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert kflash.head_route(hd, dtype) == ("f32", width)
+        geo = kflash.f32_geometry(1, 10, 1, 2048, width)
+        assert (geo.col_blocks, geo.cols) == (2, cols)
+
+
+@pytest.mark.parametrize("hd,width", [(1, 8), (48, 48), (64, 64), (65, 72),
+                                      (80, 80), (256, 256), (257, 264),
+                                      (320, 320), (1000, 1000)])
+def test_float32_takes_the_f32_route_at_a_multiple_of_8(hd, width):
+    assert kflash.head_route(hd, torch.float32) == ("f32", width)
+
+
+# (b, hq, hkv, s, width): the training and serving shapes, column blocks
+# at 304, 512 and 1000, a grid past the SMs, a prime group
+@pytest.mark.parametrize("shape,col_blocks,cols,split", [
+    ((1, 10, 1, 2048, 256), 1, 256, 10), ((4, 10, 1, 1024, 256), 1, 256, 10),
+    ((1, 10, 1, 2048, 304), 2, 152, 10), ((1, 2, 1, 150, 512), 2, 256, 2),
+    ((1, 2, 1, 97, 1000), 4, 256, 2), ((8, 16, 4, 4096, 64), 1, 64, 4),
+    ((1, 7, 1, 300, 80), 1, 80, 7)])
+def test_f32_geometry_splits_columns_and_the_group(shape, col_blocks, cols,
+                                                   split):
+    b, hq, hkv, s, width = shape
+    geo = kflash.f32_geometry(b, hq, hkv, s, width)
+    assert (geo.col_blocks, geo.cols, geo.split) == (col_blocks, cols, split)
+    # the column blocks cover the width, none of them empty or too wide
+    assert geo.cols % 8 == 0 and geo.cols <= kflash.F32_MAX_COLS
+    assert geo.col_blocks * geo.cols >= width > (geo.col_blocks - 1) * geo.cols
+    # the split divides the group and has the fewest waves of work,
+    # ceil(blocks / SMs) / split, the largest such split on a tie
+    group = hq // hkv
+    blocks = -(-s // kflash.F32_KEY_BLOCK) * b * hkv * col_blocks
+
+    def waves(d):
+        return -(-blocks * d // kflash.H100_SMS) / d
+    assert group % split == 0
+    for d in range(1, group + 1):
+        if group % d == 0:
+            assert waves(split) < waves(d) or (waves(split) == waves(d)
+                                               and split >= d)
+
+
+def test_f32_operands_are_float32_padded_and_aligned():
+    """What the f32 route hands its kernels: bfloat16 read as float32,
+    hd zero-padded to the route's width, and a view off 16-byte alignment
+    copied (cp.async reads 16-byte pieces)."""
+    x = torch.arange(2 * 3 * 5 * 81, dtype=torch.float32)
+    off = x[1:1 + 2 * 3 * 5 * 80].view(2, 3, 5, 80)      # 4 bytes off
+    a, b = kflash._f32_operands(80, off, off.to(torch.bfloat16))
+    assert a.dtype == b.dtype == torch.float32
+    assert a.data_ptr() % 16 == 0 and torch.equal(a, off)
+    assert torch.equal(b, off.to(torch.bfloat16).float())
+    (c,) = kflash._f32_operands(88, off)
+    assert c.shape[-1] == 88 and torch.equal(c[..., :80], off)
+    assert not c[..., 80:].any()
+    aligned = torch.zeros(2, 3, 5, 80)
+    assert kflash._f32_operands(80, aligned)[0] is aligned
 
 
 @pytest.mark.parametrize("hd", [80, 48])
@@ -199,8 +260,9 @@ def test_zero_padding_the_head_dim_leaves_attention_and_gradients(hd):
     dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(hd))
     masks = dict(causal=True, window=40, scale=hd ** -0.5)
     out, lse = flash_attention_ref(q, k, v, return_lse=True, **masks)
-    pq, pk, pv, pout, pdout = kflash._pad_head(hd, q, k, v, out, dout)
-    assert pq.shape[-1] == kflash.padded_head_dim(hd) and pq.is_contiguous()
+    width = kflash.head_route(hd, torch.bfloat16)[1]
+    pq, pk, pv, pout, pdout = kflash._pad_head(width, q, k, v, out, dout)
+    assert pq.shape[-1] == width and pq.is_contiguous()
     assert not pq[..., hd:].any()
     got, got_lse = flash_attention_ref(pq, pk, pv, return_lse=True, **masks)
     np.testing.assert_allclose(got[..., :hd].numpy(), out.numpy(), **F32)
@@ -416,3 +478,162 @@ def test_launch_geometry_at_the_training_shape():
     geo = kflash.launch_geometry(1, 10, 1, 2048)
     assert (geo.split, geo.dkdv_grid) == (5, (32, 5, 1))
     assert geo.fwd_grid == (16, 10, 1) and geo.dq_grid == (32, 10, 1)
+
+
+# ---------------------------------------------------------------------------
+# the f32 kernels' numerical design, emulated on the CPU: split TF32
+# ---------------------------------------------------------------------------
+NEG = -1e30
+
+
+def _tf32(x):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_mm(a, b):
+    """a @ b as the f32 kernels form it: each operand split into big =
+    tf32(x) and small = tf32(x - big), then small big + big small + big
+    big summed in float32 (a product of two TF32 values is exact in
+    float32); only small small is dropped."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _single_mm(a, b):
+    """a @ b in plain TF32: one product of the rounded operands."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _visible(i, j, causal, window):
+    vis = torch.ones(len(i), len(j), dtype=torch.bool)
+    if causal:
+        vis &= j[None] <= i[:, None]
+    if window is not None:
+        vis &= j[None] > i[:, None] - window
+    return vis
+
+
+def _emulated_forward(q, k, v, mm, *, causal, window, scale, tile=32):
+    """The f32 forward kernel's order on q (Hq, S, hd), k, v (Hkv, S,
+    hd): per 32-key tile the scores, the online softmax with the
+    reference's guards (max clamped at -1e30 / 2, denominator at 1e-30),
+    then acc += P V, every product through ``mm``."""
+    hq, s, _ = q.shape
+    kk = k.repeat_interleave(hq // k.shape[0], 0)
+    vv = v.repeat_interleave(hq // k.shape[0], 0)
+    i = torch.arange(s)
+    m = torch.full((hq, s, 1), NEG)
+    l = torch.zeros((hq, s, 1))
+    acc = torch.zeros_like(q)
+    for k0 in range(0, s, tile):
+        j = torch.arange(k0, min(k0 + tile, s))
+        vis = _visible(i, j, causal, window)
+        sc = torch.where(vis, mm(q, kk[:, j].transpose(1, 2)) * scale, NEG)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        m_safe = m_new.clamp_min(NEG / 2)
+        p = torch.where(vis, torch.exp(sc - m_safe), 0.0)
+        alpha = torch.exp(m - m_safe)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + mm(p, vv[:, j])
+        m = m_new
+    return acc / l.clamp_min(1e-30)
+
+
+def _emulated_backward(q, k, v, out, dout, lse, mm, *, causal, window,
+                       scale):
+    """The f32 backward kernels' products on one dense tile: P from the
+    saved lse, dS = P (dO V^T - D), dq = scale dS K, dk = scale dS^T Q
+    and dv = P^T dO summed over each kv head's query heads."""
+    hq, s, hd = q.shape
+    hkv = k.shape[0]
+    kk = k.repeat_interleave(hq // hkv, 0)
+    vv = v.repeat_interleave(hq // hkv, 0)
+    i = torch.arange(s)
+    vis = _visible(i, i, causal, window)
+    p = torch.where(vis, torch.exp(mm(q, kk.transpose(1, 2)) * scale
+                                   - lse[..., None]), 0.0)
+    d = (dout * out).sum(-1, keepdim=True)
+    ds = p * (mm(dout, vv.transpose(1, 2)) - d)
+    dq = mm(ds, kk) * scale
+    dk = (mm(ds.transpose(1, 2), q) * scale).view(hkv, -1, s, hd).sum(1)
+    dv = mm(p.transpose(1, 2), dout).view(hkv, -1, s, hd).sum(1)
+    return dq, dk, dv
+
+
+def _design_case(hd, mm, window=40):
+    """(emulated, pallas interpret, reference oracle, port plain) outputs
+    and (emulated, jax.grad of the oracle, port plain) gradients of one
+    tile: 4 query heads on 1 kv head, 96 rows, causal with a window."""
+    shape = (1, 4, 1, 96, hd)
+    (jq, jk, jv), (q, k, v) = _pair(_qkv(*shape, seed=hd + 2), "float32")
+    dout = np.random.default_rng(hd).standard_normal(
+        (1, 4, 96, hd)).astype(np.float32)
+    scale = hd ** -0.5
+    masks = dict(causal=True, window=window)
+    fwd = (_emulated_forward(q[0], k[0], v[0], mm, scale=scale, **masks),
+           np.asarray(flash_attention_pallas(jq, jk, jv, interpret=True,
+                                             **masks))[0],
+           np.asarray(jref.flash_attention_ref(jq, jk, jv, **masks))[0],
+           flash_attention_ref(q, k, v, **masks)[0])
+    out, lse = flash_attention_ref(q, k, v, return_lse=True, **masks)
+    dt = torch.tensor(dout)
+    bwd = (_emulated_backward(q[0], k[0], v[0], out[0], dt[0], lse[0], mm,
+                              scale=scale, **masks),
+           [np.asarray(g)[0] for g in _jax_grads(
+               lambda a, b, c: jref.flash_attention_ref(a, b, c, **masks),
+               (jq, jk, jv), jnp.asarray(dout))],
+           [g[0] for g in flash_attention_bwd_ref(q, k, v, out, dt, lse,
+                                                  **masks)])
+    return fwd, bwd
+
+
+@pytest.mark.parametrize("hd", [256, 80])
+def test_split_tf32_design_meets_the_float32_tolerance(hd):
+    """The kernels' arithmetic (split-TF32 products in the forward's tile
+    order, and the backward's products) lands within the float32
+    tolerance of the reference kernel in interpret mode, its oracle and
+    the port's plain versions."""
+    (got, pallas, oracle, plain), (grads, jax_grads, plain_grads) = \
+        _design_case(hd, _split_mm)
+    for want in (pallas, oracle, plain):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    for want in (jax_grads, plain_grads):
+        _assert_grads(grads, [np.asarray(w) for w in want])
+
+
+@pytest.mark.parametrize("hd", [256, 80])
+def test_single_tf32_misses_the_float32_tolerance(hd):
+    """Why the products are split: one TF32 product (10 mantissa bits a
+    factor) misses the float32 tolerance in the forward and the
+    backward, by more than 10x the split's error."""
+    (got, _, oracle, _), (grads, jax_grads, _) = _design_case(hd, _single_mm)
+    (split_got, *_), _ = _design_case(hd, _split_mm)
+    err = np.abs(got.numpy() - oracle).max()
+    assert not np.allclose(got.numpy(), oracle, **F32)
+    assert err > 10 * np.abs(split_got.numpy() - oracle).max()
+    with pytest.raises(AssertionError):
+        _assert_grads(grads, [np.asarray(w) for w in jax_grads])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_320_matches_pallas_and_oracle(dtype):
+    """hd 320, above what the sm90 kernels take: the plain version (what
+    the wrapper runs on the CPU, and the f32 kernels' yardstick on the
+    card) against the reference kernel in interpret mode and its
+    oracle."""
+    shape = (1, 4, 2, 80, 320)
+    (jq, jk, jv), (q, k, v) = _pair(_qkv(*shape, seed=320), dtype)
+    masks = dict(causal=True, window=48)
+    want = flash_attention_pallas(jq, jk, jv, interpret=True, **masks)
+    oracle = jref.flash_attention_ref(jq, jk, jv, **masks)
+    got = kflash.flash_attention(q, k, v, **masks)
+    assert got.dtype == DTYPES[dtype][1] and tuple(got.shape) == shape[:2] + \
+        shape[3:]
+    for ref_out in (want, oracle):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(ref_out, np.float32),
+                                   **DTYPES[dtype][2])
