@@ -21,10 +21,15 @@ Phases, in order; any failed check raises and ends the run non-zero:
    the float32 ones, which must not be 0; the RG-LRU kernels'
    registers, shared memory and spills, and the plan (blocks, stages, dynamic shared
    memory, held to the kernel's own count) at the training and serving
-   shapes;
-3. the TPD kernel against its plain torch version on the card, exactly,
-   and against the float64 scalar model within rtol 2e-5, at the Fig. 3
-   extremes, large-1k and large-10k;
+   shapes; the TPD kernel's registers and shared memory, its launch
+   plan's shared memory and scratch held to the kernel's own counts;
+3. the TPD kernel against its plain torch versions on the card, in
+   both modes: given the leaf loads (the TPU kernel's operands), and
+   building them in the same launch, its leaf loads held to np.bincount's
+   and its TPDs to ``tpd_ref``'s, exactly, and against the float64 scalar
+   model within rtol 2e-5, at the Fig. 3 extremes, large-1k, large-10k
+   and a 60,000-client pool (the scratch route), with duplicate-id rows
+   and payloads over 2^-30..2^30; reruns bit-equal;
 4. the FedAvg kernel against its plain torch version on the card,
    exactly (atol 0): paper-fig4's two tree levels and a 256-client
    tree's leaf level at the paper MLP's N = 1,791,754, K = 1, ragged
@@ -34,7 +39,9 @@ Phases, in order; any failed check raises and ends the run non-zero:
 5. the simulated main path: the paper's Fig. 3 grid (depth {3,4,5} x
    width {4,5} x particles {5,10}, 100 iterations, seed 0) through
    ``FlagSwapPSO.run`` on ``cuda``, then large-10k (10 particles, 50
-   iterations), each Fig. 3 cell held exactly to the same run on the CPU;
+   iterations), each Fig. 3 cell held exactly to the same run on the CPU,
+   every TPD launch on the route that builds the leaf loads in shared
+   memory;
 6. the emulated main path: ``run_experiment("paper-fig4", ["pso",
    "random", "uniform"], rounds=50, seeds=[0])`` on ``cuda`` with the
    full-width paper MLP (batched engine, deterministic timing), held to
@@ -52,7 +59,12 @@ Phases, in order; any failed check raises and ends the run non-zero:
    and power limit. The JSON line's ``ms``, ``plain_ms`` and
    ``library_ms`` are device time per call, host enqueue hidden behind
    a device spin; wrapper-call times, host enqueue included, are
-   printed beside them;
+   printed beside them. For the TPD kernel: both modes at large-10k, P
+   = 10 and 1000, beside both bounds and the floor of one launch; one
+   ``batch_tpd(backend="kernel")`` call under ``torch.profiler`` (it
+   must run one kernel and two copies on the device) and its host-clock
+   breakdown; ``batch_tpd`` on the ``np``, ``torch`` and ``kernel``
+   backends at five sizes;
 10. the flash-attention and RG-LRU kernels against their plain torch
     versions at recurrentgemma-2b's serving shapes: flash at B = 4,
     Hq = 10, Hkv = 1, hd = 256, S = 1024 causal, S = 4096 and a ragged
@@ -130,6 +142,7 @@ Comparison and timing launches never enter the JSON line's
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import itertools
 import json
@@ -199,7 +212,10 @@ def ptxas_kernels(log: str):
                           m.group(1))
             r = re.search(r"(rglru_scan(?:_bwd)?_kernel)I(f|13__nv_bfloat16)"
                           r"Li(\d)E", m.group(1))
-            if r:
+            t = re.search(r"\d(tpd_kernel)ILi(\d)E", m.group(1))
+            if t:
+                name = f"tpd_kernel<route {t.group(2)}>"
+            elif r:
                 dtype = "float" if r.group(2) == "f" else "bf16"
                 route = ("tma", "cp_async")[int(r.group(3))]
                 name = f"{r.group(1)}<{dtype}, {route}>"
@@ -242,6 +258,19 @@ def tpd_bytes(ps, L, W, depth, penalty) -> int:
     ids = len(set(ps.ravel().tolist()))
     rows = 3 if penalty > 0 else 2
     return P * (4 * D + 4 * L + 4) + 4 * W * (D - L) + 4 * rows * ids \
+        + 4 * (depth + 1)
+
+
+def tpd_fused_bytes(ps, C, L, W, depth, penalty) -> int:
+    """Bytes the TPD function must move when it builds the leaf loads
+    itself: each placement row and internal slot's kid row read once,
+    mdatasize whole (every client is placed or a trainer of a leaf),
+    pspeed (and memcap when ``penalty`` > 0) at the distinct placed ids,
+    the level starts once and the output written once."""
+    P, D = ps.shape
+    ids = len(set(ps.ravel().tolist()))
+    rows = 2 if penalty > 0 else 1
+    return P * (4 * D + 4) + 4 * W * (D - L) + 4 * C + 4 * rows * ids \
         + 4 * (depth + 1)
 
 
@@ -1568,8 +1597,32 @@ def main() -> int:
               f"{plan.blocks} blocks of {rglru_mod.GROUP} channels, "
               f"{plan.stages} stages, {dyn} B dynamic shared memory a block")
 
+    tpd_lib = tpd_mod._library()
+    for name, regs, smem, st, ld in ptxas_kernels(
+            libs[sources.index(tpd_mod.SOURCE)].with_suffix(".log")
+            .read_text()):
+        print(f"{name}: {regs} registers, {smem} B static shared memory, "
+              f"spills {st} B stored / {ld} B loaded")
+    static = tpd_lib.tpd_static_smem_bytes()
+    check(0 < static <= tpd_mod.STATIC_SMEM,
+          f"TPD kernel: {static} B static shared memory, the plan counts "
+          f"{tpd_mod.STATIC_SMEM}")
+    for label, P, D, C, L in (("large-10k", 10, 1365, 10000, 1024),
+                              ("60,000 clients", 10, 21, 60000, 16)):
+        plan = tpd_mod.launch_plan(P, D, C, L, build=True)
+        dyn = tpd_lib.tpd_smem_bytes(D, C, L,
+                                     tpd_mod.ROUTES.index(plan.route))
+        check(dyn == plan.smem_bytes and tpd_lib.tpd_scratch_words(C, L)
+              == tpd_mod.work_words(C, L),
+              f"TPD {label}: kernel {dyn} B, plan {plan.smem_bytes} B")
+        print(f"TPD {label} (leaf loads built): route {plan.route}, "
+              f"{plan.threads} threads a particle, {dyn} B dynamic + "
+              f"{static} B static shared memory, {plan.scratch_words} "
+              f"scratch words a particle")
+
     # ---- 3. TPD kernel vs plain version on the card ---------------------
-    phase("3. TPD kernel vs its plain torch version on the card")
+    phase("3. TPD kernel vs its plain torch versions on the card, leaf "
+          "loads given and built")
 
     def operands(h, pool, P, penalty, seed, dup_rows):
         C = h.total_clients
@@ -1602,42 +1655,68 @@ def main() -> int:
             1.0, 40.0, h.total_clients)
         return pool
 
+    def wide(h, seed):
+        """payloads over 2^-30..2^30: float64 leaf sums that are not
+        exact, so only bincount's order of adds gives its bits"""
+        pool = ClientPool.random(h.total_clients, seed=seed)
+        pool.mdatasize = 2.0 ** np.random.default_rng(seed + 1).uniform(
+            -30, 30, h.total_clients)
+        return pool
+
     h1k = get_scenario("large-1k").make_hierarchy()
     h10k = get_scenario("large-10k").make_hierarchy()
+    h60k = Hierarchy(3, 4, 2, 60000)
     pool10k = ClientPool.random(h10k.total_clients, seed=SEED)
     cases = [("fig3 d3w4", *fig3(3, 4), 10, 0.0, 0),
              ("fig3 d5w5", *fig3(5, 5), 10, 0.0, 0),
              ("large-1k hetero", h1k, hetero(h1k, 1), 10, 3.0, 2),
-             ("large-1k hetero", h1k, hetero(h1k, 1), 100, 3.0, 5)]
+             ("large-1k hetero", h1k, hetero(h1k, 1), 100, 3.0, 5),
+             ("large-1k wide", h1k, wide(h1k, 2), 10, 3.0, 2)]
     for P in (1, 10, 1000):
         for penalty in (0.0, 3.0):
             cases.append(("large-10k", h10k, pool10k, P, penalty,
                           0 if P == 1 else 3))
+    cases += [("large-10k wide", h10k, wide(h10k, 3), 1000, 0.0, 3),
+              ("60,000 clients wide", h60k, wide(h60k, 4), 10, 3.0, 2)]
     tpd_max_abs_err = 0.0
     for i, (name, h, pool, P, penalty, dups) in enumerate(cases):
         cm, ps, attrs_np, ops = operands(h, pool, P, penalty, 100 + i, dups)
-        leaf_ok = np.array_equal(
-            ops[2].cpu().numpy(),
-            np_leaf_loads(np, ps, attrs_np[0], h.total_clients, h.n_leaves))
-        check(leaf_ok, f"{name} P={P}: leaf_loads differ from the numpy "
-                       f"prefix-sum")
-        got = batch_tpd_cuda(*ops, penalty=penalty)
+        p, attrs, plain_leaf, kids, starts = ops
+        leaf = torch.as_tensor(np_leaf_loads(
+            np, ps, attrs_np[0], h.total_clients, h.n_leaves), device=dev)
+        check(torch.equal(plain_leaf, leaf),
+              f"{name} P={P}: leaf_loads differ from the numpy prefix-sum")
+        built_leaf = torch.empty_like(leaf)
+        given = batch_tpd_cuda(p, attrs, leaf, kids, starts, penalty=penalty)
+        built = batch_tpd_cuda(p, attrs, None, kids, starts, penalty=penalty,
+                               leaf_out=built_leaf)
+        again = batch_tpd_cuda(p, attrs, None, kids, starts, penalty=penalty)
         torch.cuda.synchronize()
-        want = tpd_ref(*ops, penalty=penalty)
-        err = float((got - want).abs().max())
+        want = tpd_ref(p, attrs, leaf, kids, starts, penalty=penalty)
+        err = max(float((given - want).abs().max()),
+                  float((built - want).abs().max()))
         tpd_max_abs_err = max(tpd_max_abs_err, err)
-        check(torch.equal(got, want),
+        check(torch.equal(built_leaf, leaf),
+              f"{name} P={P}: the kernel's leaf loads differ from "
+              f"np.bincount's (max abs err "
+              f"{float((built_leaf - leaf).abs().max())})")
+        check(torch.equal(given, want) and torch.equal(built, want),
               f"{name} P={P} penalty={penalty}: kernel != plain version "
               f"(max abs err {err})")
+        check(torch.equal(again, built), f"{name} P={P}: rerun differs")
         rows = list(range(min(P, 3))) + ([P - 1] if P > 3 else [])
         scalar = np.array([cm.tpd(ps[r]) for r in rows])
-        kern = got.cpu().numpy()[rows].astype(np.float64)
+        kern = built.cpu().numpy()[rows].astype(np.float64)
         rel = float(np.max(np.abs(kern - scalar) / np.abs(scalar)))
         check(rel <= RTOL_SCALAR, f"{name} P={P}: kernel vs f64 scalar "
                                   f"rel err {rel} > {RTOL_SCALAR}")
-        print(f"{name:16s} D={h.dimensions:5d} C={h.total_clients:6d} "
-              f"P={P:5d} penalty={penalty}: exact (atol 0), "
-              f"rel err vs f64 scalar {rel:.2e}")
+        route = tpd_mod.launch_plan(P, h.dimensions, h.total_clients,
+                                    h.n_leaves, build=True).route
+        print(f"{name:20s} D={h.dimensions:5d} C={h.total_clients:6d} "
+              f"P={P:5d} penalty={penalty}: leaf loads built on the "
+              f"{route} route equal np.bincount's; TPDs of both modes "
+              f"exact (atol 0), rerun bit-equal; rel err vs f64 scalar "
+              f"{rel:.2e}")
 
     # ---- 4. FedAvg kernel vs plain version on the card -------------------
     phase("4. FedAvg kernel vs its plain torch version on the card")
@@ -1745,6 +1824,7 @@ def main() -> int:
     phase("5. simulated main path: paper Fig. 3 grid on cuda, held to the "
           "CPU run")
     batch_tpd_cuda.launches = 0   # the count to 0 just before the path
+    batch_tpd_cuda.routes = dict.fromkeys(tpd_mod.ROUTES, 0)
     t_main = time.perf_counter()
 
     def run_cell(depth, width, particles, device, backend=None):
@@ -1788,6 +1868,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall10k = time.perf_counter() - t0
     launches_tpd = batch_tpd_cuda.launches   # read just after the path
+    routes_tpd = dict(batch_tpd_cuda.routes)
     check(launches_tpd - before == FULL_SCALE_ITERATIONS,
           f"large-10k: {launches_tpd - before} launches, expected "
           f"{FULL_SCALE_ITERATIONS}")
@@ -1801,8 +1882,13 @@ def main() -> int:
           f"{-pso10k.gbest_f:.6f} from the kernel vs {scalar_best:.6f} "
           f"scalar (rel {rel:.2e}); TPD {pso10k.history.mean[0]:.4f} -> "
           f"{pso10k.history.best[-1]:.4f}")
+    check(routes_tpd == {**dict.fromkeys(tpd_mod.ROUTES, 0),
+                         "shared": launches_tpd},
+          f"simulated path: TPD launches by route {routes_tpd}, expected "
+          f"all on the route that builds the leaf loads in shared memory")
     print(f"simulated path: {launches_tpd} TPD kernel launches (12 Fig. 3 "
-          f"cells x {FIG3_ITERATIONS} + {FULL_SCALE_ITERATIONS})")
+          f"cells x {FIG3_ITERATIONS} + {FULL_SCALE_ITERATIONS}), by route "
+          f"{routes_tpd}")
 
     # the Fig. 3 grid again on the CPU: every cell must match exactly
     for d, w, P, h, pso, best, wall in cells:
@@ -1987,44 +2073,120 @@ def main() -> int:
 
     # ---- 9. timings --------------------------------------------------------
     phase(f"9. timings on {card}")
+    floor_ms = median_device_ms(torch, lambda: torch.cuda._sleep(1))
+    print(f"floor of one launch (torch.cuda._sleep(1), timed as the "
+          f"kernels): {floor_ms * 1e3:.2f} us on the device [{card}]")
     rows = {}
+    L10k, W10k, D10k = h10k.n_leaves, h10k.width, h10k.depth
     for P in (10, 1000):
         cm, ps, _, ops = operands(h10k, pool10k, P, 0.0, 7 + P, 0)
-        k_ms = median_device_ms(torch, lambda ops=ops: batch_tpd_cuda(*ops))
-        r_ms = median_device_ms(torch, lambda ops=ops: tpd_ref(*ops))
-        k_call = median_event_ms(torch, lambda ops=ops: batch_tpd_cuda(*ops))
-        r_call = median_event_ms(torch, lambda ops=ops: tpd_ref(*ops))
-        nbytes = tpd_bytes(ps, h10k.n_leaves, h10k.width, h10k.depth, 0.0)
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        rows[P] = (k_ms, r_ms, b_ms)
-        print(f"TPD large-10k P={P:5d}: device time per call: kernel "
-              f"{k_ms * 1e3:8.2f} us, plain torch {r_ms * 1e3:9.2f} us; "
-              f"back-to-back wrapper call: kernel {k_call * 1e3:8.2f} us, "
-              f"plain torch {r_call * 1e3:9.2f} us; bound "
-              f"{b_ms * 1e3:.4f} us ({nbytes} B / 3.35 TB/s) [{card}]")
+        p, attrs, leaf, kids, starts = ops
+
+        def built(p=p, attrs=attrs, kids=kids, starts=starts):
+            return batch_tpd_cuda(p, attrs, None, kids, starts)
+
+        def fused_plain(p=p, attrs=attrs, kids=kids, starts=starts):
+            return tpd_ref(p, attrs, leaf_loads(p, attrs[0], L10k), kids,
+                           starts)
+
+        g_ms = median_device_ms(torch, lambda ops=ops: batch_tpd_cuda(*ops))
+        b_ms = median_device_ms(torch, built)
+        # one plain call per run: leaf_loads is a few dozen small
+        # launches, and a run must stay under the device's queue of
+        # pending launches, or the host blocks on it behind the spin
+        leaf_ms = median_device_ms(
+            torch, lambda p=p, attrs=attrs: leaf_loads(p, attrs[0], L10k),
+            runs=9, per_run=1)
+        rg_ms = median_device_ms(torch, lambda ops=ops: tpd_ref(*ops))
+        rb_ms = median_device_ms(torch, fused_plain, runs=9, per_run=1)
+        g_call = median_event_ms(torch, lambda ops=ops: batch_tpd_cuda(*ops))
+        b_call = median_event_ms(torch, built)
+        g_bytes = tpd_bytes(ps, L10k, W10k, D10k, 0.0)
+        b_bytes = tpd_fused_bytes(ps, h10k.total_clients, L10k, W10k, D10k,
+                                  0.0)
+        gb_ms = g_bytes / HBM_BYTES_PER_S * 1e3
+        bb_ms = b_bytes / HBM_BYTES_PER_S * 1e3
+        rows[P] = (b_ms, rb_ms, bb_ms)
+        out = torch.empty(P, device=dev)
+        starts_c = (ctypes.c_int * len(starts))(*starts)
+
+        def raw(threads, route, leaf_ptr, P=P, p=p, attrs=attrs, kids=kids,
+                out=out, starts_c=starts_c):
+            """The kernel alone at a block size the plan may not pick."""
+            def call():
+                code = tpd_lib.tpd_launch(
+                    p.data_ptr(), attrs.data_ptr(), leaf_ptr,
+                    kids.data_ptr(), None, None, out.data_ptr(), starts_c,
+                    P, h10k.dimensions, h10k.total_clients, W10k, D10k,
+                    threads, tpd_mod.ROUTES.index(route), 0.0,
+                    torch.cuda.current_stream().cuda_stream)
+                check(code == 0, f"TPD launch failed ({code})")
+            return call
+
+        planned = {route: tpd_mod.launch_plan(
+            P, h10k.dimensions, h10k.total_clients, L10k,
+            build=route == "shared").threads for route in ("shared", "given")}
+        sizes = "; ".join(
+            f"{route} " + ", ".join(
+                f"{t}: {median_device_ms(torch, raw(t, route, ptr)) * 1e3:.2f}"
+                for t in (256, 512, 1024))
+            + f" us (the plan: {planned[route]})"
+            for route, ptr in (("shared", None), ("given", leaf.data_ptr())))
+        print(f"TPD large-10k P={P:5d}, threads a block: {sizes} [{card}]")
+        print(f"TPD large-10k P={P:5d}, device time per call: leaf loads "
+              f"built {b_ms * 1e3:8.2f} us (bound {bb_ms * 1e3:.4f} us, "
+              f"{b_bytes} B / 3.35 TB/s), given {g_ms * 1e3:8.2f} us "
+              f"(bound {gb_ms * 1e3:.4f} us, {g_bytes} B), launch floor "
+              f"{floor_ms * 1e3:.2f} us; plain versions: leaf_loads "
+              f"{leaf_ms * 1e3:9.2f} us + tpd_ref {rg_ms * 1e3:9.2f} us = "
+              f"{rb_ms * 1e3:9.2f} us together; back-to-back wrapper call: "
+              f"built {b_call * 1e3:8.2f} us, given {g_call * 1e3:8.2f} us "
+              f"[{card}]")
 
     hd = Hierarchy(5, 5, 2)
     cmd, psd, _, opsd = operands(hd, fig3(5, 5)[1], 10, 0.0, 11, 0)
-    kd_ms = median_device_ms(torch, lambda: batch_tpd_cuda(*opsd))
-    kd_call_ms = median_event_ms(torch, lambda: batch_tpd_cuda(*opsd))
-    bd_ms = tpd_bytes(psd, hd.n_leaves, hd.width, hd.depth, 0.0) \
-        / HBM_BYTES_PER_S * 1e3
+    kd_ms = median_device_ms(torch, lambda: batch_tpd_cuda(
+        opsd[0], opsd[1], None, *opsd[3:]))
+    kd_call_ms = median_event_ms(torch, lambda: batch_tpd_cuda(
+        opsd[0], opsd[1], None, *opsd[3:]))
+    bd_ms = tpd_fused_bytes(psd, hd.total_clients, hd.n_leaves, hd.width,
+                            hd.depth, 0.0) / HBM_BYTES_PER_S * 1e3
     np_ms = median_host_ms(lambda: cmd.batch_tpd(psd, backend="np"))
-    print(f"TPD fig3 d5w5 P=10: kernel {kd_ms * 1e3:.2f} us on the device, "
-          f"{kd_call_ms * 1e3:.2f} us per wrapper call, bound "
-          f"{bd_ms * 1e3:.4f} us; numpy batch_tpd(backend='np') "
+    print(f"TPD fig3 d5w5 P=10, leaf loads built: kernel {kd_ms * 1e3:.2f} "
+          f"us on the device, {kd_call_ms * 1e3:.2f} us per wrapper call, "
+          f"bound {bd_ms * 1e3:.4f} us; numpy batch_tpd(backend='np') "
           f"{np_ms * 1e3:.2f} us (host clock) [{card}]")
 
-    # where one large-10k iteration goes (P = 10)
+    # one batch_tpd(backend="kernel") call: what the device runs
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     cm, ps, _, ops = operands(h10k, pool10k, 10, 0.0, 5, 0)
-    p_dev, attrs = ops[0], ops[1]
+    cm.batch_tpd(ps, backend="kernel")   # tables uploaded before
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cm.batch_tpd(ps, backend="kernel")
+        torch.cuda.synchronize()
+    on_device = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+    copies = [n for n in on_device if n.lower().startswith("memcpy")]
+    kernels = [n for n in on_device if n not in copies]
+    print(f"batch_tpd(backend='kernel') under torch.profiler, large-10k "
+          f"P=10: {len(kernels)} kernel(s) {kernels} and {len(copies)} "
+          f"copies {copies} on the device")
+    check(len(copies) == 2 and len(kernels) == 1
+          and "tpd_kernel" in kernels[0],
+          f"batch_tpd(backend='kernel') ran {on_device} on the device, "
+          f"expected one TPD kernel and two copies")
+
+    # where one large-10k iteration goes (P = 10)
+    p_dev, attrs, kids, starts = ops[0], ops[1], ops[3], ops[4]
     h2d_ms = median_host_ms(lambda: torch.as_tensor(ps, device=dev),
                             sync=torch.cuda.synchronize)
-    leaf_dev_ms = median_device_ms(
-        torch, lambda: leaf_loads(p_dev, attrs[0], h10k.n_leaves))
-    leaf_ms = median_event_ms(
-        torch, lambda: leaf_loads(p_dev, attrs[0], h10k.n_leaves))
-    out_dev = batch_tpd_cuda(*ops)
+    enqueue_ms = median_host_ms(lambda: batch_tpd_cuda(p_dev, attrs, None,
+                                                       kids, starts))
+    torch.cuda.synchronize()
+    out_dev = batch_tpd_cuda(p_dev, attrs, None, kids, starts)
     d2h_ms = median_host_ms(lambda: out_dev.cpu().numpy())
     full_ms = median_host_ms(lambda: cm.batch_tpd(ps, backend="kernel"))
     swarm = FlagSwapPSO(h10k.dimensions, h10k.total_clients, n_particles=10,
@@ -2038,10 +2200,9 @@ def main() -> int:
         swarm.placements()
 
     pso_ms = median_host_ms(host_update)
-    print(f"large-10k iteration (P=10): H2D {h2d_ms * 1e3:.1f} us, "
-          f"leaf_loads {leaf_ms * 1e3:.1f} us per call "
-          f"({leaf_dev_ms * 1e3:.1f} us on the device), kernel "
-          f"{rows[10][0] * 1e3:.1f} us on the device, D2H "
+    print(f"large-10k iteration (P=10), host clock: H2D {h2d_ms * 1e3:.1f} "
+          f"us, launch (the wrapper's host time) {enqueue_ms * 1e3:.1f} us, "
+          f"kernel {rows[10][0] * 1e3:.1f} us on the device, D2H "
           f"{d2h_ms * 1e3:.1f} us, whole batch_tpd {full_ms * 1e3:.1f} us, "
           f"host PSO update {pso_ms * 1e3:.1f} us; measured iteration "
           f"{wall10k / FULL_SCALE_ITERATIONS * 1e3 * 1e3:.1f} us [{card}]")
@@ -2054,11 +2215,12 @@ def main() -> int:
                               ("large-10k", h10k, pool10k, 10),
                               ("large-10k", h10k, pool10k, 1000)):
         cm, ps, _, _ = operands(hh, pool, P, 0.0, 3, 0)
-        t_np = median_host_ms(lambda cm=cm, ps=ps: cm.batch_tpd(ps, "np"))
-        t_k = median_host_ms(lambda cm=cm, ps=ps: cm.batch_tpd(ps, "kernel"))
+        t = {b: median_host_ms(lambda cm=cm, ps=ps, b=b: cm.batch_tpd(ps, b))
+             for b in ("np", "torch", "kernel")}
         print(f"batch_tpd {name:10s} P={P:5d} (P*C={P * hh.total_clients}):"
-              f" np {t_np * 1e3:9.1f} us, kernel path {t_k * 1e3:9.1f} us "
-              f"(host clock) [{card}]")
+              f" np {t['np'] * 1e3:9.1f} us, torch {t['torch'] * 1e3:9.1f} "
+              f"us, kernel {t['kernel'] * 1e3:9.1f} us (host clock) "
+              f"[{card}]")
 
     # FedAvg at the main path's shapes: paper-fig4's levels (the batched
     # engine's row form) and the loop engine's largest cluster (K = 5)

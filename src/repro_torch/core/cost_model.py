@@ -20,8 +20,9 @@ The port's ``CostModel``, held to ``repro.core.cost_model.CostModel``:
   - ``"torch"``: :func:`~repro_torch.kernels.tpd.leaf_loads` plus the
     plain torch :func:`~repro_torch.kernels.ref.tpd_ref` on the model's
     device;
-  - ``"kernel"``: ``leaf_loads`` plus the CUDA kernel
-    (:func:`~repro_torch.kernels.tpd.batch_tpd_cuda`); CUDA devices only.
+  - ``"kernel"``: the CUDA kernel
+    (:func:`~repro_torch.kernels.tpd.batch_tpd_cuda`), one launch that
+    builds the leaf loads and scores the swarm; CUDA devices only.
 
   Auto-selection: on a CUDA device always ``"kernel"``; on the CPU the
   reference's ``_NP_FASTPATH_ELEMS`` rule picks ``"np"`` for small
@@ -197,16 +198,16 @@ class CostModel:
     def _make_device_tpd(self, kernel: bool):
         """Closure scoring swarms on ``self.device``: static tables and
         the (3, C) f32 attribute table are uploaded once; per call the
-        placements go up, ``leaf_loads`` and the TPD evaluation run on
-        the device (the CUDA kernel when ``kernel``, else the plain torch
-        version), and the (P,) TPDs come back to the host."""
+        placements go up, the TPD evaluation runs on the device, and the
+        (P,) TPDs come back to the host. With ``kernel`` the evaluation
+        is one launch of the CUDA kernel, which builds the leaf loads
+        itself; else ``leaf_loads`` and the plain torch version."""
         h = self.hierarchy
         dev = self.device
         kids, level_starts = tpd_kernel_inputs(h, device=dev)
         attrs = torch.as_tensor(self._attr_stack(np.float32), device=dev)
         n_leaves, C = h.n_leaves, h.total_clients
         penalty = float(self.memory_penalty)
-        evaluate = batch_tpd_cuda if kernel else tpd_ref
 
         def run(placements):
             placements = np.asarray(placements, np.int32)
@@ -215,9 +216,12 @@ class CostModel:
                 raise ValueError(f"placement client id out of range "
                                  f"[0, {C})")
             p = torch.as_tensor(placements, device=dev)
-            leaf = leaf_loads(p, attrs[0], n_leaves)
-            out = evaluate(p, attrs, leaf, kids, level_starts,
-                           penalty=penalty)
+            if kernel:
+                out = batch_tpd_cuda(p, attrs, None, kids, level_starts,
+                                     penalty=penalty)
+            else:
+                out = tpd_ref(p, attrs, leaf_loads(p, attrs[0], n_leaves),
+                              kids, level_starts, penalty=penalty)
             return out.cpu().numpy()
 
         return run

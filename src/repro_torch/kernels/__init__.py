@@ -2,7 +2,8 @@
 version in ``kernels.ref``.
 
 * ``kernels.tpd.batch_tpd_cuda`` — batched TPD (eqs. 6-7), the port of
-  the TPU kernel ``repro/kernels/tpd.py:batch_tpd_pallas``.
+  the TPU kernel ``repro/kernels/tpd.py:batch_tpd_pallas``; one launch
+  also builds the trainer leaf loads that kernel takes as an operand.
 * ``kernels.fedavg`` — weighted FedAvg (``fedavg_rows``,
   ``fedavg_batched``, ``fedavg``), one CUDA reduction that ports both
   ``repro/kernels/fedavg.py:fedavg_batched_pallas`` and

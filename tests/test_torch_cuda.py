@@ -15,7 +15,7 @@ from repro_torch.core.hierarchy import ClientPool, Hierarchy
 from repro_torch.experiments import get_scenario, run_single
 from repro_torch.kernels import fedavg as kfedavg
 from repro_torch.kernels.ref import fedavg_batched_ref, fedavg_ref, fedavg_rows_ref, tpd_ref
-from repro_torch.kernels.tpd import batch_tpd_cuda, leaf_loads, tpd_kernel_inputs
+from repro_torch.kernels.tpd import batch_tpd_cuda, launch_plan, leaf_loads, tpd_kernel_inputs
 
 # (depth, width, trainers/leaf, clients)
 SHAPES = [(3, 4, 2, 60), (4, 3, 2, 200), (2, 5, 3, None), (5, 5, 2, None),
@@ -85,7 +85,122 @@ def test_wrapper_rejects_malformed_operands(cuda_device):
         batch_tpd_cuda(p.long(), attrs, leaf, kids, starts)
     with pytest.raises(ValueError, match="leaf_load"):
         batch_tpd_cuda(p, attrs, leaf[:, 1:].contiguous(), kids, starts)
+    with pytest.raises(ValueError, match="leaf_out"):
+        batch_tpd_cuda(p, attrs, None, kids, starts,
+                       leaf_out=leaf[:, 1:].contiguous())
+    with pytest.raises(ValueError, match="leaf_out"):
+        batch_tpd_cuda(p, attrs, leaf, kids, starts, leaf_out=leaf.clone())
     assert batch_tpd_cuda.launches == before
+
+
+def _np_leaf_loads(ps, mds32, C, L):
+    """The reference's host prefix-sum of trainer loads (float64
+    bincount in ascending client id, rounded to float32)."""
+    P = ps.shape[0]
+    p_off = np.arange(P)[:, None]
+    unplaced = np.bincount((ps + C * p_off).ravel(),
+                           minlength=P * C).reshape(P, C) == 0
+    t_mds = np.where(unplaced, mds32[None], np.float32(0.0))
+    leaf_of = (np.cumsum(unplaced, axis=1) - 1) % L
+    return np.bincount((leaf_of + L * p_off).ravel(), weights=t_mds.ravel(),
+                       minlength=P * L).reshape(P, L).astype(np.float32)
+
+
+def _built_case(h, P, penalty, device, seed, wide=True):
+    """A swarm with duplicate-id rows over a pool whose payloads spread
+    over 2^-30..2^30 (float64 leaf sums that are not exact)."""
+    C = h.total_clients
+    rng = np.random.default_rng(seed)
+    pool = ClientPool.random(C, seed=seed)
+    if wide:
+        pool.mdatasize = 2.0 ** rng.uniform(-30, 30, C)
+    ps = np.stack([rng.permutation(C)[:h.dimensions]
+                   for _ in range(P)]).astype(np.int32)
+    for i in range(1, min(3, P - 1) + 1):
+        ps[-i, 1::4] = ps[-i, 0]
+    cm = CostModel(h, pool, memory_penalty=penalty, device=device)
+    return cm, ps
+
+
+BUILT_TREES = {"fig3 d3w4": lambda: Hierarchy(3, 4, 2),
+               "fig3 d5w5": lambda: Hierarchy(5, 5, 2),
+               "large-1k": lambda: get_scenario("large-1k").make_hierarchy(),
+               "large-10k": lambda: get_scenario("large-10k").make_hierarchy()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tree", list(BUILT_TREES))
+@pytest.mark.parametrize("P", [1, 10, 1000])
+@pytest.mark.parametrize("penalty", [0.0, 3.0])
+def test_built_leaf_mode_equals_plain_versions(cuda_device, tree, P,
+                                               penalty):
+    """One launch builds the leaf loads and scores the swarm: its leaf
+    loads equal np.bincount's, its TPDs tpd_ref's on them and the
+    leaf-given route's, bit for bit; a rerun is bit-equal."""
+    h = BUILT_TREES[tree]()
+    cm, ps = _built_case(h, P, penalty, cuda_device, seed=P + len(tree))
+    p = torch.as_tensor(ps, device=cuda_device)
+    attrs = torch.as_tensor(cm._attr_stack(np.float32), device=cuda_device)
+    tables = tpd_kernel_inputs(h, device=cuda_device)
+    want_leaf = torch.as_tensor(_np_leaf_loads(
+        ps, cm._attr_stack(np.float32)[0], h.total_clients, h.n_leaves),
+        device=cuda_device)
+    got_leaf = torch.empty_like(want_leaf)
+    before = dict(batch_tpd_cuda.routes)
+    got = batch_tpd_cuda(p, attrs, None, *tables, penalty=penalty,
+                         leaf_out=got_leaf)
+    again = batch_tpd_cuda(p, attrs, None, *tables, penalty=penalty)
+    given = batch_tpd_cuda(p, attrs, want_leaf, *tables, penalty=penalty)
+    torch.cuda.synchronize()
+    assert batch_tpd_cuda.routes["shared"] == before["shared"] + 2
+    assert batch_tpd_cuda.routes["given"] == before["given"] + 1
+    assert torch.equal(got_leaf, want_leaf)
+    assert torch.equal(leaf_loads(p, attrs[0], h.n_leaves), want_leaf)
+    want = tpd_ref(p, attrs, want_leaf, *tables, penalty=penalty)
+    assert torch.equal(got, want) and torch.equal(given, want)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_built_leaf_mode_on_the_scratch_route(cuda_device):
+    """60,000 clients: the leaf work area (~255 KB) leaves shared memory
+    for a scratch tensor; the results are the same bits."""
+    h = Hierarchy(3, 4, 2, 60000)
+    cm, ps = _built_case(h, 5, 3.0, cuda_device, seed=11)
+    plan = launch_plan(5, h.dimensions, h.total_clients, h.n_leaves, True)
+    assert plan.route == "scratch"
+    p = torch.as_tensor(ps, device=cuda_device)
+    attrs = torch.as_tensor(cm._attr_stack(np.float32), device=cuda_device)
+    tables = tpd_kernel_inputs(h, device=cuda_device)
+    got_leaf = torch.empty((5, h.n_leaves), device=cuda_device)
+    before = batch_tpd_cuda.routes["scratch"]
+    got = batch_tpd_cuda(p, attrs, None, *tables, penalty=3.0,
+                         leaf_out=got_leaf)
+    torch.cuda.synchronize()
+    assert batch_tpd_cuda.routes["scratch"] == before + 1
+    want_leaf = _np_leaf_loads(ps, cm._attr_stack(np.float32)[0],
+                               h.total_clients, h.n_leaves)
+    assert np.array_equal(got_leaf.cpu().numpy(), want_leaf)
+    want = tpd_ref(p, attrs, torch.as_tensor(want_leaf, device=cuda_device),
+                   *tables, penalty=3.0)
+    assert torch.equal(got, want)
+    assert torch.equal(batch_tpd_cuda(p, attrs, None, *tables, penalty=3.0),
+                       got)
+
+
+@pytest.mark.cuda
+def test_kernel_backend_is_one_launch_a_call(cuda_device):
+    """``batch_tpd(backend="kernel")`` launches the kernel once a call,
+    on the route that builds the leaf loads, and equals the numpy
+    backend."""
+    h = get_scenario("large-1k").make_hierarchy()
+    cm, ps = _built_case(h, 10, 0.0, cuda_device, seed=4)
+    before, shared = batch_tpd_cuda.launches, batch_tpd_cuda.routes["shared"]
+    got = cm.batch_tpd(ps, backend="kernel")
+    assert batch_tpd_cuda.launches == before + 1
+    assert batch_tpd_cuda.routes["shared"] == shared + 1
+    np.testing.assert_array_equal(got, cm.batch_tpd(ps, backend="np"))
+    np.testing.assert_array_equal(got, cm.batch_tpd(ps, backend="torch"))
 
 
 # ---------------------------------------------------------------------------
