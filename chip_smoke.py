@@ -125,8 +125,32 @@ Phases, in order; any failed check raises and ends the run non-zero:
 17. timings of the three training kernels beside their bounds, the plain
     versions and (AdamW, flash backward) ``torch._fused_adamw_`` and the
     SDPA backward as yardsticks, the flash backward on both routes (f32
-    also at S 1024, B 4; both at hd 80); then
-    the ``kernels`` JSON line (ten kernels) and the final status line.
+    also at S 1024, B 4; both at hd 80);
+18. the runner's other paths on ``cuda``: ``python -m
+    repro_torch.experiments run paper-fig3 --set rounds=6 --rounds 6
+    --strategies pso,random --seeds 0`` in a subprocess, its artifact
+    equal to ``tests/golden/recording_off_fig3.json`` byte for byte and
+    passed by ``validate``; large-1k (5 rounds) and flash-crowd (25) with
+    ``EvalConfig(mode="batched")`` and ``"sequential"``, each equal to
+    its ``tests/golden/sampling_off_*.json``; the ``two-tier`` preset
+    (150 rounds, pso and random) equal to the same run on the CPU;
+    ``TwoTierCostModel.batch_tpd`` at large-1k, 8 pods, P = 10 and 1000,
+    within rtol 2e-5 of the float64 scalar model, with no TPD kernel
+    launch over the preset and the swarms, and ``backend="kernel"``
+    refused;
+19. the emulated fault track at full width: ``chaos`` on the emulated
+    track (the preset's paper MLP, its seeded fault profile and quorum
+    0.2), pso and greedy, 12 rounds on ``cuda``, held to the same run on
+    the CPU (placements, TPDs and every fault series exactly, losses
+    within rtol 1e-4 as phase 6 holds Fig. 4, final params within rtol
+    1e-3, atol 1e-5 but for at most 1e-5 of them: float32 training on
+    two devices can put a ReLU pre-activation on the other side of 0,
+    moving a few elements by ~1e-4; the largest difference a round is
+    printed); its ``fedavg_batched`` launches held to (clean
+    rounds + one warm-up a run) x tree levels; a pso run checkpointed at
+    round 6 and resumed to 12 equal to the uninterrupted run's
+    ``to_dict()`` byte for byte; wall seconds a round; then the
+    ``kernels`` JSON line (ten kernels) and the final status line.
 
 Each kernel's launch count is set to 0 just before the path that runs
 it and read just after: ``tpd`` over phase 5, ``fedavg_batched`` over
@@ -138,7 +162,9 @@ phase 15's ``TrainLoop.run``; the two flash kernels run bf16 there, so
 the f32 route's (``flash_attention_f32``, ``flash_attention_bwd_f32``)
 are counted over the float32 depth cuts on ``cuda`` (phases 12 and 16).
 Comparison and timing launches never enter the JSON line's
-``launches``.
+``launches``. Phases 18 and 19 count their own launches (``tpd`` over
+the two-tier model, which must be 0; ``fedavg_batched`` over the fault
+run) and print them; the JSON line keeps the counts named above.
 """
 from __future__ import annotations
 
@@ -382,8 +408,10 @@ def recording(spec, envs):
     base = type(spec)
 
     class Recorded(base):
-        def make_environment(self, seed=0, *, device="cuda"):
-            env = base.make_environment(self, seed, device=device)
+        def make_environment(self, seed=0, eval_config=None, *,
+                             device="cuda"):
+            env = base.make_environment(self, seed, eval_config,
+                                        device=device)
             env.steps = []
             step = env.step
 
@@ -1482,6 +1510,257 @@ def training_phases(torch, np_, dev, card):
     ]
 
 
+# ---- the runner and the emulated fault track (phases 18-19) --------------
+FIG3_CLI = ("run", "paper-fig3", "--set", "rounds=6", "--rounds", "6",
+            "--strategies", "pso,random", "--seeds", "0")
+SAMPLING_GOLDENS = (("large-1k", 5), ("flash-crowd", 25))
+TWO_TIER_ROUNDS = 150
+TWO_TIER_SWARMS = (10, 1000)
+TWO_TIER_PODS = 8
+CHAOS_STRATEGIES = ("pso", "greedy")
+CHAOS_ROUNDS = 12
+CHAOS_CHECKPOINT = 6
+CHAOS_PARAM_SHARE = 1e-5       # share of params allowed outside PARAM_TOL
+
+
+def fault_recording(spec, envs):
+    """``recording(spec, envs)`` whose environments also count the rounds
+    that go through ``run_round`` (a fault-free round of the fault path
+    delegates to it) in ``env.clean_rounds``, and keep a host copy of
+    the global params after every step in ``env.params``."""
+    base = recording(spec, envs)
+    rec_type = type(base)
+
+    class Counted(rec_type):
+        def make_environment(self, seed=0, eval_config=None, *,
+                             device="cuda"):
+            from repro_torch.utils.trees import tree_leaves
+            env = rec_type.make_environment(self, seed, eval_config,
+                                            device=device)
+            orch = env.orchestrator
+            env.clean_rounds = 0
+            env.params = []
+            run_round, step = orch.run_round, env.step
+
+            def counted(r, placement):
+                env.clean_rounds += 1
+                return run_round(r, placement)
+
+            def snapped(r, placement):
+                obs = step(r, placement)
+                env.params.append([x.detach().cpu().numpy().copy()
+                                   for x in tree_leaves(orch.params)])
+                return obs
+            orch.run_round = counted
+            env.step = snapped
+            return env
+
+    return Counted(**{f.name: getattr(spec, f.name)
+                      for f in dataclasses.fields(spec)})
+
+
+def runner_phases(torch, np_, card):
+    """Phases 18 (the Fig. 3 / Fig. 4 runner's other paths on cuda: the
+    CLI, the lockstep batched sweep, the two-tier pod model) and 19 (the
+    emulated fault track at full width, with checkpoint/resume)."""
+    import os
+    import shutil
+
+    from repro_torch.core.cost_model import TwoTierCostModel
+    from repro_torch.core.hierarchy import ClientPool
+    from repro_torch.experiments import EvalConfig, get_scenario, run_experiment, run_single
+    from repro_torch.experiments.cli import main as cli_main
+    from repro_torch.kernels.fedavg import fedavg_batched
+    from repro_torch.kernels.tpd import batch_tpd_cuda
+
+    golden = ROOT / "tests" / "golden"
+    out_dir = ROOT / "build" / "runner"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    phase("18. runner on cuda: the CLI's Fig. 3 artifact, the batched "
+          "sweep's goldens, the two-tier pod model")
+    fig3 = out_dir / "fig3.json"
+    fig3.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.experiments", *FIG3_CLI,
+         "--out", str(fig3)], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"python -m repro_torch.experiments run exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    check("device=cuda" in proc.stdout, "the CLI did not run on cuda")
+    check(fig3.read_bytes() == (golden / "recording_off_fig3.json")
+          .read_bytes(), "the CLI's Fig. 3 artifact differs from "
+                         "tests/golden/recording_off_fig3.json")
+    check(cli_main(["validate", str(fig3)]) == 0,
+          "validate refused the CLI's Fig. 3 artifact")
+    print(f"python -m repro_torch.experiments {' '.join(FIG3_CLI)}: "
+          f"{fig3.stat().st_size} bytes equal to recording_off_fig3.json, "
+          f"validate exits 0; {cli_s:.2f} s, process start included "
+          f"[{card}]")
+    for name, rounds in SAMPLING_GOLDENS:
+        want = (golden / f"sampling_off_{name}.json").read_text()
+        for mode in ("batched", "sequential"):
+            t0 = time.perf_counter()
+            res = run_experiment(name, ["pso", "random"], rounds=rounds,
+                                 seeds=[SEED], progress=False,
+                                 eval_config=EvalConfig(mode=mode),
+                                 device="cuda")
+            wall = time.perf_counter() - t0
+            got = json.dumps(res.to_dict(), indent=1, sort_keys=True)
+            check(got == want, f"{name} ({mode}) on cuda differs from "
+                               f"sampling_off_{name}.json")
+            print(f"{name:11s} {rounds:2d} rounds, mode={mode:10s}: equal "
+                  f"to sampling_off_{name}.json; {wall:.3f} s [{card}]")
+
+    batch_tpd_cuda.launches = 0   # the count to 0 just before the path
+    t0 = time.perf_counter()
+    tt_cuda = run_experiment("two-tier", ["pso", "random"],
+                             rounds=TWO_TIER_ROUNDS, seeds=[SEED],
+                             progress=False, device="cuda")
+    tt_s = time.perf_counter() - t0
+    tt_launches = batch_tpd_cuda.launches   # just after
+    tt_cpu = run_experiment("two-tier", ["pso", "random"],
+                            rounds=TWO_TIER_ROUNDS, seeds=[SEED],
+                            progress=False, device="cpu")
+    check(tt_cuda.to_dict() == tt_cpu.to_dict(),
+          "two-tier on cuda differs from the CPU run")
+    check(tt_launches == 0, f"the two-tier preset launched the TPD kernel "
+                            f"{tt_launches} times")
+    print(f"two-tier, {TWO_TIER_ROUNDS} rounds x (pso, random): artifact "
+          f"equal to the CPU run; 0 tpd launches; {tt_s:.3f} s on cuda "
+          f"[{card}]")
+
+    spec = get_scenario("large-1k")
+    h = spec.make_hierarchy()
+    C = h.total_clients
+    rng = np_.random.default_rng(SEED)
+    pool = ClientPool.random(C, seed=SEED)
+    pool.mdatasize = rng.uniform(1.0, 40.0, C)
+    tt = TwoTierCostModel(h, pool, memory_penalty=2.0, device="cuda",
+                          pod_of=np_.arange(C) * TWO_TIER_PODS // C)
+    for P in TWO_TIER_SWARMS:
+        ps = np_.stack([rng.permutation(C)[:h.dimensions]
+                        for _ in range(P)])
+        ps[0, 1] = ps[0, 0]                  # a duplicate-id row
+        batch_tpd_cuda.launches = 0
+        got = tt.batch_tpd(ps)
+        torch.cuda.synchronize()
+        check(batch_tpd_cuda.launches == 0,
+              f"TwoTierCostModel.batch_tpd launched the TPD kernel at "
+              f"P={P}")
+        check(getattr(tt, "_batch_tpd_torch", None) is not None,
+              "TwoTierCostModel.batch_tpd did not take the torch build")
+        scalar = np_.array([tt.tpd(p) for p in ps])
+        rel = float(np_.max(np_.abs(got - scalar) / scalar))
+        check(rel <= RTOL_SCALAR, f"two-tier batch_tpd at P={P}: rel "
+                                  f"{rel} > {RTOL_SCALAR}")
+        call_ms = median_host_ms(lambda ps=ps: tt.batch_tpd(ps), runs=9,
+                                 sync=torch.cuda.synchronize)
+        print(f"TwoTierCostModel.batch_tpd at large-1k, {TWO_TIER_PODS} "
+              f"pods, P={P:4d}: 0 tpd launches, largest rel diff to the "
+              f"float64 scalar model {rel:.2e} (rtol {RTOL_SCALAR}); "
+              f"{call_ms * 1e3:.1f} us a call (host clock) [{card}]")
+    try:
+        tt.batch_tpd(ps, backend="kernel")
+    except ValueError as e:
+        print(f"backend='kernel' on the two-tier model refused: {e}")
+    else:
+        raise SmokeFailure("backend='kernel' ran on a two-tier model")
+
+    chaos = get_scenario("chaos").for_env("emulated")
+    phase(f"19. emulated fault track on cuda: chaos (model {chaos.model}, "
+          f"{CHAOS_ROUNDS} rounds x {CHAOS_STRATEGIES}), held to the CPU "
+          f"run; resume from round {CHAOS_CHECKPOINT}")
+    envs_cuda, envs_cpu = [], []
+    fedavg_batched.launches = 0   # the count to 0 just before the path
+    t0 = time.perf_counter()
+    res_cuda = run_experiment(fault_recording(chaos, envs_cuda),
+                              CHAOS_STRATEGIES, rounds=CHAOS_ROUNDS,
+                              seeds=[SEED], progress=False, device="cuda")
+    torch.cuda.synchronize()
+    chaos_s = time.perf_counter() - t0
+    chaos_launches = fedavg_batched.launches   # just after
+    depth = chaos.make_hierarchy().depth
+    clean = [env.clean_rounds for env in envs_cuda]
+    want = sum(c + 1 for c in clean) * depth
+    check(chaos_launches == want and chaos_launches > 0,
+          f"chaos: {chaos_launches} fedavg_batched launches, expected "
+          f"{want} ((clean rounds + 1 warm-up) x {depth} levels, clean "
+          f"rounds {clean})")
+    print(f"{chaos_launches} fedavg_batched launches = (clean rounds "
+          f"{' + '.join(map(str, clean))} + {len(clean)} warm-ups) x "
+          f"{depth} levels; the faulty rounds merge through "
+          f"quorum_merge_batched")
+    res_cpu = run_experiment(fault_recording(chaos, envs_cpu), CHAOS_STRATEGIES,
+                             rounds=CHAOS_ROUNDS, seeds=[SEED],
+                             progress=False, device="cpu")
+    series = ("merged", "down", "partitioned", "faults", "failovers",
+              "dropped_updates", "degraded_flushes", "train_time",
+              "agg_time")
+    for name, a, b, ec, eh in zip(CHAOS_STRATEGIES, res_cuda.runs,
+                                  res_cpu.runs, envs_cuda, envs_cpu,
+                                  strict=True):
+        check([s[:2] for s in ec.steps] == [s[:2] for s in eh.steps],
+              f"chaos {name}: cuda placements/TPDs differ from the CPU run")
+        check(a.tpds == b.tpds and a.event_log == b.event_log,
+              f"chaos {name}: TPDs or event log differ from the CPU run")
+        for k in series:
+            check(a.metrics[k] == b.metrics[k],
+                  f"chaos {name}: {k} series differs from the CPU run")
+        lc, lh = np_.array(a.metrics["loss"]), np_.array(b.metrics["loss"])
+        check(bool(np_.all(np_.isfinite(lc))), f"chaos {name}: loss {lc}")
+        loss_rel = float(np_.max(np_.abs(lc - lh) / np_.abs(lh)))
+        check(loss_rel <= LOSS_RTOL, f"chaos {name}: losses differ by rel "
+                                     f"{loss_rel} > {LOSS_RTOL}")
+        # float32 training on two devices: a ReLU pre-activation within
+        # the products' rounding of 0 can take the other side, moving one
+        # client's update by ~1e-4 in a few elements; so the final params
+        # are held elementwise up to a stated share, as phase 16 holds
+        # training, and the per-round largest difference is printed
+        per_round = [max(float(np_.max(np_.abs(x - y)))
+                         for x, y in zip(pc, ph, strict=True))
+                     for pc, ph in zip(ec.params, eh.params, strict=True)]
+        total = outside = 0
+        for x, y in zip(ec.params[-1], eh.params[-1], strict=True):
+            check(x.shape == y.shape and bool(np_.all(np_.isfinite(x))),
+                  f"chaos {name}: final params malformed")
+            total += x.size
+            outside += int(np_.count_nonzero(~np_.isclose(x, y,
+                                                          **PARAM_TOL)))
+        check(outside <= CHAOS_PARAM_SHARE * total,
+              f"chaos {name}: {outside} of {total} final params outside "
+              f"{PARAM_TOL} (at most {CHAOS_PARAM_SHARE:.0e} of them)")
+        print(f"chaos {name:6s}: placements, TPDs and fault series equal to "
+              f"the CPU run (merged {a.metrics['merged']}, failovers "
+              f"{a.metrics['failovers'][-1]:.0f}, faults "
+              f"{a.metrics['faults'][-1]:.0f}); loss {lh[0]:.4f} -> "
+              f"{lh[-1]:.4f}, rel diff {loss_rel:.2e}; final params: "
+              f"{outside} of {total} outside {PARAM_TOL}, largest abs diff "
+              f"by round {' '.join(f'{d:.1e}' for d in per_round)}")
+    ckpt = out_dir / "chaos_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    run_single(chaos, CHAOS_STRATEGIES[0], seed=SEED,
+               rounds=CHAOS_CHECKPOINT, checkpoint_dir=str(ckpt),
+               checkpoint_every=CHAOS_CHECKPOINT, device="cuda")
+    resumed = run_single(chaos, CHAOS_STRATEGIES[0], seed=SEED,
+                         rounds=CHAOS_ROUNDS, checkpoint_dir=str(ckpt),
+                         resume=True, device="cuda")
+    check(json.dumps(resumed.to_dict(), sort_keys=True)
+          == json.dumps(res_cuda.runs[0].to_dict(), sort_keys=True),
+          "chaos: the run resumed from round "
+          f"{CHAOS_CHECKPOINT} differs from the uninterrupted cuda run")
+    n_rounds = CHAOS_ROUNDS * len(CHAOS_STRATEGIES)
+    shutil.rmtree(ckpt)
+    print(f"resumed from round {CHAOS_CHECKPOINT} to {CHAOS_ROUNDS} on "
+          f"cuda: to_dict() equal to the uninterrupted run, byte for byte")
+    print(f"chaos on cuda: {chaos_s:.2f} s for {n_rounds} rounds "
+          f"({chaos_s / n_rounds:.3f} s a round, warm-ups included, host "
+          f"clock) [{card}]")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2294,6 +2573,7 @@ def main() -> int:
 
     hybrid = hybrid_phases(torch, np, dev, card)
     training = training_phases(torch, np, dev, card)
+    runner_phases(torch, np, card)
 
     k_ms, r_ms, b_ms = rows[10]
     print(json.dumps({"kernels": [

@@ -19,14 +19,20 @@ The port's ``CostModel``, held to ``repro.core.cost_model.CostModel``:
   - ``"np"``: the reference's float32 numpy closure, on the host;
   - ``"torch"``: :func:`~repro_torch.kernels.tpd.leaf_loads` plus the
     plain torch :func:`~repro_torch.kernels.ref.tpd_ref` on the model's
-    device;
+    device (the two-tier model: its pod-aware torch build);
   - ``"kernel"``: the CUDA kernel
     (:func:`~repro_torch.kernels.tpd.batch_tpd_cuda`), one launch that
-    builds the leaf loads and scores the swarm; CUDA devices only.
+    builds the leaf loads and scores the swarm; CUDA devices and the
+    base model only.
 
-  Auto-selection: on a CUDA device always ``"kernel"``; on the CPU the
+  Auto-selection: ``"kernel"`` where the kernel covers the model on a
+  CUDA device; ``"torch"`` for a two-tier model there; on the CPU the
   reference's ``_NP_FASTPATH_ELEMS`` rule picks ``"np"`` for small
   swarms and ``"torch"`` above it.
+* ``PooledTPDEvaluator`` — S same-shape cost models with independent
+  client pools evaluated in ONE exact call (the batched sweep runner's
+  engine).
+* ``TwoTierCostModel`` — eq. 6 plus per-edge pod transfer costs.
 
 Cache invalidation is O(1): evaluators are keyed on the ClientPool's
 mutation ``version`` counter and the retarget counter.
@@ -95,25 +101,38 @@ class CostModel:
     _NP_FASTPATH_ELEMS = 32768
 
     def _attr_stack(self, dtype) -> np.ndarray:
-        """Stacked (3, C) client-attribute table: mdatasize, pspeed,
-        memcap — ONE fancy-index gathers every per-host attribute."""
-        return np.stack([self.clients.mdatasize, self.clients.pspeed,
-                         self.clients.memcap]).astype(dtype)
+        """Stacked (A, C) client-attribute table: mdatasize, pspeed,
+        memcap(, pod id) — ONE fancy-index gathers every per-host
+        attribute."""
+        rows = [self.clients.mdatasize, self.clients.pspeed,
+                self.clients.memcap]
+        pod = getattr(self, "pod_of", None)
+        if pod is not None:
+            rows.append(np.asarray(pod))  # pod ids exact in f32
+        return np.stack(rows).astype(dtype)
 
-    def _make_batch_tpd(self, dtype=None):
+    def _make_batch_tpd(self, dtype=None, pool_attrs=None):
         """Build the numpy (P, slots) -> (P,) TPD evaluator (the
-        reference's closure, host-side, numpy branch of the base model).
+        reference's closure, host-side, its numpy branch).
 
         The canonical round-robin trainer split is recomputed per
         particle (rank of each unplaced client in ascending id order,
         mod n_leaves), so heterogeneous ``mdatasize`` charges the ACTUAL
-        per-child loads.
+        per-child loads, and the two-tier model's per-edge costs
+        (``pod_of`` + ICI/DCN rates) land on true child identities.
 
         ``dtype`` is the accumulation dtype (default float32). The
         float64 build is the EXACT path: every reduction runs in the
         same order as the scalar reference (bincount/left-to-right
         child sums, division by pspeed, per-level maxima summed deepest
         level first), so it is bit-identical to ``tpd`` for width < 8.
+
+        ``pool_attrs`` switches on POOLED mode: a (A, S, C) stack of S
+        client pools' attribute tables; the returned evaluator takes
+        ``(placements, pool_idx=None)`` and scores placement row i
+        against pool ``pool_idx[i]`` (default: row i against pool i).
+        Row results are bit-identical to the single-pool evaluator of
+        the matching pool — all per-row reductions are independent.
         """
         h = self.hierarchy
         C, D, depth = h.total_clients, h.dimensions, h.depth
@@ -121,61 +140,121 @@ class CostModel:
         leaf_start = h.level_starts[depth - 1]
         kids_np = h.kids_table
         penalty = self.memory_penalty
+        have_pods = getattr(self, "pod_of", None) is not None
+        ici = float(getattr(self, "ici_cost", 0.0))
+        dcn = float(getattr(self, "dcn_cost", 0.0))
         ft = np.dtype(dtype if dtype is not None else np.float32).type
-        attrs_np = self._attr_stack(ft)                     # (3, C)
-        mds_all = attrs_np[0]
+        pooled = pool_attrs is not None
+        attrs_np = np.asarray(pool_attrs) if pooled \
+            else self._attr_stack(ft)                     # (A, [S,] C)
         # uniform-payload fast path: when every client's mdatasize is
         # equal the canonical trainer split fixes each leaf cluster's
         # LOAD, so the per-call (P, C) rank/scatter pipeline collapses
         # to a per-slot constant — bit-identical because the constants
         # are accumulated by the same repeated addition the bincount
-        # would perform. Rows with DUPLICATE ids take the general path.
-        uniform = bool(mds_all.size) and bool(np.all(mds_all == mds_all[0]))
+        # would perform. Rows with DUPLICATE ids take the general path;
+        # pod edge costs always do.
+        mds_rows = attrs_np[0] if pooled else attrs_np[0][None]
+        uniform = not have_pods and all(
+            row.size and np.all(row == row[0]) for row in mds_rows)
         if uniform:
             counts = np.bincount(np.arange(max(C - D, 0)) % n_leaves,
                                  minlength=n_leaves)
-            # cumsum of a constant == the bincount's sequential repeated
-            # addition, prefix by prefix (bit-identical)
             kmax = int(counts.max()) if counts.size else 0
-            acc = np.concatenate(
-                [[np.float64(0.0)],
-                 np.cumsum(np.full(kmax, np.float64(mds_all[0]),
-                                   np.float64))])
-            leaf_part_np = np.zeros(D, np.float64)
-            leaf_part_np[leaf_start:] = acc[counts]
-            leaf_part = leaf_part_np.astype(ft)             # (D,)
-        # gather only the attribute rows the host site consumes
-        h_attrs = attrs_np[[0, 1] + ([2] if penalty > 0 else [])]
+
+            def leaf_consts(u):
+                # cumsum of a constant == the bincount's sequential
+                # repeated addition, prefix by prefix (bit-identical)
+                acc = np.concatenate(
+                    [[np.float64(0.0)],
+                     np.cumsum(np.full(kmax, u, np.float64))])
+                return acc[counts]
+
+            leaf_part = np.zeros((mds_rows.shape[0], D), np.float64)
+            leaf_part[:, leaf_start:] = np.stack(
+                [leaf_consts(np.float64(row[0])) for row in mds_rows])
+            leaf_part = leaf_part.astype(ft)                # (S|1, D)
+        # gather only the attribute rows each site consumes: hosts need
+        # mds+pspeed (+memcap when the penalty is live, +pod for two-
+        # tier); children only their mds (+pod)
+        host_rows = [0, 1] + ([2] if penalty > 0 else []) + \
+            ([3] if have_pods else [])
+        kid_rows = [0] + ([3] if have_pods else [])
+        h_attrs = attrs_np[host_rows]
+        k_attrs = attrs_np[kid_rows]
+        mds_all = attrs_np[0]                             # (C,) | (S, C)
+        pods_all = attrs_np[3] if have_pods else None
         kids = np.clip(kids_np, 0, D - 1)
         kids_valid = kids_np >= 0
         is_leaf_slot = h.levels == depth - 1
         slot_leaf_idx = np.clip(np.arange(D) - leaf_start, 0, n_leaves - 1)
         level_starts_np = np.asarray(h.level_starts[:-1], np.int32)
 
-        def batch(placements):                           # (P, D) int
+        def bincount(idx, w, m):
+            return np.bincount(idx.ravel(),
+                               weights=None if w is None else w.ravel(),
+                               minlength=m)
+
+        def batch(placements, pool_idx=None):             # (P, D) int
             placements = placements.astype(np.int32)
             P = placements.shape[0]
-            host = h_attrs[:, placements]                # (Ah, P, D)
-            kid_mds = np.where(kids_valid[None],
-                               mds_all[placements[:, kids]], ft(0.0))
-            if uniform and not rows_with_duplicates(placements).any():
-                # leaf slots: constant trainer load (+0 kid sum);
-                # internal slots: +0 leaf part — both adds are exact
-                child_load = leaf_part + np.sum(kid_mds, axis=2)
-            else:
+            rows = np.arange(P) if pool_idx is None \
+                else np.asarray(pool_idx)
+            use_uniform = uniform and \
+                not rows_with_duplicates(placements).any()
+            if not use_uniform:
                 p_off = np.arange(P)[:, None]
                 # placed mask via bincount, not a (P, D, C) compare
-                placed = np.bincount((placements + C * p_off).ravel(),
-                                     minlength=P * C).reshape(P, C)
+                placed = bincount(placements + C * p_off, None,
+                                  P * C).reshape(P, C)
                 unplaced = placed == 0
-                t_mds = np.where(unplaced, mds_all[None], ft(0.0))
+                mds_b = mds_all[rows] if pooled else mds_all[None]
+                t_mds = np.where(unplaced, mds_b, ft(0.0))
                 # canonical trainer split: rank among unplaced ids, mod
                 # leaves
                 leaf_of = (np.cumsum(unplaced, axis=1) - 1) % n_leaves
-                leaf_load = np.bincount(
-                    (leaf_of + n_leaves * p_off).ravel(),
-                    weights=t_mds.ravel(),
-                    minlength=P * n_leaves).reshape(P, n_leaves)
+                leaf_bins = leaf_of + n_leaves * p_off
+            if pooled:
+                host = h_attrs[:, rows[:, None], placements]  # (Ah,P,D)
+            else:
+                host = h_attrs[:, placements]                 # (Ah,P,D)
+            kid_host = placements[:, kids]                   # (P, D, W)
+            if pooled:
+                kid_attr = k_attrs[:, rows[:, None, None], kid_host]
+            else:
+                kid_attr = k_attrs[:, kid_host]              # (Ak,P,D,W)
+            kid_mds = np.where(kids_valid[None], kid_attr[0], ft(0.0))
+
+            if have_pods:  # two-tier per-edge transfer costs
+                host_pod = host[-1]                          # (P, D)
+                kid_rate = np.where(kid_attr[-1] == host_pod[:, :, None],
+                                    ft(ici), ft(dcn))
+                edge_int = np.sum(
+                    np.where(kids_valid[None], kid_mds * kid_rate,
+                             ft(0.0)), axis=2)
+                t_host_pod = host_pod.reshape(-1)[
+                    (leaf_start + leaf_of) + D * p_off]      # (P, C)
+                pods_b = pods_all[rows] if pooled else pods_all[None]
+                t_rate = np.where(pods_b == t_host_pod, ft(ici), ft(dcn))
+                # one bincount for both leaf accumulators: trainer loads
+                # in the first P*L bins, edge costs in the second
+                two = bincount(
+                    np.concatenate([leaf_bins,
+                                    leaf_bins + P * n_leaves], axis=0),
+                    np.concatenate([t_mds, t_mds * t_rate], axis=0),
+                    2 * P * n_leaves)
+                leaf_load = two[: P * n_leaves].reshape(P, n_leaves)
+                edge_leaf = two[P * n_leaves:].reshape(P, n_leaves)
+            elif not use_uniform:
+                leaf_load = bincount(leaf_bins, t_mds,
+                                     P * n_leaves).reshape(P, n_leaves)
+
+            if use_uniform:
+                # leaf slots: constant trainer load (+0 kid sum);
+                # internal slots: +0 leaf part — both adds are exact
+                lp = leaf_part[rows] if pooled else leaf_part
+                child_load = lp + np.sum(kid_mds, axis=2)
+            else:
                 child_load = np.where(
                     is_leaf_slot[None],
                     leaf_load[:, slot_leaf_idx].astype(ft),
@@ -187,6 +266,10 @@ class CostModel:
                 over = np.maximum(ft(0.0), load - cap)
                 delay = delay * (1.0 + penalty * over /
                                  np.maximum(cap, ft(1e-9)))
+            if have_pods:
+                delay = delay + np.where(
+                    is_leaf_slot[None],
+                    edge_leaf[:, slot_leaf_idx].astype(ft), edge_int)
             # per-level max, summed DEEPEST level first — the scalar
             # reference accumulates bottom-up, and float addition is not
             # associative, so the exact path must match its order
@@ -205,17 +288,13 @@ class CostModel:
         h = self.hierarchy
         dev = self.device
         kids, level_starts = tpd_kernel_inputs(h, device=dev)
-        attrs = torch.as_tensor(self._attr_stack(np.float32), device=dev)
+        attrs = torch.as_tensor(self._attr_stack(np.float32)[:3],
+                                device=dev)
         n_leaves, C = h.n_leaves, h.total_clients
         penalty = float(self.memory_penalty)
 
         def run(placements):
-            placements = np.asarray(placements, np.int32)
-            if placements.size and (placements.min() < 0
-                                    or placements.max() >= C):
-                raise ValueError(f"placement client id out of range "
-                                 f"[0, {C})")
-            p = torch.as_tensor(placements, device=dev)
+            p = self._device_placements(placements)
             if kernel:
                 out = batch_tpd_cuda(p, attrs, None, kids, level_starts,
                                      penalty=penalty)
@@ -225,6 +304,16 @@ class CostModel:
             return out.cpu().numpy()
 
         return run
+
+    def _device_placements(self, placements) -> torch.Tensor:
+        """Range-check (P, D) placements on the host and upload them."""
+        placements = np.asarray(placements, np.int32)
+        C = self.hierarchy.total_clients
+        if placements.size and (placements.min() < 0
+                                or placements.max() >= C):
+            raise ValueError(f"placement client id out of range "
+                             f"[0, {C})")
+        return torch.as_tensor(placements, device=self.device)
 
     @property
     def topology_version(self) -> int:
@@ -245,6 +334,11 @@ class CostModel:
             raise ValueError(
                 f"hierarchy expects {hierarchy.total_clients} clients, "
                 f"pool has {len(self.clients)}")
+        pod = getattr(self, "pod_of", None)
+        if pod is not None and len(pod) != hierarchy.total_clients:
+            raise ValueError(
+                "cannot retarget a two-tier cost model across a pool "
+                "resize: pod_of does not cover the new population")
         object.__setattr__(self, "hierarchy", hierarchy)
         object.__setattr__(self, "_topology_version",
                            self.topology_version + 1)
@@ -264,9 +358,17 @@ class CostModel:
             object.__setattr__(self, attr, cached)
         return cached[1]
 
+    def _kernel_ok(self) -> bool:
+        """The CUDA TPD kernel covers the base eq. 6/7 model only (no
+        pod edge costs) and runs on a CUDA device — the counterpart of
+        the reference's ``_pallas_ok``."""
+        return getattr(self, "pod_of", None) is None and \
+            self.device.type == "cuda"
+
     def set_default_backend(self, backend: Optional[str]) -> None:
-        """Pin what ``batch_tpd(backend=None)`` dispatches to; ``None``
-        restores auto-selection."""
+        """Pin what ``batch_tpd(backend=None)`` dispatches to (the
+        ``EvalConfig.backend`` plumbing); ``None`` restores
+        auto-selection."""
         if backend is not None and backend not in _BACKENDS:
             raise ValueError(f"unknown batch_tpd backend {backend!r}; "
                              f"use None, 'np', 'torch' or 'kernel'")
@@ -276,19 +378,22 @@ class CostModel:
                   ) -> np.ndarray:
         """(P, D) placements -> (P,) f32 TPDs.
 
-        ``backend``: ``None`` auto-selects (``"kernel"`` on a CUDA
-        device; on the CPU ``"np"`` below the fast-path threshold and
+        ``backend``: ``None`` auto-selects (``"kernel"`` where
+        :meth:`_kernel_ok` holds; else ``"torch"`` on a CUDA device, and
+        on the CPU ``"np"`` below the fast-path threshold and
         ``"torch"`` above it); ``"np"`` / ``"torch"`` / ``"kernel"``
-        force a path; ``"kernel"`` needs a CUDA device. A
-        ``set_default_backend`` pin replaces the auto-selection, never an
-        explicit ``backend=``.
+        force a path; ``"kernel"`` needs a CUDA device and the base
+        model. A ``set_default_backend`` pin replaces the
+        auto-selection, never an explicit ``backend=``.
         """
         placements = np.asarray(placements, np.int32)
         if backend is None:
             backend = getattr(self, "_default_backend", None)
         if backend is None:
-            if self.device.type == "cuda":
+            if self._kernel_ok():
                 backend = "kernel"
+            elif self.device.type == "cuda":
+                backend = "torch"
             else:
                 small = placements.size // max(self.hierarchy.dimensions, 1) \
                     * self.hierarchy.total_clients <= self._NP_FASTPATH_ELEMS
@@ -297,6 +402,10 @@ class CostModel:
             fn = self._cached("_batch_tpd_np",
                               lambda: self._make_batch_tpd())
         elif backend == "kernel":
+            if getattr(self, "pod_of", None) is not None:
+                raise ValueError("the CUDA TPD kernel does not cover "
+                                 "two-tier pod edge costs; use "
+                                 "backend='torch'")
             if self.device.type != "cuda":
                 raise ValueError(
                     f"backend='kernel' runs the CUDA kernel and needs a "
@@ -324,3 +433,238 @@ class CostModel:
 
     def batch_fitness(self, placements) -> np.ndarray:
         return -np.asarray(self.batch_tpd(placements))
+
+
+_SHARDED_NOT_PORTED = (
+    "the device-sharded pooled evaluation (shard='on', tpds_sharded) "
+    "comes with ROADMAP.md queue 1 item 12 (multi-device paths); use "
+    "shard='auto' or 'off'")
+
+
+class PooledTPDEvaluator:
+    """ONE exact evaluation call for placements scored against DIFFERENT
+    client pools — the batched sweep runner's engine.
+
+    ``models`` are S cost models sharing hierarchy/penalty/pod topology
+    but each wrapping its own (independently drifting) ClientPool — the
+    per-seed environments of one sweep. ``tpds(placements, pool_idx)``
+    scores placement row i against pool ``pool_idx[i]`` (default: row i
+    vs pool i) in one float64 numpy call, bit-identical per row to
+    ``models[s].tpd_fast(placements[i])`` — which is how the batched
+    runner stays bit-identical to the sequential one.
+
+    The stacked (A, S, C) attribute table is rebuilt lazily whenever any
+    pool's mutation version changes (event schedules bump it), so
+    mid-run churn/drift/straggler mutations are reflected in the very
+    next call.
+
+    ``shard``: ``"auto"`` (default) and ``"off"`` both run the float64
+    numpy path on the host, one call for all rows; the reference's
+    ``"auto"`` additionally splits rows across devices when more than
+    one is visible. ``"on"`` and :meth:`tpds_sharded` (the device-
+    sharded build) raise ``NotImplementedError`` until ROADMAP.md
+    queue 1 item 12.
+    """
+
+    def __init__(self, models: Sequence[CostModel], shard: str = "auto"):
+        if not models:
+            raise ValueError("need at least one cost model")
+        if shard not in ("auto", "on", "off"):
+            raise ValueError(f"unknown shard mode {shard!r}; use "
+                             f"'auto', 'on' or 'off'")
+        if shard == "on":
+            raise NotImplementedError(_SHARDED_NOT_PORTED)
+        m0 = models[0]
+        for m in models[1:]:
+            if m.hierarchy != m0.hierarchy:
+                raise ValueError("pooled evaluation needs one shared "
+                                 "hierarchy shape")
+            if m.memory_penalty != m0.memory_penalty:
+                raise ValueError("pooled evaluation needs one shared "
+                                 "memory penalty")
+            if type(m) is not type(m0):
+                raise ValueError("pooled evaluation needs one cost-model "
+                                 "type")
+            pod, pod0 = getattr(m, "pod_of", None), \
+                getattr(m0, "pod_of", None)
+            if (pod is None) != (pod0 is None) or \
+                    (pod is not None and not np.array_equal(pod, pod0)) or \
+                    getattr(m, "ici_cost", 0.0) != \
+                    getattr(m0, "ici_cost", 0.0) or \
+                    getattr(m, "dcn_cost", 0.0) != \
+                    getattr(m0, "dcn_cost", 0.0):
+                raise ValueError("pooled evaluation needs one shared pod "
+                                 "topology")
+        self.models = list(models)
+        self.shard = shard
+        self._versions: Optional[tuple] = None
+        self._fn = None
+
+    def _check_aligned(self) -> None:
+        """Elastic runs retarget models in place; a rebuild must not mix
+        topology epochs (the batched runner groups runs into
+        same-hierarchy cohorts before pooling)."""
+        for m in self.models[1:]:
+            if m.hierarchy != self.models[0].hierarchy:
+                raise ValueError("pooled evaluation needs one shared "
+                                 "hierarchy shape")
+
+    def tpds(self, placements, pool_idx=None) -> np.ndarray:
+        placements = np.asarray(placements, np.int32)
+        versions = tuple(m._client_token() for m in self.models)
+        if self._fn is None or versions != self._versions:
+            self._check_aligned()
+            attrs = np.stack(
+                [m._attr_stack(np.float64) for m in self.models], axis=1)
+            self._fn = self.models[0]._make_batch_tpd(
+                dtype=np.float64, pool_attrs=attrs)
+            self._versions = versions
+        return self._fn(placements, pool_idx)
+
+    def tpds_sharded(self, placements, pool_idx=None,
+                     ndev: Optional[int] = None) -> np.ndarray:
+        """The reference's device-sharded pooled call; not ported."""
+        raise NotImplementedError(_SHARDED_NOT_PORTED)
+
+
+@dataclass(frozen=True)
+class TwoTierCostModel(CostModel):
+    """Eq. 6 extended with link-tier communication costs: the paper's
+    cost model mapped onto a two-tier (pod) topology.
+
+    Every child->aggregator edge pays a per-payload transfer cost that
+    depends on whether the two clients share a pod: intra-pod edges ride
+    the fast tier (``ici_cost``), cross-pod edges the ~10x slower one
+    (``dcn_cost``). A placement optimizer over this model learns *pod
+    locality* with zero topology knowledge.
+
+    The CUDA TPD kernel does not price pod edges, so ``batch_tpd``
+    never picks it here and refuses ``backend='kernel'``; on a CUDA
+    device auto-selection takes the ``"torch"`` build, which carries
+    the edge costs (the reference's jit build, in torch).
+    """
+    pod_of: Optional[np.ndarray] = None   # (n_clients,) pod index
+    ici_cost: float = 0.005               # delay per payload unit, same pod
+    dcn_cost: float = 0.05                # delay per payload unit, cross-pod
+
+    def _edge_cost(self, host: int, child: int) -> float:
+        if self.pod_of is None:
+            return 0.0
+        same = self.pod_of[host] == self.pod_of[child]
+        rate = self.ici_cost if same else self.dcn_cost
+        return float(self.clients.mdatasize[child]) * rate
+
+    def cluster_delay(self, host: int, children: Sequence[int]) -> float:
+        base = super().cluster_delay(host, children)
+        comm = sum(self._edge_cost(host, c) for c in children)
+        return base + comm
+
+    def _make_device_tpd(self, kernel: bool):
+        """The pod-aware float32 evaluator in torch ops on
+        ``self.device`` (``batch_tpd(backend='torch')``).
+
+        The same closure as the numpy build: trainer loads and trainer
+        edge costs summed per leaf in float64 in ascending id order
+        (:func:`~repro_torch.kernels.tpd.leaf_loads`, np.bincount's
+        order) and rounded to float32; child sums over the kid columns
+        left to right; level maxima summed deepest level first.
+        """
+        if kernel or self.pod_of is None:   # batch_tpd keeps pods off the kernel
+            return super()._make_device_tpd(kernel)
+        h = self.hierarchy
+        dev = self.device
+        n_leaves, D = h.n_leaves, h.dimensions
+        leaf_start = h.level_starts[h.depth - 1]
+        mds, pspeed, memcap, pods = torch.as_tensor(
+            self._attr_stack(np.float32), device=dev).unbind(0)
+        kids_np = h.kids_table[:leaf_start]
+        kids = torch.as_tensor(np.clip(kids_np, 0, D - 1), device=dev)
+        kids_valid = torch.as_tensor(kids_np >= 0, device=dev)
+        bounds = [int(b) for b in h.level_starts]
+        penalty = float(self.memory_penalty)
+        ici, dcn = float(self.ici_cost), float(self.dcn_cost)
+
+        def run(placements):
+            p = self._device_placements(placements).long()
+            placed = torch.zeros((p.shape[0], mds.shape[0]),
+                                 dtype=torch.bool, device=dev)
+            placed.scatter_(1, p, True)
+            unplaced = ~placed
+            leaf_of = (torch.cumsum(unplaced, dim=1) - 1) % n_leaves
+            host_pod = pods[p]                               # (P, D)
+            t_host_pod = host_pod.gather(1, leaf_start + leaf_of)
+            t_rate = torch.where(pods[None] == t_host_pod,
+                                 torch.tensor(ici, device=dev),
+                                 torch.tensor(dcn, device=dev))
+            leaf_load = leaf_loads(p, mds, n_leaves)         # (P, L)
+            edge_leaf = leaf_loads(p, mds[None] * t_rate, n_leaves)
+            kid_host = p[:, kids]                            # (P, D-L, W)
+            kid_mds = torch.where(kids_valid[None], mds[kid_host], 0.0)
+            kid_rate = torch.where(pods[kid_host] == host_pod[
+                :, :leaf_start, None], torch.tensor(ici, device=dev),
+                torch.tensor(dcn, device=dev))
+            kid_edge = torch.where(kids_valid[None], kid_mds * kid_rate,
+                                   0.0)
+            child, edge_int = kid_mds[..., 0], kid_edge[..., 0]
+            for w in range(1, kid_mds.shape[-1]):            # in order
+                child = child + kid_mds[..., w]
+                edge_int = edge_int + kid_edge[..., w]
+            load = mds[p] + torch.cat([child, leaf_load], dim=1)
+            delay = load / pspeed[p]
+            if penalty > 0:
+                cap = memcap[p]
+                over = torch.clamp_min(load - cap, 0.0)
+                delay = delay * (1.0 + penalty * over
+                                 / torch.clamp_min(cap, 1e-9))
+            delay = delay + torch.cat([edge_int, edge_leaf], dim=1)
+            total = torch.zeros(p.shape[0], dtype=torch.float32,
+                                device=dev)
+            for lv in range(len(bounds) - 2, -1, -1):  # deepest first
+                total = total + delay[:, bounds[lv]:bounds[lv + 1]].amax(1)
+            return total.cpu().numpy()
+
+        return run
+
+    def cross_pod_edges(self, placement) -> tuple:
+        """(cross, total) aggregation edges — the locality metric.
+
+        Vectorized: internal edges come straight from the placement's
+        kid-slot gather; trainer edges from the canonical round-robin
+        split (rank among unplaced ids, mod leaves).
+        """
+        h = self.hierarchy
+        placement = np.asarray(placement, np.int64)
+        C, D = h.total_clients, h.dimensions
+        leaf_start = h.level_starts[h.depth - 1]
+        # trainer -> leaf-aggregator edges (duplicate placement ids are
+        # legal: they shrink the placed set, so count actual trainers)
+        unplaced = np.ones(C, bool)
+        unplaced[placement] = False
+        trainers = np.nonzero(unplaced)[0]
+        total = (D - 1) + len(trainers)  # every non-root member: 1 edge
+        if self.pod_of is None:
+            return 0, total
+        pod = np.asarray(self.pod_of)
+        # internal slot -> parent-slot edges
+        kid_slots = np.arange(1, D)
+        host_pod = pod[placement[(kid_slots - 1) // h.width]]
+        cross = int(np.count_nonzero(host_pod != pod[placement[kid_slots]]))
+        leaf_of = np.arange(len(trainers)) % h.n_leaves
+        t_host_pod = pod[placement[leaf_start + leaf_of]]
+        cross += int(np.count_nonzero(t_host_pod != pod[trainers]))
+        return cross, total
+
+    def _cross_pod_edges_ref(self, placement) -> tuple:
+        """Scalar reference for :meth:`cross_pod_edges` (parity oracle)."""
+        h = self.hierarchy
+        placement = np.asarray(placement, np.int64)
+        children = h.children_clients(placement)
+        cross = total = 0
+        for s in range(h.dimensions):
+            host = int(placement[s])
+            for c in children[s]:
+                total += 1
+                if self.pod_of is not None and \
+                        self.pod_of[host] != self.pod_of[c]:
+                    cross += 1
+        return cross, total

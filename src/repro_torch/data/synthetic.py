@@ -236,4 +236,4 @@ def make_federated_dataset(model_cfg, n_clients: int, seed: int = 0,
         return FederatedDataset.make(n_clients, alpha=alpha, seed=seed)
     raise NotImplementedError(
         f"no federated dataset for family {model_cfg.family!r} yet; the "
-        f"LM token streams come with ROADMAP.md queue 1 item 11")
+        f"LM token streams come with ROADMAP.md queue 1 item 11b")

@@ -2,18 +2,20 @@
 
 * :class:`~repro_torch.experiments.scenarios.ScenarioSpec` — a
   declarative evaluation world (hierarchy, client-pool profile, event
-  schedule) with every preset of the reference registered.
+  and fault schedules) with every preset of the reference registered.
 * :class:`SimulatedEnvironment` — the analytical CostModel world
-  (Fig. 3); :class:`EmulatedEnvironment` — real federated rounds on the
-  paper MLP (Fig. 4); both on the device the caller names.
-* :func:`run_experiment` / :func:`run_single` — the sequential sweep,
-  returning the versioned :class:`ExperimentResult`::
+  (Fig. 3, the two-tier pod model included); :class:`EmulatedEnvironment`
+  — real federated rounds on the paper MLP (Fig. 4, faults and quorums
+  included); both on the device the caller names.
+* :func:`run_experiment` — the multi-seed sweep (sequential, or the
+  lockstep batched sweep on simulated scenarios), configured by one
+  :class:`EvalConfig` and returning the versioned
+  :class:`ExperimentResult`; also a CLI: ``python -m
+  repro_torch.experiments run paper-fig4 --strategies pso,random
+  --rounds 25 --seeds 0,17``.
 
-      run_experiment("paper-fig4", ["pso", "random", "uniform"],
-                     rounds=50, seeds=[0])
-
-The lockstep batched sweep, the CLI and ``EvalConfig`` wait for later
-slices (ROADMAP.md).
+The online track (``OnlineEnvironment``) comes with ROADMAP.md queue 1
+item 7.
 """
 from repro_torch.core.hierarchy import TopologyUpdate
 from repro_torch.experiments.environments import (
@@ -24,8 +26,16 @@ from repro_torch.experiments.environments import (
     SimulatedEnvironment,
     build_environment,
 )
-from repro_torch.experiments.results import ExperimentResult, StrategyRun, aggregate_runs
-from repro_torch.experiments.runner import run_experiment, run_single
+from repro_torch.experiments.eval_config import EvalConfig, resolve_eval_config
+from repro_torch.experiments.results import (
+    RESULT_SCHEMA,
+    RESULT_SCHEMA_VERSION,
+    ExperimentResult,
+    StrategyRun,
+    aggregate_runs,
+    validate_result_dict,
+)
+from repro_torch.experiments.runner import run_batched, run_experiment, run_single
 from repro_torch.experiments.scenarios import (
     ClientChurn,
     ClientJoin,
@@ -44,8 +54,10 @@ from repro_torch.experiments.scenarios import (
 __all__ = [
     "Environment", "SimulatedEnvironment", "SampledSimulatedEnvironment",
     "EmulatedEnvironment", "RoundObservation", "TopologyUpdate",
-    "build_environment", "run_experiment", "run_single",
+    "build_environment", "EvalConfig", "resolve_eval_config",
     "ExperimentResult", "StrategyRun", "aggregate_runs",
+    "validate_result_dict", "RESULT_SCHEMA", "RESULT_SCHEMA_VERSION",
+    "run_experiment", "run_single", "run_batched",
     "ScenarioSpec", "PoolProfile", "ScheduledEvent", "PSpeedDrift",
     "ClientChurn", "ClientJoin", "ClientLeave",
     "StragglerSpike", "LatencyNoise",

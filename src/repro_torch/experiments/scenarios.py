@@ -2,8 +2,9 @@
 
 The port's copy of ``repro.experiments.scenarios``: every preset is
 registered with the same fields and the same pools per seed. The port
-builds the ``simulated`` kind; the other kinds raise
-``NotImplementedError`` until their slice lands.
+builds the ``simulated`` and ``emulated`` kinds (faults, quorums and
+the two-tier pod model included); the ``online`` kind raises
+``NotImplementedError`` until ROADMAP.md queue 1 item 7.
 
 A :class:`ScenarioSpec` is everything needed to reconstruct one
 evaluation world: the aggregation hierarchy, the client-pool profile,
@@ -501,12 +502,15 @@ class ScenarioSpec:
         from repro_torch.experiments.sampling import CohortSampler
         return CohortSampler(seed, self.cohort_size)
 
-    def make_environment(self, seed: int = 0, *, device="cuda"):
-        """Build a fresh Environment for one (strategy, seed) run; its
-        cost model scores swarms on ``device`` (``"cpu"`` runs the plain
-        torch path on the host)."""
+    def make_environment(self, seed: int = 0, eval_config=None, *,
+                         device="cuda"):
+        """Build a fresh Environment for one (strategy, seed) run on
+        ``device`` (``"cpu"`` runs the plain torch paths on the host).
+        ``eval_config`` (an :class:`~repro_torch.experiments.EvalConfig`)
+        selects cost source / backend pin / timing recording."""
         from repro_torch.experiments.environments import build_environment
-        return build_environment(self, seed, device=device)
+        return build_environment(self, seed, eval_config=eval_config,
+                                 device=device)
 
     def make_faults(self, seed: int) -> FaultSchedule:
         """The run's fault schedule: the spec's explicit pinned events

@@ -33,8 +33,10 @@ black-box interface and needs no device synchronisation;
 ``timing='measured'`` reads the wall clock and synchronises the device
 wherever the reference blocks on a result.
 
-Not ported yet: ``run_round_faulty`` (the fault track, ROADMAP.md queue
-1 item 8).
+``run_round_faulty`` is the emulated fault track's round: a round with
+no faults is ``run_round`` itself; a faulty one trains the live cohort
+and merges the surviving updates flat through the quorum-gated
+``quorum_merge_batched``.
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ from repro_torch.core.hierarchy import ClientPool, Hierarchy, TopologyUpdate, sl
 from repro_torch.core.placement import PlacementStrategy
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.device import resolve_device
+from repro_torch.faults.tolerance import quorum_count, quorum_merge_batched
 from repro_torch.fl.aggregation import SegmentAggregator
 from repro_torch.fl.distributed import elastic_rehierarchize
 from repro_torch.kernels import ops
@@ -692,10 +695,154 @@ class FederatedOrchestrator:
             train_time=train_time, agg_time=agg_time,
             loss=loss, accuracy=acc)
 
-    def run_round_faulty(self, r: int, placement, **faults):
-        raise NotImplementedError(
-            "fault rounds (quorum-gated merges, host failover) come with "
-            "ROADMAP.md queue 1 item 8 (faults/tolerance.py)")
+    def run_round_faulty(self, r: int, placement, *, down=(), dropped=(),
+                         degraded=None, quorum_frac: float = 0.0
+                         ) -> Tuple[RoundRecord, Dict[str, float]]:
+        """One federated round under faults (the emulated track's fault
+        path; ``repro_torch.faults``).
+
+        ``down`` clients (crashed or partitioned this round) neither
+        train nor deliver; ``dropped`` clients train but their updates
+        are lost in transit; ``degraded`` maps clients to train-delay
+        multipliers. Down aggregator HOSTS fail over to the lowest-id
+        live unplaced client (black-box: no pspeed peeking). Surviving
+        updates merge FLAT at the root — hierarchical FedAvg over the
+        tree equals flat weighted FedAvg — through
+        :func:`~repro_torch.faults.tolerance.quorum_merge_batched`,
+        gated on live-population quorum and damped by the arrived
+        fraction; a refused merge leaves the model untouched (a degraded
+        flush). Aggregation time charges the eq. 6 per-cluster walk over
+        the payloads actually present.
+
+        A round with NO faults delegates to :meth:`run_round` verbatim
+        (the FedAvg kernel's path on a card), so a zero-fault schedule
+        stays bit-identical to the fault-free track. Returns ``(record,
+        extra)`` where ``extra`` carries the fault series (merged /
+        degraded_flushes / failovers / dropped_updates / down).
+        """
+        placement = np.asarray(placement, np.int64)
+        self._check_population()
+        self.hierarchy.validate_placement(placement)
+        down = {int(c) for c in down}
+        dropped = {int(c) for c in dropped}
+        degraded = {int(c): float(f)
+                    for c, f in sorted((degraded or {}).items())}
+        C = self.hierarchy.total_clients
+        if not down and not dropped and not degraded:
+            rec = self.run_round(r, placement)
+            return rec, {"merged": float(C), "degraded_flushes": 0.0,
+                         "failovers": 0.0, "dropped_updates": 0.0,
+                         "down": 0.0}
+        if self.timing != "deterministic":
+            raise ValueError(
+                "run_round_faulty composes per-cluster delays "
+                "analytically and needs timing='deterministic', got "
+                f"{self.timing!r}")
+        if self.engine != "batched":
+            raise ValueError("run_round_faulty needs the batched round "
+                             f"engine, got {self.engine!r}")
+
+        cohort = np.asarray([c for c in range(C) if c not in down],
+                            np.int64)
+        if cohort.size == 0:
+            raise RuntimeError(f"round {r}: every client is down")
+
+        # aggregator failover: repair down hosts before anything runs
+        eff = placement.copy()
+        placed = {int(c) for c in eff}
+        failovers = 0
+        for s in range(len(eff)):
+            if int(eff[s]) in down:
+                repl = -1
+                for c in range(C):
+                    if c not in down and c not in placed:
+                        repl = c
+                        break
+                if repl < 0:
+                    raise RuntimeError(
+                        f"aggregator failover for slot {s}: no live "
+                        "unplaced client left")
+                eff[s] = repl
+                placed.add(repl)
+                failovers += 1
+        self.hierarchy.validate_placement(eff)
+
+        stacked, train_times = self.train_cohort(cohort, r)
+        train_times = np.asarray(train_times, np.float64).copy()
+        for j in range(cohort.size):
+            factor = degraded.get(int(cohort[j]))
+            if factor is not None:
+                train_times[j] *= factor
+        train_time = float(train_times.max())
+
+        merged_ids = np.asarray(
+            [c for c in cohort.tolist() if c not in dropped], np.int64)
+        need = quorum_count(max(1, C - len(down)), quorum_frac)
+        if merged_ids.size < need:
+            agg_time = 0.0
+            merged = 0
+            degraded_flush = 1.0
+        else:
+            rows = torch.as_tensor(np.searchsorted(cohort, merged_ids),
+                                   device=self.device)
+            sub = tree_map(lambda x: x.index_select(0, rows), stacked)
+            base_w = self.weights[merged_ids]
+            stal = np.zeros(merged_ids.size, np.float64)
+            self.params = quorum_merge_batched(
+                self.params, sub, base_w, stal, 0.0, 1.0,
+                merged_ids.size / C)
+            agg_time = self._faulty_agg_time(
+                eff, {int(c) for c in merged_ids})
+            merged = int(merged_ids.size)
+            degraded_flush = 0.0
+
+        tpd = (train_time + agg_time) * self.time_scale
+        loss, acc = self._evaluate()
+        rec = RoundRecord(
+            round_idx=r, placement=eff.tolist(), tpd=tpd,
+            train_time=train_time, agg_time=agg_time,
+            loss=loss, accuracy=acc)
+        extra = {
+            "merged": float(merged),
+            "degraded_flushes": degraded_flush,
+            "failovers": float(failovers),
+            "dropped_updates": float(
+                len(dropped & {int(c) for c in cohort})),
+            "down": float(len(down))}
+        return rec, extra
+
+    def _faulty_agg_time(self, placement: np.ndarray, merged: set
+                         ) -> float:
+        """eq. 7 composition of eq. 6 per-cluster delays over the
+        payloads PRESENT under faults: a leaf cluster charges its
+        merged trainers (plus the host's own update if it merged), an
+        inner cluster charges its child hosts' forwarded partials.
+        Reduces to the full ``_aggregate`` walk when everything merged."""
+        h = self.hierarchy
+        trainers = h.trainer_assignment(placement)
+        leaf_start = h.level_starts[h.depth - 1]
+        total = 0.0
+        for level in range(h.depth - 1, -1, -1):
+            level_max = 0.0
+            for s in range(h.level_starts[level],
+                           h.level_starts[level + 1]):
+                host = int(placement[s])
+                kids = h.children_slots(s)
+                if kids:
+                    present = [int(placement[k]) for k in kids]
+                else:
+                    li = s - leaf_start
+                    present = [t for t in trainers[li] if t in merged]
+                if host in merged:
+                    present = [host] + present
+                if not present:
+                    continue
+                dt = self._det_cluster_work(present)
+                level_max = max(
+                    level_max,
+                    self._cluster_time(host, dt, len(present)))
+            total += level_max
+        return total
 
     # ==================================================================
     # checkpoint support: the non-param runtime state

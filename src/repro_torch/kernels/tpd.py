@@ -122,8 +122,9 @@ def tpd_kernel_inputs(hierarchy, device="cuda"):
 
 def leaf_loads(placements: torch.Tensor, mds: torch.Tensor,
                n_leaves: int) -> torch.Tensor:
-    """(P, D) int placements, (C,) f32 payloads -> (P, L) f32 trainer
-    loads per leaf aggregator, on the placements' device.
+    """(P, D) int placements, (C,) f32 payloads (or (P, C): one row a
+    particle) -> (P, L) f32 trainer loads per leaf aggregator, on the
+    placements' device.
 
     The canonical trainer split: every unplaced client, ranked in
     ascending id order, goes to leaf ``rank % L``. Each leaf adds its
@@ -132,7 +133,7 @@ def leaf_loads(placements: torch.Tensor, mds: torch.Tensor,
     result equals the reference's host prefix-sum bit for bit whatever
     the payloads.
     """
-    P, C = placements.shape[0], mds.shape[0]
+    P, C = placements.shape[0], mds.shape[-1]
     dev = placements.device
     placed = torch.zeros((P, C), dtype=torch.bool, device=dev)
     placed.scatter_(1, placements.long(), True)
@@ -144,7 +145,7 @@ def leaf_loads(placements: torch.Tensor, mds: torch.Tensor,
                         depth * n_leaves)
     ranked = torch.zeros((P, depth * n_leaves + 1), dtype=torch.float64,
                          device=dev)
-    ranked.scatter_(1, ranks, mds.to(torch.float64)[None].expand(P, C))
+    ranked.scatter_(1, ranks, mds.to(torch.float64).expand(P, C))
     ranked = ranked[:, :-1].reshape(P, depth, n_leaves)
     out = torch.zeros((P, n_leaves), dtype=torch.float64, device=dev)
     for k in range(depth):             # ranks j, j + L, ... in order

@@ -271,6 +271,56 @@ def test_fig4_smoke_model_same_tpds_on_cuda_and_cpu(cuda_device):
                                runs["cpu"].metrics["loss"], rtol=1e-4)
 
 
+@pytest.mark.cuda
+def test_two_tier_batch_tpd_on_cuda_launches_no_kernel(cuda_device):
+    """The TPD kernel does not price pod edges: on the card a two-tier
+    model's swarms go through the pod-aware torch build, never the
+    kernel, within rtol 2e-5 of the float64 scalar model."""
+    from repro_torch.core.cost_model import TwoTierCostModel
+    h = Hierarchy(depth=5, width=3, trainers_per_leaf=2, n_clients=1024)
+    rng = np.random.default_rng(0)
+    pool = ClientPool.random(1024, seed=0)
+    pool.mdatasize = rng.uniform(1.0, 40.0, 1024)
+    tt = TwoTierCostModel(h, pool, memory_penalty=2.0, device=cuda_device,
+                          pod_of=rng.integers(0, 8, 1024))
+    ps = np.stack([rng.permutation(1024)[:h.dimensions] for _ in range(64)])
+    ps[0, 1] = ps[0, 0]
+    before = batch_tpd_cuda.launches
+    got = tt.batch_tpd(ps)
+    torch.cuda.synchronize()
+    assert batch_tpd_cuda.launches == before
+    assert getattr(tt, "_batch_tpd_torch", None) is not None
+    np.testing.assert_allclose(got, [tt.tpd(p) for p in ps], rtol=2e-5)
+    with pytest.raises(ValueError, match="pod"):
+        tt.batch_tpd(ps, backend="kernel")
+    assert batch_tpd_cuda.launches == before
+
+
+@pytest.mark.cuda
+def test_emulated_fault_path_same_on_cuda_and_cpu(cuda_device, tmp_path):
+    """The chaos preset's faults on the emulated track: placements, TPDs
+    and fault series exactly, losses within rtol 1e-4; a resumed cuda
+    run equals the uninterrupted one byte for byte."""
+    import json
+    spec = get_scenario("chaos").with_overrides(model="mlp-smoke") \
+        .for_env("emulated")
+    runs = {dev: run_single(spec, "pso", seed=0, rounds=8, device=dev)
+            for dev in ("cuda", "cpu")}
+    a, b = runs["cuda"], runs["cpu"]
+    assert a.tpds == b.tpds and a.event_log == b.event_log
+    for k in ("merged", "down", "partitioned", "faults", "failovers",
+              "dropped_updates", "degraded_flushes"):
+        assert a.metrics[k] == b.metrics[k]
+    np.testing.assert_allclose(a.metrics["loss"], b.metrics["loss"],
+                               rtol=1e-4)
+    run_single(spec, "pso", seed=0, rounds=4, device="cuda",
+               checkpoint_dir=str(tmp_path))
+    resumed = run_single(spec, "pso", seed=0, rounds=8, device="cuda",
+                         checkpoint_dir=str(tmp_path), resume=True)
+    assert json.dumps(resumed.to_dict(), sort_keys=True) == \
+        json.dumps(a.to_dict(), sort_keys=True)
+
+
 # ---------------------------------------------------------------------------
 # flash attention and the RG-LRU scan
 # ---------------------------------------------------------------------------

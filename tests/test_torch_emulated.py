@@ -185,11 +185,17 @@ def test_elastic_admit_matches_reference(reference_init):
     assert np.array_equal(up.slot_remap, ur.slot_remap)
 
 
-def test_fault_path_names_its_roadmap_item():
+def test_fault_path_names_its_roadmap_item(tmp_path):
+    """The fault path and run checkpointing (ROADMAP queue 1 item 8),
+    once refused here, now run; the online track still names its
+    roadmap item (item 7)."""
     spec = get_scenario("paper-fig4").with_overrides(
         faults=(ClientCrash(client=3, at_round=1),), **SMOKE)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        spec.make_environment(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        run_single(get_scenario("paper-fig4").with_overrides(**SMOKE),
-                   "pso", rounds=1, checkpoint_dir="unused", device="cpu")
+    assert spec.make_environment(0, device="cpu")._fault_mode
+    run = run_single(spec, "pso", rounds=2, checkpoint_dir=str(tmp_path),
+                     device="cpu")
+    assert run.metrics["merged"] == [10.0, 9.0]
+    assert (tmp_path / "step_00000002" / "meta.json").exists()
+    with pytest.raises(NotImplementedError, match="item 7"):
+        get_scenario("online-fig4").with_overrides(**SMOKE) \
+            .make_environment(0, device="cpu")
