@@ -149,8 +149,34 @@ Phases, in order; any failed check raises and ends the run non-zero:
     printed); its ``fedavg_batched`` launches held to (clean
     rounds + one warm-up a run) x tree levels; a pso run checkpointed at
     round 6 and resumed to 12 equal to the uninterrupted run's
-    ``to_dict()`` byte for byte; wall seconds a round; then the
-    ``kernels`` JSON line (ten kernels) and the final status line.
+    ``to_dict()`` byte for byte; wall seconds a round;
+20. the online track at full width (the presets' paper MLP, N =
+    1,791,754 f32) on ``cuda``, each run held to the same run on the
+    CPU (placements, TPDs, the event log and every online and fault
+    series exactly, losses within rtol 1e-4, final params within rtol
+    1e-3 / atol 1e-5 but for at most 1e-5 of them, as phase 19):
+    ``online-sync`` (12 rounds of pso) also equal to the emulated
+    ``paper-fig4`` run on ``cuda`` bit for bit (``torch.equal`` on the
+    final params); ``online-fig4`` (12 rounds of pso and greedy);
+    ``online-straggler`` (6 rounds, at least one REOPT swap); ``chaos``
+    online (12 rounds of pso and greedy) and a pso run checkpointed at
+    round 6 and resumed to 12 equal to the uninterrupted run's
+    ``to_dict()`` byte for byte; the ``fedavg_batched`` launches over
+    the phase held to the CPU rehearsal's count (aggregations x tree
+    levels: one warm-up a run and every lockstep round);
+21. trace calibration on ``cuda``: ``record_trace("paper-fig4",
+    rounds=6)`` (full-width MLP) equal to the CPU run's JSON byte for
+    byte, its fit (last round held out) and replay reports equal to the
+    CPU trace's; the Fig. 3 grid's swarms (as phase 5) priced by the
+    fitted ``CalibratedCostModel`` on ``cuda`` (auto-selection: numpy
+    below the fast-path threshold, as on the CPU) with 0 TPD kernel
+    launches, held exactly to the same swarms on the CPU, and its
+    analytic twin with one launch an iteration;
+    ``CalibratedCostModel.batch_tpd`` at large-1k, P = 10 and 1000
+    (auto, torch build and numpy, host clock; both builds within rtol
+    2e-5 of the float64 scalar model, 0 launches) and
+    ``backend="kernel"`` refused; then the ``kernels``
+    JSON line (ten kernels) and the final status line.
 
 Each kernel's launch count is set to 0 just before the path that runs
 it and read just after: ``tpd`` over phase 5, ``fedavg_batched`` over
@@ -164,7 +190,10 @@ are counted over the float32 depth cuts on ``cuda`` (phases 12 and 16).
 Comparison and timing launches never enter the JSON line's
 ``launches``. Phases 18 and 19 count their own launches (``tpd`` over
 the two-tier model, which must be 0; ``fedavg_batched`` over the fault
-run) and print them; the JSON line keeps the counts named above.
+run) and print them, and so do phases 20 (``fedavg_batched`` over the
+online runs) and 21 (``tpd`` over the calibrated swarms, which must be
+0, and over their analytic twin); the JSON line keeps the counts named
+above.
 """
 from __future__ import annotations
 
@@ -1651,8 +1680,10 @@ def runner_phases(torch, np_, card):
         check(batch_tpd_cuda.launches == 0,
               f"TwoTierCostModel.batch_tpd launched the TPD kernel at "
               f"P={P}")
-        check(getattr(tt, "_batch_tpd_torch", None) is not None,
-              "TwoTierCostModel.batch_tpd did not take the torch build")
+        auto = "np" if P * C <= tt._NP_FASTPATH_ELEMS else "torch"
+        check(getattr(tt, f"_batch_tpd_{auto}", None) is not None,
+              f"TwoTierCostModel.batch_tpd did not take the {auto} build "
+              f"at P={P}")
         scalar = np_.array([tt.tpd(p) for p in ps])
         rel = float(np_.max(np_.abs(got - scalar) / scalar))
         check(rel <= RTOL_SCALAR, f"two-tier batch_tpd at P={P}: rel "
@@ -1660,8 +1691,9 @@ def runner_phases(torch, np_, card):
         call_ms = median_host_ms(lambda ps=ps: tt.batch_tpd(ps), runs=9,
                                  sync=torch.cuda.synchronize)
         print(f"TwoTierCostModel.batch_tpd at large-1k, {TWO_TIER_PODS} "
-              f"pods, P={P:4d}: 0 tpd launches, largest rel diff to the "
-              f"float64 scalar model {rel:.2e} (rtol {RTOL_SCALAR}); "
+              f"pods, P={P:4d} (auto: {auto}): 0 tpd launches, largest "
+              f"rel diff to the float64 scalar model {rel:.2e} (rtol "
+              f"{RTOL_SCALAR}); "
               f"{call_ms * 1e3:.1f} us a call (host clock) [{card}]")
     try:
         tt.batch_tpd(ps, backend="kernel")
@@ -1759,6 +1791,366 @@ def runner_phases(torch, np_, card):
     print(f"chaos on cuda: {chaos_s:.2f} s for {n_rounds} rounds "
           f"({chaos_s / n_rounds:.3f} s a round, warm-ups included, host "
           f"clock) [{card}]")
+
+
+# ---- the online track and trace calibration (phases 20-21) ---------------
+ONLINE_ROUNDS = 12
+ONLINE_STRATEGIES = ("pso", "greedy")
+STRAGGLER_ROUNDS = 6
+ONLINE_CHECKPOINT = 6
+TRACE_ROUNDS = 6
+CAL_SWARMS = (10, 1000)
+
+
+def keeping(spec, envs):
+    """``spec`` as a ScenarioSpec whose environments are kept in ``envs``
+    (its own class, so an online spec stays online), each recording
+    every step's (placement, tpd) in ``env.steps`` and counting the
+    orchestrator's FedAvg aggregations (``_agg_batched`` calls: the
+    warm-up's and each lockstep round's, one kernel launch a tree level
+    on the card) in ``env.agg_calls``."""
+    base = type(spec)
+
+    class Kept(base):
+        def make_environment(self, seed=0, eval_config=None, *,
+                             device="cuda"):
+            env = base.make_environment(self, seed, eval_config,
+                                        device=device)
+            orch = env.orchestrator
+            env.steps, env.agg_calls = [], 0
+            aggregate, step = orch._agg_batched, env.step
+
+            def counted(*args):
+                env.agg_calls += 1
+                return aggregate(*args)
+
+            def recorded(r, placement):
+                obs = step(r, placement)
+                env.steps.append((obs.placement.tolist(), obs.tpd))
+                return obs
+            orch._agg_batched = counted
+            env.step = recorded
+            envs.append(env)
+            return env
+
+    return Kept(**{f.name: getattr(spec, f.name)
+                   for f in dataclasses.fields(spec)})
+
+
+def host_leaves(env):
+    from repro_torch.utils.trees import tree_leaves
+    return [x.detach().cpu().numpy()
+            for x in tree_leaves(env.orchestrator.params)]
+
+
+def params_outside(np_, a, b):
+    """(elements outside PARAM_TOL, elements, largest abs difference)
+    between two lists of host arrays."""
+    outside = total = 0
+    largest = 0.0
+    for x, y in zip(a, b, strict=True):
+        check(x.shape == y.shape and bool(np_.all(np_.isfinite(x))),
+              "final params malformed")
+        total += x.size
+        outside += int(np_.count_nonzero(~np_.isclose(x, y, **PARAM_TOL)))
+        largest = max(largest, float(np_.max(np_.abs(x - y))))
+    return outside, total, largest
+
+
+def online_phases(torch, np_, card):
+    """Phases 20 (the online track on cuda at full width, held to the
+    CPU run and, degenerate, to the emulated track) and 21 (trace
+    calibration on cuda, and the calibrated cost model kept off the TPD
+    kernel)."""
+    import shutil
+
+    from repro_torch.calibration import ANALYTIC, fit_calibration, record_trace, replay
+    from repro_torch.core.cost_model import CalibratedCostModel
+    from repro_torch.core.pso import FlagSwapPSO
+    from repro_torch.experiments import EvalConfig, get_scenario, run_single
+    from repro_torch.kernels.fedavg import fedavg_batched
+    from repro_torch.kernels.tpd import batch_tpd_cuda
+    from repro_torch.utils.trees import tree_leaves
+
+    out_dir = ROOT / "build" / "online"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    online4 = get_scenario("online-fig4")
+    phase(f"20. online track on cuda: online-sync vs the emulated track, "
+          f"online-fig4, online-straggler and chaos (model "
+          f"{online4.model}, {ONLINE_ROUNDS} rounds), held to the CPU run")
+    # (label, scenario, strategy, rounds): the cuda runs, then the same
+    # runs on the CPU
+    runs = [("online-sync", "online-sync", "pso", ONLINE_ROUNDS),
+            ("paper-fig4 (emulated twin)", "paper-fig4", "pso",
+             ONLINE_ROUNDS),
+            *((f"online-fig4 {s}", "online-fig4", s, ONLINE_ROUNDS)
+              for s in ONLINE_STRATEGIES),
+            ("online-straggler pso", "online-straggler", "pso",
+             STRAGGLER_ROUNDS),
+            *((f"chaos {s}", "chaos", s, ONLINE_ROUNDS)
+              for s in ONLINE_STRATEGIES)]
+    done = {}
+    for device in ("cuda", "cpu"):
+        if device == "cuda":
+            fedavg_batched.launches = 0   # the count to 0 just before
+        t0 = time.perf_counter()
+        for label, name, strategy, rounds in runs:
+            envs = []
+            t1 = time.perf_counter()
+            run = run_single(keeping(get_scenario(name), envs), strategy,
+                             seed=SEED, rounds=rounds, device=device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            done[device, label] = (run, envs[0],
+                                   time.perf_counter() - t1)
+        wall = time.perf_counter() - t0
+        if device == "cuda":
+            launches = fedavg_batched.launches   # just after the path
+            cuda_s = wall
+        else:
+            cpu_s = wall
+    expect = {dev: sum(done[dev, label][1].agg_calls
+                       * done[dev, label][1].hierarchy.depth
+                       for label, *_ in runs) for dev in ("cuda", "cpu")}
+    check(launches == expect["cuda"] == expect["cpu"] and launches > 0,
+          f"online phase: {launches} fedavg_batched launches on cuda, "
+          f"expected {expect['cuda']} (cuda aggregations x levels) and "
+          f"the CPU rehearsal's {expect['cpu']}")
+    print(f"{launches} fedavg_batched launches over the phase = the CPU "
+          f"rehearsal's aggregations x tree levels ("
+          + ", ".join(f"{label} {done['cpu', label][1].agg_calls}"
+                      for label, *_ in runs)
+          + "): one warm-up a run, plus every lockstep round of "
+            "online-sync and its emulated twin; asynchronous merges are "
+            "tensordots")
+
+    sync, _, _ = done["cuda", "online-sync"]
+    emu, _, _ = done["cuda", "paper-fig4 (emulated twin)"]
+    env_s = done["cuda", "online-sync"][1]
+    env_e = done["cuda", "paper-fig4 (emulated twin)"][1]
+    check(sync.tpds == emu.tpds and env_s.steps == env_e.steps,
+          "online-sync: TPDs/placements differ from the emulated track")
+    for k in ("loss", "accuracy", "train_time", "agg_time"):
+        check(sync.metrics[k] == emu.metrics[k],
+              f"online-sync: {k} differs from the emulated track")
+    same = all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(env_s.orchestrator.params),
+        tree_leaves(env_e.orchestrator.params), strict=True))
+    check(same, "online-sync: final params differ from the emulated "
+                "track's (torch.equal)")
+    check(env_s._store == {}, "online-sync stored updates: the lockstep "
+                              "path must store none")
+    print(f"online-sync pso, {ONLINE_ROUNDS} rounds on cuda: TPDs, "
+          f"placements, losses and final params (torch.equal) equal to "
+          f"the emulated paper-fig4 run on cuda; loss "
+          f"{sync.metrics['loss'][0]:.4f} -> {sync.metrics['loss'][-1]:.4f}")
+
+    series = ("overlap", "reopt_swaps", "merged", "staleness_mean",
+              "staleness_max", "down", "partitioned", "faults",
+              "dropped_updates", "retries", "degraded_flushes", "failovers")
+    for label, name, strategy, rounds in runs:
+        a, ec, a_s = done["cuda", label]
+        b, eh, _ = done["cpu", label]
+        check(ec.steps == eh.steps and a.tpds == b.tpds,
+              f"{label}: cuda placements/TPDs differ from the CPU run")
+        check(a.event_log == b.event_log,
+              f"{label}: cuda event log differs from the CPU run")
+        for k in series:
+            check(a.metrics.get(k) == b.metrics.get(k),
+                  f"{label}: {k} series differs from the CPU run")
+        lc, lh = np_.array(a.metrics["loss"]), np_.array(b.metrics["loss"])
+        check(bool(np_.all(np_.isfinite(lc))), f"{label}: loss {lc}")
+        loss_rel = float(np_.max(np_.abs(lc - lh) / np_.abs(lh)))
+        check(loss_rel <= LOSS_RTOL, f"{label}: losses differ by rel "
+                                     f"{loss_rel} > {LOSS_RTOL}")
+        outside, total, largest = params_outside(np_, host_leaves(ec),
+                                                 host_leaves(eh))
+        check(outside <= CHAOS_PARAM_SHARE * total,
+              f"{label}: {outside} of {total} final params outside "
+              f"{PARAM_TOL} (at most {CHAOS_PARAM_SHARE:.0e} of them)")
+        extra = ""
+        if "overlap" in a.metrics:
+            extra = (f"; overlap max {max(a.metrics['overlap']):.2f}, "
+                     f"staleness max {max(a.metrics['staleness_max']):.0f}"
+                     f", reopt swaps {a.metrics['reopt_swaps'][-1]:.0f}")
+        if "faults" in a.metrics:
+            extra += (f", faults {a.metrics['faults'][-1]:.0f}, dropped "
+                      f"{a.metrics['dropped_updates'][-1]:.0f}, failovers "
+                      f"{a.metrics['failovers'][-1]:.0f}")
+        print(f"{label:27s} {rounds:2d} rounds: placements, TPDs, event "
+              f"log ({len(a.event_log)} lines) and series equal to the CPU "
+              f"run{extra}; loss rel diff {loss_rel:.2e}; final params "
+              f"{outside} of {total} outside {PARAM_TOL}, largest abs diff "
+              f"{largest:.1e}; {a_s:.3f} s on cuda ({a_s / rounds:.4f} s "
+              f"a round, warm-up included, host clock) [{card}]")
+    strag, _, _ = done["cuda", "online-straggler pso"]
+    swaps = [line for line in strag.event_log if "REOPT" in line]
+    check(len(swaps) > 0, "online-straggler: no REOPT swap on cuda")
+    print(f"online-straggler: {len(swaps)} REOPT swaps, the first: "
+          f"{swaps[0]}")
+
+    ckpt = out_dir / "chaos_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    chaos = get_scenario("chaos")
+    run_single(chaos, "pso", seed=SEED, rounds=ONLINE_CHECKPOINT,
+               checkpoint_dir=str(ckpt), checkpoint_every=ONLINE_CHECKPOINT,
+               device="cuda")
+    meta = json.loads((ckpt / f"step_{ONLINE_CHECKPOINT:08d}"
+                       / "meta.json").read_text())
+    in_flight = len(meta["extra"]["store_keys"])
+    resumed = run_single(chaos, "pso", seed=SEED, rounds=ONLINE_ROUNDS,
+                         checkpoint_dir=str(ckpt), resume=True,
+                         device="cuda")
+    check(json.dumps(resumed.to_dict(), sort_keys=True)
+          == json.dumps(done["cuda", "chaos pso"][0].to_dict(),
+                        sort_keys=True),
+          f"chaos online: the run resumed from round {ONLINE_CHECKPOINT} "
+          f"differs from the uninterrupted cuda run")
+    shutil.rmtree(ckpt)
+    print(f"chaos online pso resumed from round {ONLINE_CHECKPOINT} "
+          f"({in_flight} updates in flight in the checkpoint) to "
+          f"{ONLINE_ROUNDS} on cuda: to_dict() equal to the uninterrupted "
+          f"run, byte for byte")
+    n_rounds = sum(r for *_, r in runs)
+    print(f"phase 20 runs: {cuda_s:.2f} s on cuda, {cpu_s:.2f} s on the "
+          f"CPU for {n_rounds} rounds each (host clock) [{card}]")
+
+    phase(f"21. trace calibration on cuda: record_trace('paper-fig4', "
+          f"rounds={TRACE_ROUNDS}), fit, replay, and the calibrated cost "
+          f"model on the Fig. 3 grid, held to the CPU run")
+    traces = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        traces[device] = record_trace("paper-fig4", "pso", seed=SEED,
+                                      rounds=TRACE_ROUNDS, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            rec_s = time.perf_counter() - t0
+    got = traces["cuda"].to_json()
+    check(got == traces["cpu"].to_json(),
+          "the cuda trace JSON differs from the CPU run's")
+    cal = fit_calibration(traces["cuda"], holdout_rounds=1)
+    check(cal.to_dict() == fit_calibration(traces["cpu"],
+                                           holdout_rounds=1).to_dict(),
+          "the fit of the cuda trace differs from the CPU trace's fit")
+    for c in (cal, ANALYTIC):
+        check(replay(traces["cuda"], c).to_dict()
+              == replay(traces["cpu"], c).to_dict(),
+              "replay of the cuda trace differs from the CPU trace's")
+    held = [traces["cuda"].records[-1]["round"]]
+    err_cal = replay(traces["cuda"], cal, rounds=held).mean_abs_error
+    err_ana = replay(traces["cuda"], ANALYTIC, rounds=held).mean_abs_error
+    cal_path = cal.save(out_dir / "cal.json")
+    print(f"paper-fig4 trace, {TRACE_ROUNDS} rounds of pso on cuda: "
+          f"{len(got)} bytes of JSON equal to the CPU run's; "
+          f"{rec_s:.2f} s (host clock) [{card}]")
+    print(f"fit (last round held out): payload_scale {cal.payload_scale!r}"
+          f", level_link {list(cal.level_link)!r}, train_scale "
+          f"{cal.train_scale!r}, {cal.n_rows} rows, rms residual "
+          f"{cal.rms_residual:.3g}: equal to the CPU fit; held-out round "
+          f"error {err_cal:.3g} calibrated vs {err_ana:.3g} analytic; "
+          f"replay reports equal")
+
+    ec = EvalConfig(cost_source="calibrated", calibration=str(cal_path))
+
+    def swarm(depth, width, particles, device, eval_config):
+        env = get_scenario("paper-fig3").with_overrides(
+            depth=depth, width=width).make_environment(
+            SEED, eval_config=eval_config, device=device)
+        cm = env.cost_model
+        pso = FlagSwapPSO(env.hierarchy.dimensions,
+                          env.hierarchy.total_clients,
+                          n_particles=particles, inertia=0.01, c1=0.01,
+                          c2=1.0, velocity_factor=0.1, seed=SEED)
+        best = pso.run(cm.fitness, FIG3_ITERATIONS,
+                       batch_fitness_fn=cm.batch_fitness)
+        return cm, pso, best
+
+    cells = [(d, w, P) for d in FIG3_DEPTH for w in FIG3_WIDTH
+             for P in FIG3_PARTICLES]
+    batch_tpd_cuda.launches = 0   # the count to 0 just before the path
+    t0 = time.perf_counter()
+    calibrated = {c: swarm(*c, "cuda", ec) for c in cells}
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    cal_launches = batch_tpd_cuda.launches   # just after
+    batch_tpd_cuda.launches = 0
+    t0 = time.perf_counter()
+    analytic = {c: swarm(*c, "cuda", None) for c in cells}
+    torch.cuda.synchronize()
+    ana_s = time.perf_counter() - t0
+    ana_launches = batch_tpd_cuda.launches
+    check(all(isinstance(calibrated[c][0], CalibratedCostModel)
+              for c in cells), "the calibrated cost source did not build "
+                               "a CalibratedCostModel")
+    check(cal_launches == 0, f"the calibrated Fig. 3 grid launched the "
+                             f"TPD kernel {cal_launches} times")
+    check(ana_launches == len(cells) * FIG3_ITERATIONS,
+          f"the analytic twin launched the TPD kernel {ana_launches} "
+          f"times, expected {len(cells) * FIG3_ITERATIONS}")
+    same_as_analytic = 0
+    for c in cells:
+        cm, pso, best = calibrated[c]
+        _, cpu, cpu_best = swarm(*c, "cpu", ec)
+        check(pso.history.best == cpu.history.best
+              and pso.history.mean == cpu.history.mean
+              and pso.history.worst == cpu.history.worst
+              and np_.array_equal(best, cpu_best)
+              and np_.array_equal(pso.gbest_x, cpu.gbest_x),
+              f"calibrated Fig. 3 cell {c}: cuda history/gbest differ "
+              f"from the CPU run")
+        rel = abs(-pso.gbest_f - cm.tpd(best)) / cm.tpd(best)
+        check(rel <= RTOL_SCALAR, f"calibrated cell {c}: gbest {-pso.gbest_f}"
+                                  f" vs scalar {cm.tpd(best)}")
+        same_as_analytic += bool(np_.array_equal(best, analytic[c][2]))
+    print(f"calibrated Fig. 3 grid ({len(cells)} cells x "
+          f"{FIG3_ITERATIONS} iterations) on cuda: histories and gbest "
+          f"equal to the CPU run; 0 TPD kernel "
+          f"launches ({cal_s:.2f} s); the analytic twin {ana_launches} "
+          f"launches ({ana_s:.2f} s) [{card}]; {same_as_analytic}/"
+          f"{len(cells)} cells end on the analytic twin's placement")
+
+    spec = get_scenario("large-1k")
+    env = spec.make_environment(SEED, eval_config=ec, device="cuda")
+    cm = env.cost_model
+    h = env.hierarchy
+    rng = np_.random.default_rng(SEED)
+    for P in CAL_SWARMS:
+        ps = np_.stack([rng.permutation(h.total_clients)[:h.dimensions]
+                        for _ in range(P)])
+        batch_tpd_cuda.launches = 0
+        got = cm.batch_tpd(ps)
+        got_t = cm.batch_tpd(ps, "torch")
+        torch.cuda.synchronize()
+        check(batch_tpd_cuda.launches == 0,
+              f"CalibratedCostModel.batch_tpd launched the TPD kernel at "
+              f"P={P}")
+        auto = "np" if P * h.total_clients <= cm._NP_FASTPATH_ELEMS \
+            else "torch"
+        check(getattr(cm, f"_batch_tpd_{auto}", None) is not None,
+              f"CalibratedCostModel.batch_tpd did not take the {auto} "
+              f"build at P={P}")
+        scalar = np_.array([cm.tpd(p) for p in ps[:50]])
+        rel = max(float(np_.max(np_.abs(g[:50] - scalar) / scalar))
+                  for g in (got, got_t))
+        check(rel <= RTOL_SCALAR, f"calibrated batch_tpd at P={P}: rel "
+                                  f"{rel} > {RTOL_SCALAR}")
+        t = {b: median_host_ms(lambda ps=ps, b=b: cm.batch_tpd(ps, b),
+                               runs=9, sync=torch.cuda.synchronize)
+             for b in (None, "torch", "np")}
+        print(f"CalibratedCostModel.batch_tpd at large-1k "
+              f"(C={h.total_clients}, D={h.dimensions}), P={P:4d}: auto "
+              f"({auto}) {t[None] * 1e3:.1f} us a call (host clock), torch "
+              f"build {t['torch'] * 1e3:.1f} us, numpy "
+              f"{t['np'] * 1e3:.1f} us; 0 tpd launches; largest rel diff "
+              f"to the float64 scalar model {rel:.2e} (rtol {RTOL_SCALAR}) "
+              f"[{card}]")
+    try:
+        cm.batch_tpd(ps, backend="kernel")
+    except ValueError as e:
+        print(f"backend='kernel' on the calibrated model refused: {e}")
+    else:
+        raise SmokeFailure("backend='kernel' ran on a calibrated model")
 
 
 def main() -> int:
@@ -2574,6 +2966,7 @@ def main() -> int:
     hybrid = hybrid_phases(torch, np, dev, card)
     training = training_phases(torch, np, dev, card)
     runner_phases(torch, np, card)
+    online_phases(torch, np, card)
 
     k_ms, r_ms, b_ms = rows[10]
     print(json.dumps({"kernels": [

@@ -17,22 +17,30 @@ The port's ``CostModel``, held to ``repro.core.cost_model.CostModel``:
 * ``batch_tpd`` — whole-swarm (P, D) -> (P,) evaluation, backends:
 
   - ``"np"``: the reference's float32 numpy closure, on the host;
-  - ``"torch"``: :func:`~repro_torch.kernels.tpd.leaf_loads` plus the
-    plain torch :func:`~repro_torch.kernels.ref.tpd_ref` on the model's
-    device (the two-tier model: its pod-aware torch build);
+  - ``"torch"``: the sums of the plain torch
+    :func:`~repro_torch.kernels.ref.tpd_ref`, with
+    :func:`~repro_torch.kernels.tpd.leaf_loads` and any trace-calibrated
+    terms, on the model's device (the two-tier model: its own pod-aware
+    torch build);
   - ``"kernel"``: the CUDA kernel
     (:func:`~repro_torch.kernels.tpd.batch_tpd_cuda`), one launch that
     builds the leaf loads and scores the swarm; CUDA devices and the
     base model only.
 
   Auto-selection: ``"kernel"`` where the kernel covers the model on a
-  CUDA device; ``"torch"`` for a two-tier model there; on the CPU the
-  reference's ``_NP_FASTPATH_ELEMS`` rule picks ``"np"`` for small
-  swarms and ``"torch"`` above it.
+  CUDA device; else, on any device, the reference's
+  ``_NP_FASTPATH_ELEMS`` rule picks ``"np"`` for small swarms and
+  ``"torch"`` above it.
 * ``PooledTPDEvaluator`` — S same-shape cost models with independent
   client pools evaluated in ONE exact call (the batched sweep runner's
   engine).
 * ``TwoTierCostModel`` — eq. 6 plus per-edge pod transfer costs.
+* ``CalibratedCostModel`` — eqs. 6-7 with trace-fitted payload scale,
+  per-level link charges and train offset (``repro_torch.calibration``).
+
+The CUDA kernel prices the base model only: auto-selection never sends a
+two-tier or calibrated model to it, and ``backend="kernel"`` refuses
+them.
 
 Cache invalidation is O(1): evaluators are keyed on the ClientPool's
 mutation ``version`` counter and the retarget counter.
@@ -40,17 +48,19 @@ mutation ``version`` counter and the retarget counter.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.hierarchy import ClientPool, Hierarchy, rows_with_duplicates
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ref import tpd_ref
 from repro_torch.kernels.tpd import batch_tpd_cuda, leaf_loads, tpd_kernel_inputs
 
 _BACKENDS = ("np", "torch", "kernel")
+# the calibration terms of the analytic model: payload scale, per-level
+# link betas, train scale
+_NEUTRAL_CALIBRATION = (1.0, (), 0.0)
 
 
 @dataclass(frozen=True)
@@ -96,8 +106,9 @@ class CostModel:
     # ------------------------------------------------------------------
     # vectorized path (all particles at once)
     # ------------------------------------------------------------------
-    # the reference's numpy-vs-XLA-CPU crossover, kept for CPU devices:
-    # below this many placement entries the numpy evaluator wins
+    # the reference's numpy-vs-XLA crossover, kept for every model the
+    # kernel does not cover: below this many placement entries the
+    # numpy evaluator wins
     _NP_FASTPATH_ELEMS = 32768
 
     def _attr_stack(self, dtype) -> np.ndarray:
@@ -143,6 +154,19 @@ class CostModel:
         have_pods = getattr(self, "pod_of", None) is not None
         ici = float(getattr(self, "ici_cost", 0.0))
         dcn = float(getattr(self, "dcn_cost", 0.0))
+        # trace-calibrated terms (CalibratedCostModel; neutral values on
+        # the base model keep every branch below bit-identical to the
+        # uncalibrated build)
+        cal_scale, cal_link, cal_train = self._calibration_terms()
+        calibrated = (cal_scale != 1.0 or any(cal_link)
+                      or cal_train != 0.0)
+        link_np = np.zeros(D, np.float64)
+        if calibrated and cal_link:
+            link = np.asarray(cal_link, np.float64)
+            link_np = link[np.minimum(h.levels, len(link) - 1)]
+        kids_cnt_np = (kids_np >= 0).sum(axis=1)                  # (D,)
+        tr_counts_np = np.bincount(np.arange(max(C - D, 0)) % n_leaves,
+                                   minlength=n_leaves)
         ft = np.dtype(dtype if dtype is not None else np.float32).type
         pooled = pool_attrs is not None
         attrs_np = np.asarray(pool_attrs) if pooled \
@@ -189,6 +213,23 @@ class CostModel:
         is_leaf_slot = h.levels == depth - 1
         slot_leaf_idx = np.clip(np.arange(D) - leaf_start, 0, n_leaves - 1)
         level_starts_np = np.asarray(h.level_starts[:-1], np.int32)
+        # calibrated-link statics: per-slot beta (level gather) and the
+        # structural member count of every cluster for NON-duplicate
+        # rows (kids + host for internal slots, round-robin trainers +
+        # host for leaves); duplicate rows recount trainers per call
+        link_slot = link_np.astype(ft)
+        kid_parts = (kids_cnt_np + 1).astype(ft)
+        static_parts = np.where(
+            is_leaf_slot, tr_counts_np[slot_leaf_idx] + 1,
+            kids_cnt_np + 1).astype(ft)
+        train_add = None
+        if calibrated and cal_train != 0.0:
+            psp = attrs_np[1]
+            inv_max = np.max(1.0 / psp, axis=-1)   # () | (S,)
+            if pooled:
+                train_add = (cal_train * inv_max).astype(ft)
+            else:
+                train_add = ft(cal_train * inv_max)
 
         def bincount(idx, w, m):
             return np.bincount(idx.ravel(),
@@ -260,6 +301,8 @@ class CostModel:
                     leaf_load[:, slot_leaf_idx].astype(ft),
                     np.sum(kid_mds, axis=2))
             load = host[0] + child_load
+            if calibrated and cal_scale != 1.0:
+                load = load * ft(cal_scale)
             delay = load / host[1]
             if penalty > 0:
                 cap = host[2]
@@ -270,38 +313,120 @@ class CostModel:
                 delay = delay + np.where(
                     is_leaf_slot[None],
                     edge_leaf[:, slot_leaf_idx].astype(ft), edge_int)
+            if calibrated and any(cal_link):
+                # per-part link charge: structural member counts for
+                # non-duplicate rows; duplicate rows recount actual
+                # trainers per leaf from the unplaced mask
+                if use_uniform:
+                    parts_f = static_parts[None]
+                else:
+                    leaf_cnt = bincount(
+                        leaf_bins, np.where(unplaced, ft(1.0), ft(0.0)),
+                        P * n_leaves).reshape(P, n_leaves)
+                    parts_f = np.where(
+                        is_leaf_slot[None],
+                        leaf_cnt[:, slot_leaf_idx] + ft(1.0),
+                        kid_parts[None])
+                delay = delay + link_slot[None] * parts_f
             # per-level max, summed DEEPEST level first — the scalar
             # reference accumulates bottom-up, and float addition is not
             # associative, so the exact path must match its order
             level_max = np.maximum.reduceat(delay, level_starts_np, axis=1)
-            return level_max[:, ::-1].sum(axis=1)
+            out = level_max[:, ::-1].sum(axis=1)
+            if train_add is not None:
+                out = out + (train_add[rows] if pooled else train_add)
+            return out
 
         return batch
 
     def _make_device_tpd(self, kernel: bool):
-        """Closure scoring swarms on ``self.device``: static tables and
-        the (3, C) f32 attribute table are uploaded once; per call the
-        placements go up, the TPD evaluation runs on the device, and the
-        (P,) TPDs come back to the host. With ``kernel`` the evaluation
-        is one launch of the CUDA kernel, which builds the leaf loads
-        itself; else ``leaf_loads`` and the plain torch version."""
+        """Closure scoring swarms on ``self.device``: static tables are
+        uploaded once; per call the placements go up, the TPD evaluation
+        runs on the device, and the (P,) TPDs come back to the host.
+
+        With ``kernel`` the evaluation is one launch of the CUDA kernel,
+        which builds the leaf loads itself (the base model only). Else
+        eqs. 6-7 in float32 torch ops (the reference's jit build, in
+        torch): the sums of :func:`~repro_torch.kernels.ref.tpd_ref`
+        (leaf loads in float64 in ascending id order, kid columns left
+        to right, level maxima deepest level first), with any
+        trace-calibrated terms at the reference's points: the load times
+        ``float32(payload_scale)`` before the pspeed divide; the float64
+        per-level link betas cast to float32, times each cluster's
+        member count (actual trainers + 1 at a leaf, kids + 1 inside),
+        added after the memcap penalty; the float32 train offset
+        ``train_scale * max(1 / pspeed)`` added last. At neutral terms
+        these are ``tpd_ref``'s ops in its order.
+        """
         h = self.hierarchy
         dev = self.device
-        kids, level_starts = tpd_kernel_inputs(h, device=dev)
-        attrs = torch.as_tensor(self._attr_stack(np.float32)[:3],
-                                device=dev)
-        n_leaves, C = h.n_leaves, h.total_clients
         penalty = float(self.memory_penalty)
+        attrs_np = self._attr_stack(np.float32)
+        if kernel:
+            kids_k, level_starts = tpd_kernel_inputs(h, device=dev)
+            attrs = torch.as_tensor(attrs_np[:3], device=dev)
+
+            def launch(placements):
+                return batch_tpd_cuda(self._device_placements(placements),
+                                      attrs, None, kids_k, level_starts,
+                                      penalty=penalty).cpu().numpy()
+
+            return launch
+        cal_scale, cal_link, cal_train = self._calibration_terms()
+        n_leaves, D, depth = h.n_leaves, h.dimensions, h.depth
+        leaf_start = h.level_starts[depth - 1]
+        mds, pspeed, memcap = torch.as_tensor(attrs_np[:3],
+                                              device=dev).unbind(0)
+        kids_np = h.kids_table[:leaf_start]
+        kids = torch.as_tensor(np.clip(kids_np, 0, D - 1), device=dev)
+        kids_valid = torch.as_tensor(kids_np >= 0, device=dev)
+        bounds = [int(b) for b in h.level_starts]
+        scale = float(np.float32(cal_scale))
+        link_slot = None
+        if cal_link:
+            link = np.asarray(cal_link, np.float64)
+            link_slot = torch.as_tensor(
+                link[np.minimum(h.levels, len(link) - 1)].astype(
+                    np.float32), device=dev)                   # (D,)
+            kid_parts = torch.as_tensor(
+                ((kids_np >= 0).sum(axis=1) + 1).astype(np.float32),
+                device=dev)                                   # (D - L,)
+            ones = torch.ones_like(mds)
+        train_add = None
+        if cal_train != 0.0:
+            inv_max = np.max(1.0 / attrs_np[1], axis=-1)
+            train_add = float(np.float32(cal_train * inv_max))
 
         def run(placements):
-            p = self._device_placements(placements)
-            if kernel:
-                out = batch_tpd_cuda(p, attrs, None, kids, level_starts,
-                                     penalty=penalty)
-            else:
-                out = tpd_ref(p, attrs, leaf_loads(p, attrs[0], n_leaves),
-                              kids, level_starts, penalty=penalty)
-            return out.cpu().numpy()
+            p = self._device_placements(placements).long()
+            kid_mds = torch.where(kids_valid[None], mds[p[:, kids]], 0.0)
+            child = kid_mds[..., 0]                          # (P, D - L)
+            for w in range(1, kid_mds.shape[-1]):            # in order
+                child = child + kid_mds[..., w]
+            load = mds[p] + torch.cat(
+                [child, leaf_loads(p, mds, n_leaves)], dim=1)
+            if cal_scale != 1.0:
+                load = load * scale
+            delay = load / pspeed[p]
+            if penalty > 0:
+                cap = memcap[p]
+                over = torch.clamp_min(load - cap, 0.0)
+                delay = delay * (1.0 + penalty * over
+                                 / torch.clamp_min(cap, 1e-9))
+            if link_slot is not None:
+                # trainer counts a leaf: leaf_loads of unit payloads
+                # (exact), so duplicate-id rows count actual trainers
+                parts = torch.cat(
+                    [kid_parts.expand(p.shape[0], -1),
+                     leaf_loads(p, ones, n_leaves) + 1.0], dim=1)
+                delay = delay + link_slot[None] * parts
+            total = torch.zeros(p.shape[0], dtype=torch.float32,
+                                device=dev)
+            for lv in range(len(bounds) - 2, -1, -1):  # deepest first
+                total = total + delay[:, bounds[lv]:bounds[lv + 1]].amax(1)
+            if train_add is not None:
+                total = total + train_add
+            return total.cpu().numpy()
 
         return run
 
@@ -343,6 +468,17 @@ class CostModel:
         object.__setattr__(self, "_topology_version",
                            self.topology_version + 1)
 
+    def _calibration_terms(self) -> tuple:
+        """(payload_scale, level_link, train_scale) — neutral
+        ``(1.0, (), 0.0)`` on the base model; CalibratedCostModel
+        overrides the fields. One tuple so every consumer (closure
+        builders, pooled-evaluator compatibility check, kernel gate)
+        compares the same thing."""
+        return (float(getattr(self, "payload_scale", 1.0)),
+                tuple(float(b) for b in getattr(self, "level_link", ())
+                      or ()),
+                float(getattr(self, "train_scale", 0.0)))
+
     def _client_token(self) -> tuple:
         """O(1) fingerprint of the client attrs + topology baked into
         the cached evaluators: the pool's mutation version counter plus
@@ -358,12 +494,16 @@ class CostModel:
             object.__setattr__(self, attr, cached)
         return cached[1]
 
-    def _kernel_ok(self) -> bool:
-        """The CUDA TPD kernel covers the base eq. 6/7 model only (no
-        pod edge costs) and runs on a CUDA device — the counterpart of
-        the reference's ``_pallas_ok``."""
+    def _kernel_covers(self) -> bool:
+        """The CUDA TPD kernel prices the base eq. 6/7 model only: no
+        pod edge costs, no trace-calibrated terms."""
         return getattr(self, "pod_of", None) is None and \
-            self.device.type == "cuda"
+            self._calibration_terms() == _NEUTRAL_CALIBRATION
+
+    def _kernel_ok(self) -> bool:
+        """The kernel covers the model and the model is on a CUDA
+        device — the counterpart of the reference's ``_pallas_ok``."""
+        return self._kernel_covers() and self.device.type == "cuda"
 
     def set_default_backend(self, backend: Optional[str]) -> None:
         """Pin what ``batch_tpd(backend=None)`` dispatches to (the
@@ -379,9 +519,8 @@ class CostModel:
         """(P, D) placements -> (P,) f32 TPDs.
 
         ``backend``: ``None`` auto-selects (``"kernel"`` where
-        :meth:`_kernel_ok` holds; else ``"torch"`` on a CUDA device, and
-        on the CPU ``"np"`` below the fast-path threshold and
-        ``"torch"`` above it); ``"np"`` / ``"torch"`` / ``"kernel"``
+        :meth:`_kernel_ok` holds; else ``"np"`` below the fast-path
+        threshold and ``"torch"`` above it); ``"np"`` / ``"torch"`` / ``"kernel"``
         force a path; ``"kernel"`` needs a CUDA device and the base
         model. A ``set_default_backend`` pin replaces the
         auto-selection, never an explicit ``backend=``.
@@ -392,8 +531,6 @@ class CostModel:
         if backend is None:
             if self._kernel_ok():
                 backend = "kernel"
-            elif self.device.type == "cuda":
-                backend = "torch"
             else:
                 small = placements.size // max(self.hierarchy.dimensions, 1) \
                     * self.hierarchy.total_clients <= self._NP_FASTPATH_ELEMS
@@ -402,9 +539,10 @@ class CostModel:
             fn = self._cached("_batch_tpd_np",
                               lambda: self._make_batch_tpd())
         elif backend == "kernel":
-            if getattr(self, "pod_of", None) is not None:
-                raise ValueError("the CUDA TPD kernel does not cover "
-                                 "two-tier pod edge costs; use "
+            if not self._kernel_covers():
+                raise ValueError("the CUDA TPD kernel prices the base "
+                                 "eqs. 6-7 only, not two-tier pod edge "
+                                 "costs or trace-calibrated terms; use "
                                  "backend='torch'")
             if self.device.type != "cuda":
                 raise ValueError(
@@ -433,6 +571,24 @@ class CostModel:
 
     def batch_fitness(self, placements) -> np.ndarray:
         return -np.asarray(self.batch_tpd(placements))
+
+    @classmethod
+    def from_trace(cls, trace, *, hierarchy: Optional[Hierarchy] = None,
+                   clients: Optional[ClientPool] = None,
+                   holdout_rounds: int = 0,
+                   device="cuda") -> "CalibratedCostModel":
+        """Fit a :class:`CalibratedCostModel` from a recorded
+        :class:`repro_torch.calibration.trace.TraceArtifact` (or a path
+        to one), on ``device``. ``hierarchy``/``clients`` default to the
+        shape and attribute snapshot stored in the trace;
+        ``holdout_rounds`` withholds the LAST k rounds from the fit.
+        Delegates to ``repro_torch.calibration.fit`` (imported lazily —
+        calibration depends on this module, not vice versa)."""
+        from repro_torch.calibration.fit import cost_model_from_trace
+        return cost_model_from_trace(trace, hierarchy=hierarchy,
+                                     clients=clients,
+                                     holdout_rounds=holdout_rounds,
+                                     device=device)
 
 
 _SHARDED_NOT_PORTED = (
@@ -495,6 +651,10 @@ class PooledTPDEvaluator:
                     getattr(m0, "dcn_cost", 0.0):
                 raise ValueError("pooled evaluation needs one shared pod "
                                  "topology")
+            if m._calibration_terms() != m0._calibration_terms():
+                raise ValueError("pooled evaluation needs one shared "
+                                 "calibration (payload_scale/level_link/"
+                                 "train_scale)")
         self.models = list(models)
         self.shard = shard
         self._versions: Optional[tuple] = None
@@ -539,9 +699,9 @@ class TwoTierCostModel(CostModel):
     locality* with zero topology knowledge.
 
     The CUDA TPD kernel does not price pod edges, so ``batch_tpd``
-    never picks it here and refuses ``backend='kernel'``; on a CUDA
-    device auto-selection takes the ``"torch"`` build, which carries
-    the edge costs (the reference's jit build, in torch).
+    never picks it here and refuses ``backend='kernel'``; the
+    ``"torch"`` build carries the edge costs (the reference's jit
+    build, in torch).
     """
     pod_of: Optional[np.ndarray] = None   # (n_clients,) pod index
     ici_cost: float = 0.005               # delay per payload unit, same pod
@@ -668,3 +828,102 @@ class TwoTierCostModel(CostModel):
                         self.pod_of[host] != self.pod_of[c]:
                     cross += 1
         return cross, total
+
+
+@dataclass(frozen=True)
+class CalibratedCostModel(CostModel):
+    """Eq. 6/7 with trace-fitted parameters (``repro_torch.calibration``).
+
+    The emulated track's deterministic engine charges
+
+        delay_cluster = (sum_members mdatasize / PAYLOAD_SCALE) / pspeed
+                        + comm_latency * n_members
+        train_c       = local_steps / pspeed_c
+
+    none of which the analytic base model prices. The fitted twin adds
+    exactly those degrees of freedom, all linear in trace features:
+
+    * ``payload_scale`` — multiplies the eq. 6 payload (the emulated
+      engine's ``1 / EQ6_PAYLOAD_SCALE``);
+    * ``level_link`` — per-level delay per cluster member (the
+      ``comm_latency`` hop term; one beta per tree level, the last
+      entry covering any deeper level);
+    * ``train_scale`` — work units per local-training pass; charged as
+      ``train_scale * max_c(1 / pspeed_c)``, a placement-independent
+      offset that makes predicted TPDs comparable to the emulated
+      ``train + agg`` composition.
+
+    Neutral values (1.0, (), 0.0) make every evaluator bit-identical to
+    the base :class:`CostModel`, the CUDA kernel included. The numpy
+    paths ride the SAME ``_make_batch_tpd`` closure (the calibrated
+    branches switch on via ``_calibration_terms``), so ``batch_tpd``/
+    ``tpd_fast``/``PooledTPDEvaluator`` need no new plumbing; the
+    ``"torch"`` backend is :meth:`CostModel._make_device_tpd`. The
+    CUDA TPD kernel does not price the calibrated terms: auto-selection
+    never picks it here and ``backend='kernel'`` is refused.
+    """
+    payload_scale: float = 1.0
+    level_link: Tuple[float, ...] = ()
+    train_scale: float = 0.0
+
+    def __post_init__(self):
+        super().__post_init__()
+        object.__setattr__(self, "level_link",
+                           tuple(float(b) for b in self.level_link))
+
+    def _link_cost(self, level: int, n_members: int) -> float:
+        if not self.level_link:
+            return 0.0
+        beta = self.level_link[min(level, len(self.level_link) - 1)]
+        return beta * n_members
+
+    def calibrated_cluster_delay(self, host: int, children, level: int
+                                 ) -> float:
+        """Eq. 6 with the fitted payload scale, memcap penalty on the
+        scaled payload, and the per-level per-member link charge."""
+        mds = self.clients.mdatasize
+        load = mds[host] + sum(mds[c] for c in children)
+        load = load * self.payload_scale
+        delay = load / self.clients.pspeed[host]
+        if self.memory_penalty > 0:
+            over = max(0.0, load - self.clients.memcap[host])
+            delay *= 1.0 + self.memory_penalty * over / max(
+                self.clients.memcap[host], 1e-9)
+        return float(delay + self._link_cost(level, len(children) + 1))
+
+    def train_time(self) -> float:
+        """The fitted local-training bottleneck: placement-independent,
+        so it never moves the argmin — it aligns predicted TPD with the
+        emulated ``train + agg`` total."""
+        if self.train_scale == 0.0:
+            return 0.0
+        return float(self.train_scale
+                     * (1.0 / np.asarray(self.clients.pspeed)).max())
+
+    def tpd(self, placement: Sequence[int]) -> float:
+        """Scalar reference of the calibrated eq. 7 (the parity oracle
+        the shared vectorized closure stays bit-identical to)."""
+        h = self.hierarchy
+        children = h.children_clients(placement)
+        total = 0.0
+        for level in range(h.depth - 1, -1, -1):
+            worst = 0.0
+            for s in range(h.level_starts[level],
+                           h.level_starts[level + 1]):
+                worst = max(worst, self.calibrated_cluster_delay(
+                    int(placement[s]), children[s], level))
+            total += worst
+        return total + self.train_time()
+
+    def cluster_delay(self, host: int, children: Sequence[int]) -> float:
+        """Level-free callers get the scaled eq. 6 without the link
+        charge (levels are a placement-walk property)."""
+        mds = self.clients.mdatasize
+        load = (mds[host] + sum(mds[c] for c in children)) \
+            * self.payload_scale
+        delay = load / self.clients.pspeed[host]
+        if self.memory_penalty > 0:
+            over = max(0.0, load - self.clients.memcap[host])
+            delay *= 1.0 + self.memory_penalty * over / max(
+                self.clients.memcap[host], 1e-9)
+        return float(delay)

@@ -4,23 +4,25 @@
   declarative evaluation world (hierarchy, client-pool profile, event
   and fault schedules) with every preset of the reference registered.
 * :class:`SimulatedEnvironment` — the analytical CostModel world
-  (Fig. 3, the two-tier pod model included); :class:`EmulatedEnvironment`
-  — real federated rounds on the paper MLP (Fig. 4, faults and quorums
-  included); both on the device the caller names.
+  (Fig. 3, the two-tier pod model and the trace-calibrated model
+  included); :class:`EmulatedEnvironment` — real federated rounds on
+  the paper MLP (Fig. 4, faults and quorums included);
+  :class:`OnlineEnvironment` — the same rounds asynchronously, on a
+  virtual clock (jittered arrivals, buffered flushes, staleness-weighted
+  merges, mid-round re-optimization, faults); all on the device the
+  caller names.
 * :func:`run_experiment` — the multi-seed sweep (sequential, or the
   lockstep batched sweep on simulated scenarios), configured by one
   :class:`EvalConfig` and returning the versioned
   :class:`ExperimentResult`; also a CLI: ``python -m
   repro_torch.experiments run paper-fig4 --strategies pso,random
   --rounds 25 --seeds 0,17``.
-
-The online track (``OnlineEnvironment``) comes with ROADMAP.md queue 1
-item 7.
 """
 from repro_torch.core.hierarchy import TopologyUpdate
 from repro_torch.experiments.environments import (
     EmulatedEnvironment,
     Environment,
+    OnlineEnvironment,
     RoundObservation,
     SampledSimulatedEnvironment,
     SimulatedEnvironment,
@@ -53,7 +55,8 @@ from repro_torch.experiments.scenarios import (
 
 __all__ = [
     "Environment", "SimulatedEnvironment", "SampledSimulatedEnvironment",
-    "EmulatedEnvironment", "RoundObservation", "TopologyUpdate",
+    "EmulatedEnvironment", "OnlineEnvironment", "RoundObservation",
+    "TopologyUpdate",
     "build_environment", "EvalConfig", "resolve_eval_config",
     "ExperimentResult", "StrategyRun", "aggregate_runs",
     "validate_result_dict", "RESULT_SCHEMA", "RESULT_SCHEMA_VERSION",

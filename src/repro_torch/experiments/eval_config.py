@@ -17,8 +17,8 @@ eval.backend=np`` style nested overrides)::
 artifact's ``eval`` section, so a pinned-backend artifact of the port
 differs from the reference's by that one string; default-config
 artifacts keep the reference's bytes. ``cost_source="calibrated"``
-validates as in the reference, but building its environment raises
-``NotImplementedError`` until ROADMAP.md queue 1 item 9.
+builds a :class:`~repro_torch.core.cost_model.CalibratedCostModel` from
+the fitted-calibration JSON ``calibration`` names.
 
 Two kinds of fields, deliberately separated:
 
@@ -63,9 +63,8 @@ class EvalConfig:
     cost_source  'analytic' (paper eqs. 6-7) | 'calibrated'
                  (trace-fitted terms; simulated track only)
     calibration  path to a fitted-calibration JSON
-                 (the reference's ``python -m repro.calibration fit``)
-                 — required when
-                 cost_source='calibrated'
+                 (``python -m repro_torch.calibration fit``) — required
+                 when cost_source='calibrated'
     recording    'off' | 'on' — capture per-round timing traces into
                  ``RoundObservation.timings`` (byte-neutral: recorded
                  runs produce bit-identical artifacts)
@@ -98,7 +97,7 @@ class EvalConfig:
             raise ValueError(
                 "eval.cost_source='calibrated' needs eval.calibration="
                 "<path to a fitted-calibration JSON> (write one with "
-                "`python -m repro.calibration fit`)")
+                "`python -m repro_torch.calibration fit`)")
         if self.recording == "on" and self.mode == "batched":
             raise ValueError(
                 "eval.recording='on' needs the sequential step loop "

@@ -172,8 +172,8 @@ def _restore_run_state(directory: str, env, strategy, events, erng):
     """Inverse of :func:`_save_run_state` into freshly constructed run
     objects (call after ``env.begin()``; warmup consumes no rng, so the
     restored streams continue exactly where the snapshot left them).
-    Params come back as float32 tensors on the run's device, bit for
-    bit. Returns ``(round_next, run)``."""
+    Params and in-flight update trees come back as float32 tensors on
+    the run's device, bit for bit. Returns ``(round_next, run)``."""
     step = latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
@@ -235,8 +235,10 @@ def run_single(spec: ScenarioSpec, strategy_name: str, *, seed: int = 0,
 
     ``checkpoint_dir`` turns on periodic FULL-run checkpointing (every
     ``checkpoint_every`` round boundaries, through the atomic
-    ``repro_torch.checkpoint`` store): model params, the environment's
-    fault state, event + rng + strategy state. ``resume=True`` restores
+    ``repro_torch.checkpoint`` store): model params, in-flight update
+    trees (host float32 in the npz, back on the run's device on
+    restore), the environment's event queue/buffers/fault state, event +
+    rng + strategy state. ``resume=True`` restores
     the latest snapshot and continues — a run killed at round r resumes bit-identically to the
     uninterrupted run (the fault-track acceptance pin). Elastic
     scenarios are refused: a resize swaps the hierarchy out from under

@@ -1,10 +1,9 @@
 """Declarative experiment scenarios.
 
 The port's copy of ``repro.experiments.scenarios``: every preset is
-registered with the same fields and the same pools per seed. The port
-builds the ``simulated`` and ``emulated`` kinds (faults, quorums and
-the two-tier pod model included); the ``online`` kind raises
-``NotImplementedError`` until ROADMAP.md queue 1 item 7.
+registered with the same fields and the same pools per seed, and the
+port builds every kind: ``simulated``, ``emulated`` and ``online``
+(faults, quorums and the two-tier pod model included).
 
 A :class:`ScenarioSpec` is everything needed to reconstruct one
 evaluation world: the aggregation hierarchy, the client-pool profile,

@@ -119,7 +119,11 @@ def fused_adamw_ref(p, g, m, v, lr, bc1, bc2, *, b1=0.9, b2=0.95, eps=1e-8,
     (a Python float is rounded to float32 first, as JAX rounds a weak
     scalar) and enter as 0-dim tensors on p's device, so a division by
     ``bc1`` or ``bc2`` is a true division on the card too (torch's CUDA
-    division by a host scalar multiplies by its reciprocal).
+    division by a host scalar multiplies by its reciprocal). The square
+    root is taken in float64 and rounded once to float32, the correctly
+    rounded float32 root on every device: torch's float32 ``sqrt`` on a
+    CPU with AVX-512 is not (it differs from IEEE in about 1 of 6
+    elements by an ulp).
     """
     def f32(x):
         return torch.tensor(float(np.float32(x)), dtype=torch.float32,
@@ -130,7 +134,8 @@ def fused_adamw_ref(p, g, m, v, lr, bc1, bc2, *, b1=0.9, b2=0.95, eps=1e-8,
     v = f32(b2) * v + f32(1 - b2) * (g32 * g32)
     mhat = m / f32(bc1)
     vhat = v / f32(bc2)
-    delta = mhat / (torch.sqrt(vhat) + f32(eps)) + f32(wd) * p32
+    root = torch.sqrt(vhat.double()).float()
+    delta = mhat / (root + f32(eps)) + f32(wd) * p32
     return (p32 - f32(lr) * delta).to(p.dtype), m, v
 
 

@@ -1015,3 +1015,104 @@ def test_train_steps_on_cuda_match_cpu(cuda_device):
     # Adam steps a weight whose gradient is within rounding of 0 by +-lr
     # (tests/test_torch_train.py): bounded by 2 lr a step
     assert float((out["cuda"][1] - out["cpu"][1]).abs().max()) <= 6 * 3e-3
+
+
+# ---------------------------------------------------------------------------
+# the online track and the calibrated cost model on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_calibrated_model_on_cuda_never_reaches_the_kernel(cuda_device):
+    from repro_torch.core.cost_model import CalibratedCostModel
+    h, cm, ps = _operands(SHAPES[1], 40, 3.0, cuda_device)
+    terms = dict(payload_scale=0.1, level_link=(0.002, 0.003),
+                 train_scale=2.0)
+    cal = CalibratedCostModel(h, cm.clients, memory_penalty=3.0,
+                              device=cuda_device, **terms)
+    host = CalibratedCostModel(h, cm.clients, memory_penalty=3.0,
+                               device="cpu", **terms)
+    before = batch_tpd_cuda.launches
+    got = cal.batch_tpd(ps)        # auto: numpy, P * C under the threshold
+    got_t = cal.batch_tpd(ps, backend="torch")
+    torch.cuda.synchronize()
+    assert batch_tpd_cuda.launches == before
+    assert ps.shape[0] * h.total_clients <= cal._NP_FASTPATH_ELEMS
+    assert getattr(cal, "_batch_tpd_np", None) is not None
+    assert np.array_equal(got, host.batch_tpd(ps, backend="np"))
+    assert np.array_equal(got_t, host.batch_tpd(ps, backend="torch"))
+    scalar = [cal.tpd(p) for p in ps]
+    np.testing.assert_allclose(got, scalar, rtol=2e-5)
+    np.testing.assert_allclose(got_t, scalar, rtol=2e-5)
+    with pytest.raises(ValueError, match="trace-calibrated"):
+        cal.batch_tpd(ps, backend="kernel")
+    neutral = CalibratedCostModel(h, cm.clients, memory_penalty=3.0,
+                                  device=cuda_device)
+    assert np.array_equal(neutral.batch_tpd(ps), cm.batch_tpd(ps))
+    assert batch_tpd_cuda.launches == before + 2   # neutral: the kernel
+
+
+def _kept(spec, envs):
+    import dataclasses
+    base = type(spec)
+
+    class Kept(base):
+        def make_environment(self, seed=0, eval_config=None, **kw):
+            env = base.make_environment(self, seed, eval_config, **kw)
+            envs.append(env)
+            return env
+
+    return Kept(**{f.name: getattr(spec, f.name)
+                   for f in dataclasses.fields(spec)})
+
+
+@pytest.mark.cuda
+def test_online_sync_on_cuda_is_the_emulated_track(cuda_device):
+    from repro_torch.utils.trees import tree_leaves
+    envs, runs = [], []
+    for name in ("online-sync", "paper-fig4"):
+        spec = get_scenario(name).with_overrides(model="mlp-smoke")
+        runs.append(run_single(_kept(spec, envs), "pso", seed=0, rounds=4,
+                               device="cuda"))
+    assert runs[0].tpds == runs[1].tpds
+    assert runs[0].metrics["loss"] == runs[1].metrics["loss"]
+    assert all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(envs[0].orchestrator.params),
+        tree_leaves(envs[1].orchestrator.params), strict=True))
+
+
+@pytest.mark.cuda
+def test_online_resume_on_cuda_puts_the_store_back_on_the_card(
+        cuda_device, tmp_path, monkeypatch):
+    import json
+    spec = get_scenario("chaos").with_overrides(model="mlp-smoke")
+    full = run_single(spec, "pso", seed=0, rounds=6, device="cuda")
+    cpu = run_single(spec, "pso", seed=0, rounds=6, device="cpu")
+    assert full.tpds == cpu.tpds and full.event_log == cpu.event_log
+    run_single(spec, "pso", seed=0, rounds=3, device="cuda",
+               checkpoint_dir=str(tmp_path))
+    from repro_torch.experiments.environments import OnlineEnvironment
+    from repro_torch.utils.trees import tree_leaves
+    restored = []
+    restore = OnlineEnvironment.restore_state
+
+    def spy(self, state, store):
+        restored.extend(x.device.type for tree in store.values()
+                        for x in tree_leaves(tree))
+        return restore(self, state, store)
+
+    monkeypatch.setattr(OnlineEnvironment, "restore_state", spy)
+    resumed = run_single(spec, "pso", seed=0, rounds=6, device="cuda",
+                         checkpoint_dir=str(tmp_path), resume=True)
+    assert json.dumps(resumed.to_dict(), sort_keys=True) == \
+        json.dumps(full.to_dict(), sort_keys=True)
+    assert restored and set(restored) == {"cuda"}
+
+
+@pytest.mark.cuda
+def test_calibration_trace_on_cuda_equals_cpu(cuda_device):
+    from repro_torch.calibration import fit_calibration, record_trace
+    spec = get_scenario("paper-fig4").with_overrides(
+        model="mlp-smoke", local_steps=1, batch_size=16)
+    a = record_trace(spec, "pso", seed=0, rounds=3, device="cuda")
+    b = record_trace(spec, "pso", seed=0, rounds=3, device="cpu")
+    assert a.to_json() == b.to_json()
+    assert fit_calibration(a).to_dict() == fit_calibration(b).to_dict()

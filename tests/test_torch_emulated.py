@@ -187,8 +187,8 @@ def test_elastic_admit_matches_reference(reference_init):
 
 def test_fault_path_names_its_roadmap_item(tmp_path):
     """The fault path and run checkpointing (ROADMAP queue 1 item 8),
-    once refused here, now run; the online track still names its
-    roadmap item (item 7)."""
+    once refused here, now run, and so does the online track's fault
+    path (item 7), which once named its roadmap item here."""
     spec = get_scenario("paper-fig4").with_overrides(
         faults=(ClientCrash(client=3, at_round=1),), **SMOKE)
     assert spec.make_environment(0, device="cpu")._fault_mode
@@ -196,6 +196,6 @@ def test_fault_path_names_its_roadmap_item(tmp_path):
                      device="cpu")
     assert run.metrics["merged"] == [10.0, 9.0]
     assert (tmp_path / "step_00000002" / "meta.json").exists()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        get_scenario("online-fig4").with_overrides(**SMOKE) \
-            .make_environment(0, device="cpu")
+    online = get_scenario("online-faulty").with_overrides(**SMOKE) \
+        .make_environment(0, device="cpu")
+    assert online.kind == "online" and online._fault_mode

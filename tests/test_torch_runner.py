@@ -199,11 +199,18 @@ def test_pinned_backend_reaches_the_cost_model_and_the_artifact():
         [r["tpds"] for r in gold["runs"]]
 
 
-def test_calibrated_cost_source_names_its_roadmap_item():
-    ec = EvalConfig(cost_source="calibrated", calibration="cal.json")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        get_scenario("paper-fig3").make_environment(0, eval_config=ec,
-                                                    device="cpu")
+def test_calibrated_cost_source_names_its_roadmap_item(tmp_path):
+    """The calibrated cost source (ROADMAP queue 1 item 9), once refused
+    here, now builds the trace-fitted model; the executing tracks still
+    refuse it, as the reference does."""
+    from repro_torch.calibration import CalibrationResult
+    from repro_torch.core.cost_model import CalibratedCostModel
+    path = CalibrationResult(payload_scale=0.1, level_link=(0.002,),
+                             train_scale=2.0).save(tmp_path / "cal.json")
+    ec = EvalConfig(cost_source="calibrated", calibration=str(path))
+    env = get_scenario("paper-fig3").make_environment(0, eval_config=ec,
+                                                      device="cpu")
+    assert isinstance(env.cost_model, CalibratedCostModel)
     with pytest.raises(ValueError, match="simulated"):
         get_scenario("paper-fig4").with_overrides(model="mlp-smoke") \
             .make_environment(0, eval_config=ec, device="cpu")

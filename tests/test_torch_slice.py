@@ -83,16 +83,15 @@ def test_every_reference_preset_is_registered():
 
 @pytest.mark.parametrize("name", ["paper-fig4", "online-fig4", "two-tier"])
 def test_unported_tracks_raise_not_implemented(name):
-    """Only the online track (ROADMAP queue 1 item 7) still raises. The
-    emulated fault path (a quorum) and the two-tier pod model, once
-    refused here, now build and step a round equal to the reference's."""
+    """No track raises any more. The emulated fault path (a quorum), the
+    two-tier pod model and the online track (ROADMAP queue 1 item 7),
+    once refused here, now build and step a round equal to the
+    reference's."""
     spec, ref_spec = get_scenario(name), ref_get_scenario(name)
-    if name == "online-fig4":
-        with pytest.raises(NotImplementedError, match="item 7"):
-            spec.make_environment(0, device="cpu")
-        return
-    if name == "paper-fig4":
-        over = {"quorum_frac": 0.5, "model": "mlp-smoke"}
+    if name in ("paper-fig4", "online-fig4"):
+        over = {"model": "mlp-smoke"}
+        if name == "paper-fig4":
+            over["quorum_frac"] = 0.5
         spec, ref_spec = spec.with_overrides(**over), \
             ref_spec.with_overrides(**over)
     env, ref_env = spec.make_environment(0, device="cpu"), \
