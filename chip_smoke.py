@@ -73,7 +73,10 @@ Phases, in order; any failed check raises and ends the run non-zero:
     its own route's kernel only; flash at hd 80 (stablelm-3b's 32 x 80,
     B 2, S 1024 causal: bf16 zero-padded to the hd-128 kernel, f32
     native) and hd 320 (B 1, 10 heads on 1, S 1024 causal: both dtypes
-    on the f32 kernel), at the same tolerances; the scan at (4, 4096, 2560) f32, ragged T
+    on the f32 kernel), at the same tolerances; flash bf16 at phase
+    22's prefill shapes, B 4 causal: granite-8b's GQA 32/8 at hd 128,
+    S 1024 and 4096, and stablelm-3b's 32 x 80 at S 1024 (2e-2); the
+    scan at (4, 4096, 2560) f32, ragged T
     and D, and the training shape (1, 2048, 2560) f32 and bf16, exactly,
     with both copy routes (TMA, cp.async) launched;
 11. the hybrid serving main path: full-width ``recurrentgemma-2b``
@@ -175,7 +178,29 @@ Phases, in order; any failed check raises and ends the run non-zero:
     ``CalibratedCostModel.batch_tpd`` at large-1k, P = 10 and 1000
     (auto, torch build and numpy, host clock; both builds within rtol
     2e-5 of the float64 scalar model, 0 launches) and
-    ``backend="kernel"`` refused; then the ``kernels``
+    ``backend="kernel"`` refused;
+22. the dense serving main path: full-width ``granite-8b`` (36 layers,
+    GQA 32/8 at hd 128, 8.25e9 f32 params drawn on the card, bf16
+    compute) serving 8 requests through ``WaveScheduler(max_batch=4)``
+    (4 prompts of 1024 tokens and 4 of 4096, 32 new tokens each): per
+    wave the prefill time, the decode time per token (synchronised, and
+    the host's issue time) and the peak memory; one flash launch a layer
+    a wave, on the sm90 route only; one request of each wave equal to its
+    batch-1 serial decode; a 2-layer depth cut at full width on
+    ``cuda`` vs ``cpu`` (a 64-token prompt: prefill logits, both KV
+    caches and 4 decode steps, bf16 and f32, at phase 12's tolerances);
+    then one wave of full-width ``stablelm-3b`` (4 x 1024 tokens, 16 new
+    tokens; hd 80 on the padded sm90 route, one launch a layer);
+23. federated LM rounds: ``launch.train.main`` on stablelm-1.6b
+    ``reduced()`` (pso, 7 clients, 3 rounds) on ``cuda``, exit 0 with
+    finite losses; then the batched engine (deterministic timing, 7
+    clients, 3 rounds of pso) on ``cuda`` and on ``cpu`` from the same
+    initial params for stablelm-1.6b and recurrentgemma-2b ``reduced()``
+    at float32 compute: placements and TPDs exactly, losses within rtol
+    1e-4; the flash forward/backward, RG-LRU scan/adjoint and
+    ``fedavg_batched`` launches held to the CPU rehearsal's count (the
+    flash and scan calls at the models' entry, counted on both devices;
+    (warm-up + rounds) x tree levels of FedAvg); then the ``kernels``
     JSON line (ten kernels) and the final status line.
 
 Each kernel's launch count is set to 0 just before the path that runs
@@ -192,8 +217,13 @@ Comparison and timing launches never enter the JSON line's
 the two-tier model, which must be 0; ``fedavg_batched`` over the fault
 run) and print them, and so do phases 20 (``fedavg_batched`` over the
 online runs) and 21 (``tpd`` over the calibrated swarms, which must be
-0, and over their analytic twin); the JSON line keeps the counts named
-above.
+0, and over their analytic twin). Phases 22 and 23 are main paths too:
+every count is set to 0 just before each (the scheduler's run of
+granite-8b, the scheduler's stablelm-3b wave, the ``launch/train.py``
+run and the batched engine's cuda runs) and read just after; each
+phase's count is the sum of its runs', the JSON line's ``launches`` is
+the sum over the paths, and
+``launches_by_path`` holds each path's count.
 """
 from __future__ import annotations
 
@@ -496,6 +526,13 @@ RGLRU_TRAIN_SHAPE = (1, 2048, 2560)
 # column blocks of 160) at recurrentgemma's MQA, B 1, S 1024 causal
 FLASH_HD80 = (2, 32, 32, 1024, 80)
 FLASH_HD320 = (1, 10, 1, 1024, 320)
+# (B, Hq, Hkv, S, hd) bf16 causal: phase 22's prefill waves, checked
+# against the plain version in phase 10: granite-8b's (GQA 32/8, hd 128)
+# at 1024 and 4096 tokens and stablelm-3b's (hd 80, padded to 128); the
+# two 1024-token waves are timed in phase 13
+FLASH_DENSE = ((4, 32, 8, 1024, 128), (4, 32, 8, 4096, 128),
+               (4, 32, 32, 1024, 80))
+FLASH_DENSE_TIMED = (FLASH_DENSE[0], FLASH_DENSE[2])
 # flash kernel vs the dense plain version: f32, online vs dense softmax
 # over up to 2048 keys summed in other orders; bf16, one more rounding
 # of the output (the reference's own kernel tests use 2e-5 and 2e-2)
@@ -533,7 +570,7 @@ def hybrid_phases(torch, np_, dev, card):
     from repro_torch.kernels.ref import flash_attention_ref, rglru_scan_ref
     from repro_torch.kernels.rglru import plan_for, rglru_scan
     from repro_torch.models import get_model
-    from repro_torch.models.rglru import DECODE_ROWS
+    from repro_torch.models.common import DECODE_ROWS
     from repro_torch.serving import Request, WaveScheduler
     from repro_torch.utils.trees import tree_leaves, tree_map
 
@@ -573,10 +610,13 @@ def hybrid_phases(torch, np_, dev, card):
                   f"window={window} {name:8s}: {routes[name]}.cu, max abs "
                   f"err {err:.3e} ({FLASH_TOL[name]})")
             del q, k, v, got, want
-    for (b8, hq8, hkv8, s8, hd8), (name, dtype) in itertools.product(
-            (FLASH_HD80, FLASH_HD320), (("bfloat16", torch.bfloat16),
-                                        ("float32", torch.float32))):
-        gen.manual_seed(hd8)
+    def held(shape, name, dtype, seed):
+        """One causal flash call at ``shape`` (B, Hq, Hkv, S, hd) on the
+        route ``head_route`` gives, against the plain version (one batch
+        row at a time: the dense scores of S 4096 at 32 heads are 8.6 GB
+        a row) at FLASH_TOL."""
+        b8, hq8, hkv8, s8, hd8 = shape
+        gen.manual_seed(seed)
         q, k, v = [torch.randn(sh, device=dev, generator=gen).to(dtype)
                    for sh in ((b8, hq8, s8, hd8), (b8, hkv8, s8, hd8),
                               (b8, hkv8, s8, hd8))]
@@ -588,18 +628,26 @@ def hybrid_phases(torch, np_, dev, card):
                 if n != before.get(r, 0)}
         route, width = head_route(hd8, dtype)
         source = SOURCE.stem if route == "f32" else SM90_SOURCE.stem
-        check(went == {source: 1}, f"flash hd {hd8} {name} launched {went}")
-        want = flash_attention_ref(q, k, v, causal=True)
+        check(went == {source: 1}, f"flash {shape} {name} launched {went}")
+        want = torch.cat([flash_attention_ref(q[i:i + 1], k[i:i + 1],
+                                              v[i:i + 1], causal=True)
+                          for i in range(b8)])
         err = float((got.float() - want.float()).abs().max())
         flash_err[name] = max(flash_err[name], err)
         check(got.shape == q.shape and got.dtype == dtype and torch.allclose(
             got.float(), want.float(), **FLASH_TOL[name]),
-            f"flash hd {hd8} {name}: kernel vs plain max abs err {err} "
+            f"flash {shape} {name}: kernel vs plain max abs err {err} "
             f"beyond {FLASH_TOL[name]}")
         print(f"flash (B, Hq, Hkv, hd) = {(b8, hq8, hkv8, hd8)} S={s8} causal "
               f"{name:8s}: {source}.cu at width {width}, max abs err "
               f"{err:.3e} ({FLASH_TOL[name]})")
-        del q, k, v, got, want
+
+    for shape, (name, dtype) in itertools.product(
+            (FLASH_HD80, FLASH_HD320), (("bfloat16", torch.bfloat16),
+                                        ("float32", torch.float32))):
+        held(shape, name, dtype, shape[4])
+    for shape in FLASH_DENSE:
+        held(shape, "bfloat16", torch.bfloat16, shape[3] + shape[4])
     rglru_err = 0.0
     scan_routes = dict(rglru_scan.routes)
     for shape, name in RGLRU_CASES:
@@ -898,6 +946,8 @@ def hybrid_phases(torch, np_, dev, card):
     b8, hq8, hkv8, s8, hd8 = FLASH_HD80
     for dtype in (torch.bfloat16, torch.float32):
         time_flash(b8, s8, None, dtype, 9, hq8, hkv8, hd8)
+    for i, (b_, hq_, hkv_, s_, hd_) in enumerate(FLASH_DENSE_TIMED):
+        time_flash(b_, s_, None, torch.bfloat16, 20 + i, hq_, hkv_, hd_)
     def time_scan(shape, seed):
         """(kernel, plain, bound) ms of one f32 scan at ``shape``, the
         wrapper call's time printed; at the serving shape also the
@@ -2153,6 +2203,429 @@ def online_phases(torch, np_, card):
         raise SmokeFailure("backend='kernel' ran on a calibrated model")
 
 
+# ---- the dense transformer family (phases 22-23) -------------------------
+DENSE_ARCH = "granite-8b"
+DENSE_PROMPTS = ((1024, 4), (4096, 4))   # as phase 11: 2 waves of 4
+DENSE_NEW_TOKENS = 32
+DENSE_SERIAL = (0, 4)          # one request of each wave, served alone
+DENSE_CUT_LAYERS = 2           # the depth cut held to the CPU
+DENSE_CUT_STEPS = 4            # decode steps of the depth cut
+PADDED_ARCH = "stablelm-3b"    # hd 80: the padded route of the bf16 flash
+PADDED_PROMPTS, PADDED_NEW_TOKENS = (1024, 4), 16
+FL_ARCHS = ("stablelm-1.6b", "recurrentgemma-2b")   # reduced(), float32
+FL_CLIENTS, FL_ROUNDS, FL_LOCAL_STEPS, FL_BATCH, FL_SEQ = 7, 3, 2, 2, 16
+
+
+def kernel_counts(kflash, krglru, kfedavg, ktpd, kadamw):
+    """Every kernel counter of the port, by the kernels line's names."""
+    return {"flash_attention": kflash.flash_attention.routes.get(
+                kflash.SM90_SOURCE.stem, 0),
+            "flash_attention_f32": kflash.flash_attention.routes.get(
+                kflash.SOURCE.stem, 0),
+            "flash_attention_bwd": kflash.flash_attention_bwd.routes.get(
+                kflash.BWD_SM90_SOURCE.stem, 0),
+            "flash_attention_bwd_f32": kflash.flash_attention_bwd.routes.get(
+                kflash.BWD_SOURCE.stem, 0),
+            "rglru_scan": krglru.rglru_scan.launches,
+            "fused_adamw": kadamw.fused_adamw.launches,
+            "rglru_scan_bwd": krglru.rglru_scan_bwd.launches,
+            "fedavg_batched": kfedavg.fedavg_batched.launches,
+            "fedavg": kfedavg.fedavg.launches,
+            "tpd": ktpd.batch_tpd_cuda.launches}
+
+
+def zero_counts(kflash, krglru, kfedavg, ktpd, kadamw):
+    for fn in (kflash.flash_attention, kflash.flash_attention_bwd):
+        fn.launches = 0
+        fn.routes.clear()
+    for fn in (krglru.rglru_scan, krglru.rglru_scan_bwd):
+        fn.launches = 0
+        fn.routes.clear()
+    kfedavg.fedavg_batched.launches = kfedavg.fedavg.launches = 0
+    ktpd.batch_tpd_cuda.launches = 0
+    kadamw.fused_adamw.launches = 0
+
+
+def decode_profile(torch, np_, model, params, prompts, dev, card):
+    """One decode step of a wave of ``prompts`` under ``torch.profiler``:
+    the step's host time, the device's busy time and its split by kernel
+    (one stream: kernels do not overlap). Printed, not checked."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    toks = torch.as_tensor(np_.stack(prompts)).to(dev)
+    logits, state = model.prefill_fn(params, {"tokens": toks})
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    for _ in range(2):
+        logits, state = model.decode_fn(params, state, {"token": tok})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, state = model.decode_fn(params, state, {"token": tok})
+        issued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+
+    def dev_ms(e):
+        return (getattr(e, "self_device_time_total", None) or
+                getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+
+    busy = sum(dev_ms(e) for e in kernels)
+    top = sorted(kernels, key=dev_ms, reverse=True)[:6]
+    print(f"one decode step of {len(prompts)} x {len(prompts[0])} under "
+          f"torch.profiler: host issue {issued * 1e3:.1f} ms, step "
+          f"{wall * 1e3:.1f} ms synchronised, device busy {busy:.1f} ms "
+          f"({sum(e.count for e in kernels)} launches); top: "
+          + "; ".join(f"{e.key[:50]} {dev_ms(e):.2f} ms x{e.count}"
+                      for e in top) + f" [{card}]")
+    del state, logits
+
+
+def dense_phases(torch, np_, dev, card):
+    """Phases 22 (full-width granite-8b serving on cuda, a depth cut held
+    to the CPU, a stablelm-3b wave on the padded hd-80 route) and 23
+    (federated LM rounds through ``launch/train.py`` and the batched
+    engine, cuda vs cpu). Returns each kernel's launches over the two
+    main paths: {kernel name: {path: launches}}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.registry import create_strategy
+    from repro_torch.core.hierarchy import ClientPool, Hierarchy
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.fl.orchestrator import FederatedOrchestrator
+    from repro_torch.kernels import fedavg as kfedavg
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import fused_adamw as kadamw
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru as krglru
+    from repro_torch.kernels import tpd as ktpd
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import get_model
+    from repro_torch.serving import Request, WaveScheduler
+    from repro_torch.utils.trees import tree_leaves, tree_map
+
+    sync = torch.cuda.synchronize
+    counters = (kflash, krglru, kfedavg, ktpd, kadamw)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"{held / 2**30:.2f} GiB held on the card before phase 22")
+    check(held < 8 * 2 ** 30, f"{held} bytes still held on the card "
+                              f"before phase 22")
+
+    # ---- 22. full-width granite-8b serving ------------------------------
+    cfg = get_config(DENSE_ARCH)
+    n_req = sum(n for _, n in DENSE_PROMPTS)
+    phase(f"22. full-width {DENSE_ARCH} serving on cuda: WaveScheduler("
+          f"max_batch={SERVE_MAX_BATCH}), {n_req} requests, "
+          f"{DENSE_NEW_TOKENS} new tokens each; a {DENSE_CUT_LAYERS}-layer "
+          f"depth cut vs cpu; a {PADDED_ARCH} wave (hd 80, padded)")
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(SEED), dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(8.2e9 < n_params < 8.3e9, f"{DENSE_ARCH} holds {n_params} params")
+    hd = cfg.resolved_head_dim
+    print(f"{DENSE_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads of {hd}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, rope theta "
+          f"{cfg.rope_theta:g}; {n_params} f32 params "
+          f"({n_params * 4 / 1e9:.2f} GB) drawn on the card in {init_s:.2f} "
+          f"s; compute dtype {cfg.dtype}; flash route "
+          f"{kflash.head_route(hd, torch.bfloat16)}")
+    rng = np_.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, plen).astype(np_.int32)
+               for plen, n in DENSE_PROMPTS for _ in range(n)]
+    reqs = [Request(rid=i, tokens=t, max_new_tokens=DENSE_NEW_TOKENS)
+            for i, t in enumerate(prompts)]
+
+    # each decode call's host time (it returns before the device is
+    # done: the scheduler's argmax read synchronises) and each wave's
+    # peak memory, read at the next wave's prefill and after the run
+    issue_ms, peaks = [], []
+
+    def timed_decode(p, state, batch):
+        t1 = time.perf_counter()
+        out = model.decode_fn(p, state, batch)
+        issue_ms[-1].append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    def wave_prefill(p, batch):
+        if issue_ms:
+            peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        issue_ms.append([])
+        return model.prefill_fn(p, batch)
+
+    served_model = dataclasses.replace(model, prefill_fn=wave_prefill,
+                                       decode_fn=timed_decode)
+    sched = WaveScheduler(served_model, params, max_batch=SERVE_MAX_BATCH)
+    for r in reqs:
+        sched.submit(r)
+    zero_counts(*counters)            # the counts to 0 just before the path
+    t0 = time.perf_counter()
+    served = sched.run()
+    sync()
+    serve_s = time.perf_counter() - t0
+    launched = kernel_counts(*counters)   # read just after
+    peaks.append(torch.cuda.max_memory_allocated())
+    waves = len(sched.stats)
+    serve_flash = launched["flash_attention"]
+    check(waves == len(DENSE_PROMPTS), f"{waves} waves")
+    check(serve_flash == cfg.n_layers * waves
+          and kflash.flash_attention.launches == serve_flash,
+          f"serving launched the flash routes {kflash.flash_attention.routes}"
+          f", expected {cfg.n_layers} per prefill x {waves} on "
+          f"{kflash.SM90_SOURCE.stem} only")
+    print(f"{serve_flash} flash_attention launches = {cfg.n_layers} per "
+          f"prefill x {waves} waves, all on {kflash.SM90_SOURCE.stem}.cu "
+          f"(decode steps launch none)")
+    for st, issued, peak in zip(sched.stats, issue_ms, peaks, strict=True):
+        dec_ms = (st.wall_s - st.ttft_s) / max(st.steps - 1, 1) * 1e3
+        print(f"wave {st.wave}: {st.batch} x {st.prompt_len} tokens: "
+              f"prefill {st.ttft_s * 1e3:.1f} ms (until the first tokens are "
+              f"on the host), decode {dec_ms:.2f} ms per token synchronised, "
+              f"of which the host spends {statistics.median(issued):.2f} ms "
+              f"issuing it (median of {len(issued)} steps); peak device "
+              f"memory {peak / 2**30:.2f} GiB; wave {st.wall_s:.3f} s (host "
+              f"clock) [{card}]")
+    print(f"summary() {json.dumps(sched.summary())}; whole run "
+          f"{serve_s:.3f} s")
+    decode_profile(torch, np_, model, params, prompts[:SERVE_MAX_BATCH],
+                   dev, card)
+    for r in served:
+        check(r.output is not None and len(r.output) == DENSE_NEW_TOKENS
+              and bool(np_.all((r.output >= 0)
+                               & (r.output < cfg.vocab_size))),
+              f"request {r.rid}: malformed output {r.output}")
+    for rid in DENSE_SERIAL:
+        r = reqs[rid]
+        one = WaveScheduler(model, params, max_batch=1)
+        alone = Request(rid=rid, tokens=r.tokens,
+                        max_new_tokens=DENSE_NEW_TOKENS)
+        one.submit(alone)
+        one.run()
+        same = np_.array_equal(alone.output, r.output)
+        where = "" if same else (f" from token "
+                                 f"{int(np_.argmax(alone.output != r.output))}")
+        print(f"request {rid} ({len(r.tokens)} tokens): batched output "
+              f"{'equals' if same else 'differs from'} its batch-1 serial "
+              f"decode{where}; first tokens {r.output[:6].tolist()}")
+        check(same, f"request {rid}: batched != serial")
+
+    # the depth cut: full width, DENSE_CUT_LAYERS layers, cuda vs cpu
+    cut = cfg.replace(n_layers=DENSE_CUT_LAYERS)
+    p_cut = dict(params, layers=tree_map(lambda x: x[:DENSE_CUT_LAYERS],
+                                         params["layers"]))
+    p_cpu = tree_map(lambda x: x.cpu(), p_cut)
+    toks = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (2, DEPTH_CUT_PROMPT + DENSE_CUT_STEPS)),
+        dtype=torch.int32)
+    for name in ("bfloat16", "float32"):
+        m = get_model(cut.replace(dtype=name))
+        out = {}
+        for where, p in (("cuda", p_cut), ("cpu", p_cpu)):
+            d = dev if where == "cuda" else torch.device("cpu")
+            logits, st = m.prefill_fn(
+                p, {"tokens": toks[:, :DEPTH_CUT_PROMPT].to(d)})
+            # copies: decode writes the cache it is given in place
+            got = [x.to("cpu", torch.float32, copy=True)
+                   for x in (logits, st["cache"]["k"], st["cache"]["v"])]
+            for i in range(DENSE_CUT_STEPS):
+                j = DEPTH_CUT_PROMPT + i
+                step, st = m.decode_fn(p, st, {"token": toks[:, j:j + 1]
+                                               .to(d)})
+                got.append(step.float().cpu())
+            got.append(st["cache"]["k"].float().cpu())
+            out[where] = got
+        whats = (["prefill logits", "prefill k cache", "prefill v cache"]
+                 + [f"decode step {i + 1}" for i in range(DENSE_CUT_STEPS)]
+                 + ["k cache after decode"])
+        for what, a, b in zip(whats, out["cuda"], out["cpu"], strict=True):
+            err = float((a - b).abs().max())
+            check(a.shape == b.shape and torch.allclose(
+                a, b, **LOGIT_TOL[name]),
+                f"{DENSE_ARCH} depth cut {name} {what}: cuda vs cpu {err} "
+                f"beyond {LOGIT_TOL[name]}")
+            print(f"{DENSE_ARCH} depth cut {name:8s} {what:20s}: cuda vs cpu "
+                  f"max abs diff {err:.3e} (scale {float(b.abs().max()):.2f};"
+                  f" {LOGIT_TOL[name]})")
+        del m, out
+    del p_cpu, p_cut, params, sched, served, served_model, model
+    torch.cuda.empty_cache()
+
+    # one wave of stablelm-3b at full width: hd 80, the padded bf16 route
+    cfg3 = get_config(PADDED_ARCH)
+    model3 = get_model(cfg3)
+    t0 = time.perf_counter()
+    params3 = model3.init(torch.Generator(dev).manual_seed(SEED), dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    n3 = sum(x.numel() for x in tree_leaves(params3))
+    plen, nreq = PADDED_PROMPTS
+    sched3 = WaveScheduler(model3, params3, max_batch=SERVE_MAX_BATCH)
+    for i in range(nreq):
+        sched3.submit(Request(rid=i, tokens=rng.integers(
+            0, cfg3.vocab_size, plen).astype(np_.int32),
+            max_new_tokens=PADDED_NEW_TOKENS))
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(*counters)            # the counts to 0 just before the path
+    served3 = sched3.run()
+    sync()
+    padded = kernel_counts(*counters)     # read just after
+    padded_flash = padded["flash_attention"]
+    check(padded_flash == cfg3.n_layers and padded["flash_attention_f32"]
+          == 0,
+          f"{PADDED_ARCH}: {padded_flash} sm90 flash launches, expected "
+          f"{cfg3.n_layers}")
+    check(all(len(r.output) == PADDED_NEW_TOKENS for r in served3),
+          f"{PADDED_ARCH}: malformed outputs")
+    st = sched3.stats[0]
+    dec_ms = (st.wall_s - st.ttft_s) / max(st.steps - 1, 1) * 1e3
+    print(f"{PADDED_ARCH}: {cfg3.n_layers} layers, d {cfg3.d_model}, "
+          f"{cfg3.n_heads} heads of {cfg3.resolved_head_dim} (route "
+          f"{kflash.head_route(cfg3.resolved_head_dim, torch.bfloat16)}), "
+          f"{n3} f32 params drawn in {init_s:.2f} s; one wave of {nreq} x "
+          f"{plen} tokens: prefill {st.ttft_s * 1e3:.1f} ms, decode "
+          f"{dec_ms:.2f} ms per token, {padded_flash} flash launches on "
+          f"{kflash.SM90_SOURCE.stem}.cu at width 128; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    decode_profile(torch, np_, model3, params3,
+                   [r.tokens for r in served3], dev, card)
+    del params3, sched3, served3, model3
+    torch.cuda.empty_cache()
+    serving = {k: launched[k] + padded[k] for k in launched}
+
+    # ---- 23. federated LM rounds ---------------------------------------
+    phase(f"23. federated LM rounds on cuda: launch/train.py (stablelm-1.6b "
+          f"reduced, pso, {FL_CLIENTS} clients, {FL_ROUNDS} rounds), then "
+          f"the batched engine on cuda vs cpu for {', '.join(FL_ARCHS)} "
+          f"reduced (float32)")
+    # the CPU rehearsal's count: each flash or scan call, and each one
+    # that will run a backward, counted on both devices at the entry the
+    # models call (the kernels count only their own launches)
+    calls = {}
+    fwd_flash, fwd_scan = ops.flash_attention, ops.rglru_scan
+
+    def counting(fn, name):
+        def call(*args, **kw):
+            grad = torch.is_grad_enabled() and any(
+                x.requires_grad for x in args)
+            calls[name] = calls.get(name, 0) + 1
+            calls[name + "_bwd"] = calls.get(name + "_bwd", 0) + int(grad)
+            return fn(*args, **kw)
+        return call
+
+    out_json = ROOT / "build" / "train_lm.json"
+    out_json.parent.mkdir(parents=True, exist_ok=True)
+    zero_counts(*counters)            # the counts to 0 just before the path
+    t0 = time.perf_counter()
+    code = train_main(["--arch", "stablelm-1.6b", "--strategy", "pso",
+                       "--clients", str(FL_CLIENTS), "--rounds",
+                       str(FL_ROUNDS), "--out", str(out_json)], device=dev)
+    sync()
+    train_s = time.perf_counter() - t0
+    record = json.loads(out_json.read_text())
+    losses = [r["loss"] for r in record["rounds"]]
+    check(code == 0 and len(losses) == FL_ROUNDS
+          and all(math.isfinite(x) for x in losses),
+          f"launch/train.py: exit {code}, losses {losses}")
+    by_train = kernel_counts(*counters)
+    print(f"launch/train.py --arch stablelm-1.6b (reduced, bf16 compute): "
+          f"exit {code}, {train_s:.2f} s, losses {losses}, placements "
+          f"{[r['placement'] for r in record['rounds']]}; launches "
+          f"{json.dumps({k: v for k, v in by_train.items() if v})}")
+
+    runs = {}
+    ops.flash_attention = counting(fwd_flash, "flash")
+    ops.rglru_scan = counting(fwd_scan, "scan")
+    try:
+        for dev_name in ("cuda", "cpu"):
+            if dev_name == "cuda":
+                zero_counts(*counters)    # the counts to 0 just before
+            for arch in FL_ARCHS:
+                calls.clear()
+                fl_cfg = get_config(arch).reduced().replace(dtype="float32")
+                h = Hierarchy(depth=2, width=2, trainers_per_leaf=1,
+                              n_clients=FL_CLIENTS)
+                pool = ClientPool.random(h.total_clients, seed=SEED)
+                orch = FederatedOrchestrator(
+                    get_model(fl_cfg), h, pool, make_federated_dataset(
+                        fl_cfg, h.total_clients, SEED, FL_SEQ),
+                    local_steps=FL_LOCAL_STEPS, batch_size=FL_BATCH,
+                    seed=SEED, timing="deterministic", device=dev_name)
+                # both devices start from the cuda run's initial params
+                init = tree_map(lambda x: x.cpu(), orch.params) \
+                    if dev_name == "cuda" else runs["cuda", arch][2]
+                orch.set_global(tree_map(
+                    lambda x: x.to(dev_name).clone(), init))
+                t1 = time.perf_counter()
+                res = orch.run(create_strategy("pso", h, seed=SEED),
+                               rounds=FL_ROUNDS)
+                if dev_name == "cuda":
+                    sync()
+                runs[dev_name, arch] = (res, dict(calls), init,
+                                        time.perf_counter() - t1,
+                                        tree_map(lambda x: x.cpu(),
+                                                 orch.params), h.depth)
+            if dev_name == "cuda":
+                fl_counts = kernel_counts(*counters)   # read just after
+    finally:
+        ops.flash_attention, ops.rglru_scan = fwd_flash, fwd_scan
+    engine = fl_counts
+    federated = {k: by_train[k] + engine[k] for k in engine}
+    for arch in FL_ARCHS:
+        got, got_calls, _, got_s, got_p, depth = runs["cuda", arch]
+        want, want_calls, _, want_s, want_p, _ = runs["cpu", arch]
+        check([r.placement for r in got.rounds]
+              == [r.placement for r in want.rounds]
+              and got.tpds.tolist() == want.tpds.tolist(),
+              f"{arch}: placements or TPDs differ between cuda and cpu")
+        gl = [r.loss for r in got.rounds]
+        wl = [r.loss for r in want.rounds]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(gl, wl, strict=True))
+        check(all(math.isfinite(x) for x in gl) and rel <= LOSS_RTOL,
+              f"{arch}: losses {gl} on cuda vs {wl} on cpu (rtol "
+              f"{LOSS_RTOL})")
+        outside = sum(int((~torch.isclose(a, b, **PARAM_TOL)).sum())
+                      for a, b in zip(tree_leaves(got_p), tree_leaves(want_p),
+                                      strict=True))
+        check(got_calls == want_calls,
+              f"{arch}: flash/scan calls {got_calls} on cuda, "
+              f"{want_calls} on cpu")
+        print(f"{arch} reduced f32, {FL_ROUNDS} rounds of pso: placements "
+              f"and TPDs equal to the cpu run's ({got.tpds.tolist()}); "
+              f"losses {gl} (largest rel diff to cpu {rel:.2e}, rtol "
+              f"{LOSS_RTOL}); {outside} final params outside rtol 1e-3 / "
+              f"atol 1e-5; entry calls {json.dumps(got_calls)} (equal on "
+              f"cpu); {got_s:.2f} s on cuda, {want_s:.2f} s on cpu (host "
+              f"clock) [{card}]")
+    want_calls = [runs["cpu", arch][1] for arch in FL_ARCHS]
+    expect = {
+        "flash_attention_f32": sum(c.get("flash", 0) for c in want_calls),
+        "flash_attention_bwd_f32": 3 * sum(c.get("flash_bwd", 0)
+                                           for c in want_calls),
+        "rglru_scan": sum(c.get("scan", 0) for c in want_calls),
+        "rglru_scan_bwd": sum(c.get("scan_bwd", 0) for c in want_calls),
+        "fedavg_batched": sum((1 + FL_ROUNDS) * runs["cpu", arch][5]
+                              for arch in FL_ARCHS)}
+    got_engine = {k: engine[k] for k in expect}
+    check(got_engine == expect and all(v > 0 for v in expect.values()),
+          f"batched engine on cuda launched {got_engine}, the CPU "
+          f"rehearsal's count is {expect}")
+    print(f"batched engine launches on cuda {json.dumps(got_engine)} = the "
+          f"CPU rehearsal's count (flash and scan calls at the model's "
+          f"entry, 3 launches a flash backward, (warm-up + {FL_ROUNDS} "
+          f"rounds) x tree levels of FedAvg); tpd {engine['tpd']} (the "
+          f"emulated PSO is black-box: it scores no swarm)")
+    return {k: {"granite-8b and stablelm-3b serving (phase 22)": serving[k],
+                "federated LM rounds (phase 23)": federated[k]}
+            for k in serving}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2967,9 +3440,10 @@ def main() -> int:
     training = training_phases(torch, np, dev, card)
     runner_phases(torch, np, card)
     online_phases(torch, np, card)
+    dense = dense_phases(torch, np, dev, card)
 
     k_ms, r_ms, b_ms = rows[10]
-    print(json.dumps({"kernels": [
+    kernels = [
         {"name": "tpd", "route": "cuda",
          "source": "src/repro_torch/csrc/tpd.cu",
          "replaces": "src/repro/kernels/tpd.py:75",
@@ -2991,7 +3465,14 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": flat[3]},
         *hybrid,
         *training,
-    ]}))
+    ]
+    # each path's launches, counted from 0 over it: the earlier main
+    # paths' (as named in the module docstring), then phases 22 and 23
+    for entry in kernels:
+        paths = {"phases 5-16": entry["launches"], **dense[entry["name"]]}
+        entry["launches"] = sum(paths.values())
+        entry["launches_by_path"] = paths
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

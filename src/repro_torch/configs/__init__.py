@@ -2,23 +2,30 @@
 
 ``get_config(name)`` returns the exact published configuration. The
 port carries the mlp family (the paper's own workload and its CI
-stand-in) and the hybrid family (``recurrentgemma-2b``, ROADMAP.md
-queue 1 item 11a); the reference's other language-model families come
-with item 11b, and asking for one raises until then.
+stand-in), the hybrid family (``recurrentgemma-2b``, ROADMAP.md queue 1
+item 11a) and the dense transformer family (``stablelm-1.6b``,
+``stablelm-3b``, ``granite-8b``, ``minitron-8b``, item 11b-1); the
+reference's moe, ssm, vlm and audio families come with the rest of item
+11b, and asking for one raises until then.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.configs.granite_8b import CONFIG as _granite_8b
+from repro_torch.configs.minitron_8b import CONFIG as _minitron_8b
 from repro_torch.configs.paper_mlp import CONFIG as _paper_mlp, CONFIG_SMOKE as _mlp_smoke
 from repro_torch.configs.recurrentgemma_2b import CONFIG as _recurrentgemma_2b
+from repro_torch.configs.stablelm_1_6b import CONFIG as _stablelm_1_6b
+from repro_torch.configs.stablelm_3b import CONFIG as _stablelm_3b
 
-_REGISTRY = {c.name: c for c in (_paper_mlp, _mlp_smoke, _recurrentgemma_2b)}
+_REGISTRY = {c.name: c for c in (
+    _paper_mlp, _mlp_smoke, _recurrentgemma_2b, _stablelm_1_6b,
+    _stablelm_3b, _granite_8b, _minitron_8b)}
 
 # the reference's other architectures, not ported yet
 _LM_FAMILIES = (
-    "qwen3-moe-235b-a22b", "granite-8b", "xlstm-1.3b",
-    "seamless-m4t-large-v2", "granite-moe-1b-a400m",
-    "llava-next-mistral-7b", "minitron-8b", "stablelm-3b", "stablelm-1.6b",
+    "qwen3-moe-235b-a22b", "xlstm-1.3b", "seamless-m4t-large-v2",
+    "granite-moe-1b-a400m", "llava-next-mistral-7b",
 )
 
 
@@ -26,7 +33,7 @@ def get_config(name: str) -> ModelConfig:
     if name in _LM_FAMILIES:
         raise NotImplementedError(
             f"{name!r} is a language-model family the port does not carry "
-            f"yet; the dense, moe, ssm, vlm and audio families come with "
+            f"yet; the moe, ssm, vlm and audio families come with "
             f"ROADMAP.md queue 1 item 11b")
     if name not in _REGISTRY:
         raise KeyError(f"unknown architecture {name!r}; known: "

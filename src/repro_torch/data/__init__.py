@@ -1,7 +1,8 @@
 """Synthetic data of the port: the classification set and its
-federated partitions, and the LM token stream."""
+federated partitions, and the LM token streams."""
 from repro_torch.data.synthetic import (
     FederatedDataset,
+    FederatedLMDataset,
     SyntheticClassificationDataset,
     SyntheticLMDataset,
     dirichlet_partition,
@@ -9,4 +10,5 @@ from repro_torch.data.synthetic import (
 )
 
 __all__ = ["SyntheticClassificationDataset", "SyntheticLMDataset", "FederatedDataset",
+           "FederatedLMDataset",
            "dirichlet_partition", "make_federated_dataset"]

@@ -1,15 +1,14 @@
 """Deterministic synthetic data: classification for the emulated track,
-an LM token stream for training.
+LM token streams for training and federating the language models.
 
-The port's copy of ``repro.data.synthetic`` but its federated LM stream:
-the MNIST-shaped class-conditional Gaussian set the paper's MLP trains
-on, the Dirichlet non-IID partitioner, and ``FederatedDataset`` with its
-elastic ``resize``. Everything is numpy on the host, drawn from the same
-seeds in the same order, so the same seed gives the same arrays bit for
-bit; the orchestrator moves each round's batches to the device. The LM
-token stream ``SyntheticLMDataset`` (with ``_doc_seed``) trains the
-language models; the federated LM stream (``FederatedLMDataset``) comes
-with ROADMAP.md queue 1 item 11b.
+The port's copy of ``repro.data.synthetic``: the MNIST-shaped
+class-conditional Gaussian set the paper's MLP trains on, the Dirichlet
+non-IID partitioner, ``FederatedDataset`` with its elastic ``resize``,
+the LM token stream ``SyntheticLMDataset`` and its per-client federated
+form ``FederatedLMDataset``. Everything is numpy on the host, drawn
+from the same seeds in the same order, so the same seed gives the same
+arrays bit for bit; the orchestrator moves each round's batches to the
+device.
 """
 from __future__ import annotations
 
@@ -17,6 +16,11 @@ from dataclasses import dataclass
 from typing import Iterator, Optional
 
 import numpy as np
+
+# named rng streams: every per-purpose stream in this module is an
+# explicit (seed, STREAM, ...) tuple, never a bare literal
+_EVAL_STREAM = 0xE7A1  # held-out eval shard
+
 
 def _doc_seed(*parts) -> int:
     """Deterministic 31-bit seed from mixed int/str stream parts.
@@ -228,12 +232,82 @@ class FederatedDataset:
         self.stream_hwm = hwm
 
 
+@dataclass
+class FederatedLMDataset:
+    """Per-client LM token streams (non-IID via per-client seeds and
+    disjoint document-parameter ranges) for federating the LM families.
+
+    ELASTIC: each client id maps to a *stream id* (identity until the
+    first :meth:`resize`), so a pool resize renumbering survivors keeps
+    every surviving client on its own token stream, departed streams are
+    retired for good (never recycled onto a joiner), and joiners mint
+    fresh stream ids above the high-water mark.
+    """
+    vocab_size: int
+    seq_len: int
+    n_clients_: int
+    seed: int = 0
+    frontend: Optional[tuple] = None  # (frontend_len, frontend_dim) stub
+    stream_of: Optional[list] = None  # client id -> stream id (None = identity)
+    stream_hwm: Optional[int] = None  # next fresh stream id (monotonic)
+
+    @property
+    def n_clients(self) -> int:
+        return self.n_clients_
+
+    def _stream(self, client_id: int) -> int:
+        return client_id if self.stream_of is None \
+            else self.stream_of[client_id]
+
+    def _with_frontend(self, batch: dict, rng) -> dict:
+        if self.frontend is not None:
+            fl, fd = self.frontend
+            batch["frontend"] = rng.normal(
+                scale=0.02, size=(len(batch["tokens"]), fl, fd)
+            ).astype(np.float32)
+        return batch
+
+    def client_batch(self, client_id: int, batch_size: int, step: int) -> dict:
+        stream = self._stream(client_id)
+        ds = SyntheticLMDataset(self.vocab_size, self.seq_len,
+                                seed=_doc_seed(self.seed, stream))
+        rng = np.random.default_rng((self.seed, stream, step))
+        return self._with_frontend(ds.batch(batch_size, step), rng)
+
+    def resize(self, remap: Optional[np.ndarray], new_total: int,
+               rng: Optional[np.random.Generator] = None) -> None:
+        """Reconcile client->stream ids with a pool resize (see class
+        docstring); ``rng`` is accepted for interface symmetry with
+        :meth:`FederatedDataset.resize` but never consumed — stream
+        minting is a deterministic counter."""
+        old = self.stream_of if self.stream_of is not None \
+            else list(range(self.n_clients_))
+        self.stream_of, self.stream_hwm = _mint_streams(
+            _carry_by_remap(old, remap, new_total), old, self.stream_hwm)
+        self.n_clients_ = new_total
+
+    def eval_batch(self, n: int = 256) -> dict:
+        ds = SyntheticLMDataset(self.vocab_size, self.seq_len,
+                                seed=_doc_seed(self.seed, "eval"))
+        rng = np.random.default_rng((self.seed, _EVAL_STREAM))
+        return self._with_frontend(ds.batch(n, 0), rng)
+
+    def client_weights(self) -> np.ndarray:
+        return np.full(self.n_clients_, 1.0 / self.n_clients_, np.float32)
+
+
 def make_federated_dataset(model_cfg, n_clients: int, seed: int = 0,
-                           alpha: float = 0.5):
-    """Family-appropriate federated dataset for a model config (the mlp
-    family; the token streams come with the LM families)."""
+                           seq_len: int = 64, alpha: float = 0.5):
+    """Family-appropriate federated dataset for a model config: the
+    Dirichlet-partitioned classification set for the mlp family, token
+    streams of ``seq_len`` for the LM families (with a stub frontend
+    embedding for vlm and audio)."""
     if model_cfg.family == "mlp":
         return FederatedDataset.make(n_clients, alpha=alpha, seed=seed)
-    raise NotImplementedError(
-        f"no federated dataset for family {model_cfg.family!r} yet; the "
-        f"LM token streams come with ROADMAP.md queue 1 item 11b")
+    frontend = None
+    if model_cfg.family in ("vlm", "audio"):
+        frontend = (model_cfg.frontend_len,
+                    model_cfg.frontend_dim or model_cfg.d_model)
+    return FederatedLMDataset(
+        vocab_size=model_cfg.vocab_size, seq_len=seq_len,
+        n_clients_=n_clients, seed=seed, frontend=frontend)

@@ -107,12 +107,15 @@ def _value_and_grad(loss_fn, params, batch):
     """(loss, grads) of ``loss_fn(params, batch)[0]`` summed over any
     leading client dim: with client-stacked params, each client's loss
     depends on its own params only, so the sum's gradient is every
-    client's own gradient."""
+    client's own gradient. A leaf the loss does not read (an empty
+    stack: a hybrid model with no full triple) gets a zero gradient, as
+    ``jax.grad`` gives."""
     leaves, rebuild = tree_flatten(params)
     live = [x.detach().requires_grad_() for x in leaves]
     loss, _ = loss_fn(rebuild(live), batch)
-    grads = torch.autograd.grad(loss.sum(), live)
-    return loss.detach(), rebuild(list(grads))
+    grads = torch.autograd.grad(loss.sum(), live, allow_unused=True)
+    return loss.detach(), rebuild([torch.zeros_like(x) if g is None else g
+                                   for x, g in zip(live, grads, strict=True)])
 
 
 class FederatedOrchestrator:

@@ -3,11 +3,11 @@
 
 Prefills a batch of prompts and decodes tokens auto-regressively through
 the KV cache / recurrent state with the model's ``prefill_fn`` and
-``decode_fn``. The flags are the reference's; the default architecture
-is the one LM family the port carries. It runs on the card:
+``decode_fn``. The flags and the default
+architecture (stablelm-1.6b) are the reference's. It runs on the card:
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch recurrentgemma-2b --batch 4 --prompt-len 32 --new-tokens 16
+        --arch stablelm-1.6b --batch 4 --prompt-len 32 --new-tokens 16
 
 and on the host when a caller asks for it, as every port entry point:
 
@@ -30,7 +30,7 @@ from repro_torch.models import get_model
 
 def main(argv: Optional[Sequence[str]] = None, device="cuda") -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="recurrentgemma-2b")
+    ap.add_argument("--arch", default="stablelm-1.6b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)

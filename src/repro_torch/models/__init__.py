@@ -1,22 +1,32 @@
-"""Model registry of the port: family -> builder (the mlp and hybrid
-families so far; the other LM families come with ROADMAP.md queue 1
-item 11b)."""
+"""Model registry of the port: family -> builder (the mlp, hybrid and
+dense families so far; the moe, ssm, vlm and audio families come with
+ROADMAP.md queue 1 item 11b)."""
 from __future__ import annotations
 
+from typing import Optional
+
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.api import Model
+from repro_torch.models.api import Model, make_grad_step, make_serve_step, make_train_step
 from repro_torch.models.mlp import build_mlp_model
 from repro_torch.models.rglru import build_rglru_model
+from repro_torch.models.sharding import UNSHARDED, ShardingPolicy
+from repro_torch.models.transformer import build_decoder_model
 
-_BUILDERS = {"mlp": build_mlp_model, "hybrid": build_rglru_model}
+_BUILDERS = {"dense": build_decoder_model, "hybrid": build_rglru_model,
+             "mlp": build_mlp_model}
 
 
-def get_model(cfg: ModelConfig) -> Model:
+def get_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
+              window: Optional[int] = None) -> Model:
+    if policy.mesh is not None:
+        raise NotImplementedError(
+            "mesh sharding policies come with ROADMAP.md queue 1 item 12")
     if cfg.family not in _BUILDERS:
         raise NotImplementedError(
             f"no builder for family {cfg.family!r} in the port yet; the "
             f"other LM families come with ROADMAP.md queue 1 item 11b")
-    return _BUILDERS[cfg.family](cfg)
+    return _BUILDERS[cfg.family](cfg, policy, window=window)
 
 
-__all__ = ["Model", "get_model"]
+__all__ = ["Model", "get_model", "make_train_step", "make_grad_step",
+           "make_serve_step", "ShardingPolicy", "UNSHARDED"]

@@ -6,6 +6,14 @@ the serving scheduler program against this interface only. The
 reference's sharding fields come with the multi-device paths (ROADMAP.md
 queue 1 item 12).
 
+A client dim. The batched round engine trains every client at once: it
+hands the loss a client-stacked param tree and batch (a leading ``C``
+dim on every leaf) and takes the gradient of the summed losses, so each
+loss must keep that dim. The MLP does so natively (its products become
+batched products); the language-model families get it from
+:func:`per_client_loss`, which runs the family's one-client loss on each
+client's slice, as the reference's ``jax.vmap`` does.
+
 The train step keeps the reference's contract, ``(params, opt_state,
 batch) -> (params, opt_state, metrics)``, but not its copies: the params
 are views of one flat buffer (:func:`flat_params`), each leaf's ``.grad``
@@ -29,6 +37,8 @@ from repro_torch.utils.trees import (
     tree_flatten,
     tree_layout,
     tree_leaves,
+    tree_stack,
+    tree_unstack,
     unflatten_tree,
 )
 
@@ -48,6 +58,25 @@ class Model:
     decode_fn: Optional[Callable] = None
     # (batch_size, cache_len, device) -> a zero decode state
     init_decode_state: Optional[Callable] = None
+
+
+def per_client_loss(loss_fn):
+    """A language model's ``loss_fn`` (one client's params and batch ->
+    (loss, metrics)) given the Model contract's client dim: when
+    ``batch["tokens"]`` is (C, B, S), params and batch carry a leading
+    client dim C, and the loss runs on each client's slice (one
+    ``unbind`` per leaf), its losses and metrics stacked to (C,). On
+    (B, S) tokens it is ``loss_fn`` itself."""
+
+    def loss(params, batch):
+        if batch["tokens"].dim() == 2:
+            return loss_fn(params, batch)
+        outs = [loss_fn(p, b) for p, b in zip(
+            tree_unstack(params), tree_unstack(batch), strict=True)]
+        return (torch.stack([out[0] for out in outs]),
+                tree_stack([out[1] for out in outs]))
+
+    return loss
 
 
 def flat_params(params):
@@ -98,6 +127,17 @@ def make_train_step(model: Model, optimizer):
         return params, opt_state, metrics
 
     return train_step
+
+
+def make_serve_step(model: Model):
+    """(params, state, batch) -> (logits, state): one decode token."""
+    if model.decode_fn is None:
+        raise ValueError(f"{model.config.name} has no decode step")
+
+    def serve_step(params, state, batch):
+        return model.decode_fn(params, state, batch)
+
+    return serve_step
 
 
 def make_grad_step(model: Model):

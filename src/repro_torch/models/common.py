@@ -15,6 +15,15 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.utils.trees import tree_flatten, tree_leaves
+
+# decode runs its batch padded to a multiple of this many rows, so a wave
+# of up to DECODE_ROWS requests multiplies at one shape whatever its
+# size, and each request's logits are the bits a batch of one would give
+# (BLAS and torch's reductions choose their order of sums by shape;
+# prefill gets the same from matmul's per-sequence products)
+DECODE_ROWS = 8
+
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -45,10 +54,28 @@ def embed_init(generator: torch.Generator, shape, dtype) -> torch.Tensor:
     return x.normal_(generator=generator).mul_(0.02).to(dtype)
 
 
+def init_stacked(make, n: int):
+    """``n`` trees from ``make()``, drawn in order, stacked on a leading
+    dim (the reference's ``jax.vmap`` of an init over ``n`` keys). Each
+    tree is copied into its slot as soon as it is drawn, so the peak is
+    the stack and one tree; ``n`` = 0 still draws one, and gives a
+    leading dim of 0, as ``jax.vmap`` over no keys does."""
+    first = make()
+    leaves, rebuild = tree_flatten(first)
+    out = [torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+           for x in leaves]
+    for i in range(n):
+        tree = first if i == 0 else make()
+        for slot, x in zip(out, tree_leaves(tree), strict=True):
+            slot[i].copy_(x)
+        del tree
+    return rebuild(out)
+
+
 def weak_scale(x: torch.Tensor, s: float) -> torch.Tensor:
     """``x * s`` with ``s`` rounded to ``x``'s dtype first, as JAX does
     for a Python scalar."""
-    return x * torch.tensor(s, dtype=x.dtype, device=x.device)
+    return x * torch.tensor(s, dtype=x.dtype)   # a host scalar: no copy
 
 
 # ---------------------------------------------------------------------------
@@ -71,20 +98,35 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    # a fill on the device: a host tensor copied there would wait for the
+    # device's queue (a pageable copy synchronises the stream)
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exps)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
+                device) -> tuple:
+    """(cos, sin) of RoPE's angles at ``positions`` (broadcastable to
+    (..., S), on ``device``: from the host they would be a synchronising
+    copy), each (..., S, 1, head_dim // 2) float32. They depend on the
+    positions only, so a stack of layers computes them once."""
+    freqs = rope_frequencies(head_dim, theta, device)          # (half,)
+    angles = positions.to(device, torch.float32)[..., None] * freqs
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def rotate(x: torch.Tensor, tables: tuple) -> torch.Tensor:
+    """x (..., S, H, head_dim) rotated by :func:`rope_tables`."""
+    cos, sin = tables
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., S, H, head_dim); positions: broadcastable to (..., S)."""
-    freqs = rope_frequencies(x.shape[-1], theta, x.device)     # (half,)
-    angles = positions.to(x.device, torch.float32)[..., None] * freqs
-    cos = torch.cos(angles)[..., None, :]                       # (..., S, 1, half)
-    sin = torch.sin(angles)[..., None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    return rotate(x, rope_tables(positions, x.shape[-1], theta, x.device))
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +173,27 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def pad_rows(x: torch.Tensor, rows: int, dim: int = 0) -> torch.Tensor:
+    """``x`` with zero rows appended along ``dim`` up to ``rows``."""
+    extra = rows - x.shape[dim]
+    if extra == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = extra
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+def row_bucket(b: int) -> int:
+    """``b`` rounded up to a multiple of :data:`DECODE_ROWS`."""
+    return -(-b // DECODE_ROWS) * DECODE_ROWS
+
+
+def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Tied unembedding: logits over the padded vocab (``x`` times the
+    embedding table, transposed)."""
+    return matmul(x, params["table"].t())
+
+
 def unembed_untied(params: dict, x: torch.Tensor) -> torch.Tensor:
     return matmul(x, params["proj"])
 
@@ -146,6 +209,12 @@ def init_swiglu(generator, d_model: int, d_ff: int, dtype, device) -> dict:
     }
 
 
+def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
+    gate = F.silu(matmul(x, params["w_gate"]))
+    up = matmul(x, params["w_up"])
+    return matmul(gate * up, params["w_down"])
+
+
 def init_geglu(generator, d_model: int, d_ff: int, dtype, device) -> dict:
     return init_swiglu(generator, d_model, d_ff, dtype, device)
 
@@ -159,6 +228,18 @@ def geglu(params: dict, x: torch.Tensor) -> torch.Tensor:
     g = gelu(matmul(x, params["w_gate"]))
     up = matmul(x, params["w_up"])
     return matmul(g * up, params["w_down"])
+
+
+def init_mlp(generator, d_model: int, d_ff: int, dtype, device) -> dict:
+    return {
+        "w_up": dense_init(generator, (d_model, d_ff), dtype).to(device),
+        "w_down": dense_init(generator, (d_ff, d_model), dtype).to(device),
+    }
+
+
+def gelu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    h = gelu(matmul(x, params["w_up"]))
+    return matmul(h, params["w_down"])
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common
 from repro_torch.models.api import Model
+from repro_torch.models.sharding import UNSHARDED, ShardingPolicy
 
 
 def init_mlp_params(generator: torch.Generator, cfg: ModelConfig,
@@ -61,7 +62,10 @@ def mlp_loss(params, batch) -> tuple:
     return loss, {"acc": acc}
 
 
-def build_mlp_model(cfg: ModelConfig) -> Model:
+def build_mlp_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
+                    window=None) -> Model:
+    """The MLP; ``policy`` and ``window`` are taken and ignored, as the
+    reference's builder does."""
     return Model(
         config=cfg,
         init=lambda generator, device="cuda": init_mlp_params(

@@ -51,17 +51,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib, common
-from repro_torch.models.api import Model
-from repro_torch.utils.trees import tree_flatten, tree_map
+from repro_torch.models.api import Model, per_client_loss
+from repro_torch.models.sharding import UNSHARDED, ShardingPolicy
+from repro_torch.utils.trees import tree_map, tree_stack, tree_unstack
 
 RGLRU_C = 8.0
 CONV_WIDTH = 4
-# decode runs its batch padded to a multiple of this many rows, so a wave
-# of up to DECODE_ROWS requests multiplies at one shape whatever its
-# size, and each request's logits are the bits a batch of one would give
-# (BLAS and torch's reductions choose their order of sums by shape;
-# prefill gets the same from common.matmul's per-sequence products)
-DECODE_ROWS = 8
 
 
 # ---------------------------------------------------------------------------
@@ -111,42 +106,6 @@ def _pattern_counts(cfg: ModelConfig):
     return n_triples, n_tail
 
 
-def _stack(trees):
-    return tree_map(lambda *xs: torch.stack(xs), *trees)
-
-
-def _stacked(make, n: int):
-    """``n`` trees from ``make()`` stacked on a leading dim (a leading
-    dim of 0 when ``n`` is 0, as ``jax.vmap`` over no keys gives)."""
-    st = _stack([make() for _ in range(max(n, 1))])
-    return st if n else tree_map(lambda x: x[:0], st)
-
-
-def _layers(stacked) -> list:
-    """A stacked tree as one tree per layer, from one ``unbind`` per
-    leaf."""
-    leaves, rebuild = tree_flatten(stacked)
-    if not leaves:
-        return []
-    per_leaf = [x.unbind(0) for x in leaves]
-    return [rebuild([parts[i] for parts in per_leaf])
-            for i in range(leaves[0].shape[0])]
-
-
-def _pad_rows(x: torch.Tensor, rows: int, dim: int = 0) -> torch.Tensor:
-    """``x`` with zero rows appended along ``dim`` up to ``rows``."""
-    extra = rows - x.shape[dim]
-    if extra == 0:
-        return x
-    shape = list(x.shape)
-    shape[dim] = extra
-    return torch.cat([x, x.new_zeros(shape)], dim=dim)
-
-
-def _row_bucket(b: int) -> int:
-    return -(-b // DECODE_ROWS) * DECODE_ROWS
-
-
 def init_rglru_params(generator: torch.Generator, cfg: ModelConfig,
                       device="cuda") -> dict:
     """Random params in the reference's layout, drawn from ``generator``
@@ -157,7 +116,7 @@ def init_rglru_params(generator: torch.Generator, cfg: ModelConfig,
     params = {
         "embed": common.init_embedding(generator, cfg.padded_vocab,
                                        cfg.d_model, dtype, dev),
-        "triples": _stacked(lambda: {
+        "triples": common.init_stacked(lambda: {
             "rec1": _init_recurrent_block(generator, cfg, dtype, dev),
             "rec2": _init_recurrent_block(generator, cfg, dtype, dev),
             "attn": _init_attn_block(generator, cfg, dtype, dev),
@@ -167,7 +126,7 @@ def init_rglru_params(generator: torch.Generator, cfg: ModelConfig,
                                        cfg.d_model, dtype, dev),
     }
     if n_tail:
-        params["tail"] = _stacked(
+        params["tail"] = common.init_stacked(
             lambda: _init_recurrent_block(generator, cfg, dtype, dev), n_tail)
     return params
 
@@ -262,13 +221,13 @@ def local_attn_block(block, x, cfg: ModelConfig, cache=None, pos=None,
     k = common.matmul(xn, block["wk"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
     v = common.matmul(xn, block["wv"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
     if decode:
-        posv = torch.full((1,), pos, dtype=torch.int32)
+        posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
         q = common.apply_rope(q, posv, cfg.rope_theta)
         k = common.apply_rope(k, posv, cfg.rope_theta)
         out_state = attn_lib.cache_update(cache, k, v, pos)
         o = attn_lib.decode_attention(q, out_state, pos)
     else:
-        positions = torch.arange(s)
+        positions = torch.arange(s, device=x.device)
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
         if cfg.local_attn_window < s:
@@ -309,7 +268,10 @@ def _zero_rec_state(batch, dr, dt, dev):
                                 device=dev)}
 
 
-def build_rglru_model(cfg: ModelConfig) -> Model:
+def build_rglru_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
+                      window=None) -> Model:
+    """The hybrid model; ``policy`` and ``window`` are taken and ignored,
+    as the reference's builder does (its window is the config's)."""
     dr = cfg.rglru_dim or cfg.d_model
     dt = getattr(torch, cfg.dtype)
     n_triples, n_tail = _pattern_counts(cfg)
@@ -333,9 +295,9 @@ def build_rglru_model(cfg: ModelConfig) -> Model:
     def forward(params, tokens):
         x = common.embed(params["embed"], tokens).to(dt)
         x = common.weak_scale(x, embed_scale)
-        for triple in _layers(params["triples"]):
+        for triple in tree_unstack(params["triples"]):
             x = run(triple_body, triple, x)
-        for block in _layers(params.get("tail", {})):
+        for block in tree_unstack(params.get("tail", {})):
             x = run(tail_body, block, x)
         return common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
 
@@ -348,11 +310,11 @@ def build_rglru_model(cfg: ModelConfig) -> Model:
     # ---------------- decode ----------------
     def decode_fn(params, state, batch):
         b = batch["token"].shape[0]
-        rows = _row_bucket(b)
+        rows = common.row_bucket(b)
         padded = {k: v if k == "pos" else tree_map(
-            lambda z: _pad_rows(z, rows, dim=1), v) for k, v in state.items()}
+            lambda z: common.pad_rows(z, rows, dim=1), v) for k, v in state.items()}
         logits, new_state = decode_rows(
-            params, padded, _pad_rows(batch["token"], rows))
+            params, padded, common.pad_rows(batch["token"], rows))
         return logits[:b], {k: v if k == "pos" else tree_map(
             lambda z: z[:, :b], v) for k, v in new_state.items()}
 
@@ -361,8 +323,8 @@ def build_rglru_model(cfg: ModelConfig) -> Model:
         x = common.weak_scale(x, embed_scale)
         pos = state["pos"] + 1     # the incoming token's position
         triple_states = []
-        for triple, st in zip(_layers(params["triples"]),
-                              _layers(state["triples"]), strict=True):
+        for triple, st in zip(tree_unstack(params["triples"]),
+                              tree_unstack(state["triples"]), strict=True):
             x, r1 = recurrent_block(triple["rec1"], x, cfg, st["rec1"],
                                     decode=True)
             x, r2 = recurrent_block(triple["rec2"], x, cfg, st["rec2"],
@@ -371,15 +333,15 @@ def build_rglru_model(cfg: ModelConfig) -> Model:
                                         cache=st["attn"], pos=pos,
                                         decode=True)
             triple_states.append({"rec1": r1, "rec2": r2, "attn": cache})
-        new_state = {"triples": _stack(triple_states) if triple_states
+        new_state = {"triples": tree_stack(triple_states) if triple_states
                      else state["triples"], "pos": pos}
         if n_tail:
             tail_states = []
-            for block, st in zip(_layers(params["tail"]),
-                                 _layers(state["tail"]), strict=True):
+            for block, st in zip(tree_unstack(params["tail"]),
+                                 tree_unstack(state["tail"]), strict=True):
                 x, r = recurrent_block(block, x, cfg, st, decode=True)
                 tail_states.append(r)
-            new_state["tail"] = _stack(tail_states)
+            new_state["tail"] = tree_stack(tail_states)
         x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         logits = common.unembed_untied(params["lm_head"], x)
         return logits, new_state
@@ -391,7 +353,7 @@ def build_rglru_model(cfg: ModelConfig) -> Model:
         # decode cast first)
         x = (common.embed(params["embed"], tokens) * embed_scale).to(dt)
         triple_states = []
-        for triple in _layers(params["triples"]):
+        for triple in tree_unstack(params["triples"]):
             x, st1 = recurrent_block(triple["rec1"], x, cfg)
             x, st2 = recurrent_block(triple["rec2"], x, cfg)
             x, (k, v) = local_attn_block(triple["attn"], x, cfg)
@@ -399,20 +361,20 @@ def build_rglru_model(cfg: ModelConfig) -> Model:
                                   "attn": _ring_cache(
                                       k, v, cfg.local_attn_window)})
         # pos: the last prompt token's position; decode writes at pos + 1
-        state = {"triples": _stack(triple_states) if triple_states else
+        state = {"triples": tree_stack(triple_states) if triple_states else
                  zero_state(tokens.shape[0], cfg.local_attn_window,
                             tokens.device)["triples"],
                  "pos": s - 1}
         if n_tail:
             tail_states = []
-            for block in _layers(params["tail"]):
+            for block in tree_unstack(params["tail"]):
                 x, st = recurrent_block(block, x, cfg)
                 tail_states.append(st)
-            state["tail"] = _stack(tail_states)
+            state["tail"] = tree_stack(tail_states)
         x = common.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
         b = x.shape[0]
         logits = common.unembed_untied(params["lm_head"],
-                                       _pad_rows(x, _row_bucket(b)))[:b]
+                                       common.pad_rows(x, common.row_bucket(b)))[:b]
         return logits, state
 
     def zero_state(batch_size: int, cache_len: int, dev):
@@ -441,6 +403,7 @@ def build_rglru_model(cfg: ModelConfig) -> Model:
         config=cfg,
         init=lambda generator, device="cuda": init_rglru_params(
             generator, cfg, device),
-        loss_fn=loss_fn, prefill_fn=prefill_fn, decode_fn=decode_fn,
+        loss_fn=per_client_loss(loss_fn), prefill_fn=prefill_fn,
+        decode_fn=decode_fn,
         init_decode_state=init_decode_state,
     )

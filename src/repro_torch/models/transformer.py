@@ -1,0 +1,329 @@
+"""Decoder-only transformer, the dense family (stablelm-1.6b, stablelm-3b,
+granite-8b, minitron-8b): the port of ``repro.models.transformer``.
+
+Each block is pre-norm: RMSNorm, self-attention with RoPE and GQA
+(``n_kv_heads`` kv heads shared by groups of query heads), a residual
+add, RMSNorm, a SwiGLU FFN, a residual add. The residual stream runs in
+``cfg.dtype``; the attention products run in that dtype, and the FFN
+and ``lm_head`` products in the promoted dtype of activations and
+float32 params (float32), as the reference's ``jnp.einsum`` promotes.
+Every product goes through ``common.matmul``, which multiplies a prompt
+one sequence at a time so a sequence's bits do not depend on its wave.
+
+Params keep the reference's layout: the layers stacked on a leading
+``n_layers`` dim under ``"layers"``, so a reference tree crosses over
+unchanged (``core.state.params_from_numpy``). The reference's
+``lax.scan`` over them is a Python loop over one ``unbind`` of the
+stack; with ``cfg.remat`` the training forward runs each layer under
+``torch.utils.checkpoint``, as the reference wraps its scan body in
+``jax.checkpoint``.
+
+Prefill attention goes through ``models.attention`` (the flash kernel
+on the card, its plain version on the CPU): causal, or sliding-window
+when ``window`` is shorter than the (padded) prompt. Decode writes the
+new token's keys and values at ``state["pos"] + 1`` into a ring cache,
+in place, and attends to every written slot, as the reference's does
+(its decode applies no window). Prefill pads the prompt as the
+reference does (:func:`_pad_len`), keeps the pads' keys and values in
+the cache, adds ``PREFILL_CACHE_MARGIN`` empty slots for decode, and
+sets ``pos`` to the last real token's position, so the cache shapes and
+``pos`` are the reference's. Decode runs its rows padded to
+``common.DECODE_ROWS`` (the caches keep B rows; attention reads each
+layer's padded to the step's rows) and prefill's last-token logits
+likewise, so a request's tokens are the bits a batch of one gives (the
+serving scheduler's batched == serial property).
+
+The moe branch (ROADMAP.md queue 1 item 11b-2), the vlm frontend (item
+11b-4) and the spec rules (item 12) come later.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_lib, common
+from repro_torch.models.api import Model, per_client_loss
+from repro_torch.models.sharding import UNSHARDED, ShardingPolicy
+from repro_torch.utils.trees import tree_unstack
+
+# decode slots appended to a prefill cache (the ring wraps beyond this)
+PREFILL_CACHE_MARGIN = 64
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def _init_attn(gen, cfg: ModelConfig, dtype, dev) -> dict:
+    hd = cfg.resolved_head_dim
+    d = cfg.d_model
+    return {
+        "wq": common.dense_init(gen, (d, cfg.n_heads * hd), dtype).to(dev),
+        "wk": common.dense_init(gen, (d, cfg.n_kv_heads * hd), dtype).to(dev),
+        "wv": common.dense_init(gen, (d, cfg.n_kv_heads * hd), dtype).to(dev),
+        "wo": common.dense_init(gen, (cfg.n_heads * hd, d), dtype).to(dev),
+    }
+
+
+def _init_layer(gen, cfg: ModelConfig, dtype, dev) -> dict:
+    return {
+        "ln1": common.init_rmsnorm(cfg.d_model, dtype, dev),
+        "ln2": common.init_rmsnorm(cfg.d_model, dtype, dev),
+        "attn": _init_attn(gen, cfg, dtype, dev),
+        "ffn": common.init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype, dev),
+    }
+
+
+def init_decoder_params(generator: torch.Generator, cfg: ModelConfig,
+                        device="cuda") -> dict:
+    """Random params in the reference's layout, drawn from ``generator``
+    on its own device and placed on ``device``."""
+    dtype = getattr(torch, cfg.param_dtype)
+    dev = resolve_device(device)
+    params = {
+        "embed": common.init_embedding(generator, cfg.padded_vocab,
+                                       cfg.d_model, dtype, dev),
+        "layers": common.init_stacked(
+            lambda: _init_layer(generator, cfg, dtype, dev), cfg.n_layers),
+        "ln_f": common.init_rmsnorm(cfg.d_model, dtype, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = common.init_unembed(
+            generator, cfg.padded_vocab, cfg.d_model, dtype, dev)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+def _rope(cfg: ModelConfig, positions):
+    """RoPE's tables at ``positions``, shared by every layer."""
+    return common.rope_tables(positions, cfg.resolved_head_dim,
+                              cfg.rope_theta, positions.device)
+
+
+def _project_qkv(layer_attn: dict, xn, cfg: ModelConfig, rope):
+    """Rotated q (B, S, Hq, hd) and k, v (B, S, Hkv, hd) of the normed
+    stream ``xn``, in the compute dtype; ``rope`` from :func:`_rope`."""
+    b, s = xn.shape[:2]
+    hd = cfg.resolved_head_dim
+    dt = getattr(torch, cfg.dtype)
+    xc = xn.to(dt)
+    q = common.matmul(xc, layer_attn["wq"].to(dt)).reshape(
+        b, s, cfg.n_heads, hd)
+    k = common.matmul(xc, layer_attn["wk"].to(dt)).reshape(
+        b, s, cfg.n_kv_heads, hd)
+    v = common.matmul(xc, layer_attn["wv"].to(dt)).reshape(
+        b, s, cfg.n_kv_heads, hd)
+    return common.rotate(q, rope), common.rotate(k, rope), v
+
+
+def _out_proj(layer_attn: dict, o, cfg: ModelConfig, like):
+    b, s = o.shape[:2]
+    dt = getattr(torch, cfg.dtype)
+    o = o.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim)
+    return common.matmul(o, layer_attn["wo"].to(dt)).to(like.dtype)
+
+
+def attention_block(layer_attn: dict, x, cfg: ModelConfig, rope,
+                    window: Optional[int]):
+    """Self-attention over the full (already-embedded, normed) sequence;
+    returns the block's output and its rotated keys and values."""
+    s = x.shape[1]
+    q, k, v = _project_qkv(layer_attn, x, cfg, rope)
+    if window is not None and window < s:
+        o = attn_lib.windowed_attention(q, k, v, window=window)
+    else:
+        o = attn_lib.causal_attention(q, k, v)
+    return _out_proj(layer_attn, o, cfg, x), k, v
+
+
+def _ffn(layer: dict, x, cfg: ModelConfig):
+    hn = common.rmsnorm(layer["ln2"], x, cfg.norm_eps)
+    return common.swiglu(layer["ffn"], hn.to(getattr(torch, cfg.dtype)))
+
+
+def block(layer: dict, x, cfg: ModelConfig, rope, window: Optional[int]):
+    """One layer over the residual stream ``x``; returns the new stream
+    and the layer's keys and values (the cache prefill keeps)."""
+    h, k, v = attention_block(
+        layer["attn"], common.rmsnorm(layer["ln1"], x, cfg.norm_eps), cfg,
+        rope, window)
+    x = x + h
+    x = x + _ffn(layer, x, cfg).to(x.dtype)
+    return x, k, v
+
+
+def decoder_forward(params: dict, embeds, cfg: ModelConfig,
+                    window: Optional[int]):
+    """The layer stack over input embeddings, then the final norm."""
+    rope = _rope(cfg, torch.arange(embeds.shape[1], device=embeds.device))
+
+    def body(layer, x):
+        return block(layer, x, cfg, rope, window)[0]
+
+    x = embeds
+    for layer in tree_unstack(params["layers"]):
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(body, layer, x, use_reentrant=False)
+        else:
+            x = body(layer, x)
+    return common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+
+
+def logits_fn(params: dict, x, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        return common.unembed(params["embed"], x)
+    return common.unembed_untied(params["lm_head"], x)
+
+
+def _pad_len(n: int) -> int:
+    """The reference's padded prompt length: a multiple of 256 from 256
+    tokens (its exact-FLOP causal halving), else the next even length."""
+    if n >= 256:
+        return ((n + 255) // 256) * 256
+    return n + (n % 2)
+
+
+def embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
+    """Token embedding, zero-padded to :func:`_pad_len`, in the compute
+    dtype. Returns (embeds, n_prefix, n_pad): positions [n_prefix,
+    n_prefix + S_text) carry the text (n_prefix is 0 without a vlm
+    frontend, which comes with ROADMAP.md queue 1 item 11b-4)."""
+    x = common.embed(params["embed"], batch["tokens"])
+    n_pad = _pad_len(x.shape[1]) - x.shape[1]
+    if n_pad:
+        x = F.pad(x, (0, 0, 0, n_pad))
+    return x.to(getattr(torch, cfg.dtype)), 0, n_pad
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+def make_loss_fn(cfg: ModelConfig, window: Optional[int]):
+    """(params, batch) -> (loss, metrics) for one client."""
+
+    def loss_fn(params, batch):
+        x, n_prefix, _ = embed_inputs(params, batch, cfg)
+        x = decoder_forward(params, x, cfg, window)
+        s_text = batch["tokens"].shape[1]
+        logits = logits_fn(params, x[:, n_prefix:n_prefix + s_text], cfg)
+        loss = common.softmax_xent(logits, batch["labels"], cfg.vocab_size)
+        return loss, {"xent": loss}
+
+    return loss_fn
+
+
+# ---------------------------------------------------------------------------
+# decode (serve_step)
+# ---------------------------------------------------------------------------
+def make_decode_fn(cfg: ModelConfig):
+    """One token through the stack with per-layer KV caches.
+
+    state = {"cache": {"k", "v": (L, B, T, Hkv, hd)}, "pos": int}, pos
+    the last written token's position; batch = {"token": (B, 1) int32}.
+    The token's keys and values are written into the given state's
+    caches in place, and the returned state holds those caches with
+    ``pos`` advanced: a state is decoded from once (the serving
+    scheduler's use), not kept to decode from again.
+    """
+    dt = getattr(torch, cfg.dtype)
+
+    def decode_fn(params, state, batch):
+        b = batch["token"].shape[0]
+        rows = common.row_bucket(b)
+        cache = state["cache"]
+        pos = state["pos"] + 1   # the incoming token's position
+        slot = pos % cache["k"].shape[2]
+        x = common.embed(params["embed"], common.pad_rows(
+            batch["token"], rows)).to(dt)                     # (R, 1, D)
+        rope = _rope(cfg, torch.full((1,), pos, dtype=torch.int32,
+                                     device=x.device))
+        # attention's float32 operands at the step's rows, one layer's
+        # cache at a time (the rows past b stay zero)
+        kv32 = {n: torch.zeros((rows,) + cache[n].shape[2:],
+                               dtype=torch.float32, device=x.device)
+                for n in ("k", "v")}
+        for i, layer in enumerate(tree_unstack(params["layers"])):
+            q, k, v = _project_qkv(
+                layer["attn"], common.rmsnorm(layer["ln1"], x, cfg.norm_eps),
+                cfg, rope)
+            cache["k"][i, :, slot] = k[:b, 0]
+            cache["v"][i, :, slot] = v[:b, 0]
+            for n in ("k", "v"):
+                kv32[n][:b] = cache[n][i]
+            o = attn_lib.decode_attention(q, kv32, pos)
+            x = x + _out_proj(layer["attn"], o, cfg, x)
+            x = x + _ffn(layer, x, cfg).to(x.dtype)
+        x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        return logits_fn(params, x, cfg)[:b], {"cache": cache, "pos": pos}
+
+    return decode_fn
+
+
+def make_init_decode_state(cfg: ModelConfig):
+    def init_state(batch_size: int, cache_len: int, device="cuda"):
+        shape = (cfg.n_layers, batch_size, cache_len, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        dev = resolve_device(device)
+        dt = getattr(torch, cfg.dtype)
+        return {"cache": {k: torch.zeros(shape, dtype=dt, device=dev)
+                          for k in ("k", "v")},
+                "pos": cache_len - 1}
+    return init_state
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+def make_prefill_fn(cfg: ModelConfig, window: Optional[int]):
+    """The full-prompt forward that also fills the KV cache: returns the
+    last real token's logits (B, 1, V_pad) and the decode state."""
+
+    def prefill_fn(params, batch):
+        x, _, n_pad = embed_inputs(params, batch, cfg)
+        b, s = x.shape[:2]
+        shape = (cfg.n_layers, b, s + PREFILL_CACHE_MARGIN, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        cache = {k: torch.zeros(shape, dtype=x.dtype, device=x.device)
+                 for k in ("k", "v")}
+        rope = _rope(cfg, torch.arange(s, device=x.device))
+        for i, layer in enumerate(tree_unstack(params["layers"])):
+            x, k, v = block(layer, x, cfg, rope, window)
+            cache["k"][i, :, :s] = k
+            cache["v"][i, :, :s] = v
+        x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        last = x[:, s - n_pad - 1:s - n_pad]
+        logits = logits_fn(params, common.pad_rows(
+            last, common.row_bucket(b)), cfg)[:b]
+        return logits, {"cache": cache, "pos": s - n_pad - 1}
+
+    return prefill_fn
+
+
+# ---------------------------------------------------------------------------
+# builder
+# ---------------------------------------------------------------------------
+def build_decoder_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
+                        window: Optional[int] = None) -> Model:
+    """The dense decoder; ``window`` (else ``cfg.sliding_window``) bounds
+    prefill attention; ``policy`` is the unsharded one (see
+    :func:`repro_torch.models.get_model`)."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            "the moe branch of the transformer comes with ROADMAP.md "
+            "queue 1 item 11b-2")
+    window = window if window is not None else cfg.sliding_window
+    return Model(
+        config=cfg,
+        init=lambda generator, device="cuda": init_decoder_params(
+            generator, cfg, device),
+        loss_fn=per_client_loss(make_loss_fn(cfg, window)),
+        prefill_fn=make_prefill_fn(cfg, window),
+        decode_fn=make_decode_fn(cfg),
+        init_decode_state=make_init_decode_state(cfg),
+    )

@@ -70,6 +70,10 @@ def tree_bytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
 
+def tree_zeros_like(tree):
+    return tree_map(torch.zeros_like, tree)
+
+
 def tree_add(a, b):
     return tree_map(torch.add, a, b)
 
@@ -99,6 +103,29 @@ def tree_global_norm(tree) -> torch.Tensor:
     (``repro.utils.trees.tree_global_norm``), a 0-dim float32 tensor."""
     sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
     return torch.sqrt(sum(sums))
+
+
+def tree_cast(tree, dtype):
+    return tree_map(lambda x: x.to(dtype), tree)
+
+
+def tree_stack(trees):
+    """Trees of one structure stacked leaf by leaf on a new leading
+    dim (``jax.tree.map(jnp.stack ...)``)."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def tree_unstack(tree) -> list:
+    """A tree with a leading dim as a list of trees, one per index,
+    from one ``unbind`` per leaf: the backward of ``x[i]`` writes a zero
+    tensor the size of the whole leaf for every ``i``, the backward of
+    ``unbind`` one."""
+    leaves, rebuild = tree_flatten(tree)
+    if not leaves:
+        return []
+    per_leaf = [x.unbind(0) for x in leaves]
+    return [rebuild([parts[i] for parts in per_leaf])
+            for i in range(leaves[0].shape[0])]
 
 
 def tree_allclose(a, b, rtol=1e-5, atol=1e-6) -> bool:

@@ -1116,3 +1116,113 @@ def test_calibration_trace_on_cuda_equals_cpu(cuda_device):
     b = record_trace(spec, "pso", seed=0, rounds=3, device="cpu")
     assert a.to_json() == b.to_json()
     assert fit_calibration(a).to_dict() == fit_calibration(b).to_dict()
+
+
+# ---- the dense transformer family and federated language models ---------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kw", [("float32", {}),
+                                      ("float32", {"n_kv_heads": 2}),
+                                      ("bfloat16", {})])
+def test_dense_serving_on_cuda_matches_cpu(cuda_device, dtype, kw):
+    """stablelm-1.6b reduced: prefill (300 tokens, padded to 512) and two
+    decode steps on the card (the flash kernel of the dtype's route)
+    against the same params on the CPU (plain versions), logits and
+    caches; float32 at 1e-4, bfloat16 at the hybrid tests' 0.05 / 0.15."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.models import get_model
+    from repro_torch.utils.trees import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("stablelm-1.6b").reduced().replace(dtype=dtype, **kw)
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    params_dev = tree_map(lambda x: x.to(cuda_device), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 302),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else \
+        dict(rtol=0.05, atol=0.15)
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", params_dev)):
+        before = kflash.flash_attention.launches
+        logits, st = model.prefill_fn(p, {"tokens": toks[:, :300].to(dev)})
+        steps = []
+        for i in (300, 301):
+            step, st = model.decode_fn(p, st, {"token": toks[:, i:i + 1]
+                                               .to(dev)})
+            steps.append(step.cpu())
+        launched = kflash.flash_attention.launches - before
+        assert launched == (cfg.n_layers if dev == "cuda" else 0)
+        assert st["pos"] == 301
+        out[dev] = (logits.cpu(), *steps, st["cache"]["k"].cpu())
+    for got, want in zip(out["cuda"], out["cpu"], strict=True):
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_dense_batched_equals_serial_on_cuda(cuda_device):
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving import Request, WaveScheduler
+    cfg = get_config("stablelm-1.6b").reduced()
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), cuda_device)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, 40).astype(np.int32)
+               for _ in range(3)]
+    sched = WaveScheduler(model, params, max_batch=3)
+    reqs = [Request(rid=i, tokens=t, max_new_tokens=6)
+            for i, t in enumerate(prompts)]
+    for r in reqs:
+        sched.submit(r)
+    sched.run()
+    for r in reqs:
+        one = WaveScheduler(model, params, max_batch=1)
+        alone = Request(rid=r.rid, tokens=r.tokens, max_new_tokens=6)
+        one.submit(alone)
+        one.run()
+        np.testing.assert_array_equal(alone.output, r.output)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["stablelm-1.6b", "recurrentgemma-2b"])
+def test_federated_lm_rounds_on_cuda_match_cpu(cuda_device, name):
+    """Reduced LM federated through the batched engine (float32,
+    deterministic timing) on the card and on the CPU from the same
+    params: placements and TPDs exactly, losses within rtol 1e-4, and
+    the flash forward/backward launches the rounds need."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.registry import create_strategy
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.fl.orchestrator import FederatedOrchestrator
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.models import get_model
+    from repro_torch.utils.trees import tree_map
+    cfg = get_config(name).reduced().replace(dtype="float32")
+    runs, counts = {}, {}
+    p0 = None
+    for dev in ("cpu", "cuda"):
+        h = Hierarchy(depth=2, width=2, trainers_per_leaf=1, n_clients=7)
+        pool = ClientPool.random(h.total_clients, seed=1)
+        orch = FederatedOrchestrator(
+            get_model(cfg), h, pool,
+            make_federated_dataset(cfg, h.total_clients, 1, 16),
+            local_steps=2, batch_size=2, seed=1, timing="deterministic",
+            device=dev)
+        if p0 is None:
+            p0 = orch.params
+        orch.set_global(tree_map(lambda x: x.to(dev), p0))
+        before = (kflash.flash_attention.launches,
+                  kflash.flash_attention_bwd.launches)
+        runs[dev] = orch.run(create_strategy("pso", h, seed=1), rounds=3)
+        counts[dev] = (kflash.flash_attention.launches - before[0],
+                       kflash.flash_attention_bwd.launches - before[1])
+    assert [r.placement for r in runs["cuda"].rounds] == \
+        [r.placement for r in runs["cpu"].rounds]
+    assert runs["cuda"].tpds.tolist() == runs["cpu"].tpds.tolist()
+    np.testing.assert_allclose([r.loss for r in runs["cuda"].rounds],
+                               [r.loss for r in runs["cpu"].rounds],
+                               rtol=1e-4)
+    assert counts["cpu"] == (0, 0)
+    if name == "stablelm-1.6b":
+        assert counts["cuda"][0] > 0 and counts["cuda"][1] > 0
