@@ -73,9 +73,11 @@ Phases, in order; any failed check raises and ends the run non-zero:
     its own route's kernel only; flash at hd 80 (stablelm-3b's 32 x 80,
     B 2, S 1024 causal: bf16 zero-padded to the hd-128 kernel, f32
     native) and hd 320 (B 1, 10 heads on 1, S 1024 causal: both dtypes
-    on the f32 kernel), at the same tolerances; flash bf16 at phase
-    22's prefill shapes, B 4 causal: granite-8b's GQA 32/8 at hd 128,
-    S 1024 and 4096, and stablelm-3b's 32 x 80 at S 1024 (2e-2); the
+    on the f32 kernel), at the same tolerances; flash bf16 at phases
+    22 and 24's prefill shapes, B 4 causal: granite-8b's GQA 32/8 at hd
+    128, S 1024 and 4096, stablelm-3b's 32 x 80 at S 1024,
+    granite-moe-1b-a400m's GQA 16/8 at hd 64 and qwen3-moe-235b-a22b's
+    GQA 64/4 at hd 128, S 1024 (2e-2); the
     scan at (4, 4096, 2560) f32, ragged T
     and D, and the training shape (1, 2048, 2560) f32 and bf16, exactly,
     with both copy routes (TMA, cp.async) launched;
@@ -99,7 +101,9 @@ Phases, in order; any failed check raises and ends the run non-zero:
     and the training shape (B 1, S 2048 causal), with TFLOP/s and share
     of the bound, the f32 route at S = 1024 and at the training shape
     (its split-TF32 and scalar-FMA bounds both printed), and both
-    routes at hd 80; the scan at the serving shape and the training shape (1, 2048, 2560), and at the serving
+    routes at hd 80, and the bf16 route at the 1024-token prefill
+    shapes of phases 22 and 24 (granite-8b, stablelm-3b, granite-moe,
+    qwen3-moe); the scan at the serving shape and the training shape (1, 2048, 2560), and at the serving
     shape also on the cp.async route (operands one element past an
     aligned base) beside copying them to fresh aligned tensors first and
     taking the TMA route;
@@ -200,8 +204,39 @@ Phases, in order; any failed check raises and ends the run non-zero:
     1e-4; the flash forward/backward, RG-LRU scan/adjoint and
     ``fedavg_batched`` launches held to the CPU rehearsal's count (the
     flash and scan calls at the models' entry, counted on both devices;
-    (warm-up + rounds) x tree levels of FedAvg); then the ``kernels``
-    JSON line (ten kernels) and the final status line.
+    (warm-up + rounds) x tree levels of FedAvg);
+24. the moe family on ``cuda`` (params drawn on the card from seed 0):
+    (c) ``moe_ffn`` on one full-width granite-moe-1b-a400m layer (E 32,
+    top 8, F 512) at 4 x 1024 float32 tokens against the host: at least
+    99.9% of the routing choices equal, 99% of the tokens' outputs
+    within 1e-4, two card runs bit-equal; the layer's profile at that
+    prefill and at decode B 4 (router, both top-k sorts, gather, the
+    expert products against their float32 bound, combine); (d)
+    full-width, full-depth granite-moe-1b-a400m (1.385e9 f32 params,
+    bf16 compute) serving 8 requests through ``WaveScheduler(max_batch=
+    4)`` (4 x 1024 and 4 x 4096 tokens, 32 new each): prefill and
+    decode times, peak memory, one sm90 flash launch a layer a wave; the
+    outputs equal to a direct ``prefill_fn`` + ``decode_fn`` loop over
+    the same waves, whose rerun gives bit-equal logits, and a second
+    scheduler run's; how many requests equal their batch-1 serial run
+    is printed, not asserted (expert capacity spans the wave, as in the
+    reference); (e) a 2-layer depth cut at full width on ``cuda`` vs
+    ``cpu`` (a 64-token prompt and 4 decode steps): bf16 logits within
+    0.5 with greedy tokens agreeing outside the drift band, as
+    ``tests/test_serve_consistency.py`` holds the moe family, float32
+    within phase 22's tolerance, the routing share printed; (g)
+    ``TrainLoop`` on uncut granite-moe-1b-a400m, 4 steps of 1 x 2048
+    tokens, remat on: finite losses and ``moe_aux``, step times, peak
+    memory, launch counts; (f) qwen3-moe-235b-a22b at full width cut to
+    2 layers (6.22e9 f32 params): one wave of 4 x 1024 tokens, 16 new
+    each, then the same params on the host: a 1 x 256 prefill and 4
+    decode steps in float32 at (e)'s tolerance; (h) ``launch/train.py
+    --arch granite-moe-1b-a400m`` (reduced) on ``cuda``, then the
+    batched engine on ``cuda`` and ``cpu`` (7 clients, 3 rounds of pso,
+    float32): placements and TPDs exactly, losses within rtol 1e-4,
+    flash and FedAvg launches held to the CPU rehearsal's count, 0 TPD
+    launches; then the ``kernels`` JSON line (ten kernels) and the final
+    status line.
 
 Each kernel's launch count is set to 0 just before the path that runs
 it and read just after: ``tpd`` over phase 5, ``fedavg_batched`` over
@@ -217,13 +252,14 @@ Comparison and timing launches never enter the JSON line's
 the two-tier model, which must be 0; ``fedavg_batched`` over the fault
 run) and print them, and so do phases 20 (``fedavg_batched`` over the
 online runs) and 21 (``tpd`` over the calibrated swarms, which must be
-0, and over their analytic twin). Phases 22 and 23 are main paths too:
+0, and over their analytic twin). Phases 22-24 are main paths too:
 every count is set to 0 just before each (the scheduler's run of
 granite-8b, the scheduler's stablelm-3b wave, the ``launch/train.py``
-run and the batched engine's cuda runs) and read just after; each
-phase's count is the sum of its runs', the JSON line's ``launches`` is
-the sum over the paths, and
-``launches_by_path`` holds each path's count.
+runs and the batched engine's cuda runs, the granite-moe scheduler
+run, its ``TrainLoop.run`` and the qwen3-moe cut's wave) and read just
+after; each path's count is the sum of its runs', the JSON line's
+``launches`` is the sum over the paths, and ``launches_by_path`` holds
+each path's count.
 """
 from __future__ import annotations
 
@@ -526,13 +562,17 @@ RGLRU_TRAIN_SHAPE = (1, 2048, 2560)
 # column blocks of 160) at recurrentgemma's MQA, B 1, S 1024 causal
 FLASH_HD80 = (2, 32, 32, 1024, 80)
 FLASH_HD320 = (1, 10, 1, 1024, 320)
-# (B, Hq, Hkv, S, hd) bf16 causal: phase 22's prefill waves, checked
-# against the plain version in phase 10: granite-8b's (GQA 32/8, hd 128)
-# at 1024 and 4096 tokens and stablelm-3b's (hd 80, padded to 128); the
-# two 1024-token waves are timed in phase 13
+# (B, Hq, Hkv, S, hd) bf16 causal: phases 22 and 24's prefill waves,
+# checked against the plain version in phase 10: granite-8b's (GQA 32/8,
+# hd 128) at 1024 and 4096 tokens, stablelm-3b's (hd 80, padded to 128),
+# granite-moe-1b-a400m's (GQA 16/8, hd 64) and qwen3-moe-235b-a22b's
+# (GQA 64/4, hd 128); the 1024-token waves are timed in phase 13; and
+# granite-moe's training forward (phase 24 (g): B 1, S 2048)
 FLASH_DENSE = ((4, 32, 8, 1024, 128), (4, 32, 8, 4096, 128),
-               (4, 32, 32, 1024, 80))
-FLASH_DENSE_TIMED = (FLASH_DENSE[0], FLASH_DENSE[2])
+               (4, 32, 32, 1024, 80), (4, 16, 8, 1024, 64),
+               (4, 64, 4, 1024, 128), (1, 16, 8, 2048, 64))
+FLASH_DENSE_TIMED = (FLASH_DENSE[0], FLASH_DENSE[2], FLASH_DENSE[3],
+                     FLASH_DENSE[4])
 # flash kernel vs the dense plain version: f32, online vs dense softmax
 # over up to 2048 keys summed in other orders; bf16, one more rounding
 # of the output (the reference's own kernel tests use 2e-5 and 2e-2)
@@ -1038,8 +1078,10 @@ ADAMW_WINDOW = 2 ** 20          # elements checked past 2^31 in phase 15
 ADAMW_WINDOW_START = 2 ** 31 + 5
 PLAIN_CHUNK = 2 ** 28           # the plain AdamW's chunk (its temporaries)
 # flash backward cases (B, Hq, Hkv, S, hd, window): the training shape
-# (causal: S = the window) and the windowed path
-FLASH_BWD_CASES = ((1, 10, 1, 2048, 256, None), (1, 10, 1, 4096, 256, 2048))
+# (causal: S = the window), the windowed path, and granite-moe's
+# training shape (phase 24 (g): GQA 16/8, hd 64)
+FLASH_BWD_CASES = ((1, 10, 1, 2048, 256, None), (1, 10, 1, 4096, 256, 2048),
+                   (1, 16, 8, 2048, 64, None))
 # kernel vs autograd of the dense plain version, max abs error over each
 # gradient's largest value: f32 sums in other orders and P recomputed
 # from the saved log-sum-exp; bf16 one more rounding of each gradient
@@ -2626,6 +2668,546 @@ def dense_phases(torch, np_, dev, card):
             for k in serving}
 
 
+# ---- the moe family (phase 24) --------------------------------------------
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_BIG_ARCH = "qwen3-moe-235b-a22b"
+MOE_PROMPTS = ((1024, 4), (4096, 4))     # as phase 22: 2 waves of 4
+MOE_NEW_TOKENS = 32
+MOE_FFN_SHAPE = (4, 1024)               # (c): one layer's moe_ffn, B x S
+MOE_ROUTING_SHARE = 0.999               # (c): routing choices card = host
+MOE_CUT_LAYERS = 2                      # (e), (f): the depth cuts
+MOE_BIG_WAVE, MOE_BIG_NEW = (1024, 4), 16
+MOE_BIG_CPU_PROMPT = 256                # (f): 1 x 256 held to the CPU
+MOE_TRAIN_STEPS, MOE_TRAIN_TOKENS = 4, 2048
+# (e): bf16 as tests/test_serve_consistency.py holds the moe family
+# (logits within rtol 3e-2, atol 0.5; greedy tokens equal unless the
+# CPU's top-2 gap is inside 2 x 0.5, where the card's token must sit
+# within 1.0 of the top); float32 as phase 22's cut
+MOE_BF16_TOL = dict(rtol=3e-2, atol=0.5)
+# the depth cuts' own routing, card vs host: the share of routing choices
+# that agree (float32 as (c); bf16 roundings move near-ties: 0.989430
+# read on the H100) and the bf16 logits' max abs diff under the card's
+# own routing (0.566 the largest read on the H100, in the prefill)
+MOE_CUT_ROUTING_SHARE = {"float32": MOE_ROUTING_SHARE, "bfloat16": 0.98}
+MOE_BF16_FREE_ATOL = 0.75
+
+
+def moe_layer_profile(torch, moe, layer, cfg, x, card, what):
+    """One full-width moe layer at ``x`` (B, S, D) on the card, split into
+    its stages, each timed alone on that stage's real inputs (CUDA
+    events, host enqueue hidden); the expert products against their
+    float32 bound. Returns {stage: ms}."""
+    b, s, d = x.shape
+    t = b * s
+    k, e, f = cfg.top_k, cfg.n_experts, cfg.d_ff_expert
+    x2d = x.reshape(t, d)
+    router = layer["router"]
+    probs = torch.softmax(torch.matmul(x2d.float(), router), dim=-1)
+    gates, _, choices = moe.route(x2d, router, k)
+    cap = min(moe.capacity_of(t, cfg), t)
+    gw, gi = moe.top_k(gates.t(), cap)
+    xe = x2d[gi]
+    w = (layer["w_gate"], layer["w_up"], layer["w_down"])
+    ye = moe.expert_ffn(xe, gw, *w)
+    stages = {
+        "router (f32 product, softmax)": lambda: torch.softmax(
+            torch.matmul(x2d.float(), router), dim=-1),
+        "routing top-k (sort over E)": lambda: moe.top_k(probs, k),
+        "whole route (+ renorm, scatter, aux)": lambda: moe.route(
+            x2d, router, k),
+        "capacity top-k (sort over T)": lambda: moe.top_k(gates.t(), cap),
+        "gather x[gi]": lambda: x2d[gi],
+        "expert products (3 bmm, silu, gates)": lambda: moe.expert_ffn(
+            xe, gw, *w),
+        "combine (inverse map, gather, sum)": lambda: moe.combine(
+            ye, gi, choices, t),
+        "moe_ffn whole": lambda: moe.moe_ffn(layer, x, cfg),
+    }
+    ms = {name: median_device_ms(torch, fn, runs=9, per_run=5)
+          for name, fn in stages.items()}
+    flops = 6 * e * cap * d * f
+    nbytes = 4 * (3 * e * d * f + 2 * e * cap * d + e * cap)
+    bound = max(flops / PEAK_F32_FMA_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    by = "operations" if flops / PEAK_F32_FMA_FLOPS > \
+        nbytes / HBM_BYTES_PER_S else "bytes"
+    prod = ms["expert products (3 bmm, silu, gates)"]
+    print(f"moe layer profile, {what} (T {t}, E {e}, top {k}, capacity "
+          f"{cap}), device time per call: " + "; ".join(
+              f"{n} {v:.4f} ms" for n, v in ms.items())
+          + f"; expert products {flops:.3e} flops, {nbytes} B: float32 "
+          f"bound {bound:.4f} ms (by {by}: 67 TFLOP/s outside the tensor "
+          f"cores, 3.35 TB/s), {bound / prod * 100:.1f}% of it [{card}]")
+    return ms
+
+
+def moe_phases(torch, np_, dev, card):
+    """Phase 24: the moe family on cuda. Returns each kernel's launches
+    over its main paths: {kernel name: {path: launches}}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hierarchy import ClientPool, Hierarchy
+    from repro_torch.core.registry import create_strategy
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.fl.orchestrator import FederatedOrchestrator
+    from repro_torch.kernels import fedavg as kfedavg
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import fused_adamw as kadamw
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru as krglru
+    from repro_torch.kernels import tpd as ktpd
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import get_model, moe
+    from repro_torch.optim import adamw
+    from repro_torch.serving import Request, WaveScheduler
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+    from repro_torch.utils.trees import tree_leaves, tree_map
+
+    sync = torch.cuda.synchronize
+    counters = (kflash, krglru, kfedavg, ktpd, kadamw)
+    phase_t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    check(held < 8 * 2 ** 30, f"{held} bytes still held on the card "
+                              f"before phase 24")
+    cfg = get_config(MOE_ARCH)
+    mc = cfg.moe
+    phase(f"24. MoE on cuda: {MOE_ARCH} moe_ffn, serving, depth cuts and "
+          f"training; {MOE_BIG_ARCH} cut to {MOE_CUT_LAYERS} layers; "
+          f"federated MoE rounds")
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(SEED), dev)
+    sync()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(1.38e9 < n_params < 1.39e9, f"{MOE_ARCH} holds {n_params} params")
+    print(f"{MOE_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads of "
+          f"{cfg.resolved_head_dim}, {mc.n_experts} experts of F "
+          f"{mc.d_ff_expert}, top {mc.top_k}, capacity factor "
+          f"{mc.capacity_factor}; {n_params} f32 params "
+          f"({n_params * 4 / 1e9:.2f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # ---- (c) one layer's moe_ffn, card vs host ---------------------------
+    layer = tree_map(lambda x: x[0], params["layers"]["moe"])
+    layer_cpu = tree_map(lambda x: x.cpu(), layer)
+    gen = torch.Generator(dev).manual_seed(SEED + 24)
+    x = torch.randn(*MOE_FFN_SHAPE, cfg.d_model, device=dev, generator=gen)
+    out, aux = moe.moe_ffn(layer, x, mc)
+    again, aux2 = moe.moe_ffn(layer, x, mc)
+    sync()
+    want, want_aux = moe.moe_ffn(layer_cpu, x.cpu(), mc)
+    t_ = x.shape[0] * x.shape[1]
+    _, _, got_i = moe.route(x.reshape(t_, -1), layer["router"], mc.top_k)
+    _, _, want_i = moe.route(x.cpu().reshape(t_, -1), layer_cpu["router"],
+                             mc.top_k)
+    share = float((got_i.cpu().sort(-1).values
+                   == want_i.sort(-1).values).float().mean())
+    err = float((out.cpu() - want).abs().max())
+    tok_err = (out.cpu() - want).abs().amax(-1)
+    print(f"(c) moe_ffn, one full-width layer, {MOE_FFN_SHAPE[0]} x "
+          f"{MOE_FFN_SHAPE[1]} f32 tokens (capacity "
+          f"{moe.capacity_of(t_, mc)}): routing choices equal to the "
+          f"host's {share:.6f} (at least {MOE_ROUTING_SHARE}); outputs max "
+          f"abs err {err:.3e} (scale {float(want.abs().max()):.3f}), "
+          f"{int((tok_err > 1e-4).sum())} of {t_} tokens beyond 1e-4; aux "
+          f"{float(aux):.6f} vs {float(want_aux):.6f}; two card runs "
+          f"bit-equal {torch.equal(out, again) and torch.equal(aux, aux2)}")
+    check(share >= MOE_ROUTING_SHARE, f"(c) routing share {share}")
+    check(torch.equal(out, again) and torch.equal(aux, aux2),
+          "(c) two card runs of moe_ffn differ")
+    check(abs(float(aux) - float(want_aux)) <= 1e-5,
+          f"(c) aux {float(aux)} vs {float(want_aux)}")
+    check(float((tok_err <= 1e-4 + 1e-4 * want.abs().amax(-1)).float()
+                .mean()) >= 0.99, f"(c) outputs: max abs err {err}")
+    # the layer's profile at prefill (4 x 1024) and decode (B 4)
+    moe_layer_profile(torch, moe, layer, mc, x, card,
+                      f"prefill {x.shape[0]} x {x.shape[1]}")
+    moe_layer_profile(torch, moe, layer, mc, x[:, :1].contiguous(), card,
+                      f"decode B {x.shape[0]}")
+    del out, again, want, x, layer_cpu
+
+    # ---- (d) full-width serving -------------------------------------------
+    rng = np_.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, plen).astype(np_.int32)
+               for plen, n in MOE_PROMPTS for _ in range(n)]
+
+    def serve(max_batch):
+        sched = WaveScheduler(model, params, max_batch=max_batch)
+        reqs = [Request(rid=i, tokens=tk, max_new_tokens=MOE_NEW_TOKENS)
+                for i, tk in enumerate(prompts)]
+        for r in reqs:
+            sched.submit(r)
+        sched.run()
+        return sched, [r.output for r in reqs]
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(*counters)            # the counts to 0 just before the path
+    t0 = time.perf_counter()
+    sched, outs = serve(SERVE_MAX_BATCH)
+    sync()
+    serve_s = time.perf_counter() - t0
+    serving = kernel_counts(*counters)    # read just after
+    peak = torch.cuda.max_memory_allocated()
+    waves = len(sched.stats)
+    check(waves == len(MOE_PROMPTS)
+          and serving["flash_attention"] == cfg.n_layers * waves
+          and kflash.flash_attention.launches == serving["flash_attention"],
+          f"(d) {waves} waves, flash routes {kflash.flash_attention.routes}"
+          f"; expected {cfg.n_layers} sm90 launches a wave")
+    for st in sched.stats:
+        dec_ms = (st.wall_s - st.ttft_s) / max(st.steps - 1, 1) * 1e3
+        print(f"(d) wave {st.wave}: {st.batch} x {st.prompt_len} tokens: "
+              f"prefill {st.ttft_s * 1e3:.1f} ms (until the first tokens are "
+              f"on the host), decode {dec_ms:.2f} ms per token synchronised "
+              f"[{card}]")
+    print(f"(d) {serving['flash_attention']} flash_attention launches = "
+          f"{cfg.n_layers} per prefill x {waves} waves on "
+          f"{kflash.SM90_SOURCE.stem}.cu (hd {cfg.resolved_head_dim}); peak "
+          f"device memory {peak / 2**30:.2f} GiB; whole run {serve_s:.3f} s "
+          f"[{card}]")
+    for r, o in enumerate(outs):
+        check(o is not None and len(o) == MOE_NEW_TOKENS
+              and bool(np_.all((o >= 0) & (o < cfg.vocab_size))),
+              f"(d) request {r}: malformed output {o}")
+    decode_profile(torch, np_, model, params, prompts[:SERVE_MAX_BATCH],
+                   dev, card)
+
+    def direct(p_model, p_params):
+        """prefill_fn + decode_fn over the scheduler's waves: (tokens a
+        request, every step's logits)."""
+        toks, logits_all = [], []
+        for plen, n in MOE_PROMPTS:
+            wave = [tk for tk in prompts if len(tk) == plen][:n]
+            logits, state = p_model.prefill_fn(p_params, {"tokens": torch.as_tensor(
+                np_.stack(wave)).to(dev)})
+            got = []
+            for step in range(MOE_NEW_TOKENS):
+                logits_all.append(logits)
+                tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+                got.append(tok.cpu().numpy())
+                if step + 1 < MOE_NEW_TOKENS:
+                    logits, state = p_model.decode_fn(
+                        p_params, state, {"token": tok[:, None]})
+            toks.extend(np_.stack(got, axis=1))
+            del state
+        return toks, logits_all
+
+    first, logits_a = direct(model, params)
+    second, logits_b = direct(model, params)
+    same_served = all(np_.array_equal(a, b) for a, b in zip(outs, first))
+    bit_equal = all(torch.equal(a, b) for a, b in zip(logits_a, logits_b))
+    sched2, outs2 = serve(SERVE_MAX_BATCH)
+    rerun = all(np_.array_equal(a, b) for a, b in zip(outs, outs2))
+    for st in sched2.stats:
+        dec_ms = (st.wall_s - st.ttft_s) / max(st.steps - 1, 1) * 1e3
+        print(f"(d) second run, wave {st.wave}: {st.batch} x "
+              f"{st.prompt_len} tokens: prefill {st.ttft_s * 1e3:.1f} ms, "
+              f"decode {dec_ms:.2f} ms per token synchronised [{card}]")
+    check(same_served, "(d) served outputs differ from the direct "
+                       "prefill_fn + decode_fn loop over the same waves")
+    check(bit_equal and rerun, f"(d) reruns differ: logits bit-equal "
+                               f"{bit_equal}, served tokens {rerun}")
+    del logits_a, logits_b
+    _, serial = serve(1)
+    n_same = sum(np_.array_equal(a, b) for a, b in zip(outs, serial))
+    parts = [int(np_.argmax(a != b)) for a, b in zip(outs, serial)
+             if not np_.array_equal(a, b)]
+    print(f"(d) served outputs equal the direct prefill_fn + decode_fn loop "
+          f"over the same waves; a second direct run's logits bit-equal, a "
+          f"second scheduler run's tokens equal; batch-1 serial runs: "
+          f"{n_same} of {len(outs)} requests' tokens equal to their wave's "
+          f"(capacity spans the wave, as in the reference; the others part "
+          f"from tokens {parts})")
+
+    # ---- (e) the depth cut vs the CPU --------------------------------------
+    cut = cfg.replace(n_layers=MOE_CUT_LAYERS)
+    p_cut = dict(params, layers=tree_map(lambda x: x[:MOE_CUT_LAYERS],
+                                         params["layers"]))
+    p_cpu = tree_map(lambda x: x.cpu(), p_cut)
+    toks = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (2, DEPTH_CUT_PROMPT + DENSE_CUT_STEPS)),
+        dtype=torch.int32)
+    moe_cut_check(torch, np_, moe, get_model, cut, p_cut, p_cpu, toks,
+                  DEPTH_CUT_PROMPT, DENSE_CUT_STEPS, dev, MOE_ARCH, "(e)")
+    del p_cut, p_cpu, sched, sched2, outs, outs2, serial, first, second
+
+    # ---- (g) training ------------------------------------------------------
+    del params, layer
+    torch.cuda.empty_cache()
+    ds = SyntheticLMDataset(cfg.vocab_size, MOE_TRAIN_TOKENS, seed=SEED)
+    stamps = []
+
+    def batch_fn(step):
+        sync()
+        stamps.append(time.perf_counter())
+        return ds.batch(1, step)
+
+    torch.cuda.reset_peak_memory_stats()
+    loop = TrainLoop(model, adamw(3e-4), batch_fn,
+                     TrainLoopConfig(total_steps=MOE_TRAIN_STEPS, log_every=1,
+                                     checkpoint_dir=None),
+                     seed=SEED, device=dev)
+    check(cfg.remat, f"{MOE_ARCH} trains without remat")
+    zero_counts(*counters)            # the counts to 0 just before the path
+    res = loop.run()
+    sync()
+    stamps.append(time.perf_counter())
+    training = kernel_counts(*counters)   # read just after
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in res["metrics_log"]]
+    auxes = [m["moe_aux"] for m in res["metrics_log"]]
+    steps_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    print(f"(g) TrainLoop, {MOE_TRAIN_STEPS} steps of 1 x {MOE_TRAIN_TOKENS} "
+          f"tokens, remat on: losses {losses}, moe_aux {auxes}; steps "
+          f"{[round(s * 1e3, 1) for s in steps_s]} ms (median of steps 2-"
+          f"{MOE_TRAIN_STEPS} {statistics.median(steps_s[1:]) * 1e3:.1f} ms)"
+          f"; peak device memory {peak / 2**30:.2f} GiB; launches "
+          f"{json.dumps({k: v for k, v in training.items() if v})} [{card}]")
+    check(len(losses) == MOE_TRAIN_STEPS
+          and all(math.isfinite(v) for v in losses + auxes),
+          f"(g) losses {losses}, moe_aux {auxes}")
+    check(training["fused_adamw"] == MOE_TRAIN_STEPS
+          and training["flash_attention"] == 2 * cfg.n_layers
+          * MOE_TRAIN_STEPS and training["flash_attention_bwd"]
+          == 3 * cfg.n_layers * MOE_TRAIN_STEPS,
+          f"(g) launches {training}: expected {MOE_TRAIN_STEPS} AdamW, "
+          f"{cfg.n_layers} x 2 flash forwards (remat) and 3 backward "
+          f"launches a layer a step")
+    step_profile(torch, loop, batch_fn(MOE_TRAIN_STEPS), card)
+    del loop, res
+    torch.cuda.empty_cache()
+
+    # ---- (f) qwen3-moe cut to 2 layers -------------------------------------
+    big = get_config(MOE_BIG_ARCH).replace(n_layers=MOE_CUT_LAYERS)
+    big_model = get_model(big)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    big_params = big_model.init(torch.Generator(dev).manual_seed(SEED), dev)
+    sync()
+    n_big = sum(x.numel() for x in tree_leaves(big_params))
+    init_peak = torch.cuda.max_memory_allocated()
+    check(6.2e9 < n_big < 6.25e9, f"{MOE_BIG_ARCH} cut holds {n_big}")
+    plen, nreq = MOE_BIG_WAVE
+    sched_b = WaveScheduler(big_model, big_params, max_batch=SERVE_MAX_BATCH)
+    for i in range(nreq):
+        sched_b.submit(Request(rid=i, tokens=rng.integers(
+            0, big.vocab_size, plen).astype(np_.int32),
+            max_new_tokens=MOE_BIG_NEW))
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(*counters)            # the counts to 0 just before the path
+    served_b = sched_b.run()
+    sync()
+    big_serving = kernel_counts(*counters)    # read just after
+    st = sched_b.stats[0]
+    dec_ms = (st.wall_s - st.ttft_s) / max(st.steps - 1, 1) * 1e3
+    print(f"(f) {MOE_BIG_ARCH} at full width cut to {MOE_CUT_LAYERS} layers "
+          f"(d {big.d_model}, {big.n_heads} heads / {big.n_kv_heads} kv of "
+          f"{big.resolved_head_dim}, rope theta {big.rope_theta:g}, "
+          f"{big.moe.n_experts} experts of F {big.moe.d_ff_expert}): "
+          f"{n_big} f32 params ({n_big * 4 / 1e9:.2f} GB) drawn in "
+          f"{time.perf_counter() - t0:.2f} s (peak {init_peak / 2**30:.2f} "
+          f"GiB while drawing); one wave of {nreq} x {plen} tokens: prefill "
+          f"{st.ttft_s * 1e3:.1f} ms, decode {dec_ms:.2f} ms per token, "
+          f"{big_serving['flash_attention']} flash launches; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"[{card}]")
+    check(big_serving["flash_attention"] == MOE_CUT_LAYERS
+          and all(len(r.output) == MOE_BIG_NEW for r in served_b),
+          f"(f) flash launches {big_serving}, outputs "
+          f"{[r.output for r in served_b]}")
+    big_cpu = tree_map(lambda x: x.cpu(), big_params)
+    toks = torch.as_tensor(rng.integers(
+        0, big.vocab_size, (1, MOE_BIG_CPU_PROMPT + DENSE_CUT_STEPS)),
+        dtype=torch.int32)
+    moe_cut_check(torch, np_, moe, get_model, big, big_params, big_cpu, toks,
+                  MOE_BIG_CPU_PROMPT, DENSE_CUT_STEPS, dev, MOE_BIG_ARCH,
+                  "(f)", dtypes=("float32",))
+    del big_params, big_cpu, sched_b, served_b, big_model
+    torch.cuda.empty_cache()
+
+    # ---- (h) federated MoE rounds ------------------------------------------
+    out_json = ROOT / "build" / "train_moe.json"
+    out_json.parent.mkdir(parents=True, exist_ok=True)
+    zero_counts(*counters)            # the counts to 0 just before the path
+    code = train_main(["--arch", MOE_ARCH, "--strategy", "pso", "--clients",
+                       str(FL_CLIENTS), "--rounds", str(FL_ROUNDS), "--out",
+                       str(out_json)], device=dev)
+    sync()
+    by_train = kernel_counts(*counters)   # read just after
+    record = json.loads(out_json.read_text())
+    losses = [r["loss"] for r in record["rounds"]]
+    check(code == 0 and len(losses) == FL_ROUNDS
+          and all(math.isfinite(v) for v in losses),
+          f"(h) launch/train.py: exit {code}, losses {losses}")
+    print(f"(h) launch/train.py --arch {MOE_ARCH} (reduced, bf16 compute): "
+          f"exit {code}, losses {losses}; launches "
+          f"{json.dumps({k: v for k, v in by_train.items() if v})}")
+    calls = {}
+    fwd_flash = ops.flash_attention
+
+    def counting(*args, **kw):
+        grad = torch.is_grad_enabled() and any(x.requires_grad for x in args)
+        calls["flash"] = calls.get("flash", 0) + 1
+        calls["flash_bwd"] = calls.get("flash_bwd", 0) + int(grad)
+        return fwd_flash(*args, **kw)
+
+    runs = {}
+    fl_cfg = cfg.reduced().replace(dtype="float32")
+    ops.flash_attention = counting
+    try:
+        for dev_name in ("cuda", "cpu"):
+            calls.clear()
+            h = Hierarchy(depth=2, width=2, trainers_per_leaf=1,
+                          n_clients=FL_CLIENTS)
+            pool = ClientPool.random(h.total_clients, seed=SEED)
+            orch = FederatedOrchestrator(
+                get_model(fl_cfg), h, pool, make_federated_dataset(
+                    fl_cfg, h.total_clients, SEED, FL_SEQ),
+                local_steps=FL_LOCAL_STEPS, batch_size=FL_BATCH, seed=SEED,
+                timing="deterministic", device=dev_name)
+            init = tree_map(lambda x: x.cpu(), orch.params) \
+                if dev_name == "cuda" else runs["cuda"][2]
+            orch.set_global(tree_map(lambda x: x.to(orch.device).clone(),
+                                     init))
+            if dev_name == "cuda":
+                zero_counts(*counters)    # the counts to 0 just before
+            t1 = time.perf_counter()
+            res = orch.run(create_strategy("pso", h, seed=SEED),
+                           rounds=FL_ROUNDS)
+            if dev_name == "cuda":
+                sync()
+                engine = kernel_counts(*counters)   # read just after
+            runs[dev_name] = (res, dict(calls), init,
+                              time.perf_counter() - t1, h.depth)
+    finally:
+        ops.flash_attention = fwd_flash
+    got, got_calls, _, got_s, depth = runs["cuda"]
+    want, want_calls, _, want_s, _ = runs["cpu"]
+    gl, wl = [r.loss for r in got.rounds], [r.loss for r in want.rounds]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gl, wl, strict=True))
+    same = ([r.placement for r in got.rounds]
+            == [r.placement for r in want.rounds]
+            and got.tpds.tolist() == want.tpds.tolist())
+    expect = {"flash_attention_f32": want_calls.get("flash", 0),
+              "flash_attention_bwd_f32": 3 * want_calls.get("flash_bwd", 0),
+              "fedavg_batched": (1 + FL_ROUNDS) * depth, "tpd": 0}
+    got_engine = {k: engine[k] for k in expect}
+    print(f"(h) {MOE_ARCH} reduced f32, batched engine, {FL_ROUNDS} rounds "
+          f"of pso: placements {[r.placement for r in got.rounds]}, TPDs "
+          f"{got.tpds.tolist()} (cpu: equal {same}); "
+          f"losses {gl} vs {wl} on cpu (largest rel diff {rel:.2e}); "
+          f"launches {json.dumps(got_engine)}, the CPU rehearsal's count "
+          f"{json.dumps(expect)}; {got_s:.2f} s on cuda, {want_s:.2f} s on "
+          f"cpu [{card}]")
+    check(same, "(h) placements or TPDs differ between cuda and cpu")
+    check(all(math.isfinite(v) for v in gl) and rel <= LOSS_RTOL,
+          f"(h) losses {gl} vs {wl} (rtol {LOSS_RTOL})")
+    check(got_calls == want_calls and got_engine == expect
+          and expect["flash_attention_f32"] > 0,
+          f"(h) calls {got_calls} vs {want_calls}; launches {got_engine} vs "
+          f"{expect}")
+    federated = {k: by_train[k] + engine[k] for k in engine}
+    took = time.perf_counter() - phase_t0
+    print(f"phase 24 took {took:.1f} s [{card}]")
+    return {k: {f"{MOE_ARCH} serving (phase 24)": serving[k],
+                f"{MOE_BIG_ARCH} cut serving (phase 24)": big_serving[k],
+                f"{MOE_ARCH} training (phase 24)": training[k],
+                "federated MoE rounds (phase 24)": federated[k]}
+            for k in serving}
+
+
+def moe_cut_check(torch, np_, moe, get_model, cut, p_dev, p_cpu, toks, plen,
+                  steps, dev, arch, tag, dtypes=("bfloat16", "float32")):
+    """A moe depth cut on the card against the CPU from the same params:
+    prefill of ``toks[:, :plen]`` and ``steps`` decode steps fed the next
+    tokens, run three ways: on the CPU, on the card, and on the card with
+    the CPU's routing (each ``moe.route`` call answered by the CPU run's
+    gates and choices, in call order). The share of routing choices that
+    agree is held to ``MOE_CUT_ROUTING_SHARE``. float32: the card's
+    logits within phase 22's tolerance. bfloat16: greedy tokens agreeing
+    outside the drift band of tests/test_serve_consistency.py, the
+    logits within ``MOE_BF16_FREE_ATOL``, and under the CPU's routing
+    within that test's rtol 3e-2 / atol 0.5 (bf16 roundings on two
+    devices move routing near-ties, and each moved choice moves its
+    token's logits)."""
+    routes, replay = [], []
+    real_route = moe.route
+
+    def recording(x2d, router, k):
+        out = replay.pop(0) if replay else real_route(x2d, router, k)
+        out = tuple(v.to(x2d.device) for v in out)
+        routes.append(out)
+        return out
+
+    def run(m, p, d):
+        routes.clear()
+        logits, st = m.prefill_fn(p, {"tokens": toks[:, :plen].to(d)})
+        got = [logits.float().cpu()]
+        for i in range(steps):
+            step, st = m.decode_fn(p, st, {"token": toks[
+                :, plen + i:plen + i + 1].to(d)})
+            got.append(step.float().cpu())
+        return got, [tuple(v.cpu() for v in r) for r in routes]
+
+    moe.route = recording
+    try:
+        for name in dtypes:
+            m = get_model(cut.replace(dtype=name))
+            host, host_routes = run(m, p_cpu, torch.device("cpu"))
+            card, card_routes = run(m, p_dev, dev)
+            replay.extend(host_routes)
+            forced, _ = run(m, p_dev, dev)
+            check(not replay, f"{tag} {len(replay)} routing calls not "
+                              f"replayed")
+            share = float(torch.cat([
+                (a[2].sort(-1).values == b[2].sort(-1).values)
+                .float().flatten() for a, b in zip(
+                    card_routes, host_routes, strict=True)]).mean())
+            print(f"{tag} {arch} depth cut {name}: routing choices equal on "
+                  f"both devices {share:.6f} (at least "
+                  f"{MOE_CUT_ROUTING_SHARE[name]}; {len(host_routes)} "
+                  f"routing calls)")
+            check(share >= MOE_CUT_ROUTING_SHARE[name],
+                  f"{tag} {arch} depth cut {name}: routing share {share}")
+            whats = ["prefill logits"] + [f"decode step {i + 1}"
+                                          for i in range(steps)]
+            failed = []
+            for what, a, f, b in zip(whats, card, forced, host, strict=True):
+                err = float((a - b).abs().max())
+                ferr = float((f - b).abs().max())
+                if name == "bfloat16":
+                    ok = bool(torch.allclose(f, b, **MOE_BF16_TOL)) \
+                        and err <= MOE_BF16_FREE_ATOL
+                    band = 2 * MOE_BF16_TOL["atol"]
+                    for r in range(b.shape[0]):
+                        row_a, row_b = a[r, -1], b[r, -1]
+                        top2 = torch.topk(row_b, 2).values
+                        pick = int(row_a.argmax())
+                        if float(top2[0] - top2[1]) > band:
+                            ok &= pick == int(row_b.argmax())
+                        else:
+                            ok &= float(top2[0] - row_b[pick]) <= band
+                    tol = (f"greedy tokens, atol {MOE_BF16_FREE_ATOL}; "
+                           f"{MOE_BF16_TOL} under the CPU's routing")
+                else:
+                    ok = bool(torch.allclose(a, b, **LOGIT_TOL[name]))
+                    tol = str(LOGIT_TOL[name])
+                if not (a.shape == b.shape and ok):
+                    failed.append(f"{what} {err} ({ferr} under the CPU's "
+                                  f"routing)")
+                print(f"{tag} {arch} depth cut {name:8s} {what:16s}: cuda vs "
+                      f"cpu max abs diff {err:.3e}, {ferr:.3e} under the "
+                      f"CPU's routing (scale {float(b.abs().max()):.2f}; "
+                      f"{tol}); greedy tokens "
+                      f"{a[:, -1].argmax(-1).tolist()} vs "
+                      f"{b[:, -1].argmax(-1).tolist()}")
+            check(not failed, f"{tag} {arch} depth cut {name}: cuda vs cpu "
+                              f"beyond {tol}: {failed}")
+    finally:
+        moe.route = real_route
+        replay.clear()
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3441,6 +4023,7 @@ def main() -> int:
     runner_phases(torch, np, card)
     online_phases(torch, np, card)
     dense = dense_phases(torch, np, dev, card)
+    moe_paths = moe_phases(torch, np, dev, card)
 
     k_ms, r_ms, b_ms = rows[10]
     kernels = [
@@ -3467,9 +4050,10 @@ def main() -> int:
         *training,
     ]
     # each path's launches, counted from 0 over it: the earlier main
-    # paths' (as named in the module docstring), then phases 22 and 23
+    # paths' (as named in the module docstring), then phases 22-24
     for entry in kernels:
-        paths = {"phases 5-16": entry["launches"], **dense[entry["name"]]}
+        paths = {"phases 5-16": entry["launches"], **dense[entry["name"]],
+                 **moe_paths[entry["name"]]}
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
     print(json.dumps({"kernels": kernels}))

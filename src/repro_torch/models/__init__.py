@@ -1,5 +1,5 @@
-"""Model registry of the port: family -> builder (the mlp, hybrid and
-dense families so far; the moe, ssm, vlm and audio families come with
+"""Model registry of the port: family -> builder (the mlp, hybrid, dense
+and moe families so far; the ssm, vlm and audio families come with
 ROADMAP.md queue 1 item 11b)."""
 from __future__ import annotations
 
@@ -12,8 +12,8 @@ from repro_torch.models.rglru import build_rglru_model
 from repro_torch.models.sharding import UNSHARDED, ShardingPolicy
 from repro_torch.models.transformer import build_decoder_model
 
-_BUILDERS = {"dense": build_decoder_model, "hybrid": build_rglru_model,
-             "mlp": build_mlp_model}
+_BUILDERS = {"dense": build_decoder_model, "moe": build_decoder_model,
+             "hybrid": build_rglru_model, "mlp": build_mlp_model}
 
 
 def get_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,

@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.utils.trees import tree_flatten, tree_leaves
+from repro_torch.utils.trees import tree_flatten, tree_leaves, tree_map
 
 # decode runs its batch padded to a multiple of this many rows, so a wave
 # of up to DECODE_ROWS requests multiplies at one shape whatever its
@@ -61,14 +61,18 @@ def init_stacked(make, n: int):
     the stack and one tree; ``n`` = 0 still draws one, and gives a
     leading dim of 0, as ``jax.vmap`` over no keys does."""
     first = make()
-    leaves, rebuild = tree_flatten(first)
+    leaves = tree_leaves(first)
+    # the structure alone: tree_flatten's rebuild keeps the leaves it saw
+    _, rebuild = tree_flatten(tree_map(lambda x: None, first))
+    del first
     out = [torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
            for x in leaves]
     for i in range(n):
-        tree = first if i == 0 else make()
-        for slot, x in zip(out, tree_leaves(tree), strict=True):
+        if i:
+            leaves = tree_leaves(make())
+        for slot, x in zip(out, leaves, strict=True):
             slot[i].copy_(x)
-        del tree
+        leaves = None      # freed before the next tree is drawn
     return rebuild(out)
 
 

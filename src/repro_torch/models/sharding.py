@@ -25,6 +25,23 @@ class ShardingPolicy:
     seq_axis: Optional[str] = None
     ep2d_axis: Optional[str] = None
 
+    def axis_size(self, axes) -> int:
+        """Devices along ``axes`` (a name or a tuple of names): 1 without
+        a mesh or axes, as the reference's."""
+        if self.mesh is None or axes is None:
+            return 1
+        raise NotImplementedError(
+            "mesh sharding policies come with the port's multi-device "
+            "paths (ROADMAP.md queue 1 item 12)")
+
+    @property
+    def model_size(self) -> int:
+        return self.axis_size(self.model_axis)
+
+    @property
+    def batch_size_divisor(self) -> int:
+        return self.axis_size(self.batch_axes)
+
 
 # A policy that shards nothing: the port's only one.
 UNSHARDED = ShardingPolicy()

@@ -1,14 +1,24 @@
 """Decoder-only transformer, the dense family (stablelm-1.6b, stablelm-3b,
-granite-8b, minitron-8b): the port of ``repro.models.transformer``.
+granite-8b, minitron-8b) and the moe family (granite-moe-1b-a400m,
+qwen3-moe-235b-a22b): the port of ``repro.models.transformer``.
 
 Each block is pre-norm: RMSNorm, self-attention with RoPE and GQA
 (``n_kv_heads`` kv heads shared by groups of query heads), a residual
-add, RMSNorm, a SwiGLU FFN, a residual add. The residual stream runs in
-``cfg.dtype``; the attention products run in that dtype, and the FFN
-and ``lm_head`` products in the promoted dtype of activations and
-float32 params (float32), as the reference's ``jnp.einsum`` promotes.
-Every product goes through ``common.matmul``, which multiplies a prompt
-one sequence at a time so a sequence's bits do not depend on its wave.
+add, RMSNorm, a SwiGLU FFN (the moe family: ``models.moe.moe_ffn``), a
+residual add. The residual stream runs in ``cfg.dtype``; the attention
+products run in that dtype, and the FFN, expert and ``lm_head``
+products in the promoted dtype of activations and float32 params
+(float32), as the reference's ``jnp.einsum`` promotes. Every dense
+product goes through ``common.matmul``, which multiplies a prompt one
+sequence at a time so a sequence's bits do not depend on its wave.
+
+The moe family carries the reference's ``aux`` from a float32 zero
+through the layers: each layer adds its Switch loss, and the training
+loss adds ``router_aux_weight * aux / n_layers`` (``metrics["moe_aux"]``).
+Prefill and the loss mask the prompt's pads out of routing; decode
+routes only its real rows (T = B, as in the reference). Expert capacity
+spans the whole batch, so a moe request's tokens depend on its wave
+(``models/moe.py``).
 
 Params keep the reference's layout: the layers stacked on a leading
 ``n_layers`` dim under ``"layers"``, so a reference tree crosses over
@@ -30,11 +40,11 @@ sets ``pos`` to the last real token's position, so the cache shapes and
 ``pos`` are the reference's. Decode runs its rows padded to
 ``common.DECODE_ROWS`` (the caches keep B rows; attention reads each
 layer's padded to the step's rows) and prefill's last-token logits
-likewise, so a request's tokens are the bits a batch of one gives (the
-serving scheduler's batched == serial property).
+likewise, so a dense request's tokens are the bits a batch of one gives
+(the serving scheduler's batched == serial property).
 
-The moe branch (ROADMAP.md queue 1 item 11b-2), the vlm frontend (item
-11b-4) and the spec rules (item 12) come later.
+The vlm frontend (ROADMAP.md queue 1 item 11b-4) and the spec rules
+(item 12) come later.
 """
 from __future__ import annotations
 
@@ -48,6 +58,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib, common
 from repro_torch.models.api import Model, per_client_loss
+from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.models.sharding import UNSHARDED, ShardingPolicy
 from repro_torch.utils.trees import tree_unstack
 
@@ -70,12 +81,17 @@ def _init_attn(gen, cfg: ModelConfig, dtype, dev) -> dict:
 
 
 def _init_layer(gen, cfg: ModelConfig, dtype, dev) -> dict:
-    return {
+    layer = {
         "ln1": common.init_rmsnorm(cfg.d_model, dtype, dev),
         "ln2": common.init_rmsnorm(cfg.d_model, dtype, dev),
         "attn": _init_attn(gen, cfg, dtype, dev),
-        "ffn": common.init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype, dev),
     }
+    if cfg.moe is not None:
+        layer["moe"] = init_moe(gen, cfg.d_model, cfg.moe, dtype, dev)
+    else:
+        layer["ffn"] = common.init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype,
+                                          dev)
+    return layer
 
 
 def init_decoder_params(generator: torch.Generator, cfg: ModelConfig,
@@ -142,37 +158,64 @@ def attention_block(layer_attn: dict, x, cfg: ModelConfig, rope,
     return _out_proj(layer_attn, o, cfg, x), k, v
 
 
-def _ffn(layer: dict, x, cfg: ModelConfig):
-    hn = common.rmsnorm(layer["ln2"], x, cfg.norm_eps)
-    return common.swiglu(layer["ffn"], hn.to(getattr(torch, cfg.dtype)))
+def _ffn(layer: dict, x, cfg: ModelConfig, mask=None):
+    """The layer's FFN on the normed stream: (out, the layer's moe aux
+    loss, None for the dense family); ``mask`` (S,) marks the real
+    positions routing sees."""
+    hn = common.rmsnorm(layer["ln2"], x, cfg.norm_eps).to(
+        getattr(torch, cfg.dtype))
+    if cfg.moe is not None:
+        return moe_ffn(layer["moe"], hn, cfg.moe, mask=mask)
+    return common.swiglu(layer["ffn"], hn), None
 
 
-def block(layer: dict, x, cfg: ModelConfig, rope, window: Optional[int]):
-    """One layer over the residual stream ``x``; returns the new stream
-    and the layer's keys and values (the cache prefill keeps)."""
+def _real_mask(s: int, n_real: int, device):
+    """The (S,) mask of the first ``n_real`` positions (None: all real)."""
+    if n_real >= s:
+        return None
+    return torch.arange(s, device=device) < n_real
+
+
+def block(layer: dict, x, cfg: ModelConfig, rope, window: Optional[int],
+          mask=None):
+    """One layer over the residual stream ``x``; returns the new stream,
+    the layer's keys and values (the cache prefill keeps) and its moe
+    aux loss (None for the dense family)."""
     h, k, v = attention_block(
         layer["attn"], common.rmsnorm(layer["ln1"], x, cfg.norm_eps), cfg,
         rope, window)
     x = x + h
-    x = x + _ffn(layer, x, cfg).to(x.dtype)
-    return x, k, v
+    f, aux = _ffn(layer, x, cfg, mask)
+    return x + f.to(x.dtype), k, v, aux
 
 
 def decoder_forward(params: dict, embeds, cfg: ModelConfig,
-                    window: Optional[int]):
-    """The layer stack over input embeddings, then the final norm."""
-    rope = _rope(cfg, torch.arange(embeds.shape[1], device=embeds.device))
+                    window: Optional[int], n_real: Optional[int] = None):
+    """The layer stack over input embeddings, then the final norm.
+    Returns (x, aux): aux sums the layers' moe losses from a float32 zero
+    (it stays 0 for the dense family); the positions past ``n_real`` are
+    pads, masked out of routing."""
+    s = embeds.shape[1]
+    rope = _rope(cfg, torch.arange(s, device=embeds.device))
+    mask = _real_mask(s, s if n_real is None else n_real, embeds.device)
 
     def body(layer, x):
-        return block(layer, x, cfg, rope, window)[0]
+        x, _, _, aux = block(layer, x, cfg, rope, window, mask)
+        return x if aux is None else (x, aux)
 
     x = embeds
+    aux = torch.zeros((), dtype=torch.float32, device=embeds.device)
     for layer in tree_unstack(params["layers"]):
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(body, layer, x, use_reentrant=False)
+            out = checkpoint(body, layer, x, use_reentrant=False)
         else:
-            x = body(layer, x)
-    return common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+            out = body(layer, x)
+        if cfg.moe is not None:
+            x, aux_l = out
+            aux = aux + aux_l
+        else:
+            x = out
+    return common.rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
 
 
 def logits_fn(params: dict, x, cfg: ModelConfig):
@@ -208,12 +251,18 @@ def make_loss_fn(cfg: ModelConfig, window: Optional[int]):
     """(params, batch) -> (loss, metrics) for one client."""
 
     def loss_fn(params, batch):
-        x, n_prefix, _ = embed_inputs(params, batch, cfg)
-        x = decoder_forward(params, x, cfg, window)
+        x, n_prefix, n_pad = embed_inputs(params, batch, cfg)
+        x, aux = decoder_forward(params, x, cfg, window,
+                                 n_real=x.shape[1] - n_pad)
         s_text = batch["tokens"].shape[1]
         logits = logits_fn(params, x[:, n_prefix:n_prefix + s_text], cfg)
         loss = common.softmax_xent(logits, batch["labels"], cfg.vocab_size)
-        return loss, {"xent": loss}
+        metrics = {"xent": loss}
+        if cfg.moe is not None:
+            aux = aux / cfg.n_layers
+            metrics["moe_aux"] = aux
+            loss = loss + cfg.moe.router_aux_weight * aux
+        return loss, metrics
 
     return loss_fn
 
@@ -229,7 +278,9 @@ def make_decode_fn(cfg: ModelConfig):
     The token's keys and values are written into the given state's
     caches in place, and the returned state holds those caches with
     ``pos`` advanced: a state is decoded from once (the serving
-    scheduler's use), not kept to decode from again.
+    scheduler's use), not kept to decode from again. The moe family
+    routes the B real rows only (T = B, as the reference's decode): the
+    pad rows take no expert's capacity and get a zero FFN output.
     """
     dt = getattr(torch, cfg.dtype)
 
@@ -258,7 +309,12 @@ def make_decode_fn(cfg: ModelConfig):
                 kv32[n][:b] = cache[n][i]
             o = attn_lib.decode_attention(q, kv32, pos)
             x = x + _out_proj(layer["attn"], o, cfg, x)
-            x = x + _ffn(layer, x, cfg).to(x.dtype)
+            if cfg.moe is not None:
+                f, _ = _ffn(layer, x[:b], cfg)
+                f = common.pad_rows(f, rows)
+            else:
+                f, _ = _ffn(layer, x, cfg)
+            x = x + f.to(x.dtype)
         x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         return logits_fn(params, x, cfg)[:b], {"cache": cache, "pos": pos}
 
@@ -282,18 +338,20 @@ def make_init_decode_state(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 def make_prefill_fn(cfg: ModelConfig, window: Optional[int]):
     """The full-prompt forward that also fills the KV cache: returns the
-    last real token's logits (B, 1, V_pad) and the decode state."""
+    last real token's logits (B, 1, V_pad) and the decode state. The
+    prompt's pads are masked out of moe routing."""
 
     def prefill_fn(params, batch):
         x, _, n_pad = embed_inputs(params, batch, cfg)
         b, s = x.shape[:2]
+        mask = _real_mask(s, s - n_pad, x.device)
         shape = (cfg.n_layers, b, s + PREFILL_CACHE_MARGIN, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
         cache = {k: torch.zeros(shape, dtype=x.dtype, device=x.device)
                  for k in ("k", "v")}
         rope = _rope(cfg, torch.arange(s, device=x.device))
         for i, layer in enumerate(tree_unstack(params["layers"])):
-            x, k, v = block(layer, x, cfg, rope, window)
+            x, k, v, _ = block(layer, x, cfg, rope, window, mask)
             cache["k"][i, :, :s] = k
             cache["v"][i, :, :s] = v
         x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
@@ -310,13 +368,9 @@ def make_prefill_fn(cfg: ModelConfig, window: Optional[int]):
 # ---------------------------------------------------------------------------
 def build_decoder_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
                         window: Optional[int] = None) -> Model:
-    """The dense decoder; ``window`` (else ``cfg.sliding_window``) bounds
-    prefill attention; ``policy`` is the unsharded one (see
+    """The dense or moe decoder; ``window`` (else ``cfg.sliding_window``)
+    bounds prefill attention; ``policy`` is the unsharded one (see
     :func:`repro_torch.models.get_model`)."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "the moe branch of the transformer comes with ROADMAP.md "
-            "queue 1 item 11b-2")
     window = window if window is not None else cfg.sliding_window
     return Model(
         config=cfg,

@@ -12,8 +12,11 @@ reported occupancy.
 Correctness property (tests/test_torch_hybrid.py, and ``chip_smoke.py``
 at full width on the card): every request's output is what a
 batch-size-1 serial decode of that request produces — batching is a
-throughput decision, never a semantic one. The reference's stub
-frontend embeddings (vlm and audio families) come with those families.
+throughput decision, never a semantic one. Not for the moe family: its
+expert capacity spans the whole batch, so a request's tokens depend on
+its wave, in the reference as in the port
+(tests/test_torch_moe.py). The reference's stub frontend embeddings
+(vlm and audio families) come with those families.
 """
 from __future__ import annotations
 

@@ -1226,3 +1226,108 @@ def test_federated_lm_rounds_on_cuda_match_cpu(cuda_device, name):
     assert counts["cpu"] == (0, 0)
     if name == "stablelm-1.6b":
         assert counts["cuda"][0] > 0 and counts["cuda"][1] > 0
+
+
+# ---- the moe family --------------------------------------------------------
+def _routing_share(x2d_a, x2d_b, router_a, router_b, k):
+    """Share of (token, expert) routing choices two devices agree on."""
+    from repro_torch.models import moe
+    _, _, a = moe.route(x2d_a, router_a, k)
+    _, _, b = moe.route(x2d_b, router_b, k)
+    a, b = a.cpu().sort(-1).values, b.cpu().sort(-1).values
+    return float((a == b).float().mean())
+
+
+@pytest.mark.cuda
+def test_moe_ffn_on_cuda_matches_cpu_and_reruns_bit_equal(cuda_device):
+    """One full-width granite-moe layer's ``moe_ffn`` (E 32, top 8, d 1024,
+    F 512) on 2 x 256 float32 tokens: at least 99.9% of the routing
+    choices equal to the CPU's, at least 99% of the tokens' outputs
+    within 1e-4 (a token whose choice flips at a near-tie, or that a
+    near-tie moves across an expert's capacity cut, moves by its gate's
+    share), reruns on the card bit-equal (the combine is a gather, no
+    atomics)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("granite-moe-1b-a400m")
+    g = torch.Generator().manual_seed(0)
+    params = moe.init_moe(g, cfg.d_model, cfg.moe, torch.float32, "cpu")
+    x = torch.randn(2, 256, cfg.d_model, generator=g)
+    dev_params = {k: v.to(cuda_device) for k, v in params.items()}
+    out, aux = moe.moe_ffn(dev_params, x.to(cuda_device), cfg.moe)
+    again, aux2 = moe.moe_ffn(dev_params, x.to(cuda_device), cfg.moe)
+    assert torch.equal(out, again) and torch.equal(aux, aux2)
+    want, want_aux = moe.moe_ffn(params, x, cfg.moe)
+    share = _routing_share(x.reshape(-1, cfg.d_model).to(cuda_device),
+                           x.reshape(-1, cfg.d_model), dev_params["router"],
+                           params["router"], cfg.moe.top_k)
+    assert share >= 0.999
+    err = (out.cpu() - want).abs().amax(-1)
+    close = err <= 1e-4 + 1e-4 * want.abs().amax(-1)
+    assert float(close.float().mean()) >= 0.99
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_moe_decode_with_pad_rows_on_cuda_matches_cpu(cuda_device):
+    """Reduced granite-moe, float32: prefill 3 x 40 tokens and four decode
+    steps at B = 3 (rows padded to 8, the moe routing the 3 real ones)
+    on the card against the CPU: logits within 1e-4, the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.utils.trees import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("granite-moe-1b-a400m").reduced().replace(
+        dtype="float32")
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (3, 40),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    out = {}
+    for dev, p in (("cpu", params),
+                   ("cuda", tree_map(lambda x: x.to(cuda_device), params))):
+        logits, st = model.prefill_fn(p, {"tokens": toks.to(dev)})
+        steps = [logits.cpu()]
+        for _ in range(4):
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            logits, st = model.decode_fn(p, st, {"token": tok})
+            steps.append(logits.cpu())
+        out[dev] = steps
+    for got, want in zip(out["cuda"], out["cpu"], strict=True):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m",
+                                  "qwen3-moe-235b-a22b"])
+def test_moe_training_gradient_on_cuda_matches_cpu(cuda_device, name):
+    """One reduced moe config's loss and gradients (float32, remat on, 2 x
+    48 tokens) on the card against the CPU: loss and ``moe_aux`` within
+    1e-5, each gradient within 1e-4 of its largest value."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.utils.trees import tree_flatten, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(name).reduced().replace(dtype="float32", remat=True)
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 49),
+                         generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        leaves, rebuild = tree_flatten(tree_map(lambda x: x.to(dev), params))
+        live = [x.detach().requires_grad_() for x in leaves]
+        loss, metrics = model.loss_fn(rebuild(live), {
+            "tokens": toks[:, :48].to(dev), "labels": toks[:, 1:].to(dev)})
+        grads = torch.autograd.grad(loss, live)
+        out[dev] = (float(loss.detach()), float(metrics["moe_aux"].detach()),
+                    [g.cpu() for g in grads])
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    assert out["cuda"][1] == pytest.approx(out["cpu"][1], rel=1e-5)
+    for got, want in zip(out["cuda"][2], out["cpu"][2], strict=True):
+        scale = max(float(want.abs().max()), 1e-6)
+        assert float((got - want).abs().max()) <= 1e-4 * scale + 1e-6

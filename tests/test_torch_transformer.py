@@ -105,7 +105,8 @@ def _jp(np_params):
 # ---------------------------------------------------------------------------
 # configs, registry, helpers
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + ("granite-moe-1b-a400m",
+                                          "qwen3-moe-235b-a22b"))
 def test_configs_are_copied_field_for_field(name):
     assert dataclasses.asdict(get_config(name)) == \
         dataclasses.asdict(ref_get_config(name))
@@ -113,9 +114,7 @@ def test_configs_are_copied_field_for_field(name):
         dataclasses.asdict(ref_get_config(name).reduced())
 
 
-@pytest.mark.parametrize("name", ["granite-moe-1b-a400m",
-                                  "qwen3-moe-235b-a22b", "xlstm-1.3b",
-                                  "llava-next-mistral-7b",
+@pytest.mark.parametrize("name", ["xlstm-1.3b", "llava-next-mistral-7b",
                                   "seamless-m4t-large-v2"])
 def test_other_lm_families_still_raise(name):
     with pytest.raises(NotImplementedError, match="item 11b"):
