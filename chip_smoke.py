@@ -235,8 +235,37 @@ Phases, in order; any failed check raises and ends the run non-zero:
     batched engine on ``cuda`` and ``cpu`` (7 clients, 3 rounds of pso,
     float32): placements and TPDs exactly, losses within rtol 1e-4,
     flash and FedAvg launches held to the CPU rehearsal's count, 0 TPD
-    launches; then the ``kernels`` JSON line (ten kernels) and the final
-    status line.
+    launches;
+25. the xLSTM (ssm) family on ``cuda`` (params drawn on the card from
+    seed 0): (a) one full-width mLSTM block and one sLSTM block of
+    xlstm-1.3b at 2 x 512 float32 tokens against the host (outputs and
+    final states within rtol = atol = 1e-3, two card runs bit-equal),
+    then their stages under ``torch.profiler`` at prefill 4 x 2048 and
+    decode B 4 (bf16: up projection, q/k/v/gates, the chunkwise cell,
+    out-norm and down; the sLSTM input projection, loop and out
+    projection), with the sLSTM loop's launches a step and a token and
+    its device time against its host time; (b) full-width, full-depth
+    xlstm-1.3b (2.62e9 f32 params, bf16 compute) serving 8 requests
+    through ``WaveScheduler(max_batch=4)`` (4 x 1024 and 4 x 2048
+    tokens, 32 new each): prefill and decode times, peak memory, no
+    kernel launch, one request of each wave equal to its batch-1
+    serial run, a decode step under ``torch.profiler``; (c) a 2-layer
+    full-width cut (one block of each kind), a 512-token prompt and 4
+    decode steps, on ``cuda`` vs ``cpu``: float32 logits within 2e-4,
+    bf16 greedy tokens by tests/test_serve_consistency.py's drift-band
+    rule; (d) ``TrainLoop`` on uncut xlstm-1.3b, 2 steps of 1 x 2048
+    tokens, remat on, ``adamw``: finite losses, step times, peak
+    memory, one fused AdamW launch a step and no other; a step of 1 x
+    128 under ``torch.profiler`` (device busy share); the sLSTM loop
+    alone at 1 x 128 and 1 x 2048, forward and forward + backward, its
+    own backward against autograd's (gradients within 1e-4 of their
+    scale), and its share of the step's device time; (e)
+    ``launch/train.py --arch xlstm-1.3b`` (reduced) on ``cuda``, then
+    the batched engine on ``cuda`` and ``cpu`` (7 clients, 3 rounds of
+    pso, float32): placements and TPDs exactly, losses within rtol
+    1e-4, the FedAvg launches held to the CPU rehearsal's count and no
+    other kernel; then the ``kernels`` JSON line (ten kernels) and the
+    final status line.
 
 Each kernel's launch count is set to 0 just before the path that runs
 it and read just after: ``tpd`` over phase 5, ``fedavg_batched`` over
@@ -252,14 +281,15 @@ Comparison and timing launches never enter the JSON line's
 the two-tier model, which must be 0; ``fedavg_batched`` over the fault
 run) and print them, and so do phases 20 (``fedavg_batched`` over the
 online runs) and 21 (``tpd`` over the calibrated swarms, which must be
-0, and over their analytic twin). Phases 22-24 are main paths too:
+0, and over their analytic twin). Phases 22-25 are main paths too:
 every count is set to 0 just before each (the scheduler's run of
 granite-8b, the scheduler's stablelm-3b wave, the ``launch/train.py``
 runs and the batched engine's cuda runs, the granite-moe scheduler
-run, its ``TrainLoop.run`` and the qwen3-moe cut's wave) and read just
-after; each path's count is the sum of its runs', the JSON line's
-``launches`` is the sum over the paths, and ``launches_by_path`` holds
-each path's count.
+run, its ``TrainLoop.run``, the qwen3-moe cut's wave, and phase 25's
+scheduler run, ``TrainLoop.run``, ``launch/train.py`` run and engine
+run) and read just after; each path's count is the sum of its runs',
+the JSON line's ``launches`` is the sum over the paths, and
+``launches_by_path`` holds each path's count.
 """
 from __future__ import annotations
 
@@ -3208,6 +3238,568 @@ def moe_cut_check(torch, np_, moe, get_model, cut, p_dev, p_cpu, toks, plen,
         moe.route = real_route
         replay.clear()
 
+
+# ---- the xLSTM (ssm) family (phase 25) ------------------------------------
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_PROMPTS = ((1024, 4), (2048, 4))   # 2 waves of 4: chunk multiples
+XLSTM_NEW_TOKENS = 32
+XLSTM_SERIAL = (0, 4)                   # one request of each wave, alone
+XLSTM_BLOCK_SHAPE = (2, 512)            # (a): card vs host, float32
+XLSTM_PROFILE_SHAPE = (4, 2048)         # (a): the stages' prefill
+XLSTM_DECODE_REPS = 10                  # (a): decode calls a profile
+XLSTM_PROFILE_TRIES = 3                 # (a): profiles a stage at most
+XLSTM_CUT_LAYERS = 2                    # (c): one mLSTM, one sLSTM block
+XLSTM_CUT_PROMPT = 512                  # (c): two chunks of 256
+XLSTM_TRAIN_STEPS, XLSTM_TRAIN_TOKENS = 2, 2048
+XLSTM_PROFILE_TOKENS = 128              # (d): the step under the profiler
+# float32, card vs host: (a) one block's output and final state (the
+# H100 read 4.9e-4 at most, on the sLSTM's n of scale 21), (c) the cut's
+# logits (6.6e-5 at most, scale 4.7)
+XLSTM_BLOCK_TOL = dict(rtol=1e-3, atol=1e-3)
+XLSTM_CUT_TOL = dict(rtol=2e-4, atol=2e-4)
+# (c) bf16: greedy tokens by tests/test_serve_consistency.py's rule (its
+# atol 3e-2 for a family without experts; a top-2 gap inside twice that
+# is its drift band)
+XLSTM_BF16_BAND = 2 * 3e-2
+
+
+def profiled(torch, fn):
+    """``fn()`` once under ``torch.profiler`` (CUDA activity), after a
+    synchronise: (its result, device busy ms, kernel launches, host ms
+    until the device is done, the kernels' events). One stream: the
+    kernels do not overlap, so their sum is the device's busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum((getattr(e, "self_device_time_total", None) or
+                getattr(e, "self_cuda_time_total", 0.0))
+               for e in kernels) / 1e3
+    return out, busy, sum(e.count for e in kernels), wall * 1e3, kernels
+
+
+def host_ms(torch, fn):
+    """``fn()``'s host time until the device is done (no profiler)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def xlstm_stage_profile(torch, xlstm, common, cfg, mblock, sblock, x, card,
+                        what, m_state=None):
+    """The stages of one full-width mLSTM and one sLSTM block at ``x``
+    (R, S, D) in ``x``'s dtype, each call run once to warm up, then once
+    under the profiler: device busy ms, launches, host ms. Prefill when
+    ``m_state`` is None, else one decode step from it (its B rows; the
+    stream's R rows are the model's padded decode rows). Where a stage
+    is not a function of the model, it is the difference of two that
+    are. Returns the sLSTM loop's (device ms, launches, host ms)."""
+    decode = m_state is not None
+    rows = x.shape[0]
+    dt = x.dtype
+    h = cfg.n_heads
+    xn = common.rmsnorm(mblock["ln"], x, cfg.norm_eps)
+    q, k, v, li, lf, _ = xlstm._mlstm_qkvif(mblock, xn, cfg)
+    n = m_state["C"].shape[0] if decode else rows
+    xs = common.rmsnorm(sblock["ln"], x, cfg.norm_eps)
+
+    def in_proj():
+        return (common.matmul(xs, sblock["w_in"].to(dt)).float()
+                + sblock["b"].float())
+
+    wx = common.pad_rows(in_proj().reshape(rows, x.shape[1], h, 4, -1),
+                         common.row_bucket(rows))
+    r32 = sblock["r"].float()
+    st = xlstm.slstm_init_state(wx.shape[0], h, wx.shape[-1], x.device)
+    stages = {
+        "mLSTM block": lambda: xlstm.mlstm_block(mblock, x, cfg, m_state,
+                                                 decode),
+        "up projection": lambda: common.matmul(xn, mblock["w_up"].to(dt)),
+        "_mlstm_qkvif": lambda: xlstm._mlstm_qkvif(mblock, xn, cfg),
+        "mLSTM cell": (lambda: xlstm.mlstm_step(
+            q[:n], k[:n], v[:n], li[:n], lf[:n], m_state)) if decode else
+        (lambda: xlstm.mlstm_chunkwise(q, k, v, li, lf, cfg.xlstm_chunk)),
+        "sLSTM block": lambda: xlstm.slstm_block(
+            sblock, x, cfg, {k_: t[:n] for k_, t in st.items()}
+            if decode else None, decode),
+        "sLSTM input projection": in_proj,
+        "sLSTM loop": (lambda: xlstm.slstm_cell(wx[:, 0], r32, st))
+        if decode else (lambda: xlstm.slstm_scan(wx, r32, st)),
+    }
+    # a decode stage is short: XLSTM_DECODE_REPS calls a profile
+    reps = XLSTM_DECODE_REPS if decode else 1
+    got = {}
+    for name, fn in stages.items():
+        fn()
+        # a short profile now and then records no device event (read on
+        # the H100): up to XLSTM_PROFILE_TRIES tries
+        for _ in range(XLSTM_PROFILE_TRIES):
+            _, busy, launches, wall, _ = profiled(
+                torch, lambda fn=fn: [fn() for _ in range(reps)])
+            if launches:
+                break
+        got[name] = (busy / reps, launches / reps, wall / reps)
+    derived = {"q/k/v/gates": ("_mlstm_qkvif", "up projection"),
+               "out-norm and down": ("mLSTM block", "_mlstm_qkvif",
+                                     "mLSTM cell"),
+               "sLSTM out projection": ("sLSTM block",
+                                        "sLSTM input projection",
+                                        "sLSTM loop")}
+    for name, (whole, *parts) in derived.items():
+        got[name] = tuple(got[whole][i] - sum(got[p][i] for p in parts)
+                          for i in range(2))
+    order = ("up projection", "q/k/v/gates", "mLSTM cell",
+             "out-norm and down", "mLSTM block", "sLSTM input projection",
+             "sLSTM loop", "sLSTM out projection", "sLSTM block")
+    print(f"(a) stages, {what} ({x.shape[0]} x {x.shape[1]} {dt}; each "
+          f"under torch.profiler, {reps} call(s) a profile: device busy ms "
+          f"/ launches / host ms a call; a stage that is no function of the "
+          f"model is a difference of two, without host ms): " + "; ".join(
+              f"{s_} {got[s_][0]:.3f} / {got[s_][1]:g}"
+              + (f" / {got[s_][2]:.1f}" if len(got[s_]) == 3 else "")
+              for s_ in order) + f" [{card}]")
+    loop_host = host_ms(torch, stages["sLSTM loop"])
+    busy, launches, _ = got["sLSTM loop"]
+    launches = round(launches)
+    steps = 1 if decode else x.shape[1]
+    print(f"(a) sLSTM loop, {what}: {launches} launches over {steps} steps "
+          f"({launches / steps:.1f} a step, {launches / (steps * n):.2f} a "
+          f"token of the {n} requests); device busy {busy:.3f} ms against "
+          f"host {loop_host:.3f} ms without the profiler "
+          f"({busy / loop_host * 100:.1f}% busy) [{card}]")
+    return busy, launches, loop_host
+
+
+def xlstm_phases(torch, np_, dev, card):
+    """Phase 25: the xLSTM (ssm) family on cuda. Returns each kernel's
+    launches over its main paths: {kernel name: {path: launches}}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hierarchy import ClientPool, Hierarchy
+    from repro_torch.core.registry import create_strategy
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.fl.orchestrator import FederatedOrchestrator
+    from repro_torch.kernels import fedavg as kfedavg
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import fused_adamw as kadamw
+    from repro_torch.kernels import rglru as krglru
+    from repro_torch.kernels import tpd as ktpd
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import common, get_model, xlstm
+    from repro_torch.optim import adamw
+    from repro_torch.serving import Request, WaveScheduler
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+    from repro_torch.utils.trees import tree_leaves, tree_map
+
+    sync = torch.cuda.synchronize
+    counters = (kflash, krglru, kfedavg, ktpd, kadamw)
+    phase_t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    check(held < 8 * 2 ** 30, f"{held} bytes still held on the card "
+                              f"before phase 25")
+    cfg = get_config(XLSTM_ARCH)
+    n_m, n_s = xlstm._block_counts(cfg)
+    phase(f"25. xLSTM on cuda: {XLSTM_ARCH} blocks card vs host and their "
+          f"stages, serving, a {XLSTM_CUT_LAYERS}-layer depth cut, training; "
+          f"federated xLSTM rounds")
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(SEED), dev)
+    sync()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(2.62e9 < n_params < 2.63e9, f"{XLSTM_ARCH} holds {n_params} params")
+    d_in = int(cfg.xlstm_proj_factor * cfg.d_model)
+    print(f"{XLSTM_ARCH}: {n_m} mLSTM blocks (d_in {d_in}, {cfg.n_heads} "
+          f"heads of {d_in // cfg.n_heads}, chunk {cfg.xlstm_chunk}), then "
+          f"{n_s} sLSTM blocks ({cfg.n_heads} heads of "
+          f"{cfg.d_model // cfg.n_heads}), d {cfg.d_model}, vocab "
+          f"{cfg.vocab_size} (padded {cfg.padded_vocab}); {n_params} f32 "
+          f"params ({n_params * 4 / 1e9:.2f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s; compute dtype {cfg.dtype}")
+
+    # ---- (a) one block of each kind, card vs host, and their stages ------
+    mblock = tree_map(lambda x: x[0], params["mlstm"])
+    sblock = tree_map(lambda x: x[0], params["slstm"])
+    f32 = cfg.replace(dtype="float32")
+    gen = torch.Generator(dev).manual_seed(SEED + 25)
+    x = torch.randn(*XLSTM_BLOCK_SHAPE, cfg.d_model, device=dev,
+                    generator=gen)
+    for name, fn, block in (("mLSTM", xlstm.mlstm_block, mblock),
+                            ("sLSTM", xlstm.slstm_block, sblock)):
+        outs = [fn(block, x, f32) for _ in range(2)]
+        sync()
+        want = fn(tree_map(lambda t: t.cpu(), block), x.cpu(), f32)
+        got = [tree_leaves(o) for o in outs]
+        rerun = all(torch.equal(a, b) for a, b in zip(*got, strict=True))
+        errs = []
+        for a, b in zip(got[0], tree_leaves(want), strict=True):
+            a = a.cpu()
+            errs.append((float((a - b).abs().max()), float(b.abs().max()),
+                         bool(torch.allclose(a, b, **XLSTM_BLOCK_TOL))))
+        print(f"(a) {name} block at {XLSTM_BLOCK_SHAPE[0]} x "
+              f"{XLSTM_BLOCK_SHAPE[1]} float32, cuda vs cpu (output, then "
+              f"the final state's leaves): max abs err "
+              + ", ".join(f"{e:.3e} (scale {s:.3g})" for e, s, _ in errs)
+              + f"; two card runs bit-equal {rerun} ({XLSTM_BLOCK_TOL})")
+        check(rerun, f"(a) two card runs of the {name} block differ")
+        check(all(ok for _, _, ok in errs),
+              f"(a) {name} block: cuda vs cpu beyond {XLSTM_BLOCK_TOL}: "
+              f"{errs}")
+        del outs, want, got
+    dt = getattr(torch, cfg.dtype)
+    xp = torch.randn(*XLSTM_PROFILE_SHAPE, cfg.d_model, device=dev,
+                     generator=gen).to(dt)
+    loop_prefill = xlstm_stage_profile(
+        torch, xlstm, common, cfg, mblock, sblock, xp, card,
+        f"prefill {XLSTM_PROFILE_SHAPE[0]} x {XLSTM_PROFILE_SHAPE[1]}")
+    b_dec = XLSTM_PROFILE_SHAPE[0]
+    dh_m = d_in // cfg.n_heads
+    m_state = {"C": torch.zeros(b_dec, cfg.n_heads, dh_m, dh_m, device=dev),
+               "n": torch.zeros(b_dec, cfg.n_heads, dh_m, device=dev)}
+    loop_decode = xlstm_stage_profile(
+        torch, xlstm, common, cfg, mblock, sblock,
+        common.pad_rows(xp[:, :1], common.row_bucket(b_dec)).contiguous(),
+        card, f"decode B {b_dec}", m_state=m_state)
+    del xp, m_state, x
+
+    print(f"(a) done {time.perf_counter() - phase_t0:.1f} s into "
+          f"phase 25")
+    # ---- (b) full-width serving -------------------------------------------
+    rng = np_.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, plen).astype(np_.int32)
+               for plen, n in XLSTM_PROMPTS for _ in range(n)]
+    reqs = [Request(rid=i, tokens=t, max_new_tokens=XLSTM_NEW_TOKENS)
+            for i, t in enumerate(prompts)]
+    issue_ms, peaks = [], []
+
+    def timed_decode(p, state, batch):
+        t1 = time.perf_counter()
+        out = model.decode_fn(p, state, batch)
+        issue_ms[-1].append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    def wave_prefill(p, batch):
+        if issue_ms:
+            peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        issue_ms.append([])
+        return model.prefill_fn(p, batch)
+
+    sched = WaveScheduler(dataclasses.replace(
+        model, prefill_fn=wave_prefill, decode_fn=timed_decode), params,
+        max_batch=SERVE_MAX_BATCH)
+    for r in reqs:
+        sched.submit(r)
+    zero_counts(*counters)            # the counts to 0 just before the path
+    t0 = time.perf_counter()
+    sched.run()
+    sync()
+    serve_s = time.perf_counter() - t0
+    serving = kernel_counts(*counters)    # read just after
+    peaks.append(torch.cuda.max_memory_allocated())
+    check(len(sched.stats) == len(XLSTM_PROMPTS)
+          and not any(serving.values()),
+          f"(b) {len(sched.stats)} waves, launches {serving}: the xLSTM "
+          f"serving path launches none of the port's kernels")
+    for st, issued, peak in zip(sched.stats, issue_ms, peaks, strict=True):
+        dec_ms = (st.wall_s - st.ttft_s) / max(st.steps - 1, 1) * 1e3
+        print(f"(b) wave {st.wave}: {st.batch} x {st.prompt_len} tokens: "
+              f"prefill {st.ttft_s * 1e3:.1f} ms (until the first tokens are "
+              f"on the host), decode {dec_ms:.2f} ms per token synchronised, "
+              f"of which the host spends {statistics.median(issued):.2f} ms "
+              f"issuing it (median of {len(issued)} steps); peak device "
+              f"memory {peak / 2**30:.2f} GiB [{card}]")
+    print(f"(b) summary() {json.dumps(sched.summary())}; whole run "
+          f"{serve_s:.3f} s; no kernel of the port on this path")
+    for r in reqs:
+        check(r.output is not None and len(r.output) == XLSTM_NEW_TOKENS
+              and bool(np_.all((r.output >= 0)
+                               & (r.output < cfg.vocab_size))),
+              f"(b) request {r.rid}: malformed output {r.output}")
+    for rid in XLSTM_SERIAL:
+        r = reqs[rid]
+        one = WaveScheduler(model, params, max_batch=1)
+        alone = Request(rid=rid, tokens=r.tokens,
+                        max_new_tokens=XLSTM_NEW_TOKENS)
+        one.submit(alone)
+        one.run()
+        same = np_.array_equal(alone.output, r.output)
+        print(f"(b) request {rid} ({len(r.tokens)} tokens): batched output "
+              f"{'equals' if same else 'differs from'} its batch-1 serial "
+              f"decode; first tokens {r.output[:6].tolist()}")
+        check(same, f"(b) request {rid}: batched != serial")
+    decode_profile(torch, np_, model, params, prompts[:SERVE_MAX_BATCH],
+                   dev, card)
+
+    print(f"(b) done {time.perf_counter() - phase_t0:.1f} s into "
+          f"phase 25")
+    # ---- (c) the depth cut vs the CPU --------------------------------------
+    cut = cfg.replace(n_layers=XLSTM_CUT_LAYERS)
+    p_cut = dict(params, mlstm=tree_map(lambda x: x[:1], params["mlstm"]),
+                 slstm=tree_map(lambda x: x[:1], params["slstm"]))
+    p_cpu = tree_map(lambda x: x.cpu(), p_cut)
+    toks = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (2, XLSTM_CUT_PROMPT + DENSE_CUT_STEPS)),
+        dtype=torch.int32)
+    for name in ("float32", "bfloat16"):
+        m = get_model(cut.replace(dtype=name))
+        out = {}
+        for where, p in (("cuda", p_cut), ("cpu", p_cpu)):
+            d = dev if where == "cuda" else torch.device("cpu")
+            logits, st = m.prefill_fn(
+                p, {"tokens": toks[:, :XLSTM_CUT_PROMPT].to(d)})
+            got = [logits.float().cpu()]
+            for i in range(DENSE_CUT_STEPS):
+                j = XLSTM_CUT_PROMPT + i
+                logits, st = m.decode_fn(p, st, {"token": toks[:, j:j + 1]
+                                                 .to(d)})
+                got.append(logits.float().cpu())
+            out[where] = got
+        whats = ["prefill logits"] + [f"decode step {i + 1}"
+                                      for i in range(DENSE_CUT_STEPS)]
+        failed = []
+        for what, a, b in zip(whats, out["cuda"], out["cpu"], strict=True):
+            err = float((a - b).abs().max())
+            if name == "float32":
+                ok = bool(torch.allclose(a, b, **XLSTM_CUT_TOL))
+                tol = str(XLSTM_CUT_TOL)
+            else:
+                ok = True
+                for row_a, row_b in zip(a[:, -1], b[:, -1], strict=True):
+                    top2 = torch.topk(row_b, 2).values
+                    pick = int(row_a.argmax())
+                    if float(top2[0] - top2[1]) > XLSTM_BF16_BAND:
+                        ok &= pick == int(row_b.argmax())
+                    else:
+                        ok &= float(top2[0] - row_b[pick]) <= XLSTM_BF16_BAND
+                tol = f"greedy tokens, drift band {XLSTM_BF16_BAND}"
+            if not (a.shape == b.shape and ok):
+                failed.append(f"{what} {err}")
+            print(f"(c) {XLSTM_ARCH} depth cut {name:8s} {what:16s}: cuda vs "
+                  f"cpu max abs diff {err:.3e} (scale "
+                  f"{float(b.abs().max()):.2f}; {tol}); greedy tokens "
+                  f"{a[:, -1].argmax(-1).tolist()} vs "
+                  f"{b[:, -1].argmax(-1).tolist()}")
+        check(not failed, f"(c) depth cut {name}: cuda vs cpu beyond {tol}: "
+                          f"{failed}")
+        del m, out
+    del p_cut, p_cpu, sched, reqs, params, mblock, sblock
+    torch.cuda.empty_cache()
+
+    print(f"(c) done {time.perf_counter() - phase_t0:.1f} s into "
+          f"phase 25")
+    # ---- (d) training ----------------------------------------------------
+    ds = SyntheticLMDataset(cfg.vocab_size, XLSTM_TRAIN_TOKENS, seed=SEED)
+    stamps = []
+
+    def batch_fn(step):
+        sync()
+        stamps.append(time.perf_counter())
+        return ds.batch(1, step)
+
+    torch.cuda.reset_peak_memory_stats()
+    loop = TrainLoop(model, adamw(3e-4), batch_fn,
+                     TrainLoopConfig(total_steps=XLSTM_TRAIN_STEPS,
+                                     log_every=1, checkpoint_dir=None),
+                     seed=SEED, device=dev)
+    check(cfg.remat, f"{XLSTM_ARCH} trains without remat")
+    zero_counts(*counters)            # the counts to 0 just before the path
+    res = loop.run()
+    sync()
+    stamps.append(time.perf_counter())
+    training = kernel_counts(*counters)   # read just after
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m_["loss"] for m_ in res["metrics_log"]]
+    steps_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    print(f"(d) TrainLoop, {XLSTM_TRAIN_STEPS} steps of 1 x "
+          f"{XLSTM_TRAIN_TOKENS} tokens, remat on, adamw: losses {losses}; "
+          f"steps {[round(s_ * 1e3, 1) for s_ in steps_s]} ms; peak device "
+          f"memory {peak / 2**30:.2f} GiB; launches "
+          f"{json.dumps({k: v for k, v in training.items() if v})} "
+          f"({time.perf_counter() - phase_t0:.1f} s into phase 25) "
+          f"[{card}]")
+    check(len(losses) == XLSTM_TRAIN_STEPS
+          and all(math.isfinite(v) for v in losses), f"(d) losses {losses}")
+    check(training["fused_adamw"] == XLSTM_TRAIN_STEPS
+          and sum(training.values()) == XLSTM_TRAIN_STEPS,
+          f"(d) launches {training}: expected one fused AdamW a step and "
+          f"no other kernel of the port")
+    # under the profiler, a step of XLSTM_PROFILE_TOKENS: one of 2048
+    # launches ~1.6M kernels, more than the profiler's buffers are sure
+    # to hold, and its trace takes minutes to read back
+    short = SyntheticLMDataset(cfg.vocab_size, XLSTM_PROFILE_TOKENS,
+                               seed=SEED)
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in short.batch(1, 0).items()}
+
+    def one_step():
+        loop.params, loop.opt_state, _ = loop.step_fn(
+            loop.params, loop.opt_state, batch)
+
+    one_step()
+    _, busy, launches, wall, kernels = profiled(torch, one_step)
+    check(busy > 0, "(d) the profiled step holds no device time")
+    top = sorted(kernels, key=lambda e: getattr(
+        e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0.0), reverse=True)[:6]
+    print(f"(d) one step of 1 x {XLSTM_PROFILE_TOKENS} tokens under "
+          f"torch.profiler: host {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"({busy / wall * 100:.1f}% of the step), {launches} launches; "
+          f"top: " + "; ".join(f"{e.key[:50]} x{e.count}" for e in top)
+          + f" ({time.perf_counter() - phase_t0:.1f} s into phase 25) "
+          f"[{card}]")
+    # the sLSTM loop alone (rows padded to 8): the remat forward runs it
+    # twice, the backward once; its own backward beside autograd's
+    # backward of the plain loop of slstm_cell
+    sblock = tree_map(lambda x: x[0].detach(), loop.params["slstm"])
+    rows = common.row_bucket(1)
+    dh = cfg.d_model // cfg.n_heads
+    r32 = sblock["r"].float()
+    st = xlstm.slstm_init_state(rows, cfg.n_heads, dh, dev)
+    median_step = statistics.median(steps_s) * 1e3
+    loop_train = {}
+    for tokens in (XLSTM_PROFILE_TOKENS, XLSTM_TRAIN_TOKENS):
+        wx = torch.randn(rows, tokens, cfg.n_heads, 4, dh, device=dev,
+                         generator=gen)
+
+        def forward():
+            with torch.no_grad():
+                return xlstm.slstm_scan(wx, r32, st)
+
+        def forward_backward(own):
+            wg, rg = wx.clone().requires_grad_(), r32.clone().requires_grad_()
+            hs = xlstm.slstm_scan(wg, rg, st)[0] if own else \
+                xlstm._scan(wg, rg, st, keep=False)[0]
+            hs.sum().backward()
+            return wg.grad, rg.grad
+
+        forward()
+        _, f_busy, f_launch, f_wall, _ = profiled(torch, forward)
+        own = forward_backward(True)
+        _, fb_busy, fb_launch, fb_wall, _ = profiled(
+            torch, lambda: forward_backward(True))
+        plain = forward_backward(False)
+        if tokens == XLSTM_PROFILE_TOKENS:
+            _, p_busy, p_launch, p_wall, _ = profiled(
+                torch, lambda: forward_backward(False))
+            autograd = (f"{p_busy:.1f} ms device / {p_launch} launches / "
+                        f"{p_wall:.1f} ms host")
+        else:                   # its trace would take long to read back
+            plain_ms = host_ms(torch, lambda: forward_backward(False))
+            autograd = f"{plain_ms:.1f} ms host (not profiled)"
+        gerr = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(own, plain, strict=True)]
+        check(max(gerr) <= 1e-4, f"(d) the sLSTM loop's own backward "
+                                 f"against autograd's: {gerr}")
+        loop_train[tokens] = n_s * (f_busy + fb_busy)
+        against = (f"the profiled step's {busy:.1f} ms device busy "
+                   f"({loop_train[tokens] / busy * 100:.1f}%)"
+                   if tokens == XLSTM_PROFILE_TOKENS else
+                   f"the {median_step:.1f} ms median step ("
+                   f"{loop_train[tokens] / median_step * 100:.1f}% of its "
+                   f"host time; its device busy time is not measured)")
+        print(f"(d) the sLSTM loop at 1 x {tokens} ({rows} rows), one block: "
+              f"forward {f_busy:.1f} ms device / {f_launch} launches / "
+              f"{f_wall:.1f} ms host; forward + backward {fb_busy:.1f} / "
+              f"{fb_launch} / {fb_wall:.1f} with its own backward, "
+              f"{autograd} with autograd's backward of the plain loop; "
+              f"gradients of wx and r agree to {max(gerr):.2e} of their "
+              f"scale; x {n_s} blocks with remat's second forward "
+              f"{loop_train[tokens]:.1f} ms device a step, against "
+              f"{against} ({time.perf_counter() - phase_t0:.1f} s into "
+              f"phase 25) [{card}]")
+    del loop, res, sblock, wx, batch, short
+    torch.cuda.empty_cache()
+
+    print(f"(d) done {time.perf_counter() - phase_t0:.1f} s into "
+          f"phase 25")
+    # ---- (e) federated xLSTM rounds ----------------------------------------
+    out_json = ROOT / "build" / "train_xlstm.json"
+    out_json.parent.mkdir(parents=True, exist_ok=True)
+    zero_counts(*counters)            # the counts to 0 just before the path
+    code = train_main(["--arch", XLSTM_ARCH, "--strategy", "pso",
+                       "--clients", str(FL_CLIENTS), "--rounds",
+                       str(FL_ROUNDS), "--out", str(out_json)], device=dev)
+    sync()
+    by_train = kernel_counts(*counters)   # read just after
+    record = json.loads(out_json.read_text())
+    losses = [r["loss"] for r in record["rounds"]]
+    check(code == 0 and len(losses) == FL_ROUNDS
+          and all(math.isfinite(v) for v in losses),
+          f"(e) launch/train.py: exit {code}, losses {losses}")
+    print(f"(e) launch/train.py --arch {XLSTM_ARCH} (reduced, bf16 compute): "
+          f"exit {code}, losses {losses}; launches "
+          f"{json.dumps({k: v for k, v in by_train.items() if v})}")
+    runs = {}
+    fl_cfg = cfg.reduced().replace(dtype="float32")
+    for dev_name in ("cuda", "cpu"):
+        h = Hierarchy(depth=2, width=2, trainers_per_leaf=1,
+                      n_clients=FL_CLIENTS)
+        pool = ClientPool.random(h.total_clients, seed=SEED)
+        orch = FederatedOrchestrator(
+            get_model(fl_cfg), h, pool, make_federated_dataset(
+                fl_cfg, h.total_clients, SEED, FL_SEQ),
+            local_steps=FL_LOCAL_STEPS, batch_size=FL_BATCH, seed=SEED,
+            timing="deterministic", device=dev_name)
+        init = tree_map(lambda x: x.cpu(), orch.params) \
+            if dev_name == "cuda" else runs["cuda"][1]
+        orch.set_global(tree_map(lambda x: x.to(orch.device).clone(), init))
+        if dev_name == "cuda":
+            zero_counts(*counters)    # the counts to 0 just before
+        t1 = time.perf_counter()
+        res = orch.run(create_strategy("pso", h, seed=SEED), rounds=FL_ROUNDS)
+        if dev_name == "cuda":
+            sync()
+            engine = kernel_counts(*counters)   # read just after
+        runs[dev_name] = (res, init, time.perf_counter() - t1, h.depth)
+    got, _, got_s, depth = runs["cuda"]
+    want, _, want_s, _ = runs["cpu"]
+    gl, wl = [r.loss for r in got.rounds], [r.loss for r in want.rounds]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gl, wl, strict=True))
+    same = ([r.placement for r in got.rounds]
+            == [r.placement for r in want.rounds]
+            and got.tpds.tolist() == want.tpds.tolist())
+    expect = {k: 0 for k in engine}
+    expect["fedavg_batched"] = (1 + FL_ROUNDS) * depth
+    print(f"(e) {XLSTM_ARCH} reduced f32, batched engine, {FL_ROUNDS} rounds "
+          f"of pso: placements {[r.placement for r in got.rounds]}, TPDs "
+          f"{got.tpds.tolist()} (cpu: equal {same}); losses {gl} vs {wl} on "
+          f"cpu (largest rel diff {rel:.2e}); launches "
+          f"{json.dumps({k: v for k, v in engine.items() if v})}, the CPU "
+          f"rehearsal's count {json.dumps(expect['fedavg_batched'])} "
+          f"fedavg_batched and none else; {got_s:.2f} s on cuda, "
+          f"{want_s:.2f} s on cpu [{card}]")
+    check(same, "(e) placements or TPDs differ between cuda and cpu")
+    check(all(math.isfinite(v) for v in gl) and rel <= LOSS_RTOL,
+          f"(e) losses {gl} vs {wl} (rtol {LOSS_RTOL})")
+    check(engine == expect, f"(e) launches {engine}, expected {expect}")
+    fedavg_train = by_train["fedavg_batched"] + by_train["fedavg"]
+    check(fedavg_train > 0 and sum(by_train.values()) == fedavg_train,
+          f"(e) launch/train.py launched {by_train}: FedAvg only, expected")
+    federated = {k: by_train[k] + engine[k] for k in engine}
+    print(f"(a, b, d) the sLSTM loop's device busy against host ms: prefill "
+          f"{loop_prefill[0]:.1f} / {loop_prefill[2]:.1f} a block, decode "
+          f"{loop_decode[0]:.3f} / {loop_decode[2]:.3f} a block, training "
+          f"{loop_train[XLSTM_TRAIN_TOKENS]:.1f} ms device a step of 1 x "
+          f"{XLSTM_TRAIN_TOKENS} over {n_s} blocks [{card}]")
+    print(f"phase 25 took {time.perf_counter() - phase_t0:.1f} s [{card}]")
+    return {k: {f"{XLSTM_ARCH} serving (phase 25)": serving[k],
+                f"{XLSTM_ARCH} training (phase 25)": training[k],
+                "federated xLSTM rounds (phase 25)": federated[k]}
+            for k in serving}
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4024,6 +4616,7 @@ def main() -> int:
     online_phases(torch, np, card)
     dense = dense_phases(torch, np, dev, card)
     moe_paths = moe_phases(torch, np, dev, card)
+    xlstm_paths = xlstm_phases(torch, np, dev, card)
 
     k_ms, r_ms, b_ms = rows[10]
     kernels = [
@@ -4053,7 +4646,7 @@ def main() -> int:
     # paths' (as named in the module docstring), then phases 22-24
     for entry in kernels:
         paths = {"phases 5-16": entry["launches"], **dense[entry["name"]],
-                 **moe_paths[entry["name"]]}
+                 **moe_paths[entry["name"]], **xlstm_paths[entry["name"]]}
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
     print(json.dumps({"kernels": kernels}))

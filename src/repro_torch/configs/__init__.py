@@ -4,10 +4,11 @@
 port carries the mlp family (the paper's own workload and its CI
 stand-in), the hybrid family (``recurrentgemma-2b``, ROADMAP.md queue 1
 item 11a), the dense transformer family (``stablelm-1.6b``,
-``stablelm-3b``, ``granite-8b``, ``minitron-8b``, item 11b-1) and the
+``stablelm-3b``, ``granite-8b``, ``minitron-8b``, item 11b-1), the
 moe family (``granite-moe-1b-a400m``, ``qwen3-moe-235b-a22b``, item
-11b-2); the reference's ssm, vlm and audio families come with the rest
-of item 11b, and asking for one raises until then.
+11b-2) and the ssm family (``xlstm-1.3b``, item 11b-3); the reference's
+vlm and audio families come with item 11b-4, and asking for one raises
+until then.
 """
 from __future__ import annotations
 
@@ -20,22 +21,23 @@ from repro_torch.configs.qwen3_moe_235b_a22b import CONFIG as _qwen3_moe
 from repro_torch.configs.recurrentgemma_2b import CONFIG as _recurrentgemma_2b
 from repro_torch.configs.stablelm_1_6b import CONFIG as _stablelm_1_6b
 from repro_torch.configs.stablelm_3b import CONFIG as _stablelm_3b
+from repro_torch.configs.xlstm_1_3b import CONFIG as _xlstm_1_3b
 
 _REGISTRY = {c.name: c for c in (
     _paper_mlp, _mlp_smoke, _recurrentgemma_2b, _stablelm_1_6b,
-    _stablelm_3b, _granite_8b, _minitron_8b, _granite_moe_1b, _qwen3_moe)}
+    _stablelm_3b, _granite_8b, _minitron_8b, _granite_moe_1b, _qwen3_moe,
+    _xlstm_1_3b)}
 
 # the reference's other architectures, not ported yet
-_LM_FAMILIES = ("xlstm-1.3b", "seamless-m4t-large-v2",
-                "llava-next-mistral-7b")
+_LM_FAMILIES = ("seamless-m4t-large-v2", "llava-next-mistral-7b")
 
 
 def get_config(name: str) -> ModelConfig:
     if name in _LM_FAMILIES:
         raise NotImplementedError(
             f"{name!r} is a language-model family the port does not carry "
-            f"yet; the ssm, vlm and audio families come with "
-            f"ROADMAP.md queue 1 item 11b")
+            f"yet; the vlm and audio families come with "
+            f"ROADMAP.md queue 1 item 11b-4")
     if name not in _REGISTRY:
         raise KeyError(f"unknown architecture {name!r}; known: "
                        f"{sorted(_REGISTRY)}")

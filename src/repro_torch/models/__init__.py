@@ -1,6 +1,6 @@
-"""Model registry of the port: family -> builder (the mlp, hybrid, dense
-and moe families so far; the ssm, vlm and audio families come with
-ROADMAP.md queue 1 item 11b)."""
+"""Model registry of the port: family -> builder (the mlp, hybrid, dense,
+moe and ssm families so far; the vlm and audio families come with
+ROADMAP.md queue 1 item 11b-4)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,9 +11,11 @@ from repro_torch.models.mlp import build_mlp_model
 from repro_torch.models.rglru import build_rglru_model
 from repro_torch.models.sharding import UNSHARDED, ShardingPolicy
 from repro_torch.models.transformer import build_decoder_model
+from repro_torch.models.xlstm import build_xlstm_model
 
 _BUILDERS = {"dense": build_decoder_model, "moe": build_decoder_model,
-             "hybrid": build_rglru_model, "mlp": build_mlp_model}
+             "hybrid": build_rglru_model, "ssm": build_xlstm_model,
+             "mlp": build_mlp_model}
 
 
 def get_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
@@ -24,7 +26,8 @@ def get_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
     if cfg.family not in _BUILDERS:
         raise NotImplementedError(
             f"no builder for family {cfg.family!r} in the port yet; the "
-            f"other LM families come with ROADMAP.md queue 1 item 11b")
+            f"vlm and audio families come with ROADMAP.md queue 1 "
+            f"item 11b-4")
     return _BUILDERS[cfg.family](cfg, policy, window=window)
 
 

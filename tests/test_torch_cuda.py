@@ -1331,3 +1331,94 @@ def test_moe_training_gradient_on_cuda_matches_cpu(cuda_device, name):
     for got, want in zip(out["cuda"][2], out["cpu"][2], strict=True):
         scale = max(float(want.abs().max()), 1e-6)
         assert float((got - want).abs().max()) <= 1e-4 * scale + 1e-6
+
+
+# ---- the xLSTM (ssm) family ------------------------------------------------
+@pytest.mark.cuda
+def test_xlstm_on_cuda_matches_cpu_and_reruns_bit_equal(cuda_device):
+    """Reduced xlstm-1.3b, float32: prefill 2 x 48 tokens (3 chunks of
+    16) and four decode steps on the card against the CPU, logits and
+    every state within 1e-4; a second card run bit-equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.utils.trees import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("xlstm-1.3b").reduced().replace(dtype="float32")
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 52),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+
+    def run(p, dev):
+        logits, st = model.prefill_fn(p, {"tokens": toks[:, :48].to(dev)})
+        out = [logits.cpu()] + [x.cpu() for x in tree_leaves(st["states"])]
+        for i in range(48, 52):
+            logits, st = model.decode_fn(p, st, {"token": toks[:, i:i + 1]
+                                                 .to(dev)})
+            out.append(logits.cpu())
+        return out + [x.cpu() for x in tree_leaves(st["states"])]
+
+    dev_params = tree_map(lambda x: x.to(cuda_device), params)
+    got, again = run(dev_params, cuda_device), run(dev_params, cuda_device)
+    want = run(params, "cpu")
+    for a, b, w in zip(got, again, want, strict=True):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_xlstm_batched_equals_serial_on_cuda(cuda_device):
+    """Reduced xlstm-1.3b at its bf16 compute: a wave of 3 and each
+    request served alone give the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving import Request, WaveScheduler
+    cfg = get_config("xlstm-1.3b").reduced()
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), cuda_device)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, 40).astype(np.int32)
+               for _ in range(3)]
+    sched = WaveScheduler(model, params, max_batch=3)
+    reqs = [Request(rid=i, tokens=t, max_new_tokens=6)
+            for i, t in enumerate(prompts)]
+    for r in reqs:
+        sched.submit(r)
+    sched.run()
+    for r in reqs:
+        one = WaveScheduler(model, params, max_batch=1)
+        alone = Request(rid=r.rid, tokens=r.tokens, max_new_tokens=6)
+        one.submit(alone)
+        one.run()
+        np.testing.assert_array_equal(alone.output, r.output)
+
+
+@pytest.mark.cuda
+def test_xlstm_training_gradient_on_cuda_matches_cpu(cuda_device):
+    """Reduced xlstm-1.3b's loss and gradients (float32, remat on, 2 x 48
+    tokens) on the card against the CPU: the loss within 1e-5, each
+    gradient within 1e-4 of its largest value."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.utils.trees import tree_flatten, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("xlstm-1.3b").reduced().replace(dtype="float32",
+                                                      remat=True)
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 49),
+                         generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        leaves, rebuild = tree_flatten(tree_map(lambda x: x.to(dev), params))
+        live = [x.detach().requires_grad_() for x in leaves]
+        loss, _ = model.loss_fn(rebuild(live), {
+            "tokens": toks[:, :48].to(dev), "labels": toks[:, 1:].to(dev)})
+        grads = torch.autograd.grad(loss, live)
+        out[dev] = (float(loss.detach()), [g.cpu() for g in grads])
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for got, want in zip(out["cuda"][1], out["cpu"][1], strict=True):
+        scale = max(float(want.abs().max()), 1e-6)
+        assert float((got - want).abs().max()) <= 1e-4 * scale + 1e-6

@@ -46,7 +46,7 @@ def test_configs_are_copied_field_for_field(name):
 
 def test_other_families_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 11"):
-        get_config("xlstm-1.3b")
+        get_config("llava-next-mistral-7b")
     with pytest.raises(KeyError):
         get_config("no-such-model")
 

@@ -114,7 +114,7 @@ def test_configs_are_copied_field_for_field(name):
         dataclasses.asdict(ref_get_config(name).reduced())
 
 
-@pytest.mark.parametrize("name", ["xlstm-1.3b", "llava-next-mistral-7b",
+@pytest.mark.parametrize("name", ["llava-next-mistral-7b",
                                   "seamless-m4t-large-v2"])
 def test_other_lm_families_still_raise(name):
     with pytest.raises(NotImplementedError, match="item 11b"):
