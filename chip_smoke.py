@@ -245,11 +245,11 @@ Phases, in order; any failed check raises and ends the run non-zero:
     out-norm and down; the sLSTM input projection, loop and out
     projection), with the sLSTM loop's launches a step and a token and
     its device time against its host time; (b) full-width, full-depth
-    xlstm-1.3b (2.62e9 f32 params, bf16 compute) serving 8 requests
-    through ``WaveScheduler(max_batch=4)`` (4 x 1024 and 4 x 2048
-    tokens, 32 new each): prefill and decode times, peak memory, no
-    kernel launch, one request of each wave equal to its batch-1
-    serial run, a decode step under ``torch.profiler``; (c) a 2-layer
+    xlstm-1.3b (2.62e9 f32 params, bf16 compute) serving 4 requests
+    through ``WaveScheduler(max_batch=4)`` (4 x 1024 tokens, 32 new
+    each; the 4 x 2048 wave gave phase 26 its time): prefill and decode
+    times, peak memory, no kernel launch, one request equal to its
+    batch-1 serial run, a decode step under ``torch.profiler``; (c) a 2-layer
     full-width cut (one block of each kind), a 512-token prompt and 4
     decode steps, on ``cuda`` vs ``cpu``: float32 logits within 2e-4,
     bf16 greedy tokens by tests/test_serve_consistency.py's drift-band
@@ -264,8 +264,39 @@ Phases, in order; any failed check raises and ends the run non-zero:
     the batched engine on ``cuda`` and ``cpu`` (7 clients, 3 rounds of
     pso, float32): placements and TPDs exactly, losses within rtol
     1e-4, the FedAvg launches held to the CPU rehearsal's count and no
-    other kernel; then the ``kernels`` JSON line (ten kernels) and the
-    final status line.
+    other kernel;
+26. the vlm and audio families on ``cuda`` (params drawn on the card
+    from seed 0): (a) the bf16 flash forward and backward at their
+    serving prefill shapes, seamless-m4t-large-v2's encoder (B 4, 16
+    heads of 64, S 1024, ``causal=False``) and decoder (causal, S 1024)
+    and llava-next-mistral-7b's prefill (B 4, GQA 32/8 at hd 128, S
+    4096, causal), against the plain version one batch row at a time
+    (2e-2; the backward within 2e-2 of the gradients' scale), reruns
+    bit-equal, then device times of the kernel, the plain version and
+    SDPA beside the bound (a bidirectional pair count is S^2); (b)
+    full-width, full-depth llava-next-mistral-7b (7.24e9 f32 params,
+    bf16 compute) serving 8 requests through ``WaveScheduler(
+    max_batch=4, frontend=...)`` behind one seeded 2880 x 4096 prefix
+    (4 x 512 and 4 x 1024 text tokens, 3584 and 4096 after padding, 32
+    new each): prefill and decode times, peak memory, one causal sm90
+    flash launch a layer a wave, every request equal to its batch-1
+    serial decode, a decode step under ``torch.profiler``; (c) a 2-layer
+    full-width cut, 1 x (2880 + 64) and 4 decode steps, on ``cuda`` vs
+    ``cpu``: float32 logits within 1e-4, bf16 greedy tokens by the drift
+    band; (d) full-width seamless-m4t-large-v2 (1.28e9 params) served
+    the same way behind a 1024 x 1024 frontend (every request equal to
+    its serial decode; 12 bidirectional and 12 causal flash launches a
+    wave), a 2 + 2-layer cut held to the CPU as (c), and 4 ``TrainLoop``
+    steps of 1 x 2048 text tokens, remat on: losses, step times, peak
+    memory, launches by mask; (e) llava trained 2 steps of 1 x (2880 +
+    1024) at the deepest full-width depth cut that leaves 10 GiB of the
+    card free (from 20 bytes a layer param and the largest leaf's
+    stack), held to leave it; (f) ``launch/train.py`` for both families
+    (reduced) on ``cuda``, then the batched engine on ``cuda`` and
+    ``cpu`` (7 clients, 3 rounds of pso, float32): placements and TPDs
+    exactly, losses within rtol 1e-4, the flash and FedAvg launches held
+    to the CPU rehearsal's count; then the ``kernels`` JSON line (ten
+    kernels) and the final status line.
 
 Each kernel's launch count is set to 0 just before the path that runs
 it and read just after: ``tpd`` over phase 5, ``fedavg_batched`` over
@@ -281,15 +312,19 @@ Comparison and timing launches never enter the JSON line's
 the two-tier model, which must be 0; ``fedavg_batched`` over the fault
 run) and print them, and so do phases 20 (``fedavg_batched`` over the
 online runs) and 21 (``tpd`` over the calibrated swarms, which must be
-0, and over their analytic twin). Phases 22-25 are main paths too:
+0, and over their analytic twin). Phases 22-26 are main paths too:
 every count is set to 0 just before each (the scheduler's run of
 granite-8b, the scheduler's stablelm-3b wave, the ``launch/train.py``
 runs and the batched engine's cuda runs, the granite-moe scheduler
-run, its ``TrainLoop.run``, the qwen3-moe cut's wave, and phase 25's
+run, its ``TrainLoop.run``, the qwen3-moe cut's wave, phase 25's
 scheduler run, ``TrainLoop.run``, ``launch/train.py`` run and engine
-run) and read just after; each path's count is the sum of its runs',
-the JSON line's ``launches`` is the sum over the paths, and
-``launches_by_path`` holds each path's count.
+run, and phase 26's two scheduler runs, two ``TrainLoop.run`` calls,
+``launch/train.py`` runs and engine runs) and read just after; each
+path's count is the sum of its runs', the JSON line's ``launches`` is
+the sum over the paths, and ``launches_by_path`` holds each path's
+count. Phase 26 splits the flash kernels' count of a path that runs
+the encoder by mask, ``causal=1`` and ``causal=0`` (the wrappers'
+``modes``), so the bidirectional launches show on their own.
 """
 from __future__ import annotations
 
@@ -616,13 +651,16 @@ LOGIT_TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
              "bfloat16": dict(rtol=0.05, atol=0.5)}
 
 
-def flash_bound(b, hq, hkv, s, hd, window, elem_bytes, peak=None):
-    """(bound ms, flops, bytes) of one causal flash call: 4 hd flops per
-    visible (query head, key) pair over ``peak``, by default the rate of
-    the operands' type (bf16 tensor cores, or float32 in split TF32),
-    and q, k, v read and the output written once over the memory
-    rate."""
-    pairs = sum(min(i + 1, window or s) for i in range(s))
+def flash_bound(b, hq, hkv, s, hd, window, elem_bytes, peak=None,
+                causal=True):
+    """(bound ms, flops, bytes) of one flash call, causal by default: 4
+    hd flops per visible (query head, key) pair over ``peak``, by
+    default the rate of the operands' type (bf16 tensor cores, or
+    float32 in split TF32), and q, k, v read and the output written once
+    over the memory rate. Without ``causal`` (and a window) every pair
+    is visible: S^2, twice the causal count."""
+    pairs = sum(min(i + 1, window or s) for i in range(s)) if causal \
+        else s * s
     flops = 4 * b * hq * hd * pairs
     nbytes = elem_bytes * (2 * b * hq * s * hd + 2 * b * hkv * s * hd)
     peak = peak or (PEAK_BF16_FLOPS if elem_bytes == 2 else PEAK_F32_FLOPS)
@@ -1136,12 +1174,15 @@ def adamw_scalars(np_, step, b1=0.9, b2=0.95):
             np_.float32(1) - np_.float32(b2) ** t)
 
 
-def flash_bwd_bound(b, hq, hkv, s, hd, window, elem_bytes, peak=None):
+def flash_bwd_bound(b, hq, hkv, s, hd, window, elem_bytes, peak=None,
+                    causal=True):
     """(bound ms, flops, bytes) of one flash backward: 10 hd flops per
     visible (query head, key) pair over ``peak``, by default the rate of
-    the operands' type, as :func:`flash_bound`; q, k, v, o, do and lse
-    read and dq, dk, dv written once over the memory rate."""
-    pairs = sum(min(i + 1, window or s) for i in range(s))
+    the operands' type, as :func:`flash_bound` (``causal`` too); q, k,
+    v, o, do and lse read and dq, dk, dv written once over the memory
+    rate."""
+    pairs = sum(min(i + 1, window or s) for i in range(s)) if causal \
+        else s * s
     flops = 10 * b * hq * hd * pairs
     nbytes = elem_bytes * (5 * b * hq * s * hd + 2 * b * hkv * s * hd) \
         + 4 * b * hq * s
@@ -2310,6 +2351,7 @@ def zero_counts(kflash, krglru, kfedavg, ktpd, kadamw):
     for fn in (kflash.flash_attention, kflash.flash_attention_bwd):
         fn.launches = 0
         fn.routes.clear()
+        fn.modes.clear()
     for fn in (krglru.rglru_scan, krglru.rglru_scan_bwd):
         fn.launches = 0
         fn.routes.clear()
@@ -2318,15 +2360,21 @@ def zero_counts(kflash, krglru, kfedavg, ktpd, kadamw):
     kadamw.fused_adamw.launches = 0
 
 
-def decode_profile(torch, np_, model, params, prompts, dev, card):
-    """One decode step of a wave of ``prompts`` under ``torch.profiler``:
+def decode_profile(torch, np_, model, params, prompts, dev, card,
+                   frontend=None):
+    """One decode step of a wave of ``prompts`` (behind ``frontend``, the
+    vlm and audio families' stub embeddings) under ``torch.profiler``:
     the step's host time, the device's busy time and its split by kernel
     (one stream: kernels do not overlap). Printed, not checked."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     toks = torch.as_tensor(np_.stack(prompts)).to(dev)
-    logits, state = model.prefill_fn(params, {"tokens": toks})
+    batch = {"tokens": toks}
+    if frontend is not None:
+        batch["frontend"] = torch.as_tensor(frontend).to(dev).expand(
+            len(prompts), -1, -1).contiguous()
+    logits, state = model.prefill_fn(params, batch)
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
     for _ in range(2):
         logits, state = model.decode_fn(params, state, {"token": tok})
@@ -3147,6 +3195,21 @@ def moe_phases(torch, np_, dev, card):
             for k in serving}
 
 
+def greedy_in_band(torch, a, b, band):
+    """tests/test_serve_consistency.py's rule on the last position's
+    logits: the greedy token of ``a`` equals ``b``'s where ``b``'s top-2
+    gap is wider than ``band``, else lies within ``band`` of its top."""
+    ok = True
+    for row_a, row_b in zip(a[:, -1], b[:, -1], strict=True):
+        top2 = torch.topk(row_b, 2).values
+        pick = int(row_a.argmax())
+        if float(top2[0] - top2[1]) > band:
+            ok &= pick == int(row_b.argmax())
+        else:
+            ok &= float(top2[0] - row_b[pick]) <= band
+    return ok
+
+
 def moe_cut_check(torch, np_, moe, get_model, cut, p_dev, p_cpu, toks, plen,
                   steps, dev, arch, tag, dtypes=("bfloat16", "float32")):
     """A moe depth cut on the card against the CPU from the same params:
@@ -3208,16 +3271,9 @@ def moe_cut_check(torch, np_, moe, get_model, cut, p_dev, p_cpu, toks, plen,
                 ferr = float((f - b).abs().max())
                 if name == "bfloat16":
                     ok = bool(torch.allclose(f, b, **MOE_BF16_TOL)) \
-                        and err <= MOE_BF16_FREE_ATOL
-                    band = 2 * MOE_BF16_TOL["atol"]
-                    for r in range(b.shape[0]):
-                        row_a, row_b = a[r, -1], b[r, -1]
-                        top2 = torch.topk(row_b, 2).values
-                        pick = int(row_a.argmax())
-                        if float(top2[0] - top2[1]) > band:
-                            ok &= pick == int(row_b.argmax())
-                        else:
-                            ok &= float(top2[0] - row_b[pick]) <= band
+                        and err <= MOE_BF16_FREE_ATOL \
+                        and greedy_in_band(torch, a, b,
+                                           2 * MOE_BF16_TOL["atol"])
                     tol = (f"greedy tokens, atol {MOE_BF16_FREE_ATOL}; "
                            f"{MOE_BF16_TOL} under the CPU's routing")
                 else:
@@ -3241,9 +3297,11 @@ def moe_cut_check(torch, np_, moe, get_model, cut, p_dev, p_cpu, toks, plen,
 
 # ---- the xLSTM (ssm) family (phase 25) ------------------------------------
 XLSTM_ARCH = "xlstm-1.3b"
-XLSTM_PROMPTS = ((1024, 4), (2048, 4))   # 2 waves of 4: chunk multiples
+# one wave of 4 x 1024 (a chunk multiple): the 4 x 2048 wave (9.9-20.7 s
+# of host-bound prefill and its serial twin) gave phase 26 its time
+XLSTM_PROMPTS = ((1024, 4),)
 XLSTM_NEW_TOKENS = 32
-XLSTM_SERIAL = (0, 4)                   # one request of each wave, alone
+XLSTM_SERIAL = (0,)                     # one request of the wave, alone
 XLSTM_BLOCK_SHAPE = (2, 512)            # (a): card vs host, float32
 XLSTM_PROFILE_SHAPE = (4, 2048)         # (a): the stages' prefill
 XLSTM_DECODE_REPS = 10                  # (a): decode calls a profile
@@ -3574,14 +3632,7 @@ def xlstm_phases(torch, np_, dev, card):
                 ok = bool(torch.allclose(a, b, **XLSTM_CUT_TOL))
                 tol = str(XLSTM_CUT_TOL)
             else:
-                ok = True
-                for row_a, row_b in zip(a[:, -1], b[:, -1], strict=True):
-                    top2 = torch.topk(row_b, 2).values
-                    pick = int(row_a.argmax())
-                    if float(top2[0] - top2[1]) > XLSTM_BF16_BAND:
-                        ok &= pick == int(row_b.argmax())
-                    else:
-                        ok &= float(top2[0] - row_b[pick]) <= XLSTM_BF16_BAND
+                ok = greedy_in_band(torch, a, b, XLSTM_BF16_BAND)
                 tol = f"greedy tokens, drift band {XLSTM_BF16_BAND}"
             if not (a.shape == b.shape and ok):
                 failed.append(f"{what} {err}")
@@ -3798,6 +3849,639 @@ def xlstm_phases(torch, np_, dev, card):
                 "federated xLSTM rounds (phase 25)": federated[k]}
             for k in serving}
 
+
+
+# ---- the vlm and audio families (phase 26) --------------------------------
+VLM_ARCH = "llava-next-mistral-7b"
+AUDIO_ARCH = "seamless-m4t-large-v2"
+# text tokens and requests a wave: llava's 2880-patch prefix plus 512 or
+# 1024 tokens pads to 3584 or 4096; seamless's text follows 1024 frames
+MM_PROMPTS = ((512, 4), (1024, 4))
+MM_NEW_TOKENS = 32
+MM_CUT_LAYERS = 2                       # (c), (d): the depth cuts
+MM_CUT_PROMPT = 64                      # text tokens of a cut's prefill
+MM_CUT_BATCH = {VLM_ARCH: 1, AUDIO_ARCH: 2}
+AUDIO_TRAIN_STEPS, AUDIO_TRAIN_TOKENS = 4, 2048
+VLM_TRAIN_STEPS, VLM_TRAIN_TOKENS = 2, 1024
+VLM_TRAIN_FREE = 10 * 2 ** 30           # (e): the cut leaves this free
+# (e): a training step holds 16 bytes a param (params, grads, both
+# moments, flat), and the stacked layers' backward (one unbind a leaf)
+# holds every layer's gradients until the first layer's are done, 4
+# bytes a layer param, then stacks one leaf's at a time (4 bytes a param
+# of the largest leaf); beyond those, this much working set (remat's
+# layer in flight, the logits)
+VLM_TRAIN_SLACK = 5 * 2 ** 30
+# (a): (what, B, Hq, Hkv, S, hd, causal), the serving prefill shapes
+# (forward and backward, bf16)
+FLASH_MM = (("seamless encoder", 4, 16, 16, 1024, 64, False),
+            ("seamless decoder", 4, 16, 16, 1024, 64, True),
+            ("llava prefill", 4, 32, 8, 4096, 128, True))
+# (c), (d): float32 logits card vs host, as the dense family's CPU tests
+MM_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def flash_modes(kflash):
+    """The flash forward's and backward's launches by mask, as read now."""
+    return (dict(kflash.flash_attention.modes),
+            dict(kflash.flash_attention_bwd.modes))
+
+
+def mm_paths(counts, path, modes=None):
+    """{kernel: {path: launches}} of one main path's counts; given the
+    path's ``modes`` (:func:`flash_modes`, read with the counts) the
+    flash kernels' launches are split by mask (``causal=1`` and
+    ``causal=0``, the encoder's bidirectional attention), which needs the
+    path to have run one route of each."""
+    out = {k: {path: n} for k, n in counts.items()}
+    if modes is None:
+        return out
+    for names, by_mode in ((("flash_attention", "flash_attention_f32"),
+                            modes[0]),
+                           (("flash_attention_bwd", "flash_attention_bwd_f32"),
+                            modes[1])):
+        check(sum(1 for n in names if counts[n]) <= 1,
+              f"{path}: {names} both launched; the mask split needs one")
+        for n in names:
+            causal = by_mode.get("causal", 0) if counts[n] else 0
+            bidir = by_mode.get("bidirectional", 0) if counts[n] else 0
+            check(causal + bidir == counts[n],
+                  f"{path}: {n} {counts[n]} launches, modes {by_mode}")
+            out[n] = {f"{path}, causal=1": causal, f"{path}, causal=0": bidir}
+    return out
+
+
+def merge_paths(*parts):
+    return {k: {p: n for part in parts for p, n in part[k].items()}
+            for k in parts[0]}
+
+
+def mm_cut_check(torch, get_model, cut, p_dev, p_cpu, toks, front, steps,
+                 dev, tag):
+    """A depth cut on the card against the CPU from the same params: the
+    prefill of ``toks[:, :MM_CUT_PROMPT]`` behind ``front`` and ``steps``
+    decode steps; float32 logits within MM_F32_TOL, bf16 greedy tokens
+    by the drift-band rule. Prints each run's host seconds."""
+    for name in ("float32", "bfloat16"):
+        m = get_model(cut.replace(dtype=name))
+        out, secs = {}, {}
+        for where, p in (("cuda", p_dev), ("cpu", p_cpu)):
+            d = dev if where == "cuda" else torch.device("cpu")
+            t0 = time.perf_counter()
+            logits, st = m.prefill_fn(p, {
+                "tokens": toks[:, :MM_CUT_PROMPT].to(d),
+                "frontend": front.to(d)})
+            got = [logits.float().cpu()]
+            for i in range(steps):
+                j = MM_CUT_PROMPT + i
+                logits, st = m.decode_fn(p, st, {"token": toks[:, j:j + 1]
+                                                 .to(d)})
+                got.append(logits.float().cpu())
+            secs[where] = time.perf_counter() - t0
+            out[where] = got
+        whats = ["prefill logits"] + [f"decode step {i + 1}"
+                                      for i in range(steps)]
+        failed = []
+        for what, a, b in zip(whats, out["cuda"], out["cpu"], strict=True):
+            err = float((a - b).abs().max())
+            if name == "float32":
+                ok = bool(torch.allclose(a, b, **MM_F32_TOL))
+                tol = str(MM_F32_TOL)
+            else:
+                ok = greedy_in_band(torch, a, b, XLSTM_BF16_BAND)
+                tol = f"greedy tokens, drift band {XLSTM_BF16_BAND}"
+            if not (a.shape == b.shape and ok):
+                failed.append(f"{what} {err}")
+            print(f"{tag} depth cut {name:8s} {what:16s}: cuda vs cpu max "
+                  f"abs diff {err:.3e} (scale {float(b.abs().max()):.2f}; "
+                  f"{tol}); greedy tokens {a[:, -1].argmax(-1).tolist()} vs "
+                  f"{b[:, -1].argmax(-1).tolist()}")
+        print(f"{tag} depth cut {name}: {secs['cuda']:.2f} s on cuda, "
+              f"{secs['cpu']:.2f} s on the host (prefill and {steps} decode "
+              f"steps)")
+        check(not failed, f"{tag} depth cut {name}: cuda vs cpu beyond "
+                          f"{tol}: {failed}")
+        del m, out
+
+
+def mm_serve(torch, np_, model, params, frontend, prompts, dev, card, tag,
+             counters):
+    """Serve ``prompts`` through ``WaveScheduler(max_batch=4, frontend=)``
+    on the card: per wave the prefill and decode times and the peak
+    memory; every output held to its batch-1 serial decode. Returns the
+    kernels' launches over the scheduler's run (counted from 0) and the
+    flash kernels' by mask (:func:`flash_modes`)."""
+    from repro_torch.serving import Request, WaveScheduler
+    reqs = [Request(rid=i, tokens=t, max_new_tokens=MM_NEW_TOKENS)
+            for i, t in enumerate(prompts)]
+    issue_ms, peaks = [], []
+
+    def timed_decode(p, state, batch):
+        t1 = time.perf_counter()
+        out = model.decode_fn(p, state, batch)
+        issue_ms[-1].append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    def wave_prefill(p, batch):
+        if issue_ms:
+            peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        issue_ms.append([])
+        return model.prefill_fn(p, batch)
+
+    sched = WaveScheduler(dataclasses.replace(
+        model, prefill_fn=wave_prefill, decode_fn=timed_decode), params,
+        max_batch=SERVE_MAX_BATCH, frontend=frontend)
+    for r in reqs:
+        sched.submit(r)
+    zero_counts(*counters)            # the counts to 0 just before the path
+    t0 = time.perf_counter()
+    sched.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launched = kernel_counts(*counters)   # read just after
+    modes = flash_modes(counters[0])
+    peaks.append(torch.cuda.max_memory_allocated())
+    check(len(sched.stats) == len(MM_PROMPTS), f"{tag}: {len(sched.stats)} "
+                                               f"waves")
+    for st, issued, peak in zip(sched.stats, issue_ms, peaks, strict=True):
+        dec_ms = (st.wall_s - st.ttft_s) / max(st.steps - 1, 1) * 1e3
+        print(f"{tag} wave {st.wave}: {st.batch} x {st.prompt_len} text "
+              f"tokens: prefill {st.ttft_s * 1e3:.1f} ms (until the first "
+              f"tokens are on the host), decode {dec_ms:.2f} ms per token "
+              f"synchronised, of which the host spends "
+              f"{statistics.median(issued):.2f} ms issuing it (median of "
+              f"{len(issued)} steps); peak device memory "
+              f"{peak / 2**30:.2f} GiB [{card}]")
+    print(f"{tag} summary() {json.dumps(sched.summary())}; whole run "
+          f"{serve_s:.3f} s; launches "
+          f"{json.dumps({k: v for k, v in launched.items() if v})}")
+    vocab = model.config.vocab_size
+    for r in reqs:
+        check(r.output is not None and len(r.output) == MM_NEW_TOKENS
+              and bool(np_.all((r.output >= 0) & (r.output < vocab))),
+              f"{tag} request {r.rid}: malformed output {r.output}")
+    t0 = time.perf_counter()
+    same = []
+    for r in reqs:
+        one = WaveScheduler(model, params, max_batch=1, frontend=frontend)
+        alone = Request(rid=r.rid, tokens=r.tokens,
+                        max_new_tokens=MM_NEW_TOKENS)
+        one.submit(alone)
+        one.run()
+        same.append(bool(np_.array_equal(alone.output, r.output)))
+    print(f"{tag} every request against its batch-1 serial decode: equal "
+          f"{same} ({time.perf_counter() - t0:.1f} s for the {len(reqs)} "
+          f"serial runs); first tokens {reqs[0].output[:6].tolist()}")
+    check(all(same), f"{tag}: batched != serial for requests "
+                     f"{[r.rid for r, s in zip(reqs, same) if not s]}")
+    return launched, modes
+
+
+def flash_mm_case(torch, F, kflash, flash_attention_ref, dev, card, case,
+                  seed):
+    """Phase 26 (a): one flash shape, bf16 on the sm90 route, forward and
+    backward against the plain version on the card (one batch row at a
+    time: the dense plain version's scores at B 4 x S 4096 would take
+    tens of GB) at 2e-2, then device times of the kernel, the plain
+    version and SDPA beside the bound. Returns (forward max abs err,
+    backward max abs err); both held, and the times printed."""
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+    what, b, hq, hkv, s, hd, causal = case
+    gen = torch.Generator(dev).manual_seed(seed)
+    q, k, v, do = [torch.randn(sh, device=dev, generator=gen).to(
+        torch.bfloat16) for sh in ((b, hq, s, hd), (b, hkv, s, hd),
+                                   (b, hkv, s, hd), (b, hq, s, hd))]
+    tol = FLASH_TOL["bfloat16"]
+    before = dict(kflash.flash_attention.modes)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = kflash.flash_attention(*leaves, causal=causal)
+    out.backward(do)
+    out = out.detach()
+    got = [t.grad for t in leaves]
+    again = [t.clone().requires_grad_() for t in (q, k, v)]
+    kflash.flash_attention(*again, causal=causal).backward(do)
+    torch.cuda.synchronize()
+    mode = "causal" if causal else "bidirectional"
+    went = {m: n - before.get(m, 0) for m, n in
+            kflash.flash_attention.modes.items() if n != before.get(m, 0)}
+    check(went == {mode: 2}, f"(a) {what}: flash modes launched {went}")
+    check(all(torch.equal(x.grad, y) for x, y in zip(again, got)),
+          f"(a) {what}: two backward runs differ")
+    f_err, b_err, worst = 0.0, 0.0, 0.0
+    for i in range(b):
+        rows = [t[i:i + 1].clone().requires_grad_() for t in (q, k, v)]
+        want = flash_attention_ref(*rows, causal=causal)
+        w = want.detach().float()
+        f_err = max(f_err, float((out[i:i + 1].float() - w).abs().max()))
+        check(torch.allclose(out[i:i + 1].float(), w, **tol),
+              f"(a) {what} forward row {i}: beyond {tol}")
+        want.backward(do[i:i + 1])
+        for g, r in zip(got, rows, strict=True):
+            scale = float(r.grad.float().abs().max())
+            err = float((g[i:i + 1].float() - r.grad.float()).abs().max())
+            b_err = max(b_err, err)
+            worst = max(worst, err / scale)
+        del rows, want
+    check(worst <= FLASH_BWD_TOL["bfloat16"],
+          f"(a) {what} backward: {worst} of the gradients' scale")
+    del leaves, again, out
+    # device times: forward, then backward from the forward's out, lse
+    scale = 1.0 / math.sqrt(hd)
+    kk = k.repeat_interleave(hq // hkv, dim=1)
+    vv = v.repeat_interleave(hq // hkv, dim=1)
+    fwd = lambda: kflash.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    k_ms = median_device_ms(torch, fwd, runs=9, per_run=5)
+    p_ms = median_device_ms(torch, lambda: flash_attention_ref(
+        q, k, v, causal=causal), runs=3, per_run=1)
+    l_ms = median_device_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, kk, vv, is_causal=causal), runs=9, per_run=5)
+    fb_ms = flash_bound(b, hq, hkv, s, hd, None, 2, causal=causal)
+    o, lse = kflash._forward(q, k, v, (causal, None, scale, None),
+                             with_lse=True)
+    kb_ms = median_device_ms(torch, lambda: kflash.flash_attention_bwd(
+        q, k, v, o, do, lse, causal=causal, scale=scale), runs=7, per_run=3)
+    pb_ms = median_device_ms(torch, lambda: flash_attention_bwd_ref(
+        q, k, v, o, do, lse, causal=causal, scale=scale), runs=3, per_run=1)
+    qq, kr, vr = (t.clone().requires_grad_() for t in (q, kk, vv))
+    sdpa_out = F.scaled_dot_product_attention(qq, kr, vr, is_causal=causal)
+    lb_ms = median_device_ms(torch, lambda: torch.autograd.grad(
+        sdpa_out, (qq, kr, vr), do, retain_graph=True), runs=7, per_run=3)
+    bb_ms = flash_bwd_bound(b, hq, hkv, s, hd, None, 2, causal=causal)
+    print(f"(a) flash {what} bf16 (B, Hq, Hkv, hd) = {(b, hq, hkv, hd)} "
+          f"S={s} causal={int(causal)}: forward max abs err {f_err:.3e} "
+          f"({tol}), backward within {worst:.2e} of the gradients' scale "
+          f"({FLASH_BWD_TOL['bfloat16']}), reruns bit-equal; forward "
+          f"kernel {k_ms:.4f} ms ({fb_ms[1] / k_ms / 1e9:.1f} TFLOP/s, "
+          f"{fb_ms[0] / k_ms * 100:.1f}% of the bound), plain torch "
+          f"{p_ms:.3f} ms, SDPA {l_ms:.4f} ms, bound {fb_ms[0]:.4f} ms "
+          f"({fb_ms[1]:.3e} flops); backward kernel {kb_ms:.4f} ms (3 "
+          f"launches, {bb_ms[1] / kb_ms / 1e9:.1f} TFLOP/s, "
+          f"{bb_ms[0] / kb_ms * 100:.1f}% of the bound), plain torch "
+          f"{pb_ms:.3f} ms, SDPA backward on k, v repeated to {hq} heads "
+          f"{lb_ms:.4f} ms, bound {bb_ms[0]:.4f} ms ({bb_ms[1]:.3e} flops) "
+          f"[{card}]")
+    del q, k, v, do, kk, vv, o, lse, qq, kr, vr, sdpa_out
+    torch.cuda.empty_cache()
+    return f_err, b_err
+
+
+def vlm_audio_phases(torch, np_, dev, card):
+    """Phase 26: the vlm and audio families on cuda. Returns ({kernel
+    name: {path: launches}}, {kernel name: max abs err of (a)})."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.hierarchy import ClientPool, Hierarchy
+    from repro_torch.core.registry import create_strategy
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.fl.orchestrator import FederatedOrchestrator
+    from repro_torch.kernels import fedavg as kfedavg
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import fused_adamw as kadamw
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru as krglru
+    from repro_torch.kernels import tpd as ktpd
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainLoop, TrainLoopConfig
+    from repro_torch.utils.trees import tree_leaves, tree_map
+
+    sync = torch.cuda.synchronize
+    counters = (kflash, krglru, kfedavg, ktpd, kadamw)
+    phase_t0 = time.perf_counter()
+
+    def mark(part):
+        print(f"({part}) done {time.perf_counter() - phase_t0:.1f} s into "
+              f"phase 26")
+
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    check(held < 8 * 2 ** 30, f"{held} bytes still held on the card "
+                              f"before phase 26")
+    phase(f"26. vlm and audio on cuda: flash at their shapes (bidirectional "
+          f"too), {VLM_ARCH} and {AUDIO_ARCH} served, cut and trained; "
+          f"federated vlm and audio rounds")
+
+    # ---- (a) flash at this slice's shapes ---------------------------------
+    errs = {"flash_attention": 0.0, "flash_attention_bwd": 0.0}
+    for i, case in enumerate(FLASH_MM):
+        f_err, b_err = flash_mm_case(
+            torch, F, kflash, flash_attention_ref, dev, card, case, 260 + i)
+        errs["flash_attention"] = max(errs["flash_attention"], f_err)
+        errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], b_err)
+    mark("a")
+
+    # ---- (b) llava-next-mistral-7b uncut, served --------------------------
+    cfg = get_config(VLM_ARCH)
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(SEED), dev)
+    sync()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(7.2e9 < n_params < 7.3e9, f"{VLM_ARCH} holds {n_params} params")
+    rng = np_.random.default_rng(SEED)
+    front = rng.normal(scale=0.02, size=(cfg.frontend_len, cfg.frontend_dim)
+                       ).astype(np_.float32)
+    prompts = [rng.integers(0, cfg.vocab_size, plen).astype(np_.int32)
+               for plen, n in MM_PROMPTS for _ in range(n)]
+    print(f"{VLM_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"rope theta {cfg.rope_theta:g}, a {cfg.frontend_len} x "
+          f"{cfg.frontend_dim} stub prefix; {n_params} f32 params "
+          f"({n_params * 4 / 1e9:.2f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    vlm_serving, modes = mm_serve(torch, np_, model, params, front, prompts,
+                                  dev, card, f"(b) {VLM_ARCH}", counters)
+    waves = len(MM_PROMPTS)
+    check(vlm_serving["flash_attention"] == cfg.n_layers * waves
+          and vlm_serving["flash_attention_f32"] == 0
+          and modes[0] == {"causal": cfg.n_layers * waves},
+          f"(b) flash launches {vlm_serving} {modes}, expected "
+          f"{cfg.n_layers} causal per prefill x {waves} on "
+          f"{kflash.SM90_SOURCE.stem} only")
+    decode_profile(torch, np_, model, params, prompts[:SERVE_MAX_BATCH], dev,
+                   card, frontend=front)
+    mark("b")
+
+    # ---- (c) a 2-layer full-width cut against the CPU ---------------------
+    cut = cfg.replace(n_layers=MM_CUT_LAYERS)
+    p_cut = dict(params, layers=tree_map(lambda x: x[:MM_CUT_LAYERS],
+                                         params["layers"]))
+    p_cpu = tree_map(lambda x: x.cpu(), p_cut)
+    b_cut = MM_CUT_BATCH[VLM_ARCH]
+    toks = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (b_cut, MM_CUT_PROMPT + DENSE_CUT_STEPS)),
+        dtype=torch.int32)
+    fe = torch.as_tensor(front).expand(b_cut, -1, -1).contiguous()
+    mm_cut_check(torch, get_model, cut, p_cut, p_cpu, toks, fe,
+                 DENSE_CUT_STEPS, dev, f"(c) {VLM_ARCH}")
+    del p_cut, p_cpu, params, model
+    torch.cuda.empty_cache()
+    mark("c")
+
+    # ---- (d) seamless-m4t-large-v2 uncut: served, cut, trained ------------
+    acfg = get_config(AUDIO_ARCH)
+    amodel = get_model(acfg)
+    t0 = time.perf_counter()
+    aparams = amodel.init(torch.Generator(dev).manual_seed(SEED), dev)
+    sync()
+    n_audio = sum(x.numel() for x in tree_leaves(aparams))
+    check(1.27e9 < n_audio < 1.29e9, f"{AUDIO_ARCH} holds {n_audio} params")
+    afront = rng.normal(scale=0.02, size=(acfg.frontend_len,
+                                          acfg.frontend_dim)
+                        ).astype(np_.float32)
+    aprompts = [rng.integers(0, acfg.vocab_size, plen).astype(np_.int32)
+                for plen, n in MM_PROMPTS for _ in range(n)]
+    print(f"{AUDIO_ARCH}: {acfg.n_encoder_layers} encoder and "
+          f"{acfg.n_layers} decoder layers, d {acfg.d_model}, "
+          f"{acfg.n_heads} heads of {acfg.resolved_head_dim}, d_ff "
+          f"{acfg.d_ff}, vocab {acfg.vocab_size} (padded "
+          f"{acfg.padded_vocab}), a {acfg.frontend_len} x "
+          f"{acfg.frontend_dim} stub frontend; {n_audio} f32 params "
+          f"({n_audio * 4 / 1e9:.2f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    audio_serving, modes = mm_serve(torch, np_, amodel, aparams, afront,
+                                    aprompts, dev, card, f"(d) {AUDIO_ARCH}",
+                                    counters)
+    per_wave = acfg.n_encoder_layers + acfg.n_layers
+    check(audio_serving["flash_attention"] == per_wave * waves
+          and modes[0] == {"bidirectional": acfg.n_encoder_layers * waves,
+                           "causal": acfg.n_layers * waves},
+          f"(d) flash launches {audio_serving} {modes}, expected "
+          f"{acfg.n_encoder_layers} bidirectional (the encoder) and "
+          f"{acfg.n_layers} causal (the decoder) per prefill x {waves}")
+    audio_serving = mm_paths(audio_serving,
+                             f"{AUDIO_ARCH} serving (phase 26)", modes)
+    cut = acfg.replace(n_layers=MM_CUT_LAYERS,
+                       n_encoder_layers=MM_CUT_LAYERS)
+    p_cut = dict(aparams, **{part: tree_map(lambda x: x[:MM_CUT_LAYERS],
+                                            aparams[part])
+                             for part in ("encoder", "decoder")})
+    p_cpu = tree_map(lambda x: x.cpu(), p_cut)
+    b_cut = MM_CUT_BATCH[AUDIO_ARCH]
+    toks = torch.as_tensor(rng.integers(
+        0, acfg.vocab_size, (b_cut, MM_CUT_PROMPT + DENSE_CUT_STEPS)),
+        dtype=torch.int32)
+    fe = torch.as_tensor(afront).expand(b_cut, -1, -1).contiguous()
+    mm_cut_check(torch, get_model, cut, p_cut, p_cpu, toks, fe,
+                 DENSE_CUT_STEPS, dev, f"(d) {AUDIO_ARCH}")
+    del p_cut, p_cpu, aparams
+    torch.cuda.empty_cache()
+
+    def train(model, steps, tokens, frontend, tag):
+        ds = SyntheticLMDataset(model.config.vocab_size, tokens, seed=SEED)
+        stamps = []
+
+        def batch_fn(step):
+            sync()
+            stamps.append(time.perf_counter())
+            return dict(ds.batch(1, step), frontend=frontend[None])
+
+        torch.cuda.reset_peak_memory_stats()
+        loop = TrainLoop(model, adamw(3e-4), batch_fn,
+                         TrainLoopConfig(total_steps=steps, log_every=1,
+                                         checkpoint_dir=None),
+                         seed=SEED, device=dev)
+        check(model.config.remat, f"{tag} trains without remat")
+        zero_counts(*counters)        # the counts to 0 just before the path
+        res = loop.run()
+        sync()
+        stamps.append(time.perf_counter())
+        launched = kernel_counts(*counters)   # read just after
+        modes = flash_modes(kflash)
+        peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.max_memory_reserved()
+        n = sum(x.numel() for x in tree_leaves(loop.params))
+        losses = [m_["loss"] for m_ in res["metrics_log"]]
+        steps_s = [b_ - a_ for a_, b_ in zip(stamps, stamps[1:])]
+        print(f"{tag} TrainLoop, {steps} steps of 1 x {tokens} text tokens "
+              f"behind {frontend.shape[0]} frontend positions, remat on, "
+              f"adamw, {n} params: losses {losses}; steps "
+              f"{[round(s_ * 1e3, 1) for s_ in steps_s]} ms; peak device "
+              f"memory {peak / 2**30:.2f} GiB allocated, "
+              f"{reserved / 2**30:.2f} GiB reserved; launches "
+              f"{json.dumps({k: v for k, v in launched.items() if v})}, "
+              f"flash masks {json.dumps(modes[0])}, backward "
+              f"{json.dumps(modes[1])} [{card}]")
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+              f"{tag} losses {losses}")
+        with torch.no_grad():
+            after = [float(model.loss_fn(loop.params, {
+                k: torch.as_tensor(v).to(dev) for k, v in batch_fn(i).items()
+            })[0]) for i in range(steps)]
+        print(f"{tag} each step's batch under the final params: losses "
+              f"{after}")
+        del loop, res
+        torch.cuda.empty_cache()
+        return launched, modes, peak, n
+
+    audio_training, modes, _, _ = train(
+        amodel, AUDIO_TRAIN_STEPS, AUDIO_TRAIN_TOKENS,
+        torch.as_tensor(afront), f"(d) {AUDIO_ARCH}")
+    # each step: the encoder and decoder forward, remat's recompute, and
+    # each layer's backward (3 launches)
+    check(audio_training["flash_attention"] == 2 * per_wave
+          * AUDIO_TRAIN_STEPS
+          and audio_training["flash_attention_bwd"] == 3 * per_wave
+          * AUDIO_TRAIN_STEPS
+          and audio_training["fused_adamw"] == AUDIO_TRAIN_STEPS
+          and modes[1].get("bidirectional") == 3 * acfg.n_encoder_layers
+          * AUDIO_TRAIN_STEPS,
+          f"(d) training launches {audio_training}, flash masks {modes}")
+    audio_training = mm_paths(audio_training,
+                              f"{AUDIO_ARCH} training (phase 26)", modes)
+    del amodel
+    mark("d")
+
+    # ---- (e) llava training at the deepest full-width cut that fits ------
+    total = torch.cuda.mem_get_info()[1]
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    per_layer = (2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+                 + 3 * d * cfg.d_ff + 2 * d)
+    rest = 2 * cfg.padded_vocab * d + d      # embed, lm_head, ln_f
+    layer_bytes = 20 * per_layer + 4 * d * cfg.d_ff   # largest: w_gate
+    depth = int((total - VLM_TRAIN_FREE - VLM_TRAIN_SLACK - 16 * rest)
+                // layer_bytes)
+    depth = max(1, min(depth, cfg.n_layers))
+    print(f"(e) {VLM_ARCH} training cut: {depth} of {cfg.n_layers} layers "
+          f"({per_layer} params a layer, {rest} outside them; 16 bytes a "
+          f"param for params, grads and both moments, 4 more a layer param "
+          f"for the stacked layers' gradients in the backward and 4 a "
+          f"param of the largest leaf's stack: {layer_bytes / 2**30:.2f} "
+          f"GiB a layer; {VLM_TRAIN_SLACK / 2**30:.0f} GiB for the step's "
+          f"working set, {VLM_TRAIN_FREE / 2**30:.0f} GiB left free of the "
+          f"card's {total / 2**30:.2f} GiB)")
+    vlm_model = get_model(cfg.replace(n_layers=depth))
+    vlm_training, _, peak, n_cut = train(
+        vlm_model, VLM_TRAIN_STEPS, VLM_TRAIN_TOKENS, torch.as_tensor(front),
+        f"(e) {VLM_ARCH} cut to {depth} layers")
+    check(n_cut == rest + depth * per_layer,
+          f"(e) {n_cut} params, counted {rest + depth * per_layer}")
+    free = total - peak
+    print(f"(e) the cut left {free / 2**30:.2f} GiB of the card free at its "
+          f"peak (at least {VLM_TRAIN_FREE / 2**30:.0f}); one layer more "
+          f"would add {layer_bytes / 2**30:.2f} GiB")
+    check(free >= VLM_TRAIN_FREE, f"(e) {free} bytes free at the peak")
+    check(vlm_training["flash_attention"] == 2 * depth * VLM_TRAIN_STEPS
+          and vlm_training["flash_attention_bwd"] == 3 * depth
+          * VLM_TRAIN_STEPS
+          and vlm_training["fused_adamw"] == VLM_TRAIN_STEPS,
+          f"(e) training launches {vlm_training}")
+    del vlm_model
+    torch.cuda.empty_cache()
+    mark("e")
+
+    # ---- (f) federated vlm and audio rounds --------------------------------
+    fl_archs = (VLM_ARCH, AUDIO_ARCH)
+    zero_counts(*counters)            # the counts to 0 just before the path
+    losses = {}
+    for arch in fl_archs:
+        out_json = ROOT / "build" / f"train_{arch}.json"
+        out_json.parent.mkdir(parents=True, exist_ok=True)
+        code = train_main(["--arch", arch, "--strategy", "pso", "--clients",
+                           str(FL_CLIENTS), "--rounds", str(FL_ROUNDS),
+                           "--out", str(out_json)], device=dev)
+        record = json.loads(out_json.read_text())
+        losses[arch] = [r["loss"] for r in record["rounds"]]
+        check(code == 0 and len(losses[arch]) == FL_ROUNDS
+              and all(math.isfinite(v) for v in losses[arch]),
+              f"(f) launch/train.py --arch {arch}: exit {code}, losses "
+              f"{losses[arch]}")
+    sync()
+    by_train = mm_paths(kernel_counts(*counters),   # read just after
+                        "vlm and audio launch/train.py (phase 26)",
+                        flash_modes(kflash))
+    print(f"(f) launch/train.py (reduced, bf16 compute) on cuda: losses "
+          f"{json.dumps(losses)}; launches "
+          f"{json.dumps({k: sum(v.values()) for k, v in by_train.items()})}")
+    calls = {}
+    fwd_flash = ops.flash_attention
+
+    def counting(*args, **kw):
+        grad = torch.is_grad_enabled() and any(x.requires_grad for x in args)
+        calls["flash"] = calls.get("flash", 0) + 1
+        calls["flash_bwd"] = calls.get("flash_bwd", 0) + int(grad)
+        return fwd_flash(*args, **kw)
+
+    runs = {}
+    ops.flash_attention = counting
+    try:
+        for where, d in (("card", dev), ("host", torch.device("cpu"))):
+            if where == "card":
+                zero_counts(*counters)    # the counts to 0 just before
+            for arch in fl_archs:
+                calls.clear()
+                fl_cfg = get_config(arch).reduced().replace(dtype="float32")
+                h = Hierarchy(depth=2, width=2, trainers_per_leaf=1,
+                              n_clients=FL_CLIENTS)
+                pool = ClientPool.random(h.total_clients, seed=SEED)
+                orch = FederatedOrchestrator(
+                    get_model(fl_cfg), h, pool, make_federated_dataset(
+                        fl_cfg, h.total_clients, SEED, FL_SEQ),
+                    local_steps=FL_LOCAL_STEPS, batch_size=FL_BATCH,
+                    seed=SEED, timing="deterministic", device=d)
+                # both devices start from the card run's initial params
+                init = tree_map(lambda x: x.cpu(), orch.params) \
+                    if where == "card" else runs["card", arch][2]
+                orch.set_global(tree_map(lambda x: x.to(d).clone(), init))
+                t1 = time.perf_counter()
+                res = orch.run(create_strategy("pso", h, seed=SEED),
+                               rounds=FL_ROUNDS)
+                if where == "card":
+                    sync()
+                runs[where, arch] = (res, dict(calls), init,
+                                     time.perf_counter() - t1, h.depth)
+            if where == "card":
+                engine = kernel_counts(*counters)   # read just after
+                engine_paths = mm_paths(
+                    engine, "vlm and audio engine rounds (phase 26)",
+                    flash_modes(kflash))
+    finally:
+        ops.flash_attention = fwd_flash
+    for arch in fl_archs:
+        got, got_calls, _, got_s, _ = runs["card", arch]
+        want, want_calls, _, want_s, _ = runs["host", arch]
+        same = ([r.placement for r in got.rounds]
+                == [r.placement for r in want.rounds]
+                and got.tpds.tolist() == want.tpds.tolist())
+        gl, wl = [r.loss for r in got.rounds], [r.loss for r in want.rounds]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(gl, wl, strict=True))
+        print(f"(f) {arch} reduced f32, batched engine, {FL_ROUNDS} rounds of "
+              f"pso: placements {[r.placement for r in got.rounds]}, TPDs "
+              f"{got.tpds.tolist()} (cpu: equal {same}); losses {gl} vs {wl} "
+              f"on cpu (largest rel diff {rel:.2e}); entry calls "
+              f"{json.dumps(got_calls)} (cpu {json.dumps(want_calls)}); "
+              f"{got_s:.2f} s on cuda, {want_s:.2f} s on cpu [{card}]")
+        check(same, f"(f) {arch}: placements or TPDs differ")
+        check(all(math.isfinite(v) for v in gl) and rel <= LOSS_RTOL,
+              f"(f) {arch}: losses {gl} vs {wl} (rtol {LOSS_RTOL})")
+        check(got_calls == want_calls, f"(f) {arch}: flash calls differ")
+    want_calls = [runs["host", arch][1] for arch in fl_archs]
+    expect = {k: 0 for k in engine}
+    expect.update({
+        "flash_attention_f32": sum(c.get("flash", 0) for c in want_calls),
+        "flash_attention_bwd_f32": 3 * sum(c.get("flash_bwd", 0)
+                                           for c in want_calls),
+        "fedavg_batched": sum((1 + FL_ROUNDS) * runs["host", arch][4]
+                              for arch in fl_archs)})
+    launched, counted = ({k: v for k, v in d.items() if v}
+                         for d in (engine, expect))
+    print(f"(f) batched engine launches on cuda {json.dumps(launched)}, "
+          f"the CPU rehearsal's count {json.dumps(counted)}; flash masks "
+          f"{json.dumps(kflash.flash_attention.modes)}")
+    check(engine == expect, f"(f) launches {engine}, expected {expect}")
+    mark("f")
+    print(f"phase 26 took {time.perf_counter() - phase_t0:.1f} s [{card}]")
+    return merge_paths(
+        mm_paths(vlm_serving, f"{VLM_ARCH} serving (phase 26)"),
+        audio_serving, audio_training,
+        mm_paths(vlm_training, f"{VLM_ARCH} training, {depth} layers "
+                               f"(phase 26)"),
+        by_train, engine_paths), errs
 
 
 def main() -> int:
@@ -4617,6 +5301,7 @@ def main() -> int:
     dense = dense_phases(torch, np, dev, card)
     moe_paths = moe_phases(torch, np, dev, card)
     xlstm_paths = xlstm_phases(torch, np, dev, card)
+    mm_paths_, mm_errs = vlm_audio_phases(torch, np, dev, card)
 
     k_ms, r_ms, b_ms = rows[10]
     kernels = [
@@ -4643,12 +5328,16 @@ def main() -> int:
         *training,
     ]
     # each path's launches, counted from 0 over it: the earlier main
-    # paths' (as named in the module docstring), then phases 22-24
+    # paths' (as named in the module docstring), then phases 22-26
     for entry in kernels:
         paths = {"phases 5-16": entry["launches"], **dense[entry["name"]],
-                 **moe_paths[entry["name"]], **xlstm_paths[entry["name"]]}
+                 **moe_paths[entry["name"]], **xlstm_paths[entry["name"]],
+                 **mm_paths_[entry["name"]]}
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
+        if entry["name"] in mm_errs:        # phase 26 (a)'s shapes too
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       mm_errs[entry["name"]])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

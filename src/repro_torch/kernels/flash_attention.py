@@ -30,8 +30,10 @@ unpadded one. :func:`head_route` gives the route and the width from the
 head dim and the dtype. q, k and v alike, Hq a multiple of Hkv; the
 kernels mask their own ragged edge, so S need not be a multiple of any
 tile. A tensor on a CUDA device launches its route's kernel or raises
-(counted on ``flash_attention.launches``, and per source on
-``flash_attention.routes``); a tensor on the CPU, of any hd >= 1, goes
+(counted on ``flash_attention.launches``, per source on
+``flash_attention.routes`` and per mask, ``causal`` or
+``bidirectional`` (``causal=False``), on ``flash_attention.modes``); a
+tensor on the CPU, of any hd >= 1, goes
 to the plain torch version,
 :func:`repro_torch.kernels.ref.flash_attention_ref`, with the same
 masks. There is no fallback from the card to the host or from one route
@@ -49,7 +51,8 @@ route, ``csrc/flash_attention_bwd_sm90.cu`` and
 
 three deterministic launches on either route (dq, then partial dk and
 dv over a split of each kv head's query heads, then their sum), padded
-as the forward is, counted on ``flash_attention_bwd.launches``, with
+as the forward is, counted on ``flash_attention_bwd.launches`` (and
+its ``routes`` and ``modes``), with
 its plain version :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`
 for CPU tensors. :func:`launch_geometry` gives the bfloat16 kernels'
 grids.
@@ -184,9 +187,11 @@ def _raise_on(code: int, lib: ctypes.CDLL, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: {msg} ({code})")
 
 
-def _count(fn, source, launches: int = 1) -> None:
+def _count(fn, source, causal: bool, launches: int = 1) -> None:
     fn.launches += launches
     fn.routes[source.stem] = fn.routes.get(source.stem, 0) + launches
+    mode = "causal" if causal else "bidirectional"
+    fn.modes[mode] = fn.modes.get(mode, 0) + launches
 
 
 def _sms(device) -> int:
@@ -320,7 +325,7 @@ def _forward(q, k, v, masks, with_lse: bool):
                 *operands, b, hq, k.shape[1], s, width, int(causal),
                 window or 0, kv, scale, geo.col_blocks, geo.cols, stream)
     _raise_on(code, lib, name)
-    _count(flash_attention, source)
+    _count(flash_attention, source, causal)
     if width != hd:
         out = out[..., :hd].contiguous()
     return out.to(dtype), lse
@@ -328,6 +333,7 @@ def _forward(q, k, v, masks, with_lse: bool):
 
 flash_attention.launches = 0
 flash_attention.routes = {}     # launches per kernel source (stem)
+flash_attention.modes = {}      # launches per mask: causal, bidirectional
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
@@ -392,7 +398,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                 *operands, *parts, scale, geo.col_blocks, geo.cols,
                 geo.split, stream)
     _raise_on(code, lib, name)
-    _count(flash_attention_bwd, source, 3)   # dq, partial dk and dv, sum
+    _count(flash_attention_bwd, source, causal, 3)   # dq, dk/dv parts, sum
     if width != hd:
         dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
     return dq.to(dtype), dk.to(dtype), dv.to(dtype)
@@ -400,6 +406,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.routes = {}
+flash_attention_bwd.modes = {}
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -14,7 +14,9 @@ gives them:
 To compare two versions of the package on one card, run this module
 from each tree in one session (``PYTHONPATH=<tree>/src``), alternating.
 ``--reduced`` runs the architecture's ``reduced()`` config (a quick
-check on the host: ``main([...], device="cpu")``).
+check on the host: ``main([...], device="cpu")``). The vlm and audio
+families get a stub frontend drawn after the prompt (``--prompt`` counts
+the text alone: llava-next-mistral-7b's 2880 patches come before it).
 """
 from __future__ import annotations
 
@@ -62,6 +64,13 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> int:
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                         (args.batch, args.prompt)),
                            dtype=torch.int32).to(dev)
+    batch = {"tokens": toks}
+    if cfg.family in ("vlm", "audio"):
+        # the stub frontend, drawn after the prompt as launch/serve.py does
+        batch["frontend"] = torch.as_tensor(rng.normal(
+            scale=0.02, size=(args.batch, cfg.frontend_len,
+                              cfg.frontend_dim or cfg.d_model)),
+            dtype=torch.float32).to(dev)
 
     def sync():
         if dev.type == "cuda":
@@ -69,7 +78,7 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> int:
 
     issue, step = [], []
     with torch.no_grad():
-        logits, state = model.prefill_fn(params, {"tokens": toks})
+        logits, state = model.prefill_fn(params, batch)
         for i in range(STEPS + 2):
             tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
             sync()

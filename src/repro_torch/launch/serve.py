@@ -47,13 +47,19 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> int:
     rng_np = np.random.default_rng(args.seed)
     prompt = torch.as_tensor(rng_np.integers(0, cfg.vocab_size, (b, s)),
                              dtype=torch.int32).to(dev)
+    batch = {"tokens": prompt}
+    if cfg.family in ("vlm", "audio"):
+        batch["frontend"] = torch.as_tensor(rng_np.normal(
+            scale=0.02, size=(b, cfg.frontend_len,
+                              cfg.frontend_dim or cfg.d_model)),
+            dtype=torch.float32).to(dev)
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
     t0 = time.perf_counter()
-    logits, state = model.prefill_fn(params, {"tokens": prompt})
+    logits, state = model.prefill_fn(params, batch)
     sync()
     t_prefill = time.perf_counter() - t0
 

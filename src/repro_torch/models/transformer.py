@@ -1,6 +1,7 @@
 """Decoder-only transformer, the dense family (stablelm-1.6b, stablelm-3b,
-granite-8b, minitron-8b) and the moe family (granite-moe-1b-a400m,
-qwen3-moe-235b-a22b): the port of ``repro.models.transformer``.
+granite-8b, minitron-8b), the moe family (granite-moe-1b-a400m,
+qwen3-moe-235b-a22b) and the vlm family (llava-next-mistral-7b): the
+port of ``repro.models.transformer``.
 
 Each block is pre-norm: RMSNorm, self-attention with RoPE and GQA
 (``n_kv_heads`` kv heads shared by groups of query heads), a residual
@@ -43,8 +44,12 @@ layer's padded to the step's rows) and prefill's last-token logits
 likewise, so a dense request's tokens are the bits a batch of one gives
 (the serving scheduler's batched == serial property).
 
-The vlm frontend (ROADMAP.md queue 1 item 11b-4) and the spec rules
-(item 12) come later.
+The vlm family (llava-next-mistral-7b) is this decoder with a stub
+vision frontend: the batch's ``frontend`` embeddings go before the
+text (:func:`embed_inputs`), the loss reads the text positions only,
+and prefill's ``pos`` and last-token logits count the prefix, so decode
+continues after it. The spec rules come with ROADMAP.md queue 1 item
+12.
 """
 from __future__ import annotations
 
@@ -233,15 +238,22 @@ def _pad_len(n: int) -> int:
 
 
 def embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
-    """Token embedding, zero-padded to :func:`_pad_len`, in the compute
-    dtype. Returns (embeds, n_prefix, n_pad): positions [n_prefix,
-    n_prefix + S_text) carry the text (n_prefix is 0 without a vlm
-    frontend, which comes with ROADMAP.md queue 1 item 11b-4)."""
+    """Token embedding, after the vlm family's stub frontend (the batch's
+    ``frontend`` (B, P, D), cast to the embedding's dtype and put before
+    the tokens), zero-padded to :func:`_pad_len` of the whole, in the
+    compute dtype. Returns (embeds, n_prefix, n_pad): positions
+    [n_prefix, n_prefix + S_text) carry the text (n_prefix is P for the
+    vlm family, else 0)."""
     x = common.embed(params["embed"], batch["tokens"])
+    n_prefix = 0
+    if cfg.family == "vlm":
+        front = batch["frontend"].to(x.dtype)
+        x = torch.cat([front, x], dim=1)
+        n_prefix = front.shape[1]
     n_pad = _pad_len(x.shape[1]) - x.shape[1]
     if n_pad:
         x = F.pad(x, (0, 0, 0, n_pad))
-    return x.to(getattr(torch, cfg.dtype)), 0, n_pad
+    return x.to(getattr(torch, cfg.dtype)), n_prefix, n_pad
 
 
 # ---------------------------------------------------------------------------
@@ -368,7 +380,7 @@ def make_prefill_fn(cfg: ModelConfig, window: Optional[int]):
 # ---------------------------------------------------------------------------
 def build_decoder_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
                         window: Optional[int] = None) -> Model:
-    """The dense or moe decoder; ``window`` (else ``cfg.sliding_window``)
+    """The dense, moe or vlm decoder; ``window`` (else ``cfg.sliding_window``)
     bounds prefill attention; ``policy`` is the unsharded one (see
     :func:`repro_torch.models.get_model`)."""
     window = window if window is not None else cfg.sliding_window

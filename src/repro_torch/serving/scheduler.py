@@ -15,8 +15,12 @@ batch-size-1 serial decode of that request produces — batching is a
 throughput decision, never a semantic one. Not for the moe family: its
 expert capacity spans the whole batch, so a request's tokens depend on
 its wave, in the reference as in the port
-(tests/test_torch_moe.py). The reference's stub frontend embeddings
-(vlm and audio families) come with those families.
+(tests/test_torch_moe.py).
+
+The vlm and audio families take stub frontend embeddings beside the
+tokens: ``frontend`` (frontend_len, frontend_dim), given once, goes to
+every request of every wave, broadcast over the wave as float32 on the
+params' device, as the reference's ``_batch_inputs`` does.
 """
 from __future__ import annotations
 
@@ -59,11 +63,15 @@ class WaveScheduler:
     """Greedy-decoding wave scheduler for any port ``Model`` with a
     prefill/decode pair; runs where ``params`` lie."""
 
-    def __init__(self, model: Model, params, *, max_batch: int = 8):
+    def __init__(self, model: Model, params, *, max_batch: int = 8,
+                 frontend=None):
         self.model = model
         self.params = params
         self.max_batch = max_batch
         self.device = tree_leaves(params)[0].device
+        # stub embeddings for vlm/audio, uploaded once
+        self.frontend = None if frontend is None else torch.as_tensor(
+            frontend, dtype=torch.float32).to(self.device)
         self._queue: List[Request] = []
         self.stats: List[WaveStats] = []
 
@@ -77,6 +85,19 @@ class WaveScheduler:
             out[len(r.tokens)].append(r)
         return out
 
+    def _batch_inputs(self, wave: List[Request]) -> dict:
+        toks = torch.as_tensor(np.stack([r.tokens for r in wave]),
+                               dtype=torch.int32).to(self.device)
+        batch = {"tokens": toks}
+        family = self.model.config.family
+        if family in ("vlm", "audio"):
+            if self.frontend is None:
+                raise ValueError(f"{family} serving needs frontend "
+                                 f"embeddings")
+            batch["frontend"] = self.frontend.expand(
+                (len(wave),) + tuple(self.frontend.shape)).contiguous()
+        return batch
+
     def _next_tokens(self, logits: torch.Tensor) -> torch.Tensor:
         return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
@@ -84,9 +105,8 @@ class WaveScheduler:
         t0 = time.perf_counter()
         b = len(wave)
         max_new = max(r.max_new_tokens for r in wave)
-        toks = torch.as_tensor(np.stack([r.tokens for r in wave]),
-                               dtype=torch.int32).to(self.device)
-        logits, state = self.model.prefill_fn(self.params, {"tokens": toks})
+        logits, state = self.model.prefill_fn(self.params,
+                                              self._batch_inputs(wave))
         tok = self._next_tokens(logits)
 
         outputs: List[List[int]] = [[] for _ in wave]

@@ -1422,3 +1422,164 @@ def test_xlstm_training_gradient_on_cuda_matches_cpu(cuda_device):
     for got, want in zip(out["cuda"][1], out["cpu"][1], strict=True):
         scale = max(float(want.abs().max()), 1e-6)
         assert float((got - want).abs().max()) <= 1e-4 * scale + 1e-6
+
+
+# ---- the vlm and audio families --------------------------------------------
+# (B, Hq, Hkv, S, hd): the encoder's bidirectional attention (causal=0)
+# at hd 64 (seamless-m4t-large-v2's) and 128, GQA and ragged S
+BIDIR_CASES = [(2, 4, 4, 200, 64), (1, 8, 2, 129, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BIDIR_CASES)
+def test_flash_bidirectional_matches_plain_version(cuda_device, case):
+    """bf16 on the sm90 route with ``causal=False``: the forward and the
+    backward against the dense plain version and its autograd, counted
+    as bidirectional launches; two runs bit-equal."""
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels.ref import flash_attention_ref
+    full = case + (False, None, None)
+    q, k, v = _flash_operands(full, torch.bfloat16, cuda_device)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(8)
+                       ).to(cuda_device, torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = (dict(kflash.flash_attention.modes),
+                  dict(kflash.flash_attention_bwd.modes))
+        out = kflash.flash_attention(*leaves, causal=False)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        went = [{m: n - b.get(m, 0) for m, n in fn.modes.items()
+                 if n != b.get(m, 0)}
+                for fn, b in zip((kflash.flash_attention,
+                                  kflash.flash_attention_bwd), before)]
+        assert went == [{"bidirectional": 1}, {"bidirectional": 3}]
+        runs.append([out.detach()] + [t.grad for t in leaves])
+    for a, b in zip(*runs, strict=True):
+        assert torch.equal(a, b)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = flash_attention_ref(*leaves, causal=False)
+    want.backward(dout)
+    torch.testing.assert_close(runs[0][0].float(), want.detach().float(),
+                               **FLASH_TOL[torch.bfloat16])
+    for name, got, w in zip("qkv", runs[0][1:], (t.grad for t in leaves),
+                            strict=True):
+        scale = float(w.float().abs().max())
+        err = float((got.float() - w.float()).abs().max())
+        assert err <= FLASH_GRAD_TOL[torch.bfloat16] * scale, (name, err,
+                                                               scale)
+
+
+def _mm_batch(cfg, b, s, seed):
+    rng = np.random.default_rng(seed)
+    return {"tokens": torch.as_tensor(rng.integers(
+                0, cfg.vocab_size, (b, s + 1)), dtype=torch.int32),
+            "frontend": torch.as_tensor(rng.normal(
+                scale=0.02, size=(b, cfg.frontend_len, cfg.frontend_dim)),
+                dtype=torch.float32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["llava-next-mistral-7b",
+                                  "seamless-m4t-large-v2"])
+def test_vlm_and_audio_on_cuda_match_cpu(cuda_device, name):
+    """Reduced, float32: prefill (40 text tokens behind the stub frontend)
+    and two decode steps on the card (the f32 flash route: causal, and
+    the encoder's bidirectional) against the CPU within 1e-4; a second
+    card run bit-equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.models import get_model
+    from repro_torch.utils.trees import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(name).reduced().replace(dtype="float32")
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    batch = _mm_batch(cfg, 2, 42, 1)
+
+    def run(p, dev):
+        logits, st = model.prefill_fn(p, {
+            "tokens": batch["tokens"][:, :40].to(dev),
+            "frontend": batch["frontend"].to(dev)})
+        out = [logits.cpu()]
+        for i in (40, 41):
+            logits, st = model.decode_fn(p, st, {
+                "token": batch["tokens"][:, i:i + 1].to(dev)})
+            out.append(logits.cpu())
+        return out
+
+    dev_params = tree_map(lambda x: x.to(cuda_device), params)
+    kflash.flash_attention.modes.clear()
+    got = run(dev_params, cuda_device)
+    bidir = cfg.n_encoder_layers
+    assert kflash.flash_attention.modes == (
+        {"causal": cfg.n_layers, "bidirectional": bidir} if bidir
+        else {"causal": cfg.n_layers})
+    again = run(dev_params, cuda_device)
+    want = run(params, "cpu")
+    for a, b, w in zip(got, again, want, strict=True):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["llava-next-mistral-7b",
+                                  "seamless-m4t-large-v2"])
+def test_vlm_and_audio_batched_equals_serial_on_cuda(cuda_device, name):
+    """Reduced, at the config's bf16 compute: a wave of 3 behind one stub
+    frontend and each request served alone give the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving import Request, WaveScheduler
+    cfg = get_config(name).reduced()
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), cuda_device)
+    rng = np.random.default_rng(5)
+    front = rng.normal(scale=0.02, size=(cfg.frontend_len, cfg.frontend_dim))
+    prompts = [rng.integers(0, cfg.vocab_size, 40).astype(np.int32)
+               for _ in range(3)]
+    sched = WaveScheduler(model, params, max_batch=3, frontend=front)
+    reqs = [Request(rid=i, tokens=t, max_new_tokens=6)
+            for i, t in enumerate(prompts)]
+    for r in reqs:
+        sched.submit(r)
+    sched.run()
+    for r in reqs:
+        one = WaveScheduler(model, params, max_batch=1, frontend=front)
+        alone = Request(rid=r.rid, tokens=r.tokens, max_new_tokens=6)
+        one.submit(alone)
+        one.run()
+        np.testing.assert_array_equal(alone.output, r.output)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["llava-next-mistral-7b",
+                                  "seamless-m4t-large-v2"])
+def test_vlm_and_audio_training_gradient_on_cuda_matches_cpu(cuda_device,
+                                                            name):
+    """Reduced, float32, remat on, 2 x 48 text tokens behind the stub
+    frontend: the loss within 1e-5 and each gradient within 1e-4 of its
+    largest value (the encoder's through the bidirectional backward)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.utils.trees import tree_flatten, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(name).reduced().replace(dtype="float32", remat=True)
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    batch = _mm_batch(cfg, 2, 48, 2)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        leaves, rebuild = tree_flatten(tree_map(lambda x: x.to(dev), params))
+        live = [x.detach().requires_grad_() for x in leaves]
+        loss, _ = model.loss_fn(rebuild(live), {
+            "tokens": batch["tokens"][:, :48].to(dev),
+            "labels": batch["tokens"][:, 1:].to(dev),
+            "frontend": batch["frontend"].to(dev)})
+        grads = torch.autograd.grad(loss, live)
+        out[dev] = (float(loss.detach()), [g.cpu() for g in grads])
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for got, want in zip(out["cuda"][1], out["cpu"][1], strict=True):
+        scale = max(float(want.abs().max()), 1e-6)
+        assert float((got - want).abs().max()) <= 1e-4 * scale + 1e-6

@@ -106,8 +106,8 @@ def test_lm_dataset_resize_matches_the_reference():
 
 
 def test_frontend_families_get_their_stub_shape():
-    """The vlm/audio branch (their configs come later): a config-like
-    object of those families gets the reference's frontend tuple."""
+    """The vlm/audio branch on a config of that family without a
+    ``frontend_dim``: the reference's frontend tuple (len, d_model)."""
     cfg = get_config("stablelm-1.6b").reduced().replace(
         family="vlm", frontend_len=8, frontend_dim=0)
     ref_cfg = ref_get_config("stablelm-1.6b").reduced().replace(

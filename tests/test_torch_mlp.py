@@ -45,8 +45,10 @@ def test_configs_are_copied_field_for_field(name):
 
 
 def test_other_families_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        get_config("llava-next-mistral-7b")
+    """Every architecture of the reference is registered (the vlm and
+    audio families since ROADMAP.md item 11b-4); an unknown name raises."""
+    assert dataclasses.asdict(get_config("llava-next-mistral-7b")) == \
+        dataclasses.asdict(ref_get_config("llava-next-mistral-7b"))
     with pytest.raises(KeyError):
         get_config("no-such-model")
 

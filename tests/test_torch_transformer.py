@@ -117,8 +117,15 @@ def test_configs_are_copied_field_for_field(name):
 @pytest.mark.parametrize("name", ["llava-next-mistral-7b",
                                   "seamless-m4t-large-v2"])
 def test_other_lm_families_still_raise(name):
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        get_config(name)
+    """The vlm and audio configs are carried field for field (their
+    models: tests/test_torch_vlm.py, tests/test_torch_encdec.py); only an
+    unknown name raises."""
+    assert dataclasses.asdict(get_config(name)) == \
+        dataclasses.asdict(ref_get_config(name))
+    assert dataclasses.asdict(get_config(name).reduced()) == \
+        dataclasses.asdict(ref_get_config(name).reduced())
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_config(name + "-x")
 
 
 @pytest.mark.parametrize("name", DENSE)
