@@ -253,7 +253,8 @@ Phases, in order; any failed check raises and ends the run non-zero:
     full-width cut (one block of each kind), a 512-token prompt and 4
     decode steps, on ``cuda`` vs ``cpu``: float32 logits within 2e-4,
     bf16 greedy tokens by tests/test_serve_consistency.py's drift-band
-    rule; (d) ``TrainLoop`` on uncut xlstm-1.3b, 2 steps of 1 x 2048
+    rule; (d) ``TrainLoop`` on xlstm-1.3b at full width cut to 8 layers
+    (4 blocks of each kind), 2 steps of 1 x 2048
     tokens, remat on, ``adamw``: finite losses, step times, peak
     memory, one fused AdamW launch a step and no other; a step of 1 x
     128 under ``torch.profiler`` (device busy share); the sLSTM loop
@@ -295,8 +296,37 @@ Phases, in order; any failed check raises and ends the run non-zero:
     (reduced) on ``cuda``, then the batched engine on ``cuda`` and
     ``cpu`` (7 clients, 3 rounds of pso, float32): placements and TPDs
     exactly, losses within rtol 1e-4, the flash and FedAvg launches held
-    to the CPU rehearsal's count; then the ``kernels`` JSON line (ten
-    kernels) and the final status line.
+    to the CPU rehearsal's count;
+27. the paper's aggregation tree across ranks (``fl.distributed``,
+    ``fl.aggregation``, ``launch.mesh``): (a) ``PooledTPDEvaluator.
+    tpds_sharded`` at ndev 1, 3 and 8, every shard on the one card (the
+    float64 torch build; no kernel), on the reference test's case (24
+    clients, 5 pools, 21 rows: the pad path, with ``pool_idx``) and on
+    large-1k pools at P = 1000, held to ``shard="off"`` (numpy) within
+    rtol 1e-12 (exactness printed), then ``run_experiment("paper-fig3",
+    ...)`` batched with ``shard="on"`` on ``cuda``: every pooled call's
+    placements equal to ``shard="off"``'s, TPDs within rtol 1e-12; (b)
+    the full-width paper MLP (N = 1,791,754 f32) over a spawned gloo
+    world of 8 ranks on the card (``launch.world.run_world``): meshes
+    ``("data",)`` of 8 with 8 clients, of 8 with 4 clients of 2 ranks
+    each, and ``("pod", "data")`` = (2, 4), ``FLTrainStep`` rounds
+    (hierarchical and flat, ``choose_fl_hierarchy`` trees, the PSO's
+    placement, 2 local steps of 32) from one seeded init, every rank's
+    params bit-equal, held to the host path on ``cuda`` (one FedAvg
+    launch a round) within rtol 1e-5 / atol 1e-7, and hierarchical to
+    flat likewise; (c) full-width stablelm-1.6b (bf16 compute, f32
+    params) at the deepest depth whose 4 ranks leave 10 GiB of the card
+    free (12 bytes a layer param and 8 of the others a rank) over
+    4 ranks, tree (2, 1, 2, 4), ``sgd(0.05)``,
+    2 local steps of 1 x 512 tokens a client, rounds hierarchical,
+    hierarchical, flat; rank 0 then runs the host path on the card from
+    the same init (held bit for bit) and, for each round, from the rank
+    path's params before it: losses within rtol 1e-4, params within rtol
+    1e-3 / atol 1e-5 but for a share of 1e-5; each round split into
+    local steps and each aggregation step (ms, bytes, ranks), peak memory
+    a rank, flash forward and backward launches held to 2 and 3 a layer
+    a local step; then the ``kernels`` JSON line (ten kernels) and the
+    final status line.
 
 Each kernel's launch count is set to 0 just before the path that runs
 it and read just after: ``tpd`` over phase 5, ``fedavg_batched`` over
@@ -324,7 +354,10 @@ path's count is the sum of its runs', the JSON line's ``launches`` is
 the sum over the paths, and ``launches_by_path`` holds each path's
 count. Phase 26 splits the flash kernels' count of a path that runs
 the encoder by mask, ``causal=1`` and ``causal=0`` (the wrappers'
-``modes``), so the bidirectional launches show on their own.
+``modes``), so the bidirectional launches show on their own. Phase 27's
+ranks count their own launches (set to 0 before their rounds, read
+after) and return them; the parent adds them, with its own over the
+Fig. 3 ``shard="on"`` run and the host paths, under ``"phase 27"``.
 """
 from __future__ import annotations
 
@@ -333,6 +366,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -3309,6 +3343,10 @@ XLSTM_PROFILE_TRIES = 3                 # (a): profiles a stage at most
 XLSTM_CUT_LAYERS = 2                    # (c): one mLSTM, one sLSTM block
 XLSTM_CUT_PROMPT = 512                  # (c): two chunks of 256
 XLSTM_TRAIN_STEPS, XLSTM_TRAIN_TOKENS = 2, 2048
+# (d) trains a full-width depth cut, 4 mLSTM and 4 sLSTM blocks: the
+# full 48 (41-48 s a step, the sLSTM loop's host issue) left phase 27
+# no time in the script's limit
+XLSTM_TRAIN_LAYERS = 8
 XLSTM_PROFILE_TOKENS = 128              # (d): the step under the profiler
 # float32, card vs host: (a) one block's output and final state (the
 # H100 read 4.9e-4 at most, on the sLSTM's n of scale 21), (c) the cut's
@@ -3659,11 +3697,13 @@ def xlstm_phases(torch, np_, dev, card):
         return ds.batch(1, step)
 
     torch.cuda.reset_peak_memory_stats()
-    loop = TrainLoop(model, adamw(3e-4), batch_fn,
+    train_cfg = cfg.replace(n_layers=XLSTM_TRAIN_LAYERS)
+    n_s_train = xlstm._block_counts(train_cfg)[1]
+    loop = TrainLoop(get_model(train_cfg), adamw(3e-4), batch_fn,
                      TrainLoopConfig(total_steps=XLSTM_TRAIN_STEPS,
                                      log_every=1, checkpoint_dir=None),
                      seed=SEED, device=dev)
-    check(cfg.remat, f"{XLSTM_ARCH} trains without remat")
+    check(train_cfg.remat, f"{XLSTM_ARCH} trains without remat")
     zero_counts(*counters)            # the counts to 0 just before the path
     res = loop.run()
     sync()
@@ -3672,7 +3712,8 @@ def xlstm_phases(torch, np_, dev, card):
     peak = torch.cuda.max_memory_allocated()
     losses = [m_["loss"] for m_ in res["metrics_log"]]
     steps_s = [b - a for a, b in zip(stamps, stamps[1:])]
-    print(f"(d) TrainLoop, {XLSTM_TRAIN_STEPS} steps of 1 x "
+    print(f"(d) TrainLoop at a {XLSTM_TRAIN_LAYERS}-layer full-width cut, "
+          f"{XLSTM_TRAIN_STEPS} steps of 1 x "
           f"{XLSTM_TRAIN_TOKENS} tokens, remat on, adamw: losses {losses}; "
           f"steps {[round(s_ * 1e3, 1) for s_ in steps_s]} ms; peak device "
           f"memory {peak / 2**30:.2f} GiB; launches "
@@ -3752,7 +3793,7 @@ def xlstm_phases(torch, np_, dev, card):
                 for a, b in zip(own, plain, strict=True)]
         check(max(gerr) <= 1e-4, f"(d) the sLSTM loop's own backward "
                                  f"against autograd's: {gerr}")
-        loop_train[tokens] = n_s * (f_busy + fb_busy)
+        loop_train[tokens] = n_s_train * (f_busy + fb_busy)
         against = (f"the profiled step's {busy:.1f} ms device busy "
                    f"({loop_train[tokens] / busy * 100:.1f}%)"
                    if tokens == XLSTM_PROFILE_TOKENS else
@@ -3765,7 +3806,7 @@ def xlstm_phases(torch, np_, dev, card):
               f"{fb_launch} / {fb_wall:.1f} with its own backward, "
               f"{autograd} with autograd's backward of the plain loop; "
               f"gradients of wx and r agree to {max(gerr):.2e} of their "
-              f"scale; x {n_s} blocks with remat's second forward "
+              f"scale; x {n_s_train} blocks with remat's second forward "
               f"{loop_train[tokens]:.1f} ms device a step, against "
               f"{against} ({time.perf_counter() - phase_t0:.1f} s into "
               f"phase 25) [{card}]")
@@ -3842,7 +3883,7 @@ def xlstm_phases(torch, np_, dev, card):
           f"{loop_prefill[0]:.1f} / {loop_prefill[2]:.1f} a block, decode "
           f"{loop_decode[0]:.3f} / {loop_decode[2]:.3f} a block, training "
           f"{loop_train[XLSTM_TRAIN_TOKENS]:.1f} ms device a step of 1 x "
-          f"{XLSTM_TRAIN_TOKENS} over {n_s} blocks [{card}]")
+          f"{XLSTM_TRAIN_TOKENS} over {n_s_train} blocks [{card}]")
     print(f"phase 25 took {time.perf_counter() - phase_t0:.1f} s [{card}]")
     return {k: {f"{XLSTM_ARCH} serving (phase 25)": serving[k],
                 f"{XLSTM_ARCH} training (phase 25)": training[k],
@@ -4482,6 +4523,588 @@ def vlm_audio_phases(torch, np_, dev, card):
         mm_paths(vlm_training, f"{VLM_ARCH} training, {depth} layers "
                                f"(phase 26)"),
         by_train, engine_paths), errs
+
+
+# ---------------------------------------------------------------------------
+# phase 27: the paper's aggregation tree across ranks, and the sharded TPD
+# ---------------------------------------------------------------------------
+DIST_TPD_NDEV = (1, 3, 8)          # row shards, all on the one card
+DIST_TPD_POOLS = 5
+DIST_TPD_LARGE_P = 1000
+DIST_TPD_RTOL = 1e-12
+DIST_PSO_ITERATIONS = 20
+DIST_MLP_RANKS = 8
+# (mesh dims, axes, clients a pod): 8 clients, 4 clients of 2 ranks each,
+# 2 pods of 4 clients
+DIST_MLP_LAYOUTS = (((8,), ("data",), 8), ((8,), ("data",), 4),
+                    ((2, 4), ("pod", "data"), 4))
+DIST_MLP_BATCH, DIST_MLP_STEPS = 32, 2
+DIST_MLP_TOL = dict(rtol=1e-5, atol=1e-7)
+DIST_LM_ARCH = "stablelm-1.6b"
+DIST_LM_RANKS = 4
+DIST_LM_TREE = (2, 1, 2, 4)        # depth, width, trainers a leaf, clients
+DIST_LM_TOKENS, DIST_LM_STEPS = 512, 2
+DIST_FL_LR = 0.05                  # the reference's FL_LOCAL_LR
+DIST_LM_MODES = ("hierarchical", "hierarchical", "flat")
+DIST_LM_LOSS_RTOL = 1e-4
+DIST_LM_PARAM_TOL = dict(rtol=1e-3, atol=1e-5)
+DIST_LM_OUTSIDE = 1e-5             # share of params allowed outside it
+DIST_FREE_BYTES = 10 * 2 ** 30     # what the ranks leave free on the card
+DIST_MARGIN_BYTES = 2 ** 30        # the depth rule's slack: pools, fragments
+DIST_WORLD_TIMEOUT_S = 400
+
+
+def _rank_setup(torch, device):
+    """A rank's settings, as phase 1 sets the parent's: TF32 off, the
+    one card (every rank on cuda:0), one intra-op thread; and, before
+    the rank's first CUDA call, expandable segments for its allocator,
+    so that ranks sharing the card do not each hold gigabytes of cached
+    fragments (without them, one rank's pool on an H100 80GB HBM3
+    reached 22.4 GiB for 16.7 GiB of tensors)."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(1)
+
+
+def _counters():
+    from repro_torch.kernels import fedavg as kfedavg
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import fused_adamw as kadamw
+    from repro_torch.kernels import rglru as krglru
+    from repro_torch.kernels import tpd as ktpd
+    return kflash, krglru, kfedavg, ktpd, kadamw
+
+
+def dist_mlp_rank(rank, world, spec):
+    """Phase 27 (b), one rank: FLTrainStep rounds of ``spec["cfg"]`` (the
+    full-width paper MLP) on each layout and mode, on ``spec["device"]``.
+    Rank 0 returns its params; every rank its params' checksum, the
+    round's split, its peak memory and its kernel launches."""
+    import torch
+
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.fl.distributed import FLTrainStep, bits_checksum
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.models import ShardingPolicy, get_model
+    from repro_torch.optim import sgd
+    from repro_torch.utils.trees import flat_buffer_of
+
+    dev, cfg = spec["device"], spec["cfg"]
+    _rank_setup(torch, dev)
+    counters = _counters()
+    out = []
+    zero_counts(*counters)
+    peak = _peak_reset(torch, dev)
+    for (dims, axes, per_pod), (h, placement) in zip(
+            DIST_MLP_LAYOUTS, spec["trees"], strict=True):
+        mesh = RankMesh(dims, axes, device=dev)
+        model = get_model(cfg, ShardingPolicy(mesh=mesh))
+        n_total = per_pod * mesh.shape.get("pod", 1)
+        ds = make_federated_dataset(cfg, n_total, SEED)
+        for mode in ("hierarchical", "flat"):
+            fl = FLTrainStep(model, sgd(DIST_FL_LR), h, placement,
+                             local_steps=DIST_MLP_STEPS, mode=mode)
+            params, state = fl.init_stacked(
+                torch.Generator(dev).manual_seed(SEED))
+            batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                     ds.client_batch(fl.client_index, DIST_MLP_BATCH,
+                                     0).items()}
+            stats = []
+            params, state, metrics = fl.make_round_fn()(
+                params, state, batch, stats=stats)
+            flat = flat_buffer_of(params)
+            out.append({"layout": axes, "dims": dims, "mode": mode,
+                        "client": fl.client_index,
+                        "loss": float(metrics["loss"]),
+                        "checksum": int(bits_checksum(flat)),
+                        "params": flat.cpu().numpy() if rank == 0 else None,
+                        "stats": stats})
+    return {"rounds": out, "counts": kernel_counts(*counters),
+            "peak": peak()[0]}
+
+
+def _peak_reset(torch, device):
+    """Reset the card's peak memory; returns a reader of it, (allocated,
+    reserved) bytes ((0, 0) on the host)."""
+    if torch.device(device).type != "cuda":
+        return lambda: (0, 0)
+    torch.cuda.reset_peak_memory_stats()
+    return lambda: (torch.cuda.max_memory_allocated(),
+                    torch.cuda.max_memory_reserved())
+
+
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def dist_lm_rank(rank, world, spec):
+    """Phase 27 (c), one rank: ``spec["cfg"]`` (full-width stablelm-1.6b)
+    for DIST_LM_MODES rounds on the rank path; rank 0 keeps its params
+    after each round on the host, then (the other ranks' memory freed)
+    runs the host path from the same init and batches and holds it to
+    them."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.hierarchy import Hierarchy
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.fl.distributed import FLTrainStep
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.models import ShardingPolicy, get_model
+    from repro_torch.optim import sgd
+    from repro_torch.utils.trees import flat_buffer_of
+
+    dev, cfg = spec["device"], spec["cfg"]
+    _rank_setup(torch, dev)
+    counters = _counters()
+    mesh = RankMesh((world,), ("data",), device=dev)
+    h = Hierarchy(*DIST_LM_TREE[:3], n_clients=DIST_LM_TREE[3])
+    ds = make_federated_dataset(cfg, h.total_clients, SEED, DIST_LM_TOKENS)
+    model = get_model(cfg, ShardingPolicy(mesh=mesh))
+    fls = {m: FLTrainStep(model, sgd(DIST_FL_LR), h, spec["placement"],
+                          local_steps=DIST_LM_STEPS, mode=m)
+           for m in dict.fromkeys(DIST_LM_MODES)}
+    fl = fls[DIST_LM_MODES[0]]
+    t0 = time.perf_counter()
+    params, state = fl.init_stacked(torch.Generator(dev).manual_seed(SEED))
+    _sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in ds.client_batch(fl.client_index, 1, 0).items()}
+    # rank 0 keeps the global params before and after every round, in
+    # pinned host memory (a pageable copy of 6 GB took 3-4 s from an H100)
+    kept = [_pinned_copy(torch, flat_buffer_of(params))] if rank == 0 \
+        else []
+    peak = _peak_reset(torch, dev)
+    zero_counts(*counters)
+    rounds = []
+    for mode in DIST_LM_MODES:
+        stats = []
+        t0 = time.perf_counter()
+        params, state, metrics = fls[mode].make_round_fn()(
+            params, state, batch, stats=stats)
+        wall = time.perf_counter() - t0
+        rounds.append({"mode": mode, "loss": float(metrics["loss"]),
+                       "stats": stats, "s": wall})
+        if rank == 0:
+            t0 = time.perf_counter()
+            kept.append(_pinned_copy(torch, flat_buffer_of(params)))
+            rounds[-1]["d2h_s"] = time.perf_counter() - t0
+    counts = kernel_counts(*counters)
+    allocated, reserved = peak()
+    result = {"rounds": rounds, "counts": counts, "peak": allocated,
+              "reserved": reserved, "init_s": init_s,
+              "n_params": flat_buffer_of(params).numel()}
+    del params, state, fls, fl, model
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        result["host"] = _lm_host_path(torch, dev, cfg, h, spec["placement"],
+                                       ds, kept, counters)
+    dist.barrier()
+    return result
+
+
+def _pinned_copy(torch, flat):
+    """A host copy of ``flat`` (pinned when it lives on the card)."""
+    out = torch.empty(flat.shape, dtype=flat.dtype,
+                      pin_memory=flat.is_cuda)
+    return out.copy_(flat)
+
+
+def _lm_host_path(torch, dev, cfg, h, placement, ds, kept, counters):
+    """FLTrainStep's host path on the card (one device, every client's
+    replica in one stack, the FedAvg kernel): its init held to the
+    ranks' bit for bit, then each round run from the rank path's params
+    before it (``kept[r]``) on the same batches and held to the rank
+    path's after it (``kept[r + 1]``). Starting each round from the same
+    params keeps the comparison to one round's arithmetic: bf16 local
+    steps would amplify the last-bit differences of two summation orders
+    over rounds."""
+    from repro_torch.fl.distributed import FLTrainStep
+    from repro_torch.models import get_model
+    from repro_torch.optim import sgd
+    from repro_torch.utils.trees import flat_buffer_of
+
+    fl = FLTrainStep(get_model(cfg), sgd(DIST_FL_LR), h, placement,
+                     local_steps=DIST_LM_STEPS)
+    params, states = fl.init_stacked(torch.Generator(dev).manual_seed(SEED),
+                                     dev)
+    stacked = {k: torch.stack([torch.as_tensor(ds.client_batch(c, 1, 0)[k])
+                               for c in range(h.total_clients)]).to(dev)
+               for k in ("tokens", "labels")}
+    stack = flat_buffer_of(params, lead=1)
+    n = stack.shape[1]
+    init_equal = all(torch.equal(stack[0, i:i + 2 ** 26],
+                                 kept[0][i:i + 2 ** 26].to(dev))
+                     for i in range(0, n, 2 ** 26))
+    peak = _peak_reset(torch, dev)
+    zero_counts(*counters)
+    rounds = []
+    for start, want in zip(kept, kept[1:]):
+        for c in range(stack.shape[0]):
+            stack[c].copy_(start)
+        stats = []
+        t0 = time.perf_counter()
+        params, states, metrics = fl.make_round_fn()(params, states, stacked,
+                                                     stats=stats)
+        wall = time.perf_counter() - t0
+        rows_equal = all(torch.equal(stack[c], stack[0])
+                         for c in range(1, stack.shape[0]))
+        outside, err = 0, 0.0
+        for i in range(0, n, 2 ** 26):
+            a = stack[0, i:i + 2 ** 26]
+            b = want[i:i + 2 ** 26].to(dev)
+            d = (a - b).abs()
+            outside += int((d > DIST_LM_PARAM_TOL["atol"]
+                            + DIST_LM_PARAM_TOL["rtol"] * b.abs()).sum())
+            err = max(err, float(d.max()))
+        rounds.append({"loss": float(metrics["loss"]), "outside": outside,
+                       "max_abs_err": err, "rows_equal": rows_equal,
+                       "stats": stats, "s": wall})
+    return {"rounds": rounds, "counts": kernel_counts(*counters),
+            "peak": peak()[0], "init_equal": init_equal}
+
+
+def bytes_by_step(stats_of_ranks) -> dict:
+    """Bytes put into each aggregation step, summed over the ranks."""
+    out = {}
+    for stats in stats_of_ranks:
+        for s in stats:
+            if "bytes" in s:
+                out[s["step"]] = out.get(s["step"], 0) + s["bytes"]
+    return out
+
+
+def lm_rank_bytes(cfg) -> int:
+    """A rank's peak on the card in the rank path's local round of a
+    dense decoder (sgd, 1 x DIST_LM_TOKENS): 12 bytes a layer param
+    (params, grads, and the copy of the stacked layers' gradients their
+    ``unbind`` backward builds), 8 bytes of every other param (the
+    untied embedding and head, the final norm), six float32 copies of
+    the logits, and 0.6 GiB of working set. It gives 13.99 and 16.87 GiB
+    at 16 and 21 layers of stablelm-1.6b, where ranks on an H100 80GB
+    HBM3 reserved 13.99 and 16.85 GiB."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    layer = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) \
+        + 3 * d * cfg.d_ff + 2 * d
+    other = 2 * cfg.vocab_size * d + d
+    logits = 6 * 4 * DIST_LM_TOKENS * cfg.vocab_size
+    return 12 * layer * cfg.n_layers + 8 * other + logits + 6 * 2 ** 30 // 10
+
+
+def lm_depth(torch, cfg, ranks):
+    """The deepest cut of ``cfg`` whose ``ranks`` leave DIST_FREE_BYTES
+    of the card free, by :func:`lm_rank_bytes`, this process's use of
+    the card standing for a rank's CUDA context, and DIST_MARGIN_BYTES
+    of slack for the ranks' pools above their tensors. Returns (the cut,
+    bytes estimated for the ranks and this process, the parts)."""
+    free, total = torch.cuda.mem_get_info()
+    held = total - free
+    context = held - torch.cuda.memory_reserved()
+    for layers in range(cfg.n_layers, 0, -1):
+        cut = cfg.replace(n_layers=layers)
+        rank = lm_rank_bytes(cut)
+        need = ranks * (rank + context) + held
+        if need + DIST_MARGIN_BYTES <= total - DIST_FREE_BYTES:
+            return cut, need, {"rank": rank, "context": context,
+                               "held": held}
+    raise SmokeFailure(f"no depth of {cfg.name} fits {ranks} ranks")
+
+
+def distributed_phases(torch, np_, card):
+    """Phase 27: the sharded pooled TPD on the card, then FLTrainStep
+    over spawned gloo worlds of ranks on the one card: the paper MLP on
+    8 ranks in three layouts, full-width stablelm-1.6b on 4. Returns
+    {kernel name: {"phase 27": launches}}."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import cost_model as cm_mod
+    from repro_torch.core.cost_model import CostModel, PooledTPDEvaluator
+    from repro_torch.core.hierarchy import ClientPool, Hierarchy
+    from repro_torch.core.pso import FlagSwapPSO
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.experiments import EvalConfig, get_scenario, run_experiment
+    from repro_torch.fl.distributed import FLTrainStep, choose_fl_hierarchy
+    from repro_torch.launch.world import run_world
+    from repro_torch.models import get_model
+    from repro_torch.optim import sgd
+    from repro_torch.utils.trees import flat_buffer_of
+
+    counters = _counters()
+    phase_t0 = time.perf_counter()
+    phase("27. the aggregation tree across ranks: the sharded pooled TPD, "
+          "the paper MLP on 8 ranks, stablelm-1.6b on 4")
+    paths = {}
+
+    def pso_placement(h):
+        cm = CostModel(h, ClientPool.random(h.total_clients, seed=SEED),
+                       device="cpu")
+        return FlagSwapPSO(h.dimensions, h.total_clients, n_particles=10,
+                           seed=SEED).run(
+            None, DIST_PSO_ITERATIONS, batch_fitness_fn=cm.batch_fitness)
+
+    # ---- (a) the sharded pooled TPD ------------------------------------
+    def tpd_case(name, h, n_rows):
+        models = [CostModel(h, ClientPool.random(h.total_clients, seed=s),
+                            memory_penalty=0.3, device="cuda")
+                  for s in range(DIST_TPD_POOLS)]
+        rng = np_.random.default_rng(SEED)
+        ps = np_.stack([rng.permutation(h.total_clients)[:h.dimensions]
+                        for _ in range(n_rows)]).astype(np_.int32)
+        idx = rng.integers(0, DIST_TPD_POOLS, size=n_rows)
+        t0 = time.perf_counter()
+        want = PooledTPDEvaluator(models, shard="off").tpds(ps, pool_idx=idx)
+        np_s = time.perf_counter() - t0
+        for ndev in DIST_TPD_NDEV:
+            ev = PooledTPDEvaluator(models, shard="on")
+            ev.tpds_sharded(ps, pool_idx=idx, ndev=ndev)    # tables built
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = ev.tpds_sharded(ps, pool_idx=idx, ndev=ndev)
+            s = time.perf_counter() - t0
+            rel = float(np_.max(np_.abs(got - want) / np_.abs(want)))
+            print(f"(a) {name}, {n_rows} rows over {DIST_TPD_POOLS} pools: "
+                  f"tpds_sharded(ndev={ndev}) on cuda exact "
+                  f"{bool(np_.array_equal(got, want))}, largest rel diff "
+                  f"{rel:.3e} (rtol {DIST_TPD_RTOL}); {s * 1e3:.2f} ms, "
+                  f"numpy shard='off' {np_s * 1e3:.2f} ms (host clock) "
+                  f"[{card}]")
+            check(got.dtype == np_.float64 and rel <= DIST_TPD_RTOL,
+                  f"(a) {name} ndev={ndev}: {rel} beyond {DIST_TPD_RTOL}")
+
+    zero_counts(*counters)
+    tpd_case("the reference test's case (24 clients; the pad path)",
+             Hierarchy(3, 2, 2, n_clients=24), 21)
+    h1k = get_scenario("large-1k").make_environment(0, device="cpu").hierarchy
+    tpd_case(f"large-1k ({h1k.total_clients} clients)", h1k,
+             DIST_TPD_LARGE_P)
+    sharded = kernel_counts(*counters)
+    check(sum(sharded.values()) == 0,
+          f"(a) the sharded pooled build launched {sharded}")
+
+    # the Fig. 3 sweep, batched, shard='on' against 'off': the pooled
+    # calls' placements recorded, the sharded calls counted
+    seen, calls, runs, fig3 = {"on": [], "off": []}, [0], {}, {}
+    base_tpds = cm_mod.PooledTPDEvaluator.tpds
+    base_sharded = cm_mod.PooledTPDEvaluator.tpds_sharded
+
+    def tpds_rec(self, placements, pool_idx=None):
+        seen[self.shard].append(np_.array(placements, copy=True))
+        return base_tpds(self, placements, pool_idx)
+
+    def sharded_rec(self, *a, **k):
+        calls[0] += 1
+        return base_sharded(self, *a, **k)
+
+    cm_mod.PooledTPDEvaluator.tpds = tpds_rec
+    cm_mod.PooledTPDEvaluator.tpds_sharded = sharded_rec
+    try:
+        for shard in ("off", "on"):
+            zero_counts(*counters)  # the counts to 0 just before the path
+            t0 = time.perf_counter()
+            runs[shard] = run_experiment(
+                "paper-fig3", ["pso", "random"], seeds=(0, 1),
+                progress=False, device="cuda",
+                eval_config=EvalConfig(mode="batched", shard=shard))
+            fig3[shard] = (kernel_counts(*counters),
+                           time.perf_counter() - t0)
+    finally:
+        cm_mod.PooledTPDEvaluator.tpds = base_tpds
+        cm_mod.PooledTPDEvaluator.tpds_sharded = base_sharded
+    same = len(seen["on"]) == len(seen["off"]) > 0 and all(
+        np_.array_equal(a, b) for a, b in zip(seen["on"], seen["off"]))
+    on_t = [list(r.tpds) for r in runs["on"].runs]
+    off_t = [list(r.tpds) for r in runs["off"].runs]
+    rel = max(float(np_.max(np_.abs(np_.subtract(a, b)) / np_.abs(b)))
+              for a, b in zip(on_t, off_t, strict=True))
+    print(f"(a) run_experiment('paper-fig3', pso and random, "
+          f"{len(on_t[0])} rounds, seeds 0 and 1, batched) on cuda, "
+          f"shard='on' ({fig3['on'][1]:.2f} s, {calls[0]} sharded calls) "
+          f"against shard='off' ({fig3['off'][1]:.2f} s): "
+          f"{len(seen['on'])} pooled calls, placements equal {same}, TPDs "
+          f"exact {on_t == off_t}, largest rel diff {rel:.3e}; TPD kernel "
+          f"launches {fig3['on'][0]['tpd']} and {fig3['off'][0]['tpd']} "
+          f"[{card}]")
+    check(same and calls[0] == len(seen["on"]),
+          "(a) Fig. 3 shard='on': placements differ from shard='off' or "
+          "the sharded path did not run")
+    check(rel <= DIST_TPD_RTOL and fig3["on"][0] == fig3["off"][0],
+          f"(a) Fig. 3 shard='on': TPDs {rel}, launches {fig3}")
+    paths["(a) Fig. 3 shard='on'"] = fig3["on"][0]
+    print(f"(a) done {time.perf_counter() - phase_t0:.1f} s into phase 27")
+
+    # ---- (b) the paper MLP on 8 ranks ----------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("paper-mlp-1m8")
+    trees = [(h, pso_placement(h)) for h in
+             (choose_fl_hierarchy(c) for _, _, c in DIST_MLP_LAYOUTS)]
+    print(f"(b, c) every rank's tensors on cuda:0 over gloo, which stages "
+          f"each collective's 64 MiB chunks through pinned host memory "
+          f"inside the collective (its time is the step's); no other "
+          f"host staging")
+    t0 = time.perf_counter()
+    res = run_world(dist_mlp_rank, DIST_MLP_RANKS,
+                    ({"cfg": cfg, "device": "cuda", "trees": trees},),
+                    timeout=DIST_WORLD_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    rank_counts = {k: sum(r["counts"][k] for r in res)
+                   for k in res[0]["counts"]}
+    host = {}                 # the host path, once a client count
+    zero_counts(*counters)
+    for n_total in sorted({c * (d[0] if "pod" in a else 1)
+                           for d, a, c in DIST_MLP_LAYOUTS}):
+        h = choose_fl_hierarchy(n_total)
+        fl = FLTrainStep(get_model(cfg), sgd(DIST_FL_LR), h,
+                         np_.arange(h.dimensions), local_steps=DIST_MLP_STEPS)
+        params, states = fl.init_stacked(
+            torch.Generator("cuda").manual_seed(SEED))
+        ds = make_federated_dataset(cfg, n_total, SEED)
+        batch = {k: torch.stack([torch.as_tensor(
+            ds.client_batch(c, DIST_MLP_BATCH, 0)[k])
+            for c in range(n_total)]).to("cuda") for k in ("x", "y")}
+        params, _, metrics = fl.make_round_fn()(params, states, batch)
+        host[n_total] = (flat_buffer_of(params, lead=1).cpu().numpy(),
+                         float(metrics["loss"]))
+    host_counts = kernel_counts(*counters)
+    check(host_counts["fedavg"] == len(host)
+          and sum(host_counts.values()) == len(host),
+          f"(b) host path launches {host_counts}: one FedAvg a round")
+    rounds0 = res[0]["rounds"]
+    for j, r0 in enumerate(rounds0):
+        dims, axes, per_pod = DIST_MLP_LAYOUTS[j // 2]
+        n_total = per_pod * (dims[0] if "pod" in axes else 1)
+        want, want_loss = host[n_total]
+        sums = {r["rounds"][j]["checksum"] for r in res}
+        err = float(np_.max(np_.abs(r0["params"] - want[0])))
+        ok = bool(np_.allclose(r0["params"], want[0], **DIST_MLP_TOL))
+        split = "; ".join(f"{s['step']} {s['ms']:.2f} ms"
+                          for s in r0["stats"])
+        moved = bytes_by_step([r["rounds"][j]["stats"] for r in res])
+        print(f"(b) paper-mlp-1m8 (N {want.shape[1]}), mesh {dims} over "
+              f"{axes}, {n_total} clients, "
+              f"{DIST_MLP_RANKS // n_total} rank(s) a client, "
+              f"{r0['mode']}: every rank bit-equal {len(sums) == 1}; "
+              f"against the host path on cuda max abs err {err:.3e} "
+              f"(within {DIST_MLP_TOL}: {ok}), loss {r0['loss']:.7f} vs "
+              f"{want_loss:.7f}; rank 0's split: {split}; bytes in, all "
+              f"ranks: {json.dumps(moved)} [{card}]")
+        check(len(sums) == 1 and ok, f"(b) {dims} {axes} {r0['mode']}: "
+                                     f"ranks differ or beyond {DIST_MLP_TOL}")
+        check(abs(r0["loss"] - want_loss) <= 1e-5 * abs(want_loss),
+              f"(b) loss {r0['loss']} vs {want_loss}")
+    for j in range(0, len(rounds0), 2):
+        check(bool(np_.allclose(rounds0[j]["params"],
+                                rounds0[j + 1]["params"], **DIST_MLP_TOL)),
+              f"(b) hierarchical and flat differ on {rounds0[j]['dims']}")
+    print(f"(b) 8-rank world {world_s:.1f} s (spawn to join); peak memory "
+          f"a rank {[round(r['peak'] / 2**20, 1) for r in res]} MiB; "
+          f"launches: ranks "
+          f"{json.dumps({k: v for k, v in rank_counts.items() if v})}, "
+          f"host path "
+          f"{json.dumps({k: v for k, v in host_counts.items() if v})} "
+          f"({time.perf_counter() - phase_t0:.1f} s into phase 27) [{card}]")
+    paths["(b) ranks"] = rank_counts
+    paths["(b) host path"] = host_counts
+
+    # ---- (c) stablelm-1.6b at full width on 4 ranks ---------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = get_config(DIST_LM_ARCH)
+    h = Hierarchy(*DIST_LM_TREE[:3], n_clients=DIST_LM_TREE[3])
+    cut, need, parts = lm_depth(torch, lm, DIST_LM_RANKS)
+    placement = pso_placement(h)
+    gib = {k: round(v / 2**30, 3) for k, v in parts.items()}
+    print(f"(c) {DIST_LM_ARCH} at full width (d_model {lm.d_model}, "
+          f"{lm.n_heads} heads of {lm.resolved_head_dim}, d_ff {lm.d_ff}, "
+          f"vocab {lm.vocab_size}), {cut.n_layers} of {lm.n_layers} layers: "
+          f"the deepest whose {DIST_LM_RANKS} ranks leave "
+          f"{DIST_FREE_BYTES / 2**30:.0f} GiB of the card free (GiB: "
+          f"{json.dumps(gib)}; "
+          f"{need / 2**30:.1f} GiB estimated in all); tree {DIST_LM_TREE}, "
+          f"PSO placement {placement.tolist()}, sgd({DIST_FL_LR}), "
+          f"{DIST_LM_STEPS} local steps of 1 x {DIST_LM_TOKENS} tokens, "
+          f"rounds {DIST_LM_MODES} [{card}]")
+    t0 = time.perf_counter()
+    res = run_world(dist_lm_rank, DIST_LM_RANKS,
+                    ({"cfg": cut, "device": "cuda",
+                      "placement": placement},),
+                    timeout=DIST_WORLD_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    n_params = res[0]["n_params"]
+    hostr = res[0]["host"]
+    check(hostr["init_equal"], "(c) the host path's init differs from the "
+                               "ranks' (one seeded generator)")
+    for i, mode in enumerate(DIST_LM_MODES):
+        r0, hr = res[0]["rounds"][i], hostr["rounds"][i]
+        losses = [r["rounds"][i]["loss"] for r in res]
+        split = "; ".join(
+            f"{s['step']} {s['ms']:.1f} ms" + (
+                f" ({s['ranks']} ranks)" if "ranks" in s else "")
+            for s in r0["stats"])
+        moved = bytes_by_step([r["rounds"][i]["stats"] for r in res])
+        share = hr["outside"] / n_params
+        print(f"(c) round {i + 1} ({mode}): {r0['s']:.2f} s on rank 0 "
+              f"({split}; D2H of its params {r0['d2h_s']:.2f} s; bytes "
+              f"in, all ranks: {json.dumps(moved)}); loss "
+              f"{r0['loss']:.6f}, host path {hr['loss']:.6f} ({hr['s']:.2f}"
+              f" s: " + "; ".join(f"{s['step']} {s['ms']:.1f} ms"
+                                   for s in hr["stats"])
+              + f"); params against the host path: max abs err "
+              f"{hr['max_abs_err']:.3e}, {hr['outside']} of {n_params} "
+              f"({share:.2e}) outside {DIST_LM_PARAM_TOL} [{card}]")
+        check(all(v == losses[0] for v in losses),
+              f"(c) ranks report different losses {losses}")
+        check(math.isfinite(r0["loss"]) and abs(r0["loss"] - hr["loss"])
+              <= DIST_LM_LOSS_RTOL * abs(hr["loss"]),
+              f"(c) round {i + 1} loss {r0['loss']} vs {hr['loss']}")
+        check(share <= DIST_LM_OUTSIDE and hr["rows_equal"],
+              f"(c) round {i + 1}: {hr['outside']} params outside "
+              f"{DIST_LM_PARAM_TOL}, or the host rows differ")
+    rank_counts = {k: sum(r["counts"][k] for r in res)
+                   for k in res[0]["counts"]}
+    steps = DIST_LM_STEPS * len(DIST_LM_MODES)
+    layers = cut.n_layers
+    want_rank = {"flash_attention": DIST_LM_RANKS * steps * 2 * layers,
+                 "flash_attention_bwd": DIST_LM_RANKS * steps * 3 * layers}
+    want_host = {"flash_attention": h.total_clients * steps * 2 * layers,
+                 "flash_attention_bwd": h.total_clients * steps * 3 * layers,
+                 "fedavg": len(DIST_LM_MODES)}
+    peaks = [r["peak"] for r in res]
+    reserved = [r["reserved"] for r in res]
+    total = torch.cuda.get_device_properties(0).total_memory
+    use = sum(reserved) + DIST_LM_RANKS * parts["context"] + parts["held"]
+    print(f"(c) 4-rank world {world_s:.1f} s (spawn to join; init "
+          f"{res[0]['init_s']:.1f} s a rank); peak memory a rank "
+          f"{[round(p / 2**30, 2) for p in peaks]} GiB allocated, "
+          f"{[round(p / 2**30, 2) for p in reserved]} GiB reserved; with "
+          f"the contexts and this process {use / 2**30:.2f} GiB of the "
+          f"card's {total / 2**30:.2f} GiB; the host path "
+          f"{hostr['peak'] / 2**30:.2f} GiB; launches: ranks "
+          f"{json.dumps({k: v for k, v in rank_counts.items() if v})}, host "
+          f"path {json.dumps({k: v for k, v in hostr['counts'].items() if v})}"
+          f" [{card}]")
+    check({k: v for k, v in rank_counts.items() if v} == want_rank,
+          f"(c) rank launches {rank_counts}, expected {want_rank}")
+    check({k: v for k, v in hostr["counts"].items() if v} == want_host,
+          f"(c) host path launches {hostr['counts']}, expected {want_host}")
+    check(use <= total - DIST_FREE_BYTES,
+          f"(c) the ranks' peaks {reserved} leave less than "
+          f"{DIST_FREE_BYTES} bytes of the card free ({parts})")
+    paths["(c) ranks"] = rank_counts
+    paths["(c) host path"] = hostr["counts"]
+    print("phase 27 launches by path: " + json.dumps(
+        {p: {k: v for k, v in c.items() if v} for p, c in paths.items()}))
+    print(f"phase 27 took {time.perf_counter() - phase_t0:.1f} s [{card}]")
+    return {k: {"phase 27": sum(c[k] for c in paths.values())}
+            for k in res[0]["counts"]}
 
 
 def main() -> int:
@@ -5302,6 +5925,7 @@ def main() -> int:
     moe_paths = moe_phases(torch, np, dev, card)
     xlstm_paths = xlstm_phases(torch, np, dev, card)
     mm_paths_, mm_errs = vlm_audio_phases(torch, np, dev, card)
+    dist_paths = distributed_phases(torch, np, card)
 
     k_ms, r_ms, b_ms = rows[10]
     kernels = [
@@ -5328,11 +5952,11 @@ def main() -> int:
         *training,
     ]
     # each path's launches, counted from 0 over it: the earlier main
-    # paths' (as named in the module docstring), then phases 22-26
+    # paths' (as named in the module docstring), then phases 22-27
     for entry in kernels:
         paths = {"phases 5-16": entry["launches"], **dense[entry["name"]],
                  **moe_paths[entry["name"]], **xlstm_paths[entry["name"]],
-                 **mm_paths_[entry["name"]]}
+                 **mm_paths_[entry["name"]], **dist_paths[entry["name"]]}
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
         if entry["name"] in mm_errs:        # phase 26 (a)'s shapes too

@@ -339,6 +339,133 @@ class CostModel:
 
         return batch
 
+    def _make_pooled_torch_tpd(self, pool_attrs):
+        """The pooled evaluator of :meth:`_make_batch_tpd` in torch ops:
+        ``(placements (P, D), pool_idx (P,)) -> (P,)`` TPDs, on the
+        device the placements are on (tables uploaded once a device), in
+        the dtype of ``pool_attrs`` (float64: each shard of the sharded
+        pooled call, the reference's jnp float64 build).
+
+        The numpy build's general path, op for op and in its order
+        (trainer loads by a scatter-add over ascending client ids, kid
+        columns left to right, the penalty, the pod edge costs and the
+        calibrated terms where the model has them, level maxima summed
+        deepest first); only the scatter-add's order on the card, where
+        it uses atomics, may differ, by float64 round-off.
+        """
+        h = self.hierarchy
+        D, depth, n_leaves = h.dimensions, h.depth, h.n_leaves
+        leaf_start = h.level_starts[depth - 1]
+        penalty = float(self.memory_penalty)
+        have_pods = getattr(self, "pod_of", None) is not None
+        ici = float(getattr(self, "ici_cost", 0.0))
+        dcn = float(getattr(self, "dcn_cost", 0.0))
+        cal_scale, cal_link, cal_train = self._calibration_terms()
+        attrs_np = np.asarray(pool_attrs)                 # (A, S, C)
+        kids_np = h.kids_table
+        is_leaf_np = h.levels == depth - 1
+        slot_leaf_np = np.clip(np.arange(D) - leaf_start, 0, n_leaves - 1)
+        bounds = [int(b) for b in h.level_starts]
+        link_np = parts_np = train_np = None
+        if cal_link:
+            link = np.asarray(cal_link, np.float64)
+            link_np = link[np.minimum(h.levels, len(link) - 1)]
+            parts_np = (kids_np >= 0).sum(axis=1) + 1
+        if cal_train != 0.0:
+            train_np = cal_train * np.max(1.0 / attrs_np[1], axis=-1)
+        tables = {}
+
+        def on(dev):
+            if dev not in tables:
+                dt = torch.as_tensor(attrs_np).dtype
+
+                def put(a, dtype=None):
+                    return torch.as_tensor(a, device=dev, dtype=dtype)
+
+                tables[dev] = dict(
+                    attrs=put(attrs_np),
+                    ici=put(ici, dt), dcn=put(dcn, dt),
+                    kids=put(np.clip(kids_np, 0, D - 1), torch.long),
+                    kids_valid=put(kids_np >= 0),
+                    is_leaf=put(is_leaf_np),
+                    slot_leaf=put(slot_leaf_np, torch.long),
+                    link=None if link_np is None else put(link_np, dt),
+                    parts=None if parts_np is None else put(parts_np, dt),
+                    train=None if train_np is None else put(train_np, dt))
+            return tables[dev]
+
+        def batch(placements, pool_idx=None):
+            dev = placements.device
+            t = on(dev)
+            p = placements.long()
+            P = p.shape[0]
+            rows = torch.arange(P, device=dev) if pool_idx is None \
+                else torch.as_tensor(pool_idx, device=dev).long()
+            a = t["attrs"][:, rows]                        # (A, P, C)
+            mds = a[0]
+            unplaced = torch.ones_like(mds, dtype=torch.bool).scatter_(
+                1, p, False)
+            t_mds = torch.where(unplaced, mds, 0.0)
+            # canonical trainer split: rank among unplaced ids, mod leaves
+            leaf_of = torch.remainder(torch.cumsum(unplaced, dim=1) - 1,
+                                      n_leaves)
+
+            def by_leaf(w):
+                return torch.zeros((P, n_leaves), dtype=w.dtype,
+                                   device=dev).scatter_add_(1, leaf_of, w)
+
+            host = a.gather(2, p.expand(a.shape[0], -1, -1))  # (A, P, D)
+            kid_host = p[:, t["kids"]]                      # (P, D, W)
+            kid_mds = torch.where(
+                t["kids_valid"][None],
+                mds.gather(1, kid_host.reshape(P, -1)).view(kid_host.shape),
+                0.0)
+            child = kid_mds[..., 0]
+            for w in range(1, kid_mds.shape[-1]):           # in order
+                child = child + kid_mds[..., w]
+            load = host[0] + torch.where(
+                t["is_leaf"][None], by_leaf(t_mds)[:, t["slot_leaf"]], child)
+            if cal_scale != 1.0:
+                load = load * cal_scale
+            delay = load / host[1]
+            if penalty > 0:
+                cap = host[2]
+                over = torch.clamp_min(load - cap, 0.0)
+                delay = delay * (1.0 + penalty * over
+                                 / torch.clamp_min(cap, 1e-9))
+            if have_pods:
+                pods = a[3]
+                host_pod = host[3]                          # (P, D)
+                kid_pod = pods.gather(1, kid_host.reshape(P, -1)).view(
+                    kid_host.shape)
+                kid_edge = torch.where(
+                    t["kids_valid"][None],
+                    kid_mds * torch.where(kid_pod == host_pod[..., None],
+                                          t["ici"], t["dcn"]), 0.0)
+                edge_int = kid_edge[..., 0]
+                for w in range(1, kid_edge.shape[-1]):
+                    edge_int = edge_int + kid_edge[..., w]
+                t_host_pod = host_pod.gather(1, leaf_start + leaf_of)
+                edge_leaf = by_leaf(t_mds * torch.where(
+                    pods == t_host_pod, t["ici"], t["dcn"]))
+                delay = delay + torch.where(
+                    t["is_leaf"][None], edge_leaf[:, t["slot_leaf"]],
+                    edge_int)
+            if t["link"] is not None:
+                leaf_cnt = by_leaf(unplaced.to(mds.dtype))
+                parts = torch.where(t["is_leaf"][None],
+                                    leaf_cnt[:, t["slot_leaf"]] + 1.0,
+                                    t["parts"][None])
+                delay = delay + t["link"][None] * parts
+            total = torch.zeros(P, dtype=delay.dtype, device=dev)
+            for lv in range(len(bounds) - 2, -1, -1):       # deepest first
+                total = total + delay[:, bounds[lv]:bounds[lv + 1]].amax(1)
+            if t["train"] is not None:
+                total = total + t["train"][rows]
+            return total
+
+        return batch
+
     def _make_device_tpd(self, kernel: bool):
         """Closure scoring swarms on ``self.device``: static tables are
         uploaded once; per call the placements go up, the TPD evaluation
@@ -591,12 +718,6 @@ class CostModel:
                                      device=device)
 
 
-_SHARDED_NOT_PORTED = (
-    "the device-sharded pooled evaluation (shard='on', tpds_sharded) "
-    "comes with ROADMAP.md queue 1 item 12 (multi-device paths); use "
-    "shard='auto' or 'off'")
-
-
 class PooledTPDEvaluator:
     """ONE exact evaluation call for placements scored against DIFFERENT
     client pools — the batched sweep runner's engine.
@@ -614,12 +735,14 @@ class PooledTPDEvaluator:
     mid-run churn/drift/straggler mutations are reflected in the very
     next call.
 
-    ``shard``: ``"auto"`` (default) and ``"off"`` both run the float64
-    numpy path on the host, one call for all rows; the reference's
-    ``"auto"`` additionally splits rows across devices when more than
-    one is visible. ``"on"`` and :meth:`tpds_sharded` (the device-
-    sharded build) raise ``NotImplementedError`` until ROADMAP.md
-    queue 1 item 12.
+    ``shard``: ``"off"`` runs the float64 numpy path on the host, one
+    call for all rows; ``"on"`` always runs :meth:`tpds_sharded` (the
+    device-sharded build, over the devices of the models' type: the
+    cards, or the host); ``"auto"`` (default) shards only when the
+    models are on ``cuda``, more than one card is visible and there are
+    at least as many rows as cards (the reference's rule over
+    ``jax.local_device_count()``), else takes the numpy path: on one
+    card it is the bit-identity pin of the goldens.
     """
 
     def __init__(self, models: Sequence[CostModel], shard: str = "auto"):
@@ -628,8 +751,6 @@ class PooledTPDEvaluator:
         if shard not in ("auto", "on", "off"):
             raise ValueError(f"unknown shard mode {shard!r}; use "
                              f"'auto', 'on' or 'off'")
-        if shard == "on":
-            raise NotImplementedError(_SHARDED_NOT_PORTED)
         m0 = models[0]
         for m in models[1:]:
             if m.hierarchy != m0.hierarchy:
@@ -659,6 +780,8 @@ class PooledTPDEvaluator:
         self.shard = shard
         self._versions: Optional[tuple] = None
         self._fn = None
+        self._shard_fn = None
+        self._shard_versions: Optional[tuple] = None
 
     def _check_aligned(self) -> None:
         """Elastic runs retarget models in place; a rebuild must not mix
@@ -669,8 +792,20 @@ class PooledTPDEvaluator:
                 raise ValueError("pooled evaluation needs one shared "
                                  "hierarchy shape")
 
+    def _device_count(self) -> int:
+        """Visible devices of the models' type (the reference's
+        ``jax.local_device_count()``): the cards, or 1 host."""
+        if self.models[0].device.type == "cuda":
+            return torch.cuda.device_count()
+        return 1
+
     def tpds(self, placements, pool_idx=None) -> np.ndarray:
         placements = np.asarray(placements, np.int32)
+        if self.shard != "off":
+            ndev = self._device_count()
+            if self.shard == "on" or (ndev > 1
+                                      and placements.shape[0] >= ndev):
+                return self.tpds_sharded(placements, pool_idx, ndev)
         versions = tuple(m._client_token() for m in self.models)
         if self._fn is None or versions != self._versions:
             self._check_aligned()
@@ -683,8 +818,38 @@ class PooledTPDEvaluator:
 
     def tpds_sharded(self, placements, pool_idx=None,
                      ndev: Optional[int] = None) -> np.ndarray:
-        """The reference's device-sharded pooled call; not ported."""
-        raise NotImplementedError(_SHARDED_NOT_PORTED)
+        """The device-sharded pooled call, explicitly (what ``tpds``
+        dispatches to for ``shard="on"`` and on a multi-card host):
+        placement rows split over a 1-D ``("rows",)`` mesh of ``ndev``
+        entries (default: the visible devices; entries past them repeat
+        the cards round-robin, so ``ndev=8`` on one card runs 8 shards
+        on it) through ``fl.distributed.shard_rows``. Each shard scores
+        its rows with the float64 torch build of the pooled closure
+        (:meth:`CostModel._make_pooled_torch_tpd`) on its device, and
+        the full (P,) vector is reassembled by the segment-sum merge.
+        Numerically it is the torch build of the numpy exact path (same
+        reduction order per row), so any deltas are float64 round-off,
+        held within rtol 1e-12 of the sequential ``tpds`` oracle.
+        """
+        from repro_torch.fl.distributed import shard_rows
+        from repro_torch.launch.mesh import row_mesh
+        placements = np.asarray(placements, np.int32)
+        n_rows = placements.shape[0]
+        rows = np.arange(n_rows) if pool_idx is None \
+            else np.asarray(pool_idx)
+        ndev = self._device_count() if ndev is None else int(ndev)
+        ndev = max(1, min(ndev, n_rows))
+        versions = tuple(m._client_token() for m in self.models)
+        if self._shard_fn is None or self._shard_versions != versions:
+            self._check_aligned()
+            attrs = np.stack(
+                [m._attr_stack(np.float64) for m in self.models], axis=1)
+            self._shard_fn = self.models[0]._make_pooled_torch_tpd(attrs)
+            self._shard_versions = versions
+        mesh = row_mesh(ndev, self.models[0].device)
+        run = shard_rows(self._shard_fn, mesh, n_rows)
+        out = run(torch.from_numpy(placements), torch.from_numpy(rows))
+        return out.cpu().numpy().astype(np.float64)
 
 
 @dataclass(frozen=True)

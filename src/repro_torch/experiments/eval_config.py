@@ -57,9 +57,9 @@ class EvalConfig:
                  (recording='on' forces the sequential step loop)
     backend      pin the batch-TPD backend strategies ride inside the
                  PSO inner loop: None (auto) | 'np' | 'torch' | 'kernel'
-    shard        pooled-evaluator device sharding: 'auto' | 'off'
-                 ('on' validates, and the pooled evaluator refuses it
-                 until ROADMAP.md queue 1 item 12)
+    shard        pooled-evaluator device sharding: 'auto' | 'on' |
+                 'off' ('on' splits rows over the devices of the
+                 models' type; 'auto' only over more than one card)
     cost_source  'analytic' (paper eqs. 6-7) | 'calibrated'
                  (trace-fitted terms; simulated track only)
     calibration  path to a fitted-calibration JSON

@@ -338,10 +338,11 @@ def run_batched(spec: ScenarioSpec,
     seeds...], matching the sequential sweep's ordering.
 
     ``eval_config.shard`` forwards to :class:`PooledTPDEvaluator`:
-    ``"auto"`` and ``"off"`` both run the single-device float64 numpy
-    path (the reference's multi-device ``"auto"`` split and ``"on"``
-    come with ROADMAP.md queue 1 item 12). The bare ``shard=`` kwarg is
-    a deprecated alias for ``eval_config=EvalConfig(shard=...)``.
+    ``"off"`` runs the float64 numpy path on the host, ``"on"`` the
+    device-sharded float64 build (rows split over the models' devices),
+    ``"auto"`` the sharded build only with more than one card visible.
+    The bare ``shard=`` kwarg is a deprecated alias for
+    ``eval_config=EvalConfig(shard=...)``.
     """
     if spec.kind != "simulated":
         raise ValueError("batched sweep mode is simulated-only; "

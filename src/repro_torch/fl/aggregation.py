@@ -1,10 +1,12 @@
-"""Aggregation: flat FedAvg and host-level hierarchical FedAvg.
+"""Aggregation: flat FedAvg, host-level hierarchical FedAvg, and the
+paper's aggregation tree as grouped collectives over a mesh of ranks.
 
-The port of the host-level half of ``repro.fl.aggregation``
-(``fedavg``, ``hierarchical_fedavg``, ``SegmentAggregator``,
-``batched_hierarchical_fedavg``). The device-level plan
-(``AggregationPlan``, ``hierarchical_psum``, ``flat_psum``) comes with
-the multi-device slice (ROADMAP.md queue 1 item 12).
+The port of ``repro.fl.aggregation``: ``fedavg``,
+``hierarchical_fedavg``, ``SegmentAggregator`` and
+``batched_hierarchical_fedavg`` on one device; ``AggregationPlan``,
+``hierarchical_psum`` and ``flat_psum`` across the ranks of a
+:class:`~repro_torch.launch.mesh.RankMesh`, one grouped all-reduce per
+tree level (the reference's ``psum`` with ``axis_index_groups``).
 
 Key invariant (property-tested against the reference): for any valid
 placement, hierarchical FedAvg over the placement tree == flat weighted
@@ -25,7 +27,9 @@ kernel (child rows carry weight 1).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,6 +38,7 @@ from repro_torch.core.hierarchy import Hierarchy, RoundPlan
 from repro_torch.kernels import ops
 from repro_torch.kernels.fedavg import fedavg_rows
 from repro_torch.utils.trees import (
+    flat_buffer_of,
     flatten_tree,
     is_view_of,
     tree_add,
@@ -250,3 +255,159 @@ def batched_hierarchical_fedavg(stacked_updates, weights,
     agg = SegmentAggregator(hierarchy)
     plan = hierarchy.round_plan(np.asarray(placement, np.int64))
     return agg.aggregate(agg.weighted(stacked_updates, weights), plan)
+
+
+# --------------------------------------------------------------------------
+# device-level plan: the tree as grouped collectives over a rank mesh
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class AggregationPlan:
+    """Static schedule of the in-mesh hierarchical aggregation, field
+    for field the reference's (plain numpy, built on the host from the
+    hierarchy, the placement and the data axis's extent)."""
+    n_devices: int                       # extent of the data axis (per pod)
+    client_of_device: np.ndarray         # (n_devices,) int
+    weight_of_device: np.ndarray         # (n_devices,) f32: w_c / n_dev_c
+    client_groups: tuple                 # device groups: one per client
+    levels: tuple                        # per level, deepest first:
+    #   (groups, carrier_mask, in_group_mask)
+    root_rep_mask: np.ndarray            # (n_devices,) 0/1: root-group reps
+
+    @staticmethod
+    def build(hierarchy: Hierarchy, placement: Sequence[int],
+              n_devices: int, weights: Optional[Sequence[float]] = None
+              ) -> "AggregationPlan":
+        n_clients = hierarchy.total_clients
+        if n_devices % n_clients != 0:
+            raise ValueError(
+                f"data axis ({n_devices}) must be a multiple of the client "
+                f"count ({n_clients})")
+        per = n_devices // n_clients
+        client_of_device = np.repeat(np.arange(n_clients), per)
+        if weights is None:
+            weights = np.full(n_clients, 1.0 / n_clients)
+        weights = np.asarray(weights, np.float32)
+        weight_of_device = weights[client_of_device] / per
+
+        def devices_of(c: int) -> List[int]:
+            return list(range(c * per, (c + 1) * per))
+
+        client_groups = tuple(tuple(devices_of(c)) for c in range(n_clients))
+        levels = []
+        for level_clusters in hierarchy.clusters(placement):  # deepest first
+            groups: List[tuple] = []
+            carrier = np.zeros(n_devices, np.float32)
+            in_group = np.zeros(n_devices, np.float32)
+            for members in level_clusters:
+                devs: List[int] = []
+                for c in members:
+                    devs.extend(devices_of(c))
+                    carrier[c * per] = 1.0          # the client's rep
+                groups.append(tuple(sorted(devs)))
+                in_group[devs] = 1.0
+            groups.extend((d,) for d in range(n_devices) if not in_group[d])
+            levels.append((tuple(groups), carrier, in_group))
+        root_rep = np.zeros(n_devices, np.float32)
+        root_rep[int(placement[0]) * per] = 1.0
+        return AggregationPlan(
+            n_devices=n_devices,
+            client_of_device=client_of_device,
+            weight_of_device=weight_of_device.astype(np.float32),
+            client_groups=client_groups,
+            levels=tuple(levels),
+            root_rep_mask=root_rep,
+        )
+
+
+def _flat_value(value):
+    """(flat buffer, the tree to return) of a tensor or tree: the buffer
+    its leaves already view (reduced in place, and ``value`` itself
+    returned, so a flat param tree keeps its leaves), else a packed copy
+    and a tree of views into it."""
+    layout = tree_layout(value)
+    flat = flat_buffer_of(value, layout)
+    if flat is not None:
+        return flat, value
+    flat = flatten_tree(value, layout)
+    return flat, unflatten_tree(flat, layout)
+
+
+def _scale(flat: torch.Tensor, s) -> None:
+    """``flat *= s`` with ``s`` first rounded to the buffer's dtype (the
+    reference's ``x * w.astype(x.dtype)``)."""
+    flat.mul_(torch.tensor(float(s), dtype=flat.dtype))
+
+
+def _reduce(mesh, flat, group, step: str, stats: Optional[list]) -> None:
+    """One grouped reduction (a tree level) over the flat buffer; with
+    ``stats`` it appends the step's bytes in, group size and host-clock
+    milliseconds (the card synchronised at the end)."""
+    t0 = time.perf_counter()
+    moved = mesh.all_reduce(flat, group)
+    if stats is None:
+        return
+    if flat.is_cuda:
+        torch.cuda.synchronize(flat.device)
+    ranks = 1 if group is None else torch.distributed.get_world_size(group)
+    stats.append({"step": step, "ranks": ranks, "bytes": moved,
+                  "ms": (time.perf_counter() - t0) * 1e3})
+
+
+def hierarchical_psum(value, plan: AggregationPlan, mesh,
+                      axis_name: str = "data",
+                      pod_axis: Optional[str] = None, *,
+                      stats: Optional[list] = None):
+    """The paper's aggregation tree as grouped collectives.
+
+    Call on every rank of ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.RankMesh` over ``[pod_axis,]
+    axis_name``). ``value`` is this rank's local update, a tensor or a
+    tree; its flat buffer (the one its leaves view, as a flat param
+    tree's do, else a packed copy) is reduced in place, one chunked
+    all-reduce a level, and the tree viewing it returned (``value``
+    itself when it was flat): the global aggregate, on every rank. Singleton groups are the identity
+    and launch nothing. The reference's order and masks: weight, sum
+    each client's ranks, then each level deepest first (carriers only;
+    a rank outside every group keeps its value), the root
+    representative's sum to the whole axis, the mean over pods.
+    """
+    flat, out = _flat_value(value)
+    d = mesh.axis_index(axis_name)
+    with torch.no_grad():
+        _scale(flat, plan.weight_of_device[d])
+        _reduce(mesh, flat, mesh.subgroup(axis_name, plan.client_groups),
+                "clients", stats)
+        for i, (groups, carrier, in_group) in enumerate(plan.levels):
+            # every rank creates every group, in one order
+            group = mesh.subgroup(axis_name, groups)
+            if in_group[d]:
+                _scale(flat, carrier[d])
+                _reduce(mesh, flat, group, f"level {i}", stats)
+        _scale(flat, plan.root_rep_mask[d])
+        _reduce(mesh, flat, mesh.axis_group(axis_name), "root", stats)
+        _pod_mean(mesh, flat, pod_axis, stats)
+    return out
+
+
+def flat_psum(value, plan: AggregationPlan, mesh, axis_name: str = "data",
+              pod_axis: Optional[str] = None, *,
+              stats: Optional[list] = None):
+    """CFL baseline: one weighted all-reduce over the data axis (then
+    the pod mean), in place as :func:`hierarchical_psum`."""
+    flat, out = _flat_value(value)
+    with torch.no_grad():
+        _scale(flat, plan.weight_of_device[mesh.axis_index(axis_name)])
+        _reduce(mesh, flat, mesh.axis_group(axis_name), "flat", stats)
+        _pod_mean(mesh, flat, pod_axis, stats)
+    return out
+
+
+def _pod_mean(mesh, flat, pod_axis, stats) -> None:
+    """Multi-pod: the top of the hierarchy crosses the pod boundary; the
+    per-pod weights each sum to 1, so the global model is the pod mean
+    (``lax.pmean``: the sum over the axis, divided by its size)."""
+    if pod_axis is None:
+        return
+    _reduce(mesh, flat, mesh.axis_group(pod_axis), "pod", stats)
+    flat.div_(mesh.shape[pod_axis])

@@ -2,6 +2,7 @@
 the reference (mlp, hybrid, dense, moe, ssm, vlm and audio)."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 from repro_torch.configs.base import ModelConfig
@@ -21,12 +22,17 @@ _BUILDERS = {"dense": build_decoder_model, "moe": build_decoder_model,
 
 def get_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
               window: Optional[int] = None) -> Model:
-    if policy.mesh is not None:
+    """The family's model of ``cfg`` under ``policy``: unsharded, or a
+    pod/data replica policy (the federated round step's; every rank
+    holds whole models). Model, fsdp, seq and ep2d axes raise."""
+    if policy.mesh is not None and not policy.replicas_only:
         raise NotImplementedError(
-            "mesh sharding policies come with ROADMAP.md queue 1 item 12")
+            "mesh policies with model, fsdp, seq or ep2d axes come with "
+            "ROADMAP.md queue 1 item 12b")
     if cfg.family not in _BUILDERS:
         raise NotImplementedError(f"no builder for family {cfg.family!r}")
-    return _BUILDERS[cfg.family](cfg, policy, window=window)
+    return dataclasses.replace(
+        _BUILDERS[cfg.family](cfg, policy, window=window), policy=policy)
 
 
 __all__ = ["Model", "get_model", "make_train_step", "make_grad_step",

@@ -2,9 +2,10 @@
 
 A ``Model`` is a bundle of plain functions over a plain-dict param tree
 in the reference's layout (``repro.models.api.Model``): the FL layer and
-the serving scheduler program against this interface only. The
-reference's sharding fields come with the multi-device paths (ROADMAP.md
-queue 1 item 12).
+the serving scheduler program against this interface only. ``policy``
+is the model's sharding policy (``fl.distributed.FLTrainStep`` reads its
+rank mesh); the reference's ``param_shapes``, ``param_pspecs`` and
+``state_pspecs`` come with ROADMAP.md queue 1 item 12b.
 
 A client dim. The batched round engine trains every client at once: it
 hands the loss a client-stacked param tree and batch (a leading ``C``
@@ -31,6 +32,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.sharding import UNSHARDED, ShardingPolicy
 from repro_torch.utils.trees import (
     flat_buffer_of,
     flatten_tree,
@@ -58,6 +60,7 @@ class Model:
     decode_fn: Optional[Callable] = None
     # (batch_size, cache_len, device) -> a zero decode state
     init_decode_state: Optional[Callable] = None
+    policy: ShardingPolicy = UNSHARDED
 
 
 def per_client_loss(loss_fn):

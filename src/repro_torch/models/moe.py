@@ -38,9 +38,9 @@ deterministic too, but adds E launches a layer to a decode step the host
 already bounds.
 
 The expert-parallel paths (the ``shard_map`` island over the model axis
-and the 2-D ``ep2d`` serving layout) and ``moe_spec`` come with the
-multi-device paths (ROADMAP.md queue 1 item 12): a policy with a mesh
-raises.
+and the 2-D ``ep2d`` serving layout) and ``moe_spec`` come with
+ROADMAP.md queue 1 item 12b: a mesh policy with a model, fsdp, seq or
+ep2d axis raises (a pod/data replica policy runs the one-device path).
 """
 from __future__ import annotations
 
@@ -169,10 +169,10 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig,
     ``mask`` (S,) bool marks real (non-pad) positions: pads get zero
     gates after routing, so they take no expert's capacity (they still
     count in the aux loss and in T, as in the reference)."""
-    if policy.mesh is not None:
+    if policy.mesh is not None and not policy.replicas_only:
         raise NotImplementedError(
-            "the expert-parallel moe paths come with the port's "
-            "multi-device paths (ROADMAP.md queue 1 item 12)")
+            "the expert-parallel moe paths come with ROADMAP.md queue 1 "
+            "item 12b")
     b, s, d = x.shape
     x2d = x.reshape(b * s, d)
     gates, aux, choices = route(x2d, params["router"], cfg.top_k)

@@ -49,7 +49,7 @@ vision frontend: the batch's ``frontend`` embeddings go before the
 text (:func:`embed_inputs`), the loss reads the text positions only,
 and prefill's ``pos`` and last-token logits count the prefix, so decode
 continues after it. The spec rules come with ROADMAP.md queue 1 item
-12.
+12b.
 """
 from __future__ import annotations
 

@@ -19,7 +19,9 @@ is clipped in place. Any other tree is first packed into a new buffer,
 and the returned params are views of it. The learning rate and the bias
 corrections are host float32 values (the step count lives on the
 host), passed to the kernel by value. ``sgd`` stays leaf by leaf in
-torch ops, as the reference has it.
+torch ops, as the reference has it; without momentum it too updates
+params that view one flat buffer in place (the same ops, written back
+leaf by leaf), so a federated rank holds one copy of its model.
 """
 from __future__ import annotations
 
@@ -128,8 +130,9 @@ def adamw(lr: ScheduleOrFloat = 3e-4, b1: float = 0.9, b2: float = 0.95,
 def sgd(lr: ScheduleOrFloat = 1e-2, momentum: float = 0.0,
         grad_clip: Optional[float] = None) -> Optimizer:
     """SGD with optional (heavy-ball) momentum, leaf by leaf in torch
-    ops; returns new params (the FL clients' local step keeps its own
-    in-place SGD in ``fl.orchestrator``)."""
+    ops; returns new params, except that without momentum params viewing
+    one flat buffer are updated in place and returned (the FL clients'
+    local step keeps its own in-place SGD in ``fl.orchestrator``)."""
 
     def init(params) -> OptState:
         # momentum-free SGD carries no per-param state
@@ -145,8 +148,16 @@ def sgd(lr: ScheduleOrFloat = 1e-2, momentum: float = 0.0,
             step = int(state.step) + 1
             lr_t = float(_lr_at(lr, step))
             if momentum == 0.0:
-                new_p = tree_map(lambda p, g: (p.float() - lr_t * g.float())
-                                 .to(p.dtype), params, grads)
+                def step_leaf(p, g):
+                    return (p.float() - lr_t * g.float()).to(p.dtype)
+
+                if flat_buffer_of(params) is not None:
+                    for p, g in zip(tree_leaves(params), tree_leaves(grads),
+                                    strict=True):
+                        p.copy_(step_leaf(p, g))
+                    new_p = params
+                else:
+                    new_p = tree_map(step_leaf, params, grads)
                 return new_p, OptState(step=_host_step(step), mu=(), nu=())
             mom = _f32(momentum)
             new_m = tree_map(lambda m, g: mom * m + g.float(), state.mu,

@@ -192,22 +192,24 @@ def unflatten_tree(flat: torch.Tensor, layout: TreeLayout):
     return layout.rebuild(views)
 
 
-def flat_buffer_of(tree, layout: Optional[TreeLayout] = None
-                   ) -> Optional[torch.Tensor]:
-    """The ``(N,)`` buffer whose :func:`unflatten_tree` views ``tree``'s
-    leaves are, when they are such views (one storage, in layout order,
-    no gaps); else None."""
+def flat_buffer_of(tree, layout: Optional[TreeLayout] = None, *,
+                   lead: int = 0) -> Optional[torch.Tensor]:
+    """The ``(*lead_shape, N)`` buffer whose :func:`unflatten_tree` views
+    ``tree``'s leaves are, when they are such views (one storage, in
+    layout order, no gaps); else None. ``lead`` counts the leading dims
+    the buffer keeps (1 for a client stack)."""
     leaves = tree_leaves(tree)
     if not leaves:
         return None
-    layout = layout if layout is not None else tree_layout(tree)
+    layout = layout if layout is not None else tree_layout(tree, lead)
     first = leaves[0]
+    shape = tuple(first.shape[:lead]) + (layout.numel,)
     storage = first.untyped_storage()
-    end = (first.storage_offset() + layout.numel) * first.element_size()
+    end = (first.storage_offset() + int(np.prod(shape))) \
+        * first.element_size()
     if storage.nbytes() < end:
         return None
-    flat = first.new_empty(0).set_(storage, first.storage_offset(),
-                                   (layout.numel,))
+    flat = first.new_empty(0).set_(storage, first.storage_offset(), shape)
     return flat if is_view_of(tree, flat, layout) else None
 
 

@@ -204,6 +204,25 @@ def test_adamw_state_is_flat_and_updates_flat_params_in_place():
                                       tree_leaves(params), strict=True))
 
 
+def test_sgd_updates_flat_params_in_place():
+    """Momentum-free SGD writes params that view one flat buffer in
+    place (a federated rank keeps one copy of its model), with the same
+    values as the new-tensor update of any other tree."""
+    from repro_torch.models.api import flat_params
+    params = flat_params(_to_torch(_tree(2)))
+    flat = flat_buffer_of(params)
+    grads = _to_torch(_tree(3))
+    want, _ = sgd(0.1).update(_to_torch(_tree(2)), grads,
+                              sgd(0.1).init(None))
+    new_params, state = sgd(0.1).update(params, grads, sgd(0.1).init(None))
+    assert int(state.step) == 1
+    assert all(x is y for x, y in zip(tree_leaves(new_params),
+                                      tree_leaves(params), strict=True))
+    assert flat_buffer_of(new_params).data_ptr() == flat.data_ptr()
+    for x, y in zip(tree_leaves(new_params), tree_leaves(want), strict=True):
+        assert torch.equal(x, y)
+
+
 def test_global_norm_and_clipping_match_reference():
     tree = _tree(4)
     got = tree_global_norm(_to_torch(tree))

@@ -288,16 +288,30 @@ def test_batched_runner_refuses_what_it_cannot_run():
 
 
 def test_sharded_pooled_evaluation_names_its_roadmap_item():
+    """The device-sharded pooled evaluation (ROADMAP.md queue 1 item
+    12a): ``shard="on"`` through ``run_experiment`` gives the placements
+    and TPDs of ``shard="off"`` (and of the reference's ``"off"``); on
+    the host its float64 torch build is the numpy path op for op, so
+    they are equal exactly."""
     env = get_scenario("paper-fig3").make_environment(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        PooledTPDEvaluator([env.cost_model], shard="on")
-    ev = PooledTPDEvaluator([env.cost_model])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ev.tpds_sharded(np.arange(env.hierarchy.dimensions)[None])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run_experiment("paper-fig3", ["pso"], rounds=2, seeds=(0,),
-                       progress=False, device="cpu",
-                       eval_config=EvalConfig(mode="batched", shard="on"))
+    placement = np.arange(env.hierarchy.dimensions)[None]
+    ev = PooledTPDEvaluator([env.cost_model], shard="on")
+    np.testing.assert_array_equal(
+        ev.tpds(placement),
+        PooledTPDEvaluator([env.cost_model], shard="off").tpds(placement))
+    runs = {shard: run_experiment(
+        "paper-fig3", ["pso", "random"], rounds=4, seeds=(0, 1),
+        progress=False, device="cpu",
+        eval_config=EvalConfig(mode="batched", shard=shard))
+        for shard in ("on", "off")}
+    on, off = (runs[k].to_dict()["strategies"] for k in ("on", "off"))
+    assert on == off
+    ref = ref_run_single(ref_get_scenario("paper-fig3"), "pso", seed=0,
+                         rounds=4)
+    got = runs["on"].runs[0]
+    assert (got.strategy, got.seed) == ("pso", 0)
+    assert list(got.tpds) == list(ref.tpds)
+    assert got.metrics == ref.metrics
 
 
 def test_result_round_trips_through_the_artifact(tmp_path):
