@@ -7,7 +7,11 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
 
 It needs one CUDA card and ``nvcc``. Without a card, or outside a
 checkout of the repository, it exits non-zero and prints no result.
-Phases, in order; any failed check raises and ends the run non-zero:
+Phases, in order; any failed check raises and ends the run non-zero
+(to make room for phase 28, every serving phase decodes 16 new tokens
+a request, not 32, every federated LM run takes 2 rounds, not 3, phase
+25 times the sLSTM loop at 1 x 128 only, and phase 27 runs one round
+of each mode):
 
 1. card and toolchain (and both TF32 flags);
 2. build all eight kernel sources (``src/repro_torch/csrc/tpd.cu``,
@@ -186,7 +190,7 @@ Phases, in order; any failed check raises and ends the run non-zero:
 22. the dense serving main path: full-width ``granite-8b`` (36 layers,
     GQA 32/8 at hd 128, 8.25e9 f32 params drawn on the card, bf16
     compute) serving 8 requests through ``WaveScheduler(max_batch=4)``
-    (4 prompts of 1024 tokens and 4 of 4096, 32 new tokens each): per
+    (4 prompts of 1024 tokens and 4 of 4096, 16 new tokens each): per
     wave the prefill time, the decode time per token (synchronised, and
     the host's issue time) and the peak memory; one flash launch a layer
     a wave, on the sm90 route only; one request of each wave equal to its
@@ -196,9 +200,9 @@ Phases, in order; any failed check raises and ends the run non-zero:
     then one wave of full-width ``stablelm-3b`` (4 x 1024 tokens, 16 new
     tokens; hd 80 on the padded sm90 route, one launch a layer);
 23. federated LM rounds: ``launch.train.main`` on stablelm-1.6b
-    ``reduced()`` (pso, 7 clients, 3 rounds) on ``cuda``, exit 0 with
+    ``reduced()`` (pso, 7 clients, 2 rounds) on ``cuda``, exit 0 with
     finite losses; then the batched engine (deterministic timing, 7
-    clients, 3 rounds of pso) on ``cuda`` and on ``cpu`` from the same
+    clients, 2 rounds of pso) on ``cuda`` and on ``cpu`` from the same
     initial params for stablelm-1.6b and recurrentgemma-2b ``reduced()``
     at float32 compute: placements and TPDs exactly, losses within rtol
     1e-4; the flash forward/backward, RG-LRU scan/adjoint and
@@ -232,7 +236,7 @@ Phases, in order; any failed check raises and ends the run non-zero:
     each, then the same params on the host: a 1 x 256 prefill and 4
     decode steps in float32 at (e)'s tolerance; (h) ``launch/train.py
     --arch granite-moe-1b-a400m`` (reduced) on ``cuda``, then the
-    batched engine on ``cuda`` and ``cpu`` (7 clients, 3 rounds of pso,
+    batched engine on ``cuda`` and ``cpu`` (7 clients, 2 rounds of pso,
     float32): placements and TPDs exactly, losses within rtol 1e-4,
     flash and FedAvg launches held to the CPU rehearsal's count, 0 TPD
     launches;
@@ -258,11 +262,11 @@ Phases, in order; any failed check raises and ends the run non-zero:
     tokens, remat on, ``adamw``: finite losses, step times, peak
     memory, one fused AdamW launch a step and no other; a step of 1 x
     128 under ``torch.profiler`` (device busy share); the sLSTM loop
-    alone at 1 x 128 and 1 x 2048, forward and forward + backward, its
+    alone at 1 x 128, forward and forward + backward, its
     own backward against autograd's (gradients within 1e-4 of their
     scale), and its share of the step's device time; (e)
     ``launch/train.py --arch xlstm-1.3b`` (reduced) on ``cuda``, then
-    the batched engine on ``cuda`` and ``cpu`` (7 clients, 3 rounds of
+    the batched engine on ``cuda`` and ``cpu`` (7 clients, 2 rounds of
     pso, float32): placements and TPDs exactly, losses within rtol
     1e-4, the FedAvg launches held to the CPU rehearsal's count and no
     other kernel;
@@ -294,7 +298,7 @@ Phases, in order; any failed check raises and ends the run non-zero:
     card free (from 20 bytes a layer param and the largest leaf's
     stack), held to leave it; (f) ``launch/train.py`` for both families
     (reduced) on ``cuda``, then the batched engine on ``cuda`` and
-    ``cpu`` (7 clients, 3 rounds of pso, float32): placements and TPDs
+    ``cpu`` (7 clients, 2 rounds of pso, float32): placements and TPDs
     exactly, losses within rtol 1e-4, the flash and FedAvg launches held
     to the CPU rehearsal's count;
 27. the paper's aggregation tree across ranks (``fl.distributed``,
@@ -318,15 +322,37 @@ Phases, in order; any failed check raises and ends the run non-zero:
     params) at the deepest depth whose 4 ranks leave 10 GiB of the card
     free (12 bytes a layer param and 8 of the others a rank) over
     4 ranks, tree (2, 1, 2, 4), ``sgd(0.05)``,
-    2 local steps of 1 x 512 tokens a client, rounds hierarchical,
-    hierarchical, flat; rank 0 then runs the host path on the card from
-    the same init (held bit for bit) and, for each round, from the rank
+    2 local steps of 1 x 512 tokens a client, rounds hierarchical and
+    flat (a second hierarchical round was cut for phase 28's time);
+    rank 0 then runs the host path on the card from the same init
+    (held bit for bit) and, for each round, from the rank
     path's params before it: losses within rtol 1e-4, params within rtol
     1e-3 / atol 1e-5 but for a share of 1e-5; each round split into
     local steps and each aggregation step (ms, bytes, ranks), peak memory
     a rank, flash forward and backward launches held to 2 and 3 a layer
-    a local step; then the ``kernels`` JSON line (ten kernels) and the
-    final status line.
+    a local step;
+28. full-width granite-8b over a (1, 4) ``("data", "model")`` mesh of
+    spawned gloo ranks on the card (``models/transformer_tp.py``), with
+    ``seq_shard`` off and then on, each rank holding its shards of the
+    seeded init: (a) serving at the deepest depth whose ranks and whose
+    unsharded run each leave 10 GiB free (all 36 layers): the unsharded
+    bf16 and float32 runs on the card first (one wave of 4 x 1024
+    prompts, 8 greedy decode tokens; float32 fed bf16's tokens), then
+    the ranks' prefill and the same 8 decode steps, their last-token
+    logits within the band of bf16 against float32 and their greedy
+    tokens in that band (``greedy_in_band``), the logits equal on every
+    rank; prefill time a wave, decode time a token, each's share in
+    collectives, bytes a collective, peak memory a rank; (b) one
+    gradient of 1 x 2048 (remat) at the deepest depth whose unsharded
+    step and whose ranks each leave 10 GiB free: the unsharded gradient
+    to shared host memory, then the ranks' loss within rtol 1e-3 of its,
+    each leaf's gathered relative L2 error at most 2e-2, the norms'
+    gradients bit-equal on every rank; step time and its collective
+    share; (c) each rank holds 1/4 of every model-sharded leaf's bytes
+    and all of the replicated ones, and launches the sm90 flash forward
+    (and in (b) its backward) on its own 8 q and 2 kv heads (the
+    wrappers' ``heads`` counts); then the ``kernels`` JSON line (ten
+    kernels) and the final status line.
 
 Each kernel's launch count is set to 0 just before the path that runs
 it and read just after: ``tpd`` over phase 5, ``fedavg_batched`` over
@@ -358,6 +384,10 @@ the encoder by mask, ``causal=1`` and ``causal=0`` (the wrappers'
 ranks count their own launches (set to 0 before their rounds, read
 after) and return them; the parent adds them, with its own over the
 Fig. 3 ``shard="on"`` run and the host paths, under ``"phase 27"``.
+Phase 28's ranks count theirs over each path (the prefill and decode
+of a ``seq_shard`` setting, its gradient), summed over the ranks under
+``"phase 28 (a) ..."`` and ``"phase 28 (b) ..."``; the unsharded
+reference runs are comparisons and are not counted.
 """
 from __future__ import annotations
 
@@ -625,9 +655,11 @@ def recording(spec, envs):
 # ---- the hybrid LM serving path: recurrentgemma-2b (phases 10-13) --------
 RG_ARCH = "recurrentgemma-2b"
 # 4 prompts of 1024 tokens (below the 2048 window: causal attention) and
-# 4 of 4096 (windowed attention), 32 new tokens each, 4 to a wave
+# 4 of 4096 (windowed attention), 16 new tokens each, 4 to a wave
 SERVE_PROMPTS = ((1024, 4), (4096, 4))
-SERVE_NEW_TOKENS = 32
+# 16 new tokens a request in every serving phase (32 were cut to 16 to
+# make room for phase 28)
+SERVE_NEW_TOKENS = 16
 SERVE_MAX_BATCH = 4
 DEPTH_CUT_LAYERS = 5            # one (r, r, a) triple and the two tails
 DEPTH_CUT_PROMPT = 64
@@ -2353,14 +2385,15 @@ def online_phases(torch, np_, card):
 # ---- the dense transformer family (phases 22-23) -------------------------
 DENSE_ARCH = "granite-8b"
 DENSE_PROMPTS = ((1024, 4), (4096, 4))   # as phase 11: 2 waves of 4
-DENSE_NEW_TOKENS = 32
+DENSE_NEW_TOKENS = SERVE_NEW_TOKENS
 DENSE_SERIAL = (0, 4)          # one request of each wave, served alone
 DENSE_CUT_LAYERS = 2           # the depth cut held to the CPU
 DENSE_CUT_STEPS = 4            # decode steps of the depth cut
 PADDED_ARCH = "stablelm-3b"    # hd 80: the padded route of the bf16 flash
 PADDED_PROMPTS, PADDED_NEW_TOKENS = (1024, 4), 16
 FL_ARCHS = ("stablelm-1.6b", "recurrentgemma-2b")   # reduced(), float32
-FL_CLIENTS, FL_ROUNDS, FL_LOCAL_STEPS, FL_BATCH, FL_SEQ = 7, 3, 2, 2, 16
+# 2 federated rounds (a third was cut to make room for phase 28)
+FL_CLIENTS, FL_ROUNDS, FL_LOCAL_STEPS, FL_BATCH, FL_SEQ = 7, 2, 2, 2, 16
 
 
 def kernel_counts(kflash, krglru, kfedavg, ktpd, kadamw):
@@ -2386,6 +2419,7 @@ def zero_counts(kflash, krglru, kfedavg, ktpd, kadamw):
         fn.launches = 0
         fn.routes.clear()
         fn.modes.clear()
+        fn.heads.clear()
     for fn in (krglru.rglru_scan, krglru.rglru_scan_bwd):
         fn.launches = 0
         fn.routes.clear()
@@ -2784,7 +2818,7 @@ def dense_phases(torch, np_, dev, card):
 MOE_ARCH = "granite-moe-1b-a400m"
 MOE_BIG_ARCH = "qwen3-moe-235b-a22b"
 MOE_PROMPTS = ((1024, 4), (4096, 4))     # as phase 22: 2 waves of 4
-MOE_NEW_TOKENS = 32
+MOE_NEW_TOKENS = SERVE_NEW_TOKENS
 MOE_FFN_SHAPE = (4, 1024)               # (c): one layer's moe_ffn, B x S
 MOE_ROUTING_SHARE = 0.999               # (c): routing choices card = host
 MOE_CUT_LAYERS = 2                      # (e), (f): the depth cuts
@@ -3334,7 +3368,7 @@ XLSTM_ARCH = "xlstm-1.3b"
 # one wave of 4 x 1024 (a chunk multiple): the 4 x 2048 wave (9.9-20.7 s
 # of host-bound prefill and its serial twin) gave phase 26 its time
 XLSTM_PROMPTS = ((1024, 4),)
-XLSTM_NEW_TOKENS = 32
+XLSTM_NEW_TOKENS = SERVE_NEW_TOKENS
 XLSTM_SERIAL = (0,)                     # one request of the wave, alone
 XLSTM_BLOCK_SHAPE = (2, 512)            # (a): card vs host, float32
 XLSTM_PROFILE_SHAPE = (4, 2048)         # (a): the stages' prefill
@@ -3758,9 +3792,11 @@ def xlstm_phases(torch, np_, dev, card):
     dh = cfg.d_model // cfg.n_heads
     r32 = sblock["r"].float()
     st = xlstm.slstm_init_state(rows, cfg.n_heads, dh, dev)
-    median_step = statistics.median(steps_s) * 1e3
     loop_train = {}
-    for tokens in (XLSTM_PROFILE_TOKENS, XLSTM_TRAIN_TOKENS):
+    # at XLSTM_PROFILE_TOKENS only: the loop at 1 x 2048 (33.9 s of the
+    # phase on an H100 80GB HBM3 at 700 W) was cut to make room for
+    # phase 28; PERF.md keeps its earlier numbers
+    for tokens in (XLSTM_PROFILE_TOKENS,):
         wx = torch.randn(rows, tokens, cfg.n_heads, 4, dh, device=dev,
                          generator=gen)
 
@@ -3781,25 +3817,17 @@ def xlstm_phases(torch, np_, dev, card):
         _, fb_busy, fb_launch, fb_wall, _ = profiled(
             torch, lambda: forward_backward(True))
         plain = forward_backward(False)
-        if tokens == XLSTM_PROFILE_TOKENS:
-            _, p_busy, p_launch, p_wall, _ = profiled(
-                torch, lambda: forward_backward(False))
-            autograd = (f"{p_busy:.1f} ms device / {p_launch} launches / "
-                        f"{p_wall:.1f} ms host")
-        else:                   # its trace would take long to read back
-            plain_ms = host_ms(torch, lambda: forward_backward(False))
-            autograd = f"{plain_ms:.1f} ms host (not profiled)"
+        _, p_busy, p_launch, p_wall, _ = profiled(
+            torch, lambda: forward_backward(False))
+        autograd = (f"{p_busy:.1f} ms device / {p_launch} launches / "
+                    f"{p_wall:.1f} ms host")
         gerr = [float((a - b).abs().max() / b.abs().max())
                 for a, b in zip(own, plain, strict=True)]
         check(max(gerr) <= 1e-4, f"(d) the sLSTM loop's own backward "
                                  f"against autograd's: {gerr}")
         loop_train[tokens] = n_s_train * (f_busy + fb_busy)
         against = (f"the profiled step's {busy:.1f} ms device busy "
-                   f"({loop_train[tokens] / busy * 100:.1f}%)"
-                   if tokens == XLSTM_PROFILE_TOKENS else
-                   f"the {median_step:.1f} ms median step ("
-                   f"{loop_train[tokens] / median_step * 100:.1f}% of its "
-                   f"host time; its device busy time is not measured)")
+                   f"({loop_train[tokens] / busy * 100:.1f}%)")
         print(f"(d) the sLSTM loop at 1 x {tokens} ({rows} rows), one block: "
               f"forward {f_busy:.1f} ms device / {f_launch} launches / "
               f"{f_wall:.1f} ms host; forward + backward {fb_busy:.1f} / "
@@ -3882,8 +3910,8 @@ def xlstm_phases(torch, np_, dev, card):
     print(f"(a, b, d) the sLSTM loop's device busy against host ms: prefill "
           f"{loop_prefill[0]:.1f} / {loop_prefill[2]:.1f} a block, decode "
           f"{loop_decode[0]:.3f} / {loop_decode[2]:.3f} a block, training "
-          f"{loop_train[XLSTM_TRAIN_TOKENS]:.1f} ms device a step of 1 x "
-          f"{XLSTM_TRAIN_TOKENS} over {n_s_train} blocks [{card}]")
+          f"{loop_train[XLSTM_PROFILE_TOKENS]:.1f} ms device a step of 1 x "
+          f"{XLSTM_PROFILE_TOKENS} over {n_s_train} blocks [{card}]")
     print(f"phase 25 took {time.perf_counter() - phase_t0:.1f} s [{card}]")
     return {k: {f"{XLSTM_ARCH} serving (phase 25)": serving[k],
                 f"{XLSTM_ARCH} training (phase 25)": training[k],
@@ -3898,7 +3926,7 @@ AUDIO_ARCH = "seamless-m4t-large-v2"
 # text tokens and requests a wave: llava's 2880-patch prefix plus 512 or
 # 1024 tokens pads to 3584 or 4096; seamless's text follows 1024 frames
 MM_PROMPTS = ((512, 4), (1024, 4))
-MM_NEW_TOKENS = 32
+MM_NEW_TOKENS = SERVE_NEW_TOKENS
 MM_CUT_LAYERS = 2                       # (c), (d): the depth cuts
 MM_CUT_PROMPT = 64                      # text tokens of a cut's prefill
 MM_CUT_BATCH = {VLM_ARCH: 1, AUDIO_ARCH: 2}
@@ -4545,7 +4573,9 @@ DIST_LM_RANKS = 4
 DIST_LM_TREE = (2, 1, 2, 4)        # depth, width, trainers a leaf, clients
 DIST_LM_TOKENS, DIST_LM_STEPS = 512, 2
 DIST_FL_LR = 0.05                  # the reference's FL_LOCAL_LR
-DIST_LM_MODES = ("hierarchical", "hierarchical", "flat")
+# one round of each mode: phase 28 took the time of the second
+# hierarchical round (12-26 s on an H100 80GB HBM3 at 700 W)
+DIST_LM_MODES = ("hierarchical", "flat")
 DIST_LM_LOSS_RTOL = 1e-4
 DIST_LM_PARAM_TOL = dict(rtol=1e-3, atol=1e-5)
 DIST_LM_OUTSIDE = 1e-5             # share of params allowed outside it
@@ -5105,6 +5135,560 @@ def distributed_phases(torch, np_, card):
     print(f"phase 27 took {time.perf_counter() - phase_t0:.1f} s [{card}]")
     return {k: {"phase 27": sum(c[k] for c in paths.values())}
             for k in res[0]["counts"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 28: granite-8b tensor- and sequence-parallel over 4 ranks
+# ---------------------------------------------------------------------------
+TP_ARCH = "granite-8b"
+TP_RANKS = 4
+TP_WAVE = (4, 1024)                # (a): one wave of 4 x 1024 prompts
+TP_NEW_TOKENS = 8                  # (a): greedy decode steps
+TP_GRAD_TOKENS = 2048              # (b): a batch of 1 x 2048
+TP_SEQ = (False, True)             # seq_shard off, then on
+TP_LOSS_RTOL = 1e-3
+TP_GRAD_REL_L2 = 2e-2              # (b): the gradient's rel L2 asked for
+# (b): each leaf's rel L2 against the unsharded bf16 gradient, at most
+# this many times that gradient's own gap to the float32 one (two bf16
+# roundings of one float32 gradient lie within twice its gap)
+TP_GRAD_BAND = 2.0
+TP_FREE_BYTES = 10 * 2 ** 30       # what phase 28 leaves free on the card
+TP_WORLD_TIMEOUT_S = 600
+TP_CHUNK = 2 ** 26                 # elements a comparison moves at once
+
+
+def tp_param_bytes(model, ranks) -> dict:
+    """A rank's bytes of the model's params, by ``param_pspecs`` over the
+    meta shapes: {"sharded": bytes of the leaves split over the model
+    axis (their 1/ranks), "replicated": the others' whole bytes}."""
+    from repro_torch.utils.trees import tree_map_with_path
+    out = {"sharded": 0, "replicated": 0}
+
+    def one(path, x, spec):
+        n = x.numel() * x.element_size()
+        if "model" in spec:
+            out["sharded"] += n // ranks
+        else:
+            out["replicated"] += n
+
+    tree_map_with_path(one, model.param_shapes(), model.param_pspecs())
+    return out
+
+
+def tp_layer_params(cfg) -> int:
+    """Params of one layer of the dense decoder ``cfg``."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    return d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) \
+        + 3 * d * cfg.d_ff + 2 * d
+
+
+def tp_serve_bytes(cfg, ranks) -> int:
+    """One process's peak in a wave of TP_WAVE prompts of the decoder
+    ``cfg`` split over ``ranks``: its f32 params (all but the norms
+    split), its part of the bf16 cache, and the prefill's working set (a
+    layer's f32 FFN activations and partial sums, the stream and its
+    copies), with 1 GiB of slack."""
+    b, s = TP_WAVE
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    params = 4 * (tp_layer_params(cfg) * cfg.n_layers
+                  + 2 * cfg.padded_vocab * d) // ranks
+    cache = 2 * 2 * cfg.n_layers * b * (s + 64) * cfg.n_kv_heads * hd \
+        // ranks
+    work = 4 * b * s * (3 * cfg.d_ff // ranks + 12 * d)
+    return params + cache + work + 2 ** 30
+
+
+def tp_grad_bytes(cfg, ranks) -> int:
+    """One process's peak in a gradient of 1 x TP_GRAD_TOKENS of ``cfg``
+    split over ``ranks`` (``torch.autograd.grad``, remat): 12 bytes a
+    layer param (the f32 param, its gradient, and the stack the layers'
+    ``unbind`` backward builds of the per-layer gradients) and 8 of the
+    others, six f32 copies of its part of the logits, the remat
+    checkpoints (a bf16 stream a layer) and one layer's recomputed
+    activations, and 1 GiB of slack. (At 8 bytes a layer param, 21
+    layers ran out of memory on an H100 80GB HBM3.)"""
+    s, d = TP_GRAD_TOKENS, cfg.d_model
+    params = (12 * tp_layer_params(cfg) * cfg.n_layers
+              + 8 * 2 * cfg.padded_vocab * d) // ranks
+    logits = 6 * 4 * s * cfg.padded_vocab // ranks
+    work = 2 * s * d * cfg.n_layers + 4 * s * (6 * cfg.d_ff // ranks
+                                               + 16 * d)
+    return params + logits + work + 2 ** 30
+
+
+def tp_depth(torch, cfg, per_process, ranks, context, kept=lambda cut: 0):
+    """The deepest cut of ``cfg`` whose unsharded run in this process and
+    whose ``ranks`` (each ``per_process(cut, ranks)`` plus a CUDA
+    context, beside ``kept(cut)`` bytes this process keeps for them)
+    each leave TP_FREE_BYTES of the card free. Returns (cut, {"parent",
+    "ranks"}: bytes estimated)."""
+    free, total = torch.cuda.mem_get_info()
+    held = total - free
+    for layers in range(cfg.n_layers, 0, -1):
+        cut = cfg.replace(n_layers=layers)
+        need = {"parent": held + per_process(cut, 1),
+                "ranks": held + kept(cut)
+                + ranks * (per_process(cut, ranks) + context)}
+        if max(need.values()) <= total - TP_FREE_BYTES:
+            return cut, need
+    raise SmokeFailure(f"no depth of {cfg.name} fits phase 28")
+
+
+
+def tp_paths(skeleton, n: int) -> list:
+    """The paths of a tree's ``n`` leaves, in leaf order, from its
+    skeleton (a ``tree_flatten`` rebuild)."""
+    from repro_torch.utils.trees import tree_map_with_path
+    out = []
+    tree = skeleton(list(range(n)))                # leaf i -> i
+    tree_map_with_path(lambda path, i: out.append((i, path)), tree)
+    return [path for _, path in sorted(out)]
+
+
+def rel_l2(torch, a, b) -> float:
+    """||a - b|| / ||b|| in float64, a slab at a time."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    num = den = 0.0
+    for i in range(0, a.numel(), TP_CHUNK):
+        d = b[i:i + TP_CHUNK].double()
+        num += float((a[i:i + TP_CHUNK].double() - d).square().sum())
+        den += float(d.square().sum())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def tp_view(x, spec, mesh):
+    """This rank's part of the full ``x`` under ``spec``, a view (no
+    copy: ``x`` may be another process's tensor, opened by CUDA IPC)."""
+    for d, axis in enumerate(spec):
+        if axis is not None:
+            n = x.shape[d] // mesh.shape[axis]
+            x = x.narrow(d, mesh.axis_index(axis) * n, n)
+    return x
+
+
+def _collective_ms(traffic) -> float:
+    return sum(row[2] for row in traffic.values()) * 1e3
+
+
+def tp_rank(rank, world, spec):
+    """Phase 28, one rank of the (1, world) data x model mesh on the one
+    card: (a) this rank's shards of the seeded serving cut, one wave's
+    prefill and TP_NEW_TOKENS decode steps fed the reference's greedy
+    tokens, with seq_shard off and then on; (b) its shards of the
+    gradient cut, one gradient of the batch with seq_shard off and on,
+    each leaf held to the reference's gradient (shared host memory, cut
+    by the same specs), the norms' gradients checked equal on every
+    rank. Returns logits, losses, errors, times, collective traffic,
+    peak memory, bytes held and kernel launches."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.fl.distributed import bits_checksum
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.models import get_model, make_policy
+    from repro_torch.utils.trees import tree_flatten, tree_map_with_path
+
+    dev = torch.device(spec.get("device", "cuda"))
+    _rank_setup(torch, dev)
+    counters = _counters()
+    kflash = counters[0]
+    mesh = RankMesh((1, world), ("data", "model"), device=dev)
+    mesh.timed = True
+    out = {"serve": [], "grad": []}
+    on_card = dev.type == "cuda"
+
+    def sync():
+        _sync(torch, dev)
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if on_card else 0
+
+    # ---- (a) serving -----------------------------------------------------
+    cfg = spec["serve_cfg"]
+    models = {seq: get_model(cfg, make_policy(mesh, seq_shard=seq))
+              for seq in TP_SEQ}
+    t0 = time.perf_counter()
+    params = models[False].init(torch.Generator(dev).manual_seed(SEED), dev)
+    sync()
+    out["serve_init_s"] = time.perf_counter() - t0
+    held = {"sharded": 0, "replicated": 0}
+    full = tp_param_bytes(models[False], 1)
+    specs = models[False].param_pspecs()
+
+    def count(path, x, spec_):
+        held["sharded" if "model" in spec_ else "replicated"] += \
+            x.numel() * x.element_size()
+
+    tree_map_with_path(count, params, specs)
+    out["held"], out["full"] = held, full
+    prompts = torch.as_tensor(spec["prompts"], device=dev)
+    for seq in TP_SEQ:
+        model = models[seq]
+        zero_counts(*counters)
+        mesh.traffic.clear()
+        reset_peak()
+        sync()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, state = model.prefill_fn(params, {"tokens": prompts})
+            sync()
+            prefill_s = time.perf_counter() - t0
+            prefill_coll = _collective_ms(mesh.traffic)
+            prefill_bytes = {k: v[1] for k, v in mesh.traffic.items()}
+            steps, step_ms = [logits.float().cpu()], []
+            mesh.traffic.clear()
+            for j in range(TP_NEW_TOKENS):
+                t1 = time.perf_counter()
+                logits, state = model.decode_fn(params, state, {
+                    "token": torch.as_tensor(spec["tokens"][:, j:j + 1],
+                                             device=dev)})
+                sync()
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+                steps.append(logits.float().cpu())
+        decode_coll = _collective_ms(mesh.traffic)
+        counts = kernel_counts(*counters)
+        if rank == 0:
+            print(f"(a) rank 0, seq_shard={seq}: prefill {prefill_s:.3f} s "
+                  f"({prefill_coll / 1e3:.3f} s in collectives), decode "
+                  f"{statistics.median(step_ms):.2f} ms a token", flush=True)
+        out["serve"].append({
+            "seq": seq, "logits": torch.stack(steps).numpy(),
+            "prefill_s": prefill_s, "prefill_coll_ms": prefill_coll,
+            "prefill_bytes": prefill_bytes, "step_ms": step_ms,
+            "decode_coll_ms": decode_coll, "counts": counts,
+            "heads": dict(kflash.flash_attention.heads),
+            "cache": tuple(state["cache"]["k"].shape), "peak": peak()})
+        del state, logits
+    del params, models
+    if on_card:
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    # ---- (b) the gradient -------------------------------------------------
+    cfg = spec["grad_cfg"]
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in spec["grad_batch"].items()}
+    ref = spec["ref_grads"]
+    model = get_model(cfg, make_policy(mesh))
+    params = model.init(torch.Generator(dev).manual_seed(SEED), dev)
+    specs = model.param_pspecs()
+    leaves, rebuild = tree_flatten(params)
+    live = [x.detach().requires_grad_() for x in leaves]
+    del params, leaves
+    for seq in TP_SEQ:
+        model = get_model(cfg, make_policy(mesh, seq_shard=seq))
+        zero_counts(*counters)
+        mesh.traffic.clear()
+        reset_peak()
+        sync()
+        t0 = time.perf_counter()
+        loss, _ = model.loss_fn(rebuild(live), batch)
+        grads = torch.autograd.grad(loss, live)
+        sync()
+        step_s = time.perf_counter() - t0
+        coll = _collective_ms(mesh.traffic)
+        if rank == 0:
+            print(f"(b) rank 0, seq_shard={seq}: step {step_s:.3f} s "
+                  f"({coll / 1e3:.3f} s in collectives)", flush=True)
+        counts = kernel_counts(*counters)
+        heads = {"fwd": dict(kflash.flash_attention.heads),
+                 "bwd": dict(kflash.flash_attention_bwd.heads)}
+        top = peak()
+        errs, norms_equal = {}, True
+        tree = rebuild(list(grads))
+
+        def compare(path, g, spec_, ref_full):
+            # this rank's part of the reference leaf (a view), a slab
+            # of the leading dim at a time
+            want = tp_view(ref_full, spec_, mesh)
+            sums = torch.zeros(2, dtype=torch.float64, device=dev)
+            pairs = zip(g.unbind(0), want.unbind(0)) if g.dim() == 3 \
+                else [(g.reshape(1, -1) if g.dim() == 1 else g,
+                       want.reshape(1, -1) if want.dim() == 1 else want)]
+            for gl, wl in pairs:
+                step = max(1, TP_CHUNK // gl.shape[-1])
+                for i in range(0, gl.shape[0], step):
+                    w = wl[i:i + step].to(dev, torch.float64)
+                    sums[0] += (gl[i:i + step].double() - w).square().sum()
+                    sums[1] += w.square().sum()
+            if "model" in spec_:
+                dist.all_reduce(sums)
+            errs[path] = float((sums[0] / sums[1].clamp_min(1e-300)).sqrt())
+
+        tree_map_with_path(compare, tree, specs, ref)
+        for path in ("layers/ln1/scale", "layers/ln2/scale", "ln_f/scale"):
+            leaf = tree
+            for k in path.split("/"):
+                leaf = leaf[k]
+            check = bits_checksum(leaf.reshape(-1))
+            lo, hi = check.clone(), check.clone()
+            dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+            dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+            norms_equal &= int(lo) == int(hi)
+        out["grad"].append({"seq": seq, "loss": float(loss.detach()),
+                            "step_s": step_s, "coll_ms": coll,
+                            "bytes": {k: v[1] for k, v in
+                                      mesh.traffic.items()},
+                            "errs": errs, "norms_equal": norms_equal,
+                            "counts": counts, "heads": heads, "peak": top})
+        del loss, grads, tree
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def tensor_parallel_phases(torch, np_, card):
+    """Phase 28: full-width granite-8b over a (1, 4) data x model mesh of
+    spawned gloo ranks on the one card, tensor-parallel with
+    ``seq_shard`` off and on: (a) one wave's prefill and greedy decode
+    against the unsharded path on the card, (b) one gradient against
+    the unsharded gradient, (c) the bytes each rank holds and the flash
+    launches on its own heads. Returns {kernel name: {path: launches}}."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.world import run_world
+    from repro_torch.models import get_model
+    from repro_torch.utils.trees import tree_flatten, tree_map
+
+    counters = _counters()
+    phase_t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    phase(f"28. full-width {TP_ARCH} over a (1, {TP_RANKS}) data x model "
+          f"mesh of gloo ranks on the card, seq_shard off and on: serving, "
+          f"a gradient, each rank's bytes and flash launches")
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config(TP_ARCH)
+    context = 600 * 2 ** 20        # a rank's CUDA context and gloo buffers
+    serve_cfg, serve_need = tp_depth(torch, full, tp_serve_bytes, TP_RANKS,
+                                     context)
+    # the unsharded gradient stays on the card, read by the ranks
+    grad_cfg, grad_need = tp_depth(torch, full, tp_grad_bytes, TP_RANKS,
+                                   context, lambda c: 4 * (tp_layer_params(c) * c.n_layers
+                                                + 2 * c.padded_vocab
+                                                * c.d_model))
+    gib = lambda d: {k: round(v / 2 ** 30, 2) for k, v in d.items()}
+    print(f"(a) serving at {serve_cfg.n_layers} of {full.n_layers} layers "
+          f"(GiB estimated: {json.dumps(gib(serve_need))}); (b) the "
+          f"gradient at {grad_cfg.n_layers} layers, the deepest whose "
+          f"unsharded step, and whose {TP_RANKS} ranks beside that "
+          f"gradient, each leave {TP_FREE_BYTES / 2**30:.0f} GiB free (GiB "
+          f"estimated: {json.dumps(gib(grad_need))}) [{card}]")
+
+    # ---- the unsharded references on the card ---------------------------
+    rng = np_.random.default_rng(SEED)
+    b, s = TP_WAVE
+    prompts = rng.integers(0, full.vocab_size, (b, s)).astype(np_.int32)
+    model = get_model(serve_cfg)
+    params = model.init(torch.Generator(dev).manual_seed(SEED), dev)
+    ref = {}
+    with torch.no_grad():
+        for dtype in ("bfloat16", "float32"):
+            # float32 is fed bf16's greedy tokens: the two runs' gap
+            # is the band bf16 rounding spans
+            fed = ref["bfloat16"]["tokens"] if dtype == "float32" else None
+            m = get_model(serve_cfg.replace(dtype=dtype))
+            zero_counts(*counters)
+            sync()
+            t0 = time.perf_counter()
+            logits, state = m.prefill_fn(params, {
+                "tokens": torch.as_tensor(prompts, device=dev)})
+            sync()
+            prefill_s = time.perf_counter() - t0
+            steps, tokens, step_ms = [logits.float().cpu()], [], []
+            for j in range(TP_NEW_TOKENS):
+                tok = logits[:, -1].argmax(-1, keepdim=True).int() \
+                    if fed is None else torch.as_tensor(fed[:, j:j + 1],
+                                                        device=dev)
+                tokens.append(tok.cpu().numpy())
+                t1 = time.perf_counter()
+                logits, state = m.decode_fn(params, state, {"token": tok})
+                sync()
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+                steps.append(logits.float().cpu())
+            ref[dtype] = {"logits": torch.stack(steps),
+                          "tokens": np_.concatenate(tokens, 1),
+                          "prefill_s": prefill_s, "step_ms": step_ms}
+            del state, logits
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref16, ref32 = ref["bfloat16"], ref["float32"]
+    # the sharded and the unsharded bf16 runs are two roundings of one
+    # float32 result, each about its bf16 gap away from it: they agree
+    # within twice that gap
+    gap = float((ref16["logits"] - ref32["logits"]).abs().max())
+    band = 2 * gap
+    print(f"(a) unsharded on the card: prefill {ref16['prefill_s']:.3f} s a "
+          f"wave, decode {statistics.median(ref16['step_ms']):.2f} ms a "
+          f"token (median of {TP_NEW_TOKENS}); bf16 against float32 "
+          f"(the f32 run fed bf16's greedy tokens): max abs {gap:.4e} over "
+          f"the last-token logits of prefill and decode; the sharded run "
+          f"is held to twice that, {band:.4e} [{card}]")
+
+    grad_batch = {"tokens": rng.integers(0, full.vocab_size,
+                                         (1, TP_GRAD_TOKENS)).astype(np_.int32)}
+    grad_batch["labels"] = np_.roll(grad_batch["tokens"], -1, axis=1)
+    batch_dev = {k: torch.as_tensor(v, device=dev)
+                 for k, v in grad_batch.items()}
+
+    def unsharded_grad(dtype):
+        """(loss, the gradient's leaves, the tree's skeleton, seconds,
+        peak bytes) of the cut at ``dtype`` compute, from the seed."""
+        model = get_model(grad_cfg.replace(dtype=dtype))
+        params = model.init(torch.Generator(dev).manual_seed(SEED), dev)
+        live, rebuild = tree_flatten(params)
+        # the structure alone: a rebuild holds the leaves it was made from
+        _, skeleton = tree_flatten(tree_map(lambda x: None, params))
+        del params
+        for x in live:
+            x.requires_grad_()
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        loss, _ = model.loss_fn(rebuild(live), batch_dev)
+        grads = list(torch.autograd.grad(loss, live))
+        sync()
+        return (float(loss.detach()), grads, skeleton,
+                time.perf_counter() - t0, torch.cuda.max_memory_allocated())
+
+    # float32 first: bf16's per-leaf gap to it is the band the ranks'
+    # bf16 gradient is held to
+    loss32, g32, _, step32_s, _ = unsharded_grad("float32")
+    ref_loss, g16, skeleton, ref_step_s, ref_peak = unsharded_grad("bfloat16")
+    gaps = {}
+    for path, a, b in zip(tp_paths(skeleton, len(g16)), g16, g32,
+                          strict=True):
+        gaps[path] = rel_l2(torch, a, b)
+    del g32
+    # the gradient stays on the card; the ranks open it by CUDA IPC
+    ref_grads = skeleton(g16)
+    del g16
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"(b) unsharded gradient of 1 x {TP_GRAD_TOKENS} at "
+          f"{grad_cfg.n_layers} layers: loss {ref_loss:.6f} (float32 "
+          f"compute {loss32:.6f}), {ref_step_s:.3f} s ({step32_s:.3f} s in "
+          f"float32), peak {ref_peak / 2**30:.2f} GiB; bf16 against float32, "
+          f"relative L2 per leaf: " + ", ".join(
+              f"{k} {v:.2e}" for k, v in sorted(gaps.items()))
+          + f"; its {sum(x.numel() for x in tree_flatten(ref_grads)[0]) * 4 / 1e9:.2f}"
+          f" GB kept on the card for the ranks "
+          f"({time.perf_counter() - phase_t0:.1f} s into phase 28) [{card}]")
+
+    # ---- the ranks ---------------------------------------------------------
+    t0 = time.perf_counter()
+    res = run_world(tp_rank, TP_RANKS, ({
+        "serve_cfg": serve_cfg, "grad_cfg": grad_cfg, "prompts": prompts,
+        "tokens": ref16["tokens"], "grad_batch": grad_batch,
+        "ref_grads": ref_grads},), timeout=TP_WORLD_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    del ref_grads
+    gc.collect()
+
+    # ---- (a) checks ----------------------------------------------------------
+    paths = {}
+    r0 = res[0]
+    layers = serve_cfg.n_layers
+    hq, hkv = full.n_heads // TP_RANKS, full.n_kv_heads // TP_RANKS
+    for i, seq in enumerate(TP_SEQ):
+        got = r0["serve"][i]
+        logits = torch.as_tensor(got["logits"])
+        err = float((logits - ref16["logits"]).abs().max())
+        err32 = float((logits - ref32["logits"]).abs().max())
+        greedy = all(greedy_in_band(torch, logits[j], ref16["logits"][j],
+                                    band) for j in range(TP_NEW_TOKENS + 1))
+        same = all(np_.array_equal(r["serve"][i]["logits"], got["logits"])
+                   for r in res)
+        med = statistics.median(got["step_ms"])
+        dec_share = got["decode_coll_ms"] / sum(got["step_ms"])
+        print(f"(a) seq_shard={seq}: prefill {got['prefill_s']:.3f} s a "
+              f"wave ({got['prefill_coll_ms'] / 1e3:.3f} s, "
+              f"{got['prefill_coll_ms'] / 1e3 / got['prefill_s']:.1%}, in "
+              f"collectives; bytes in, rank 0: "
+              f"{json.dumps(got['prefill_bytes'])}); decode {med:.2f} ms a "
+              f"token (median of {TP_NEW_TOKENS}; {dec_share:.1%} in "
+              f"collectives); peak a rank "
+              f"{[round(r['serve'][i]['peak'] / 2**30, 2) for r in res]} "
+              f"GiB; cache a rank {got['cache']}; last-token logits "
+              f"against the unsharded bf16 run: max abs {err:.4e} (band "
+              f"{band:.4e}; against the float32 run {err32:.4e}, the "
+              f"unsharded bf16 run's {gap:.4e}), greedy in band {greedy}, "
+              f"every rank's logits "
+              f"equal {same}; flash launches by heads a rank "
+              f"{[r['serve'][i]['heads'] for r in res]} [{card}]")
+        check(err <= band and greedy and same,
+              f"(a) seq_shard={seq}: logits {err} outside {band}, or the "
+              f"greedy tokens part outside it, or the ranks differ")
+        for r in res:
+            check(r["serve"][i]["heads"] == {f"{hq}x{hkv}": layers},
+                  f"(a) rank flash launches {r['serve'][i]['heads']}, "
+                  f"expected {layers} on {hq} q and {hkv} kv heads")
+            check(r["serve"][i]["cache"][3] == hkv,
+                  f"(a) a rank's cache {r['serve'][i]['cache']}")
+        paths[f"(a) serving, seq_shard={seq}"] = {
+            k: sum(r["serve"][i]["counts"][k] for r in res)
+            for k in r0["serve"][i]["counts"]}
+
+    # ---- (b) checks ----------------------------------------------------------
+    for i, seq in enumerate(TP_SEQ):
+        got = r0["grad"][i]
+        worst = max(got["errs"].items(), key=lambda kv: kv[1])
+        ratio = max(got["errs"][k] / gaps[k] for k in gaps)
+        losses = [r["grad"][i]["loss"] for r in res]
+        rtol = abs(got["loss"] - ref_loss) / abs(ref_loss)
+        print(f"(b) seq_shard={seq}: loss {got['loss']:.6f} against "
+              f"{ref_loss:.6f} (rel {rtol:.2e}); step {got['step_s']:.3f} s "
+              f"({got['coll_ms'] / 1e3:.3f} s, "
+              f"{got['coll_ms'] / 1e3 / got['step_s']:.1%}, in collectives; "
+              f"bytes in, rank 0: {json.dumps(got['bytes'])}); gradient "
+              f"rel L2 per leaf: worst {worst[0]} {worst[1]:.3e} (at most "
+              f"{ratio:.2f} times the leaf's bf16 gap to float32; "
+              f"{TP_GRAD_REL_L2} asked), "
+              + ", ".join(f"{k} {v:.2e}" for k, v in sorted(
+                  got["errs"].items()))
+              + f"; norms' gradients equal on every rank "
+              f"{got['norms_equal']}; peak a rank "
+              f"{[round(r['grad'][i]['peak'] / 2**30, 2) for r in res]} "
+              f"GiB; flash heads {got['heads']} [{card}]")
+        check(all(v == losses[0] for v in losses)
+              and rtol <= TP_LOSS_RTOL and ratio <= TP_GRAD_BAND
+              and got["norms_equal"],
+              f"(b) seq_shard={seq}: losses {losses} vs {ref_loss}, worst "
+              f"leaf {worst}, norms equal {got['norms_equal']}")
+        n_layers = grad_cfg.n_layers
+        remat = 2 if grad_cfg.remat else 1
+        for r in res:
+            check(r["grad"][i]["heads"] == {
+                "fwd": {f"{hq}x{hkv}": remat * n_layers},
+                "bwd": {f"{hq}x{hkv}": 3 * n_layers}},
+                f"(b) rank flash launches {r['grad'][i]['heads']}")
+        paths[f"(b) gradient, seq_shard={seq}"] = {
+            k: sum(r["grad"][i]["counts"][k] for r in res)
+            for k in r0["grad"][i]["counts"]}
+
+    # ---- (c) bytes ------------------------------------------------------------
+    for r in res:
+        check(r["held"]["sharded"] * TP_RANKS == r["full"]["sharded"]
+              and r["held"]["replicated"] == r["full"]["replicated"],
+              f"(c) a rank holds {r['held']}, the model {r['full']}")
+    print(f"(c) a rank holds {r0['held']['sharded'] / 2**30:.3f} GiB of the "
+          f"model-sharded leaves ({r0['full']['sharded'] / 2**30:.3f} GiB "
+          f"in all, 1/{TP_RANKS}) and {r0['held']['replicated'] / 2**20:.3f} "
+          f"MiB of replicated ones (the norms), at {serve_cfg.n_layers} "
+          f"layers; world {world_s:.1f} s from spawn to join, init "
+          f"{r0['serve_init_s']:.1f} s a rank [{card}]")
+    print("phase 28 launches by path: " + json.dumps(
+        {p: {k: v for k, v in c.items() if v} for p, c in paths.items()}))
+    print(f"phase 28 took {time.perf_counter() - phase_t0:.1f} s [{card}]")
+    return {k: {f"phase 28 {p}": c[k] for p, c in paths.items()}
+            for k in r0["serve"][0]["counts"]}
 
 
 def main() -> int:
@@ -5926,6 +6510,7 @@ def main() -> int:
     xlstm_paths = xlstm_phases(torch, np, dev, card)
     mm_paths_, mm_errs = vlm_audio_phases(torch, np, dev, card)
     dist_paths = distributed_phases(torch, np, card)
+    tp_paths = tensor_parallel_phases(torch, np, card)
 
     k_ms, r_ms, b_ms = rows[10]
     kernels = [
@@ -5956,7 +6541,8 @@ def main() -> int:
     for entry in kernels:
         paths = {"phases 5-16": entry["launches"], **dense[entry["name"]],
                  **moe_paths[entry["name"]], **xlstm_paths[entry["name"]],
-                 **mm_paths_[entry["name"]], **dist_paths[entry["name"]]}
+                 **mm_paths_[entry["name"]], **dist_paths[entry["name"]],
+                 **tp_paths[entry["name"]]}
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
         if entry["name"] in mm_errs:        # phase 26 (a)'s shapes too

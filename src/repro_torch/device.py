@@ -10,9 +10,10 @@ import torch
 
 
 def resolve_device(device) -> torch.device:
-    """``"cuda"``/``"cpu"``/``torch.device`` -> a checked ``torch.device``."""
+    """``"cuda"``/``"cpu"``/``torch.device`` -> a checked ``torch.device``
+    (``"meta"`` too: shapes without storage, ``Model.param_shapes``)."""
     dev = torch.device(device)
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

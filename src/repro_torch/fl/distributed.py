@@ -25,10 +25,11 @@ path: every client's replica on one device, trained one client at a
 time, then the flat weighted FedAvg (one launch of the FedAvg kernel on
 the card), the oracle the rank path is held to.
 
-``shard_rows`` row-shards a batched evaluator over a single controller's
-devices (the sweep runner's device-sharded pooled TPD). The reference's
-``stacked_param_pspecs`` has no meaning without the tensor-parallel mesh
-policies and comes with them (ROADMAP.md queue 1 item 12b).
+``stacked_param_pspecs`` gives the reference's specs of the
+client-stacked tree (the client dim over the pod and data axes, the
+model axis kept). ``shard_rows`` row-shards a batched evaluator over a
+single controller's devices (the sweep runner's device-sharded pooled
+TPD).
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ from repro_torch.fl.aggregation import AggregationPlan, flat_psum, hierarchical_
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import COLLECTIVE_CHUNK
 from repro_torch.models.api import Model, flat_params, make_train_step
+from repro_torch.models.sharding import PartitionSpec
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.utils.trees import (
     flat_buffer_of,
@@ -52,6 +54,7 @@ from repro_torch.utils.trees import (
     tree_layout,
     tree_leaves,
     tree_map,
+    tree_map_with_path,
     unflatten_tree,
 )
 
@@ -101,6 +104,26 @@ class FLTrainStep:
         axes = tuple(a for a in ("pod", "data") if a in self.mesh.axis_names)
         return axes if axes else None
 
+    def stacked_param_pspecs(self):
+        """Per-leaf specs of the client-stacked tree: the leading client
+        dim over (pod, data); the other dims keep the model-axis splits
+        of the model's spec rule, and a data or pod axis there resolves
+        to None (client replicas exclude data-axis FSDP)."""
+        c = self.client_axes
+
+        def stackspec(path, x, spec):
+            parts = [c]
+            for s in spec:
+                if s in ("data", "pod") or (isinstance(s, tuple) and any(
+                        a in ("data", "pod") for a in s)):
+                    parts.append(None)
+                else:
+                    parts.append(s)
+            return PartitionSpec(*parts)
+
+        return tree_map_with_path(stackspec, self.model.param_shapes(),
+                                  self.model.param_pspecs())
+
     @property
     def client_index(self) -> int:
         """This rank's client in the ``n_clients_total`` order (pod-major,
@@ -119,6 +142,7 @@ class FLTrainStep:
         device), and a checksum all-reduce asserts that they start
         bit-equal.
         """
+        self._check_replicas()
         if self.mesh is not None:
             params = flat_params(self.model.init(
                 generator, device if device is not None else self.mesh.device))
@@ -150,7 +174,18 @@ class FLTrainStep:
         milliseconds (the card synchronised), and each collective's
         bytes and group size.
         """
+        self._check_replicas()
         return self._host_round if self.mesh is None else self._rank_round
+
+    def _check_replicas(self) -> None:
+        """The round step runs replicas: a rank holds a client's whole
+        model. Clients split over a model axis come with ROADMAP.md
+        queue 1 item 12b-1b (their specs answer already:
+        :meth:`stacked_param_pspecs`)."""
+        if not self.model.policy.replicas_only:
+            raise NotImplementedError(
+                "federated rounds of clients split over a model, fsdp or "
+                "seq axis come with ROADMAP.md queue 1 item 12b-1b")
 
     def _local_round(self, train_step, params, opt_state, batch):
         loss = None

@@ -187,11 +187,13 @@ def _raise_on(code: int, lib: ctypes.CDLL, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: {msg} ({code})")
 
 
-def _count(fn, source, causal: bool, launches: int = 1) -> None:
+def _count(fn, source, causal: bool, heads: tuple, launches: int = 1) -> None:
     fn.launches += launches
     fn.routes[source.stem] = fn.routes.get(source.stem, 0) + launches
     mode = "causal" if causal else "bidirectional"
     fn.modes[mode] = fn.modes.get(mode, 0) + launches
+    key = "%dx%d" % heads             # q heads x kv heads of the launch
+    fn.heads[key] = fn.heads.get(key, 0) + launches
 
 
 def _sms(device) -> int:
@@ -325,7 +327,7 @@ def _forward(q, k, v, masks, with_lse: bool):
                 *operands, b, hq, k.shape[1], s, width, int(causal),
                 window or 0, kv, scale, geo.col_blocks, geo.cols, stream)
     _raise_on(code, lib, name)
-    _count(flash_attention, source, causal)
+    _count(flash_attention, source, causal, (hq, k.shape[1]))
     if width != hd:
         out = out[..., :hd].contiguous()
     return out.to(dtype), lse
@@ -334,6 +336,7 @@ def _forward(q, k, v, masks, with_lse: bool):
 flash_attention.launches = 0
 flash_attention.routes = {}     # launches per kernel source (stem)
 flash_attention.modes = {}      # launches per mask: causal, bidirectional
+flash_attention.heads = {}      # launches per "Hq x Hkv" of their operands
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
@@ -398,7 +401,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                 *operands, *parts, scale, geo.col_blocks, geo.cols,
                 geo.split, stream)
     _raise_on(code, lib, name)
-    _count(flash_attention_bwd, source, causal, 3)   # dq, dk/dv parts, sum
+    _count(flash_attention_bwd, source, causal, (hq, hkv), 3)  # dq, dk/dv, sum
     if width != hd:
         dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
     return dq.to(dtype), dk.to(dtype), dv.to(dtype)
@@ -407,6 +410,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
 flash_attention_bwd.launches = 0
 flash_attention_bwd.routes = {}
 flash_attention_bwd.modes = {}
+flash_attention_bwd.heads = {}
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -93,10 +93,10 @@ def fedavg_batched_ref(stacked, w) -> torch.Tensor:
     return acc.to(stacked.dtype)
 
 
-def fedavg_ref(stacked, w) -> torch.Tensor:
-    """stacked (K, N), w (K,) -> (N,) = sum_k w_k * stacked_k
+def fedavg_ref(stacked, weights) -> torch.Tensor:
+    """stacked (K, N), weights (K,) -> (N,) = sum_k w_k * stacked_k
     (``kernels.fedavg.fedavg``'s operands)."""
-    w = w.float()
+    w = weights.float()
     acc = torch.zeros(stacked.shape[1], dtype=torch.float32,
                       device=stacked.device)
     for k in range(stacked.shape[0]):

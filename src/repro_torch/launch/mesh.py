@@ -25,6 +25,16 @@ exercises nccl.
 on named axes. ``fl.distributed.shard_rows`` takes a 1-D ``("rows",)``
 one, which may repeat one card.
 
+Tensor collectives (:meth:`RankMesh.all_reduce_`, :meth:`RankMesh.all_gather`,
+:meth:`RankMesh.reduce_scatter`) serve the model axis of the sharded
+decoder (``models/tensor_parallel.py``): sums, gathers and scatters of
+activations along one tensor dim over one axis line. Gloo takes CUDA
+tensors for all three (it stages them through pinned host memory
+itself; checked on an H100 with torch 2.11). Each call adds its bytes
+(this rank's input) to :attr:`RankMesh.traffic`, and, with
+:attr:`RankMesh.timed` set, its host-clock seconds (the card
+synchronised before and after).
+
 ``make_production_mesh`` keeps the reference's shapes, ``(16, 16)``
 over ``("data", "model")`` and ``(2, 16, 16)`` over ``("pod", "data",
 "model")``, as a rank mesh over a world of that many ranks. The
@@ -34,6 +44,7 @@ from __future__ import annotations
 
 import itertools
 import math
+import time
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -118,6 +129,10 @@ class RankMesh:
         self._axis_groups = {a: self.subgroup(a, (tuple(range(n)),))
                              for a, n in zip(self.axis_names, self.dims,
                                              strict=True)}
+        # {op: [calls, bytes put in, seconds (when timed)]} of the tensor
+        # collectives
+        self.traffic: Dict[str, list] = {}
+        self.timed = False
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -179,6 +194,79 @@ class RankMesh:
         for off in range(0, buf.numel(), COLLECTIVE_CHUNK):
             dist.all_reduce(buf[off:off + COLLECTIVE_CHUNK], group=group)
         return buf.numel() * buf.element_size()
+
+    # ---- tensor collectives along one axis -------------------------------
+    def _record(self, op: str, x: torch.Tensor, t0: float) -> None:
+        if self.timed and x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        row = self.traffic.setdefault(op, [0, 0, 0.0])
+        row[0] += 1
+        row[1] += x.numel() * x.element_size()
+        row[2] += time.perf_counter() - t0 if self.timed else 0.0
+
+    def _start(self, x: torch.Tensor) -> float:
+        if self.timed and x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        return time.perf_counter()
+
+    def all_reduce_(self, x: torch.Tensor, axis: str,
+                    op: str = "sum") -> torch.Tensor:
+        """Reduce ``x`` (contiguous) in place over ``axis`` (``op``
+        "sum" or "max"); returns it."""
+        group = self.axis_group(axis)
+        if group is None:
+            return x
+        t0 = self._start(x)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=group)
+        self._record(f"all_reduce_{op}", x, t0)
+        return x
+
+    def all_gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        """The axis line's ``x`` concatenated along ``dim`` in axis order
+        (a new tensor)."""
+        group = self.axis_group(axis)
+        if group is None:
+            return x
+        n = self.shape[axis]
+        t0 = self._start(x)
+        inp = x.movedim(dim, 0).contiguous()
+        out = inp.new_empty((n * inp.shape[0],) + inp.shape[1:])
+        _all_gather(out, inp, group=group)
+        self._record("all_gather", inp, t0)
+        return out.movedim(0, dim).contiguous()
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str,
+                       dim: int) -> torch.Tensor:
+        """The sum of the axis line's ``x``, this rank's part of it along
+        ``dim`` (its coordinate's slice of ``x.shape[dim] / n``)."""
+        group = self.axis_group(axis)
+        if group is None:
+            return x
+        n = self.shape[axis]
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"over the {n} ranks of {axis!r}")
+        t0 = self._start(x)
+        inp = x.movedim(dim, 0).contiguous()
+        out = inp.new_empty((inp.shape[0] // n,) + inp.shape[1:])
+        _reduce_scatter(out, inp, group=group)
+        self._record("reduce_scatter", inp, t0)
+        return out.movedim(0, dim).contiguous()
+
+
+def _all_gather(out, inp, group=None):
+    # all_gather_single is all_gather_into_tensor's newer name
+    fn = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    fn(out, inp, group=group)
+
+
+def _reduce_scatter(out, inp, group=None):
+    # reduce_scatter_single is reduce_scatter_tensor's newer name
+    fn = getattr(dist, "reduce_scatter_single", None) \
+        or dist.reduce_scatter_tensor
+    fn(out, inp, group=group)
 
 
 def check_backend(backend: str, device, rank: int, world: int,

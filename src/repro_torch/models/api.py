@@ -4,8 +4,16 @@ A ``Model`` is a bundle of plain functions over a plain-dict param tree
 in the reference's layout (``repro.models.api.Model``): the FL layer and
 the serving scheduler program against this interface only. ``policy``
 is the model's sharding policy (``fl.distributed.FLTrainStep`` reads its
-rank mesh); the reference's ``param_shapes``, ``param_pspecs`` and
-``state_pspecs`` come with ROADMAP.md queue 1 item 12b.
+rank mesh); ``spec_rule`` and ``state_spec_rule`` map a leaf's path and
+global shape to its :class:`~repro_torch.models.sharding.PartitionSpec`,
+and :meth:`Model.param_pspecs` and :meth:`Model.state_pspecs` apply them
+to the whole tree, its shapes built on the meta device
+(:meth:`Model.param_shapes`: nothing is allocated, at any size).
+
+Under a model axis (``models/tensor_parallel.py``) ``init`` draws this
+rank's shards, the functions take and return local shards, and
+``unsharded`` is the same model without the axis (the global init and
+decode state, whose shapes the spec rules read).
 
 A client dim. The batched round engine trains every client at once: it
 hands the loss a client-stacked param tree and batch (a leading ``C``
@@ -32,13 +40,14 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.sharding import UNSHARDED, ShardingPolicy
+from repro_torch.models.sharding import UNSHARDED, PartitionSpec, ShardingPolicy
 from repro_torch.utils.trees import (
     flat_buffer_of,
     flatten_tree,
     tree_flatten,
     tree_layout,
     tree_leaves,
+    tree_map_with_path,
     tree_stack,
     tree_unstack,
     unflatten_tree,
@@ -61,6 +70,35 @@ class Model:
     # (batch_size, cache_len, device) -> a zero decode state
     init_decode_state: Optional[Callable] = None
     policy: ShardingPolicy = UNSHARDED
+    # (path str, global shape) -> PartitionSpec of a param leaf
+    spec_rule: Optional[Callable] = None
+    # (path str, global shape) -> PartitionSpec of a decode-state leaf
+    state_spec_rule: Optional[Callable] = None
+    # the model without its model axis (None: this one holds whole leaves)
+    unsharded: Optional["Model"] = None
+
+    # ------------------------------------------------------------------
+    def param_shapes(self):
+        """The global param tree on the meta device (shapes and dtypes,
+        no storage; the init's draws are skipped)."""
+        return (self.unsharded or self).init(None, "meta")
+
+    def param_pspecs(self):
+        """A tree of PartitionSpec mirroring the params (by spec_rule)."""
+        rule = self.spec_rule or (lambda path, shape: PartitionSpec())
+        return tree_map_with_path(lambda path, x: rule(path, tuple(x.shape)),
+                                  self.param_shapes())
+
+    def state_pspecs(self, batch_size: int, cache_len: int):
+        """A tree of PartitionSpec mirroring the decode state (None
+        without a decode step); a Python scalar leaf has shape ()."""
+        model = self.unsharded or self
+        if model.init_decode_state is None:
+            return None
+        rule = self.state_spec_rule or (lambda path, shape: PartitionSpec())
+        return tree_map_with_path(
+            lambda path, x: rule(path, tuple(getattr(x, "shape", ()))),
+            model.init_decode_state(batch_size, cache_len, "meta"))
 
 
 def per_client_loss(loss_fn):

@@ -37,8 +37,11 @@ def dense_init(generator: torch.Generator, shape, dtype,
     numbers on every device; a CUDA one draws on the card, which is what
     a multi-billion-parameter init needs); it follows
     ``repro.models.common.dense_init`` in distribution, not in bits —
-    ``jax.random`` is another stream.
+    ``jax.random`` is another stream. Without a generator, an empty
+    meta tensor of the shape (``Model.param_shapes``).
     """
+    if generator is None:
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     x = torch.empty(tuple(shape), dtype=torch.float32,
@@ -49,6 +52,8 @@ def dense_init(generator: torch.Generator, shape, dtype,
 
 
 def embed_init(generator: torch.Generator, shape, dtype) -> torch.Tensor:
+    if generator is None:
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     x = torch.empty(tuple(shape), dtype=torch.float32,
                     device=generator.device)
     return x.normal_(generator=generator).mul_(0.02).to(dtype)

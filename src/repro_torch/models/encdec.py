@@ -43,8 +43,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib, common
 from repro_torch.models.api import Model, per_client_loss
-from repro_torch.models.sharding import UNSHARDED, ShardingPolicy
-from repro_torch.models.transformer import _init_attn, _out_proj, _project_qkv, _rope, attention_block
+from repro_torch.models.sharding import UNSHARDED, P, ShardingPolicy, check_runnable
+from repro_torch.models.transformer import _attend, _init_attn, _out_proj, _project_qkv, _rope
 from repro_torch.utils.trees import tree_unstack
 
 # decode slots appended to a prefill cache (the ring wraps beyond this)
@@ -115,9 +115,13 @@ def _ffn(layer: dict, x, cfg: ModelConfig):
     return common.swiglu(layer["ffn"], hn).to(x.dtype)
 
 
-def encode(params: dict, frontend, cfg: ModelConfig):
+def encode(params: dict, frontend, cfg: ModelConfig,
+           policy: ShardingPolicy = UNSHARDED):
     """frontend (B, F, D) -> encoder output (B, F, D) float32 (the
-    params' dtype): bidirectional self-attention over the frames."""
+    params' dtype): bidirectional self-attention over the frames.
+    ``policy``: unsharded or a replica policy (a model or seq axis
+    raises, ROADMAP.md item 12b-1b)."""
+    check_runnable(policy, cfg.family)
     x = frontend.to(getattr(torch, cfg.param_dtype))
     rope = _rope(cfg, torch.arange(x.shape[1], device=x.device))
 
@@ -156,12 +160,15 @@ def _cross_attention(layer_attn: dict, xc, enc_kv: dict, cfg: ModelConfig):
 
 
 def decode_stack(params: dict, tokens, enc_out, cfg: ModelConfig,
-                 window: Optional[int], with_cache: bool = False):
+                 window: Optional[int], with_cache: bool = False,
+                 policy: ShardingPolicy = UNSHARDED):
     """Teacher-forced decoder forward over ``tokens`` (B, S): the final
     normed stream (B, S, D). With ``with_cache`` (prefill) also the
     self-attention caches, each layer's true keys and values followed
     by ``CACHE_MARGIN`` empty slots, and each layer's cross keys and
-    values: ``(x, {"k", "v"}, {"k", "v"})``, stacked on the layers."""
+    values: ``(x, {"k", "v"}, {"k", "v"})``, stacked on the layers.
+    ``policy`` as :func:`encode`'s."""
+    check_runnable(policy, cfg.family)
     dt = getattr(torch, cfg.dtype)
     x = common.embed(params["embed"], tokens).to(dt)
     b, s = tokens.shape
@@ -176,7 +183,7 @@ def decode_stack(params: dict, tokens, enc_out, cfg: ModelConfig,
                                 device=x.device) for k in ("k", "v")}
 
     def body(layer, x, i=None):
-        h, k, v = attention_block(
+        h, k, v = _attend(
             layer["self_attn"], common.rmsnorm(layer["ln1"], x, cfg.norm_eps),
             cfg, rope, window)
         x = x + h
@@ -294,7 +301,8 @@ def make_init_decode_state(cfg: ModelConfig):
 def build_encdec_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
                        window: Optional[int] = None) -> Model:
     """The encoder-decoder; ``window`` bounds the decoder's prefill
-    self-attention; ``policy`` is the unsharded one (see
+    self-attention; ``policy`` gives the spec rules (its forward runs
+    unsharded or under a replica policy, see
     :func:`repro_torch.models.get_model`)."""
     return Model(
         config=cfg,
@@ -304,4 +312,51 @@ def build_encdec_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
         prefill_fn=make_prefill_fn(cfg, window),
         decode_fn=make_decode_fn(cfg),
         init_decode_state=make_init_decode_state(cfg),
+        policy=policy,
+        spec_rule=make_spec_rule(cfg, policy),
+        state_spec_rule=make_state_spec_rule(cfg, policy),
     )
+
+
+def make_spec_rule(cfg: ModelConfig, policy: ShardingPolicy):
+    """The reference's param rule: embedding and head over the vocab,
+    q/k/v column-split and ``wo`` row-split where the heads divide,
+    the FFN column- then row-split, fsdp on the other dim."""
+    def rule(path: str, shape):
+        if policy.mesh is None:
+            return P()
+        m = policy.model_axis
+        f = policy.fsdp_axes
+        f = f[0] if f and len(f) == 1 else f
+        mh = m if cfg.n_heads % max(policy.model_size, 1) == 0 else None
+        lead = (None,) if path.startswith(("encoder/", "decoder/")) else ()
+        if path.endswith("embed/table"):
+            return P(m, None)
+        if path.endswith("lm_head/proj"):
+            return P(None, m)
+        if path.endswith(("wq", "wk", "wv")):
+            return P(*lead, f, mh)
+        if path.endswith("wo"):
+            return P(*lead, mh, f)
+        if path.endswith(("w_gate", "w_up")):
+            return P(*lead, f, m)
+        if path.endswith("w_down"):
+            return P(*lead, m, f)
+        return P(*([None] * len(shape)))
+
+    return rule
+
+
+def make_state_spec_rule(cfg: ModelConfig, policy: ShardingPolicy):
+    """The reference's decode-state rule: the self and cross caches
+    (L, B, T, Hkv, hd) over the batch axes and, where they divide, the
+    kv heads."""
+    def rule(path: str, shape):
+        if policy.mesh is None:
+            return P()
+        if path.endswith(("/k", "/v")) and len(shape) == 5:
+            return P(None, policy.dim("batch", shape[1]), None,
+                     policy.dim("model", shape[3]), None)
+        return P(*([None] * len(shape)))
+
+    return rule

@@ -21,7 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common
 from repro_torch.models.api import Model
-from repro_torch.models.sharding import UNSHARDED, ShardingPolicy
+from repro_torch.models.sharding import UNSHARDED, P, ShardingPolicy
 
 
 def init_mlp_params(generator: torch.Generator, cfg: ModelConfig,
@@ -64,11 +64,17 @@ def mlp_loss(params, batch) -> tuple:
 
 def build_mlp_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
                     window=None) -> Model:
-    """The MLP; ``policy`` and ``window`` are taken and ignored, as the
-    reference's builder does."""
+    """The MLP; ``window`` is taken and ignored, as the reference's
+    builder does; its spec rule replicates every param (1.8M of them)."""
+
+    def spec_rule(path: str, shape):
+        if policy.mesh is None:
+            return P()
+        return P(*([None] * len(shape)))
+
     return Model(
         config=cfg,
         init=lambda generator, device="cuda": init_mlp_params(
             generator, cfg, device),
-        loss_fn=mlp_loss,
+        loss_fn=mlp_loss, policy=policy, spec_rule=spec_rule,
     )

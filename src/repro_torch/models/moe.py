@@ -37,10 +37,11 @@ reference's sum and in its gradients, so the gather leaves it out. One
 deterministic too, but adds E launches a layer to a decode step the host
 already bounds.
 
-The expert-parallel paths (the ``shard_map`` island over the model axis
-and the 2-D ``ep2d`` serving layout) and ``moe_spec`` come with
-ROADMAP.md queue 1 item 12b: a mesh policy with a model, fsdp, seq or
-ep2d axis raises (a pod/data replica policy runs the one-device path).
+:func:`moe_spec` is the reference's rule for the expert leaves. The
+expert-parallel paths (the ``shard_map`` island over the model axis and
+the 2-D ``ep2d`` serving layout) come with ROADMAP.md queue 1 item
+12b-1c: a mesh policy with a model, fsdp, seq or ep2d axis raises (a
+pod/data replica policy runs the one-device path).
 """
 from __future__ import annotations
 
@@ -52,7 +53,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.common import dense_init
-from repro_torch.models.sharding import UNSHARDED, ShardingPolicy
+from repro_torch.models.sharding import UNSHARDED, P, ShardingPolicy
 
 
 def init_moe(generator: torch.Generator, d_model: int, cfg: MoEConfig,
@@ -172,7 +173,7 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig,
     if policy.mesh is not None and not policy.replicas_only:
         raise NotImplementedError(
             "the expert-parallel moe paths come with ROADMAP.md queue 1 "
-            "item 12b")
+            "item 12b-1c")
     b, s, d = x.shape
     x2d = x.reshape(b * s, d)
     gates, aux, choices = route(x2d, params["router"], cfg.top_k)
@@ -183,3 +184,27 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig,
                           params["w_up"], params["w_down"],
                           capacity_of(b * s, cfg, policy))
     return out.reshape(b, s, d).to(x.dtype), aux
+
+
+def moe_spec(path: str, shape, policy: ShardingPolicy,
+             stacked: bool = True) -> Optional[P]:
+    """PartitionSpec of a moe param leaf (None if not one): the experts
+    E over the model axis, D over fsdp (the 2-D ``ep2d`` layout: E over
+    its axis, F over the model axis); the router replicated.
+    ``stacked``: a leading layer dim."""
+    lead = (None,) if stacked else ()
+    m, f = policy.model_axis, policy.fsdp_axes
+    f = f[0] if f and len(f) == 1 else f
+    if path.endswith("router"):
+        return P(*lead, None, None)
+    if policy.ep2d_axis is not None:
+        dax = policy.ep2d_axis
+        if path.endswith(("w_gate", "w_up")) and len(shape) == len(lead) + 3:
+            return P(*lead, dax, None, m)
+        if path.endswith("w_down") and len(shape) == len(lead) + 3:
+            return P(*lead, dax, m, None)
+    if path.endswith(("w_gate", "w_up")) and len(shape) == len(lead) + 3:
+        return P(*lead, m, f, None)
+    if path.endswith("w_down") and len(shape) == len(lead) + 3:
+        return P(*lead, m, None, f)
+    return None

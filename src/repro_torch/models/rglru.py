@@ -52,7 +52,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib, common
 from repro_torch.models.api import Model, per_client_loss
-from repro_torch.models.sharding import UNSHARDED, ShardingPolicy
+from repro_torch.models.sharding import UNSHARDED, P, ShardingPolicy
 from repro_torch.utils.trees import tree_map, tree_stack, tree_unstack
 
 RGLRU_C = 8.0
@@ -270,8 +270,11 @@ def _zero_rec_state(batch, dr, dt, dev):
 
 def build_rglru_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
                       window=None) -> Model:
-    """The hybrid model; ``policy`` and ``window`` are taken and ignored,
-    as the reference's builder does (its window is the config's)."""
+    """The hybrid model; ``policy`` gives the spec rules (its forward
+    runs unsharded or under a replica policy, see
+    :func:`repro_torch.models.get_model`); ``window`` is taken and
+    ignored, as the reference's builder does (its window is the
+    config's)."""
     dr = cfg.rglru_dim or cfg.d_model
     dt = getattr(torch, cfg.dtype)
     n_triples, n_tail = _pattern_counts(cfg)
@@ -399,6 +402,41 @@ def build_rglru_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
         return zero_state(batch_size, min(cache_len, cfg.local_attn_window),
                           resolve_device(device))
 
+    def spec_rule(path: str, shape):
+        if policy.mesh is None:
+            return P()
+        m = policy.model_axis
+        f = policy.fsdp_axes
+        f = f[0] if f and len(f) == 1 else f
+        lead = (None,) if path.startswith(("triples/", "tail/")) else ()
+        if path.endswith("embed/table"):
+            return P(m, None)
+        if path.endswith("lm_head/proj"):
+            return P(None, m)
+        if path.endswith(("w_main", "w_gate", "mlp/w_up")):
+            return P(*lead, f, m)
+        if path.endswith(("w_down", "mlp/w_down")):
+            return P(*lead, m, f)
+        if path.endswith(("w_a", "w_x")):
+            return P(*lead, None, m)
+        if path.endswith(("wq", "wk", "wv")):
+            # 10 q heads / 1 kv head on a 16-way axis: replicate heads
+            return P(*lead, f, None)
+        if path.endswith("wo"):
+            return P(*lead, None, f)
+        return P(*([None] * len(shape)))
+
+    def state_spec_rule(path: str, shape):
+        if policy.mesh is None:
+            return P()
+        if len(shape) >= 2:
+            batch = policy.dim("batch", shape[1])
+            # the RG-LRU channel dim over the model axis where it divides
+            if path.endswith("/h") and len(shape) == 3:
+                return P(None, batch, policy.dim("model", shape[2]))
+            return P(None, batch, *([None] * (len(shape) - 2)))
+        return P(*([None] * len(shape)))
+
     return Model(
         config=cfg,
         init=lambda generator, device="cuda": init_rglru_params(
@@ -406,4 +444,5 @@ def build_rglru_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
         loss_fn=per_client_loss(loss_fn), prefill_fn=prefill_fn,
         decode_fn=decode_fn,
         init_decode_state=init_decode_state,
+        policy=policy, spec_rule=spec_rule, state_spec_rule=state_spec_rule,
     )

@@ -1,30 +1,79 @@
 """Sharding policy: maps *logical* tensor dims to physical mesh axes (the
-port of ``repro.models.sharding``, pod and data axes only).
+port of ``repro.models.sharding``).
 
 Models never hard-code mesh axis names: they annotate tensors with
 logical dims ("batch", "model", "fsdp", "seq", None) and the active
-``ShardingPolicy`` resolves them. The port builds :data:`UNSHARDED`
-(``mesh is None``) and, for the federated round step over a
-:class:`~repro_torch.launch.mesh.RankMesh`, policies whose mesh carries
-only ``pod`` and ``data`` axes: each rank holds whole replicas of its
-client's model, so no logical dim resolves to a mesh axis and every hint
-is a no-op. Tensor-parallel, FSDP, sequence and 2-D expert axes
-(``make_policy`` and the model, fsdp, seq and ep2d policies) raise:
-they come with ROADMAP.md queue 1 item 12b.
+``ShardingPolicy`` resolves them to a :class:`PartitionSpec`, or to
+nothing at all without a mesh, so the same model code serves both
+paths. ``dim("model", size)`` returns None when ``size`` does not divide
+by the model axis (RecurrentGemma's 10 heads on a 16-wide axis are
+replicated; its flat 2560 projections shard).
+
+The mesh is a :class:`~repro_torch.launch.mesh.RankMesh` (the ranks of a
+process group on named axes) or, for the pure spec rules, any object
+with ``axis_names`` and a ``shape`` dict (``launch.mesh.DeviceMesh``).
+:class:`PartitionSpec` is the port's own (a tuple of axis names, tuples
+of names or None per tensor dim); :meth:`ShardingPolicy.named` maps one
+to a placement per mesh axis, ``Shard(d)`` or ``Replicate()``, the
+counterpart of JAX's ``NamedSharding``.
+
+A tensor annotated by :func:`shard_hint` is already laid out: the port's
+ranks hold local shards and the models place their collectives by hand
+(``models/tensor_parallel.py``), one collective or a conjugate pair at
+each point where the reference puts a hint. :func:`resolve_hint` gives
+the spec the reference's hint would constrain to.
+
+What runs under which axis (:func:`check_runnable`): the dense and vlm
+decoders run a model axis, with or without sequence parallelism
+(``seq_axis``), beside a batch axis of one rank; the pod and data replica
+policies of the federated round step run every family. An fsdp axis, a
+batch axis of more than one rank beside the model axis, and the rglru,
+xlstm and encdec families under a model or seq axis come with ROADMAP.md
+queue 1 item 12b-1b; the moe family under a model axis and the 2-D
+``ep2d`` layout with item 12b-1c.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Tuple, Union
 
-_NOT_PORTED = ("tensor-parallel, FSDP, sequence and 2-D expert mesh axes "
-               "come with ROADMAP.md queue 1 item 12b")
+Logical = Union[None, str, Tuple[str, ...]]
+
+
+class PartitionSpec(tuple):
+    """Per tensor dim: None (replicated), a mesh axis name, or a tuple of
+    names (split over their product, row-major); trailing dims past the
+    spec's length are replicated. ``PartitionSpec("model", None)``. A
+    tuple of one name is that name, and an empty one None, as JAX's spec
+    normalises them."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, tuple(
+            p[0] if isinstance(p, tuple) and len(p) == 1
+            else None if p == () else p for p in parts))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
 
 
 @dataclass(frozen=True)
 class ShardingPolicy:
     """Resolution table from logical dims to mesh axes, field for field
-    the reference's; ``mesh=None`` resolves everything to unsharded."""
+    the reference's.
+
+    batch_axes: axes the global batch is split over, e.g. ("data",) or
+        ("pod", "data").
+    model_axis: tensor-parallel axis name ("model") or None.
+    fsdp_axes: axes params are ZeRO-sharded over, or None.
+    seq_axis: axis the sequence dim of activations is split over between
+        blocks (sequence parallelism, Korthikanti et al.); the model
+        axis when on.
+    mesh: the mesh; None resolves everything to unsharded.
+    ep2d_axis: the 2-D expert layout's expert axis (serving moe).
+    """
     mesh: Optional[Any] = None
     batch_axes: Optional[Tuple[str, ...]] = None
     model_axis: Optional[str] = None
@@ -34,20 +83,17 @@ class ShardingPolicy:
 
     @property
     def replicas_only(self) -> bool:
-        """True when no model, fsdp, seq or ep2d axis is set: the only
-        mesh policies the port runs."""
+        """True when no model, fsdp, seq or ep2d axis is set: every rank
+        holds whole models (the federated round step's policies)."""
         return (self.model_axis is None and not self.fsdp_axes
                 and self.seq_axis is None and self.ep2d_axis is None)
 
-    def axis_size(self, axes) -> int:
-        """Devices along ``axes`` (a name or a tuple of names): 1 without
-        a mesh or axes; the mesh's extent for ``pod`` and ``data``."""
+    # ---- axis arithmetic -------------------------------------------------
+    def axis_size(self, axes: Logical) -> int:
         if self.mesh is None or axes is None:
             return 1
         if isinstance(axes, str):
             axes = (axes,)
-        if any(a not in ("pod", "data") for a in axes):
-            raise NotImplementedError(_NOT_PORTED)
         n = 1
         for a in axes:
             n *= self.mesh.shape[a]
@@ -61,35 +107,124 @@ class ShardingPolicy:
     def batch_size_divisor(self) -> int:
         return self.axis_size(self.batch_axes)
 
-    def dim(self, logical: Optional[str]):
-        """One logical dim's mesh axes (None: unsharded); raises where a
-        model, fsdp, seq or ep2d axis would be used."""
+    # ---- logical -> physical ---------------------------------------------
+    def dim(self, logical: Optional[str], size: Optional[int] = None) -> Logical:
+        """Resolve one tensor dim; ``size`` (if given) gates divisibility."""
         if self.mesh is None or logical is None:
             return None
         axes = {"batch": self.batch_axes, "model": self.model_axis,
                 "fsdp": self.fsdp_axes, "seq": self.seq_axis}.get(logical)
-        if axes is not None and logical != "batch":
-            raise NotImplementedError(_NOT_PORTED)
+        if axes is None:
+            return None
+        if size is not None and size % self.axis_size(axes) != 0:
+            return None
+        if isinstance(axes, tuple) and len(axes) == 1:
+            return axes[0]
         return axes
+
+    def spec(self, *logical_dims) -> PartitionSpec:
+        """A PartitionSpec from logical dim names (or (name, size))."""
+        return PartitionSpec(*(self.dim(d[0], d[1]) if isinstance(d, tuple)
+                               else self.dim(d) for d in logical_dims))
+
+    def named(self, *logical_dims) -> Optional["NamedSharding"]:
+        if self.mesh is None:
+            return None
+        return NamedSharding(self.mesh, self.spec(*logical_dims))
 
 
 # A policy that shards nothing.
 UNSHARDED = ShardingPolicy()
 
 
-def shard_hint(x, policy: ShardingPolicy, *logical_dims, force: bool = False):
-    """The reference's sharding constraint: ``x`` itself where every
-    logical dim resolves to no axis (always without a mesh, and on the
-    replica policies of the federated round step, whose ``batch_axes``
-    are None); a dim on a mesh axis raises (ROADMAP.md queue 1 item
-    12b)."""
+@dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh: :meth:`placements` gives, for each mesh axis in
+    order, ``Shard(d)`` for the tensor dim ``d`` split over it, else
+    ``Replicate()`` (``torch.distributed.tensor``'s placements, as a
+    ``DTensor`` over the same mesh would carry them)."""
+    mesh: Any
+    spec: PartitionSpec
+
+    def placements(self) -> tuple:
+        from torch.distributed.tensor import Replicate, Shard
+        out = []
+        for axis in self.mesh.axis_names:
+            dims = [d for d, s in enumerate(self.spec)
+                    if s == axis or (isinstance(s, tuple) and axis in s)]
+            out.append(Shard(dims[0]) if dims else Replicate())
+        return tuple(out)
+
+
+def resolve_hint(policy: ShardingPolicy, shape, *logical_dims,
+                 force: bool = False) -> Optional[PartitionSpec]:
+    """The spec the reference's ``shard_hint`` constrains a tensor of
+    ``shape`` to, or None where it emits no constraint (no mesh; every
+    dim unsharded and not ``force``). Each dim's size gates its axis."""
     if policy.mesh is None:
-        return x
-    if len(logical_dims) != x.dim():
+        return None
+    if len(logical_dims) != len(shape):
         raise ValueError(f"shard_hint rank mismatch: {len(logical_dims)} "
-                         f"dims for shape {tuple(x.shape)}")
-    if not policy.replicas_only or any(
-            policy.dim(d[0] if isinstance(d, tuple) else d) is not None
-            for d in logical_dims):
-        raise NotImplementedError(_NOT_PORTED)
+                         f"dims for shape {tuple(shape)}")
+    resolved = [policy.dim(d[0], d[1]) if isinstance(d, tuple)
+                else policy.dim(d, size)
+                for d, size in zip(logical_dims, shape, strict=True)]
+    if not force and all(r is None for r in resolved):
+        return None
+    return PartitionSpec(*resolved)
+
+
+def shard_hint(x, policy: ShardingPolicy, *logical_dims, force: bool = False):
+    """The reference's sharding constraint: ``x`` itself. The port's
+    ranks hold ``x`` already laid out (the models place the collectives
+    by hand); the hint is checked (a rank mismatch raises, catching a
+    refactor that desyncs it) and resolved as the reference would
+    (:func:`resolve_hint`)."""
+    resolve_hint(policy, tuple(x.shape), *logical_dims, force=force)
     return x
+
+
+def make_policy(mesh, fsdp: bool = False,
+                seq_shard: bool = False) -> ShardingPolicy:
+    """Standard policy for a mesh over ([pod,] data, model) axes, as the
+    production mesh (``launch.mesh.make_production_mesh``) has them."""
+    if mesh is None:
+        return UNSHARDED
+    names = tuple(mesh.axis_names)
+    batch = tuple(a for a in names if a in ("pod", "data"))
+    model = "model" if "model" in names else None
+    return ShardingPolicy(mesh=mesh, batch_axes=batch or None,
+                          model_axis=model, fsdp_axes=batch if fsdp else None,
+                          seq_axis=model if seq_shard else None)
+
+
+# the families whose forward runs a model (and seq) axis
+TENSOR_PARALLEL_FAMILIES = ("dense", "vlm")
+
+
+def check_runnable(policy: ShardingPolicy, family: str) -> None:
+    """Raise NotImplementedError, naming its ROADMAP.md item, where the
+    port cannot run ``family`` under ``policy``."""
+    if policy.mesh is None or policy.replicas_only or family == "mlp":
+        return          # the mlp's spec rule replicates every param
+    if policy.ep2d_axis is not None:
+        raise NotImplementedError(
+            "the 2-D ep2d expert layout comes with ROADMAP.md queue 1 item "
+            "12b-1c")
+    if policy.fsdp_axes:
+        raise NotImplementedError(
+            "an fsdp axis (ZeRO-sharded params) comes with ROADMAP.md "
+            "queue 1 item 12b-1b")
+    if family == "moe":
+        raise NotImplementedError(
+            "the moe family under a model axis (the expert-parallel "
+            "island, capacity_of's policy, make_serve_step's wrapper) "
+            "comes with ROADMAP.md queue 1 item 12b-1c")
+    if family not in TENSOR_PARALLEL_FAMILIES:
+        raise NotImplementedError(
+            f"the {family} family under a model or seq axis comes with "
+            f"ROADMAP.md queue 1 item 12b-1b")
+    if policy.batch_size_divisor > 1:
+        raise NotImplementedError(
+            "a batch axis of more than one rank beside the model axis "
+            "comes with ROADMAP.md queue 1 item 12b-1b")

@@ -48,8 +48,15 @@ The vlm family (llava-next-mistral-7b) is this decoder with a stub
 vision frontend: the batch's ``frontend`` embeddings go before the
 text (:func:`embed_inputs`), the loss reads the text positions only,
 and prefill's ``pos`` and last-token logits count the prefix, so decode
-continues after it. The spec rules come with ROADMAP.md queue 1 item
-12b.
+continues after it.
+
+Every model function takes the reference's ``policy`` in the
+reference's place. :func:`make_spec_rule` and
+:func:`make_state_spec_rule` are the reference's rules. Under a policy
+with a model axis on a rank mesh (``sharding.make_policy``) the dense
+and vlm decoders run tensor-parallel, with sequence parallelism when
+``seq_axis`` is set: ``models/transformer_tp.py``, on each rank's shards
+of the params and of the KV cache.
 """
 from __future__ import annotations
 
@@ -63,9 +70,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib, common
 from repro_torch.models.api import Model, per_client_loss
-from repro_torch.models.moe import init_moe, moe_ffn
-from repro_torch.models.sharding import UNSHARDED, ShardingPolicy
-from repro_torch.utils.trees import tree_unstack
+from repro_torch.models.moe import init_moe, moe_ffn, moe_spec
+from repro_torch.models.sharding import UNSHARDED, P, ShardingPolicy
+from repro_torch.utils.trees import tree_map_with_path, tree_unstack
 
 # decode slots appended to a prefill cache (the ring wraps beyond this)
 PREFILL_CACHE_MARGIN = 64
@@ -100,21 +107,33 @@ def _init_layer(gen, cfg: ModelConfig, dtype, dev) -> dict:
 
 
 def init_decoder_params(generator: torch.Generator, cfg: ModelConfig,
-                        device="cuda") -> dict:
+                        device="cuda", cut=None) -> dict:
     """Random params in the reference's layout, drawn from ``generator``
-    on its own device and placed on ``device``."""
+    on its own device and placed on ``device``. ``cut(path, tensor)``,
+    if given, is applied to each leaf as soon as it is drawn (a layer's
+    leaves unstacked, under their ``layers/...`` paths): a rank keeps its
+    shard of the one seeded init, never holding more than one layer
+    whole."""
     dtype = getattr(torch, cfg.param_dtype)
     dev = resolve_device(device)
+
+    def keep(prefix, tree):
+        if cut is None:
+            return tree
+        return tree_map_with_path(lambda path, x: cut(path, x), tree,
+                                  prefix=prefix)
+
     params = {
-        "embed": common.init_embedding(generator, cfg.padded_vocab,
-                                       cfg.d_model, dtype, dev),
+        "embed": keep("embed/", common.init_embedding(
+            generator, cfg.padded_vocab, cfg.d_model, dtype, dev)),
         "layers": common.init_stacked(
-            lambda: _init_layer(generator, cfg, dtype, dev), cfg.n_layers),
+            lambda: keep("layers/", _init_layer(generator, cfg, dtype, dev)),
+            cfg.n_layers),
         "ln_f": common.init_rmsnorm(cfg.d_model, dtype, dev),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = common.init_unembed(
-            generator, cfg.padded_vocab, cfg.d_model, dtype, dev)
+        params["lm_head"] = keep("lm_head/", common.init_unembed(
+            generator, cfg.padded_vocab, cfg.d_model, dtype, dev))
     return params
 
 
@@ -150,8 +169,8 @@ def _out_proj(layer_attn: dict, o, cfg: ModelConfig, like):
     return common.matmul(o, layer_attn["wo"].to(dt)).to(like.dtype)
 
 
-def attention_block(layer_attn: dict, x, cfg: ModelConfig, rope,
-                    window: Optional[int]):
+def _attend(layer_attn: dict, x, cfg: ModelConfig, rope,
+            window: Optional[int]):
     """Self-attention over the full (already-embedded, normed) sequence;
     returns the block's output and its rotated keys and values."""
     s = x.shape[1]
@@ -161,6 +180,18 @@ def attention_block(layer_attn: dict, x, cfg: ModelConfig, rope,
     else:
         o = attn_lib.causal_attention(q, k, v)
     return _out_proj(layer_attn, o, cfg, x), k, v
+
+
+def attention_block(layer_attn: dict, x, cfg: ModelConfig,
+                    policy: ShardingPolicy, positions,
+                    window: Optional[int]):
+    """Self-attention of the normed stream ``x`` at ``positions`` (S,):
+    the block's output, in ``x``'s dtype (under a model axis, this
+    rank's part of it in the stream's layout)."""
+    if _sharded(policy):
+        return transformer_tp.attention_block(
+            layer_attn, x, cfg, policy, positions, window)
+    return _attend(layer_attn, x, cfg, _rope(cfg, positions), window)[0]
 
 
 def _ffn(layer: dict, x, cfg: ModelConfig, mask=None):
@@ -181,12 +212,12 @@ def _real_mask(s: int, n_real: int, device):
     return torch.arange(s, device=device) < n_real
 
 
-def block(layer: dict, x, cfg: ModelConfig, rope, window: Optional[int],
-          mask=None):
+def _block(layer: dict, x, cfg: ModelConfig, rope, window: Optional[int],
+           mask=None):
     """One layer over the residual stream ``x``; returns the new stream,
     the layer's keys and values (the cache prefill keeps) and its moe
     aux loss (None for the dense family)."""
-    h, k, v = attention_block(
+    h, k, v = _attend(
         layer["attn"], common.rmsnorm(layer["ln1"], x, cfg.norm_eps), cfg,
         rope, window)
     x = x + h
@@ -194,18 +225,47 @@ def block(layer: dict, x, cfg: ModelConfig, rope, window: Optional[int],
     return x + f.to(x.dtype), k, v, aux
 
 
+def make_block_fn(cfg: ModelConfig, policy: ShardingPolicy,
+                  window: Optional[int], n_real: Optional[int] = None):
+    """``block((x, aux), layer) -> ((x, aux), None)``, the reference's
+    scan body: one layer over the stream ``x`` (B, S, D), its moe aux
+    loss added to ``aux``; positions past ``n_real`` are pads, masked
+    out of routing. Under a model axis see ``transformer_tp``."""
+    if _sharded(policy):
+        return transformer_tp.make_block_fn(cfg, policy, window, n_real)
+
+    def block(carry, layer):
+        x, aux = carry
+        s = x.shape[1]
+        rope = _rope(cfg, torch.arange(s, device=x.device))
+        mask = _real_mask(s, s if n_real is None else n_real, x.device)
+        x, _, _, aux_l = _block(layer, x, cfg, rope, window, mask)
+        return (x, aux if aux_l is None else aux + aux_l), None
+
+    return block
+
+
+def _sharded(policy: ShardingPolicy) -> bool:
+    """Whether ``policy`` runs the decoder over a model axis."""
+    return policy.mesh is not None and policy.model_axis is not None
+
+
 def decoder_forward(params: dict, embeds, cfg: ModelConfig,
-                    window: Optional[int], n_real: Optional[int] = None):
+                    policy: ShardingPolicy, window: Optional[int],
+                    n_real: Optional[int] = None):
     """The layer stack over input embeddings, then the final norm.
     Returns (x, aux): aux sums the layers' moe losses from a float32 zero
     (it stays 0 for the dense family); the positions past ``n_real`` are
     pads, masked out of routing."""
+    if _sharded(policy):
+        return transformer_tp.decoder_forward(params, embeds, cfg, policy,
+                                              window, n_real)
     s = embeds.shape[1]
     rope = _rope(cfg, torch.arange(s, device=embeds.device))
     mask = _real_mask(s, s if n_real is None else n_real, embeds.device)
 
     def body(layer, x):
-        x, _, _, aux = block(layer, x, cfg, rope, window, mask)
+        x, _, _, aux = _block(layer, x, cfg, rope, window, mask)
         return x if aux is None else (x, aux)
 
     x = embeds
@@ -259,12 +319,15 @@ def embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # loss
 # ---------------------------------------------------------------------------
-def make_loss_fn(cfg: ModelConfig, window: Optional[int]):
+def make_loss_fn(cfg: ModelConfig, policy: ShardingPolicy,
+                 window: Optional[int]):
     """(params, batch) -> (loss, metrics) for one client."""
+    if _sharded(policy):
+        return transformer_tp.make_loss_fn(cfg, policy, window)
 
     def loss_fn(params, batch):
         x, n_prefix, n_pad = embed_inputs(params, batch, cfg)
-        x, aux = decoder_forward(params, x, cfg, window,
+        x, aux = decoder_forward(params, x, cfg, policy, window,
                                  n_real=x.shape[1] - n_pad)
         s_text = batch["tokens"].shape[1]
         logits = logits_fn(params, x[:, n_prefix:n_prefix + s_text], cfg)
@@ -282,7 +345,7 @@ def make_loss_fn(cfg: ModelConfig, window: Optional[int]):
 # ---------------------------------------------------------------------------
 # decode (serve_step)
 # ---------------------------------------------------------------------------
-def make_decode_fn(cfg: ModelConfig):
+def make_decode_fn(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED):
     """One token through the stack with per-layer KV caches.
 
     state = {"cache": {"k", "v": (L, B, T, Hkv, hd)}, "pos": int}, pos
@@ -294,6 +357,8 @@ def make_decode_fn(cfg: ModelConfig):
     routes the B real rows only (T = B, as the reference's decode): the
     pad rows take no expert's capacity and get a zero FFN output.
     """
+    if _sharded(policy):
+        return transformer_tp.make_decode_fn(cfg, policy)
     dt = getattr(torch, cfg.dtype)
 
     def decode_fn(params, state, batch):
@@ -348,10 +413,13 @@ def make_init_decode_state(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
-def make_prefill_fn(cfg: ModelConfig, window: Optional[int]):
+def make_prefill_fn(cfg: ModelConfig, policy: ShardingPolicy,
+                    window: Optional[int]):
     """The full-prompt forward that also fills the KV cache: returns the
     last real token's logits (B, 1, V_pad) and the decode state. The
     prompt's pads are masked out of moe routing."""
+    if _sharded(policy):
+        return transformer_tp.make_prefill_fn(cfg, policy, window)
 
     def prefill_fn(params, batch):
         x, _, n_pad = embed_inputs(params, batch, cfg)
@@ -363,7 +431,7 @@ def make_prefill_fn(cfg: ModelConfig, window: Optional[int]):
                  for k in ("k", "v")}
         rope = _rope(cfg, torch.arange(s, device=x.device))
         for i, layer in enumerate(tree_unstack(params["layers"])):
-            x, k, v, _ = block(layer, x, cfg, rope, window, mask)
+            x, k, v, _ = _block(layer, x, cfg, rope, window, mask)
             cache["k"][i, :, :s] = k
             cache["v"][i, :, :s] = v
         x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
@@ -376,20 +444,101 @@ def make_prefill_fn(cfg: ModelConfig, window: Optional[int]):
 
 
 # ---------------------------------------------------------------------------
+# sharding rules
+# ---------------------------------------------------------------------------
+def make_spec_rule(cfg: ModelConfig, policy: ShardingPolicy):
+    """(path, global shape) -> PartitionSpec of a param leaf: the
+    embedding split over the vocab, ``lm_head`` over its columns, q and
+    (when its kv heads divide) k and v column-split by heads, ``wo`` and
+    ``w_down`` row-split, ``w_gate`` and ``w_up`` column-split, the
+    experts by ``moe_spec``, fsdp on the other dim; the rest replicated."""
+    m_ok_q = cfg.n_heads % max(policy.model_size, 1) == 0
+    m_ok_kv = cfg.n_kv_heads % max(policy.model_size, 1) == 0
+    m = policy.model_axis
+    f = policy.fsdp_axes
+    f = f[0] if f and len(f) == 1 else f
+
+    def rule(path: str, shape) -> P:
+        if policy.mesh is None:
+            return P()
+        stacked = path.startswith(("layers/", "triples/", "tail/"))
+        lead = (None,) if stacked else ()
+        if cfg.moe is not None:
+            ms = moe_spec(path, shape, policy, stacked=stacked)
+            if ms is not None:
+                return ms
+        if path.endswith("embed/table"):
+            return P(m, f)
+        if path.endswith("lm_head/proj"):
+            return P(f, m)
+        if path.endswith("attn/wq"):
+            return P(*lead, f, m if m_ok_q else None)
+        if path.endswith(("attn/wk", "attn/wv")):
+            return P(*lead, f, m if m_ok_kv else None)
+        if path.endswith("attn/wo"):
+            return P(*lead, m if m_ok_q else None, f)
+        if path.endswith(("ffn/w_gate", "ffn/w_up")):
+            return P(*lead, f, m)
+        if path.endswith("ffn/w_down"):
+            return P(*lead, m, f)
+        return P(*([None] * len(shape)))     # norms and the small
+
+    return rule
+
+
+def make_state_spec_rule(cfg: ModelConfig, policy: ShardingPolicy):
+    """(path, global shape) -> PartitionSpec of a decode-state leaf: the
+    KV cache (L, B, T, Hkv, hd) with the batch over the batch axes and
+    the model axis on the kv heads when they divide, else on the cache
+    length T (decode combines the shards' softmax terms, the flash-
+    decode schedule), else on hd; the rest replicated."""
+    m_ok_kv = cfg.n_kv_heads % max(policy.model_size, 1) == 0
+    m_ok_hd = cfg.resolved_head_dim % max(policy.model_size, 1) == 0
+    m = policy.model_axis
+
+    def rule(path: str, shape) -> P:
+        if policy.mesh is None:
+            return P()
+        if path.endswith(("/k", "/v")) and len(shape) == 5:
+            batch = policy.dim("batch", shape[1])
+            if m_ok_kv:
+                return P(None, batch, None, m, None)
+            if m is not None and shape[2] % max(policy.model_size, 1) == 0:
+                return P(None, batch, m, None, None)
+            if m_ok_hd:
+                return P(None, batch, None, None, m)
+            return P(None, batch, None, None, None)
+        return P(*([None] * len(shape)))
+
+    return rule
+
+
+# ---------------------------------------------------------------------------
 # builder
 # ---------------------------------------------------------------------------
 def build_decoder_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
                         window: Optional[int] = None) -> Model:
     """The dense, moe or vlm decoder; ``window`` (else ``cfg.sliding_window``)
-    bounds prefill attention; ``policy`` is the unsharded one (see
-    :func:`repro_torch.models.get_model`)."""
+    bounds prefill attention. Under a model axis (the dense and vlm
+    families, see :func:`repro_torch.models.get_model`) its functions
+    run on this rank's shards (``transformer_tp``)."""
     window = window if window is not None else cfg.sliding_window
-    return Model(
+    model = Model(
         config=cfg,
         init=lambda generator, device="cuda": init_decoder_params(
             generator, cfg, device),
-        loss_fn=per_client_loss(make_loss_fn(cfg, window)),
-        prefill_fn=make_prefill_fn(cfg, window),
-        decode_fn=make_decode_fn(cfg),
+        loss_fn=per_client_loss(make_loss_fn(cfg, UNSHARDED, window)),
+        prefill_fn=make_prefill_fn(cfg, UNSHARDED, window),
+        decode_fn=make_decode_fn(cfg, UNSHARDED),
         init_decode_state=make_init_decode_state(cfg),
+        policy=policy,
+        spec_rule=make_spec_rule(cfg, policy),
+        state_spec_rule=make_state_spec_rule(cfg, policy),
     )
+    if not _sharded(policy):
+        return model
+    return transformer_tp.sharded_model(model, cfg, policy, window)
+
+
+# the sharded decoder builds on the names above
+from repro_torch.models import transformer_tp  # noqa: E402

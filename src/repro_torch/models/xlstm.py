@@ -48,7 +48,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common
 from repro_torch.models.api import Model, per_client_loss
-from repro_torch.models.sharding import UNSHARDED, ShardingPolicy
+from repro_torch.models.sharding import UNSHARDED, P, ShardingPolicy
 from repro_torch.utils.trees import tree_map, tree_stack, tree_unstack
 
 GATE_CAP = 15.0
@@ -488,7 +488,8 @@ def _forward(params, tokens, cfg: ModelConfig, states=None, decode=False):
 
 def build_xlstm_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
                       window=None) -> Model:
-    """The ssm model; ``policy`` is the unsharded one (see
+    """The ssm model; ``policy`` gives the spec rules (its forward runs
+    unsharded or under a replica policy, see
     :func:`repro_torch.models.get_model`) and ``window`` is taken and
     ignored, as the reference's builder does."""
 
@@ -520,10 +521,38 @@ def build_xlstm_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
                                        resolve_device(device)),
                 "pos": cache_len - 1}
 
+    def spec_rule(path: str, shape):
+        if policy.mesh is None:
+            return P()
+        m = policy.model_axis
+        f = policy.fsdp_axes
+        f = f[0] if f and len(f) == 1 else f
+        lead = (None,) if path.startswith(("mlstm/", "slstm/")) else ()
+        if path.endswith("embed/table"):
+            return P(m, None)
+        if path.endswith("lm_head/proj"):
+            return P(None, m)
+        if path.endswith(("w_up", "wq", "wk", "wv", "w_in")):
+            return P(*lead, f, m)
+        if path.endswith(("w_down", "w_out")):
+            return P(*lead, m, f)
+        return P(*([None] * len(shape)))
+
+    def state_spec_rule(path: str, shape):
+        if policy.mesh is None:
+            return P()
+        # (L, B, H, ...): the batch over the batch axes, the rest
+        # replicated (4 heads)
+        if len(shape) >= 3:
+            batch = policy.dim("batch", shape[1])
+            return P(None, batch, *([None] * (len(shape) - 2)))
+        return P(*([None] * len(shape)))
+
     return Model(
         config=cfg,
         init=lambda generator, device="cuda": init_xlstm_params(
             generator, cfg, device),
         loss_fn=per_client_loss(loss_fn), prefill_fn=prefill_fn,
         decode_fn=decode_fn, init_decode_state=init_decode_state,
+        policy=policy, spec_rule=spec_rule, state_spec_rule=state_spec_rule,
     )

@@ -60,6 +60,22 @@ def tree_map(fn, tree, *rest):
     return rebuild([fn(*xs) for xs in zip(leaves, *others, strict=True)])
 
 
+def tree_map_with_path(fn, tree, *rest, prefix: str = ""):
+    """``fn(path, leaf, *others)`` over a tree's leaves, ``path`` the
+    keys (and list indices) down to the leaf joined by "/" (the
+    reference's ``_path_str`` of ``jax.tree_util`` key paths)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, tree[k], *(r[k] for r in rest),
+                                      prefix=f"{prefix}{k}/")
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(
+            tree_map_with_path(fn, x, *(r[i] for r in rest),
+                               prefix=f"{prefix}{i}/")
+            for i, x in enumerate(tree))
+    return fn(prefix[:-1], tree, *rest)
+
+
 def tree_size(tree) -> int:
     """Total number of scalar parameters in a tree."""
     return sum(int(np.prod(tuple(x.shape))) for x in tree_leaves(tree))

@@ -1583,3 +1583,41 @@ def test_vlm_and_audio_training_gradient_on_cuda_matches_cpu(cuda_device,
     for got, want in zip(out["cuda"][1], out["cpu"][1], strict=True):
         scale = max(float(want.abs().max()), 1e-6)
         assert float((got - want).abs().max()) <= 1e-4 * scale + 1e-6
+
+
+@pytest.mark.cuda
+def test_model_axis_prefill_on_cuda_matches_unsharded(cuda_device):
+    """A (1, 2) model axis of two gloo ranks on the one card: reduced
+    granite-8b's bf16 prefill from the seeded init, each rank launching
+    the sm90 flash kernel on its own 2 q and 2 kv heads, held to the
+    unsharded prefill of the same init within 6e-2 (bf16: the ranks sum
+    the row-parallel partials in float32, one rounding where the
+    unsharded product rounds each; 4e-2 on the CPU)."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.launch.world import run_world
+    from repro_torch.models import get_model
+    sys.path.insert(0, str(Path(__file__).parent))
+    import _torch_world
+
+    cfg = get_config("granite-8b").reduced()
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 40)).astype(np.int32)
+    model = get_model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0), "cuda")
+    kflash.flash_attention.heads.clear()
+    with torch.no_grad():
+        want, _ = model.prefill_fn(params, {
+            "tokens": torch.tensor(prompt, device=cuda_device)})
+    assert kflash.flash_attention.heads == {"4x4": cfg.n_layers}
+    ranks = run_world(_torch_world.tp_card_prefill, 2, (cfg, prompt),
+                      timeout=300)
+    for r in ranks:
+        assert r["heads"] == {"2x2": cfg.n_layers}
+        assert r["cache"] == (cfg.n_layers, 4, 40 + 64, 2, 64)
+        np.testing.assert_allclose(r["logits"], want.float().cpu().numpy(),
+                                   atol=6e-2, rtol=0)
+

@@ -484,17 +484,19 @@ def test_replica_policy_runs_and_other_axes_name_item_12b():
     assert shard_hint(x, UNSHARDED, "model", None) is x
     model = get_model(get_config("paper-mlp-1m8"), replicas)
     assert model.policy is replicas
+    # the MLP's rule replicates every param, so any axis runs it whole;
+    # the families still to port name their item when run
+    lm = get_config("recurrentgemma-2b").reduced()
     for bad in (dict(model_axis="model"), dict(fsdp_axes=("data",)),
                 dict(seq_axis="model"), dict(ep2d_axis="data")):
         policy = ShardingPolicy(mesh=_Mesh(), **bad)
+        assert shard_hint(x, policy, "batch", None) is x
+        assert get_model(get_config("paper-mlp-1m8"), policy).policy is policy
         with pytest.raises(NotImplementedError, match="item 12b"):
-            shard_hint(x, policy, "batch", None)
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            get_model(get_config("paper-mlp-1m8"), policy)
+            get_model(lm, policy).loss_fn(None, None)
     batched = ShardingPolicy(mesh=_Mesh(), batch_axes=("data",))
-    assert batched.dim("batch") == ("data",) and batched.dim("model") is None
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        shard_hint(x, batched, "batch", None)
+    assert batched.dim("batch") == "data" and batched.dim("model") is None
+    assert shard_hint(x, batched, "batch", None) is x
 
 
 def test_production_mesh_needs_its_world_and_nccl_a_card_a_rank():

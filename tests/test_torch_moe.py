@@ -148,9 +148,13 @@ def test_init_layout_matches_reference(name):
 
 def test_sharding_policy_sizes_and_mesh_refusal():
     assert UNSHARDED.model_size == 1 and UNSHARDED.batch_size_divisor == 1
-    meshed = ShardingPolicy(mesh=object(), model_axis="model")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        meshed.model_size
+
+    class _Mesh:
+        shape = {"data": 2, "model": 4}
+        axis_names = ("data", "model")
+
+    meshed = ShardingPolicy(mesh=_Mesh(), model_axis="model")
+    assert meshed.model_size == 4
     _, cfg = _moe_cfgs()
     params = _t(_np_moe_params(np.random.default_rng(0), 8, 4, 16))
     with pytest.raises(NotImplementedError, match="item 12"):

@@ -194,11 +194,23 @@ def test_tree_helpers_match_reference():
 def test_unsharded_policy_hints_are_no_ops():
     x = torch.ones(2, 3)
     assert shard_hint(x, UNSHARDED, "batch", None) is x
-    meshed = ShardingPolicy(mesh=object(), model_axis="model")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        shard_hint(x, meshed, "batch", None)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        get_model(get_config(ARCH).reduced(), meshed)
+
+    class _Mesh:
+        shape = {"data": 1, "model": 4}
+        axis_names = ("data", "model")
+
+    # on a mesh a hint returns the tensor its rank already lays out
+    # (tests/test_torch_sharding.py holds the resolution to the
+    # reference's); a mis-ranked hint raises, as the reference's
+    meshed = ShardingPolicy(mesh=_Mesh(), model_axis="model")
+    assert shard_hint(x, meshed, "batch", None) is x
+    with pytest.raises(ValueError, match="rank mismatch"):
+        shard_hint(x, meshed, "batch")
+    # the layouts still to port name their item when run
+    fsdp = ShardingPolicy(mesh=_Mesh(), model_axis="model",
+                          fsdp_axes=("data",))
+    with pytest.raises(NotImplementedError, match="item 12b-1b"):
+        get_model(get_config(ARCH).reduced(), fsdp).loss_fn(None, None)
 
 
 # ---------------------------------------------------------------------------

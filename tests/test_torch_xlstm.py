@@ -123,7 +123,8 @@ def test_config_is_copied_field_for_field():
     assert cfg.family == "ssm" and cfg.citation == "arXiv:2405.04517"
     assert get_model(cfg.reduced()).prefill_fn is not None
     with pytest.raises(NotImplementedError, match="item 12"):
-        get_model(cfg, ShardingPolicy(mesh=object(), model_axis="model"))
+        get_model(cfg, ShardingPolicy(mesh=object(), model_axis="model")
+                  ).loss_fn(None, None)
 
 
 @pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
