@@ -11,7 +11,13 @@ Phases, in order; any failed check raises and ends the run non-zero
 (to make room for phase 28, every serving phase decodes 16 new tokens
 a request, not 32, every federated LM run takes 2 rounds, not 3, phase
 25 times the sLSTM loop at 1 x 128 only, and phase 27 runs one round
-of each mode):
+of each mode; so that the script ends well inside its 1200 s on a
+slower host too, phase 27 (c) runs at most 4 layers, not 18, phase 28
+serves at most 6 layers, not 36, and takes its gradient at most at 4,
+not 15, phase 29 runs 2 and 1 layers, not 4 and 2, phase 25 trains 4
+layers, not 8, phase 26 serves llava at 16 of 32 layers and cuts both
+families to 1 layer against the CPU, not 2, and every
+``launch/train.py`` run takes ``--batch-size 8``, not 32):
 
 1. card and toolchain (and both TF32 flags);
 2. build all eight kernel sources (``src/repro_torch/csrc/tpd.cu``,
@@ -200,8 +206,8 @@ of each mode):
     then one wave of full-width ``stablelm-3b`` (4 x 1024 tokens, 16 new
     tokens; hd 80 on the padded sm90 route, one launch a layer);
 23. federated LM rounds: ``launch.train.main`` on stablelm-1.6b
-    ``reduced()`` (pso, 7 clients, 2 rounds) on ``cuda``, exit 0 with
-    finite losses; then the batched engine (deterministic timing, 7
+    ``reduced()`` (pso, 7 clients, 2 rounds, batch 8) on ``cuda``, exit
+    0 with finite losses; then the batched engine (deterministic timing, 7
     clients, 2 rounds of pso) on ``cuda`` and on ``cpu`` from the same
     initial params for stablelm-1.6b and recurrentgemma-2b ``reduced()``
     at float32 compute: placements and TPDs exactly, losses within rtol
@@ -253,12 +259,12 @@ of each mode):
     through ``WaveScheduler(max_batch=4)`` (4 x 1024 tokens, 32 new
     each; the 4 x 2048 wave gave phase 26 its time): prefill and decode
     times, peak memory, no kernel launch, one request equal to its
-    batch-1 serial run, a decode step under ``torch.profiler``; (c) a 2-layer
-    full-width cut (one block of each kind), a 512-token prompt and 4
+    batch-1 serial run, a decode step under ``torch.profiler``; (c) a
+    2-layer full-width cut (one block of each kind), a 512-token prompt and 4
     decode steps, on ``cuda`` vs ``cpu``: float32 logits within 2e-4,
     bf16 greedy tokens by tests/test_serve_consistency.py's drift-band
-    rule; (d) ``TrainLoop`` on xlstm-1.3b at full width cut to 8 layers
-    (4 blocks of each kind), 2 steps of 1 x 2048
+    rule; (d) ``TrainLoop`` on xlstm-1.3b at full width cut to 4 layers
+    (2 blocks of each kind), 2 steps of 1 x 2048
     tokens, remat on, ``adamw``: finite losses, step times, peak
     memory, one fused AdamW launch a step and no other; a step of 1 x
     128 under ``torch.profiler`` (device busy share); the sLSTM loop
@@ -279,19 +285,19 @@ of each mode):
     (2e-2; the backward within 2e-2 of the gradients' scale), reruns
     bit-equal, then device times of the kernel, the plain version and
     SDPA beside the bound (a bidirectional pair count is S^2); (b)
-    full-width, full-depth llava-next-mistral-7b (7.24e9 f32 params,
-    bf16 compute) serving 8 requests through ``WaveScheduler(
+    full-width llava-next-mistral-7b (7.24e9 f32 params drawn, bf16
+    compute) at 16 of its 32 layers serving 8 requests through ``WaveScheduler(
     max_batch=4, frontend=...)`` behind one seeded 2880 x 4096 prefix
     (4 x 512 and 4 x 1024 text tokens, 3584 and 4096 after padding, 32
     new each): prefill and decode times, peak memory, one causal sm90
     flash launch a layer a wave, every request equal to its batch-1
-    serial decode, a decode step under ``torch.profiler``; (c) a 2-layer
+    serial decode, a decode step under ``torch.profiler``; (c) a 1-layer
     full-width cut, 1 x (2880 + 64) and 4 decode steps, on ``cuda`` vs
     ``cpu``: float32 logits within 1e-4, bf16 greedy tokens by the drift
     band; (d) full-width seamless-m4t-large-v2 (1.28e9 params) served
     the same way behind a 1024 x 1024 frontend (every request equal to
     its serial decode; 12 bidirectional and 12 causal flash launches a
-    wave), a 2 + 2-layer cut held to the CPU as (c), and 4 ``TrainLoop``
+    wave), a 1 + 1-layer cut held to the CPU as (c), and 4 ``TrainLoop``
     steps of 1 x 2048 text tokens, remat on: losses, step times, peak
     memory, launches by mask; (e) llava trained 2 steps of 1 x (2880 +
     1024) at the deepest full-width depth cut that leaves 10 GiB of the
@@ -323,7 +329,8 @@ of each mode):
     free (12 bytes a layer param and 8 of the others a rank) over
     4 ranks, tree (2, 1, 2, 4), ``sgd(0.05)``,
     2 local steps of 1 x 512 tokens a client, rounds hierarchical and
-    flat (a second hierarchical round was cut for phase 28's time);
+    flat (a second hierarchical round was cut for phase 28's time; at
+    most DIST_LM_LAYERS = 4 layers since phase 29);
     rank 0 then runs the host path on the card from the same init
     (held bit for bit) and, for each round, from the rank
     path's params before it: losses within rtol 1e-4, params within rtol
@@ -335,7 +342,8 @@ of each mode):
     spawned gloo ranks on the card (``models/transformer_tp.py``), with
     ``seq_shard`` off and then on, each rank holding its shards of the
     seeded init: (a) serving at the deepest depth whose ranks and whose
-    unsharded run each leave 10 GiB free (all 36 layers): the unsharded
+    unsharded run each leave 10 GiB free, at most TP_SERVE_LAYERS = 6
+    (all 36 fit; the cap is the script's time): the unsharded
     bf16 and float32 runs on the card first (one wave of 4 x 1024
     prompts, 8 greedy decode tokens; float32 fed bf16's tokens), then
     the ranks' prefill and the same 8 decode steps, their last-token
@@ -344,15 +352,46 @@ of each mode):
     rank; prefill time a wave, decode time a token, each's share in
     collectives, bytes a collective, peak memory a rank; (b) one
     gradient of 1 x 2048 (remat) at the deepest depth whose unsharded
-    step and whose ranks each leave 10 GiB free: the unsharded gradient
+    step and whose ranks each leave 10 GiB free, at most TP_GRAD_LAYERS
+    = 4 (15 fit): the unsharded gradient
     to shared host memory, then the ranks' loss within rtol 1e-3 of its,
     each leaf's gathered relative L2 error at most 2e-2, the norms'
     gradients bit-equal on every rank; step time and its collective
     share; (c) each rank holds 1/4 of every model-sharded leaf's bytes
     and all of the replicated ones, and launches the sm90 flash forward
     (and in (b) its backward) on its own 8 q and 2 kv heads (the
-    wrappers' ``heads`` counts); then the ``kernels`` JSON line (ten
-    kernels) and the final status line.
+    wrappers' ``heads`` counts);
+29. full-width granite-8b over data x model meshes of spawned gloo
+    ranks on the card (``models/transformer_tp.py`` with batch axes and
+    fsdp, ``fl/distributed.py`` over a model axis): (a) a (2, 2) mesh,
+    ``make_policy(mesh, fsdp=True, seq_shard=True)`` (the reference's
+    standard and prefill layout; granite-8b sets ``fsdp``): one prefill
+    wave of 4 x 1024 prompts (2 rows a data rank) at FSDP_SERVE_LAYERS
+    = 2 layers, then the same cut drawn again with fsdp off (the
+    decode layout) and 8 decode steps fed the unsharded bf16 run's
+    greedy tokens, the last-token logits within twice the unsharded
+    run's bf16-to-float32 gap, greedy tokens in it, equal on every rank;
+    two ``make_train_step`` steps of ``adamw()`` (clip 1.0) with remat
+    on a global batch of 2 x 2048 at FSDP_TRAIN_LAYERS = 1 layer: the
+    first loss within rtol 1e-4 of the unsharded bf16 step's, the
+    pre-clip global norm within 1e-3, each leaf of the first gradient
+    within twice the unsharded gradient's bf16 gap (read by CUDA IPC),
+    the norms bit-equal on every rank after both steps, a window of
+    2^22 elements at each end of every rank's flat buffer held bit for
+    bit to the plain AdamW each step; (b) a (4, 2) mesh, 4 clients of
+    2 model ranks, the reference's federated policy (model and seq
+    axis, no batch or fsdp axes), ``sgd(0.05)``, tree (2, 1, 2, 4) at
+    placement [1, 0], 1 x 512 tokens a client, at FL_TP_LAYERS = 1
+    layer: a warm-up round, then a round whose update (after minus
+    before, leaf by leaf) is held to the host path's from the same
+    params (written by the data-axis-0 ranks into the parent's buffers,
+    CUDA IPC) within twice the host path's bf16-to-float32 gap, every
+    rank's shards bit-equal along the data axis; prefill, decode, step
+    and round times, each's share in collectives, bytes a collective,
+    peak memory a rank, flash launches on each rank's 16 q and 4 kv
+    heads. The depths are set by the phase's time (each layer's fsdp
+    gather moves its float32 shard through gloo), not by memory. Then
+    the ``kernels`` JSON line (ten kernels) and the final status line.
 
 Each kernel's launch count is set to 0 just before the path that runs
 it and read just after: ``tpd`` over phase 5, ``fedavg_batched`` over
@@ -387,7 +426,11 @@ Fig. 3 ``shard="on"`` run and the host paths, under ``"phase 27"``.
 Phase 28's ranks count theirs over each path (the prefill and decode
 of a ``seq_shard`` setting, its gradient), summed over the ranks under
 ``"phase 28 (a) ..."`` and ``"phase 28 (b) ..."``; the unsharded
-reference runs are comparisons and are not counted.
+reference runs are comparisons and are not counted. Phase 29's ranks
+count theirs over the fsdp prefill, the decode, the training steps and
+the two federated rounds, summed over the ranks under ``"phase 29 (a)
+..."`` and ``"phase 29 (b) ..."``; the unsharded runs and the host
+path are comparisons and are not counted.
 """
 from __future__ import annotations
 
@@ -438,8 +481,13 @@ def check(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+_START = time.monotonic()
+
+
 def phase(title: str) -> None:
-    print(f"\n== {title} ==", flush=True)
+    """Print a phase's heading with the seconds since the script began,
+    so the log shows where the script's time goes."""
+    print(f"\n== {title} == [{time.monotonic() - _START:.1f} s]", flush=True)
 
 
 def card_line() -> str:
@@ -1567,7 +1615,9 @@ def training_phases(torch, np_, dev, card):
                          for k, v in cut_ds.batch(1, s).items()}
                 params, state, met = step_fn(params, state, batch)
                 losses.append(float(met["loss"]))
-            out[where] = (losses, flat_buffer_of(params).detach().cpu())
+            # compared on the card below: the host's float64 passes over
+            # ~1.7e9 elements took ~30 s a dtype
+            out[where] = (losses, flat_buffer_of(params).detach().to(dev))
             if where == "cuda":
                 cut_bwd[name] = dict(kflash.flash_attention_bwd.routes)
                 route, passes = bwd_routes[name]
@@ -1578,7 +1628,7 @@ def training_phases(torch, np_, dev, card):
                   f"{time.perf_counter() - t0:.1f} s")
             del params, state, opt, step_fn
         (l_dev, p_dev), (l_cpu, p_cpu) = out["cuda"], out["cpu"]
-        p0 = flat_buffer_of(flat_params(cut_cpu)).detach()
+        p0 = flat_buffer_of(flat_params(cut_cpu)).detach().to(dev)
         gap2 = moved2 = worst = 0.0
         far = 0
         for lo in range(0, p0.numel(), PLAIN_CHUNK):       # bounded temporaries
@@ -1603,7 +1653,8 @@ def training_phases(torch, np_, dev, card):
         if name in CUT_OUTSIDE:
             check(far <= CUT_OUTSIDE[name], f"depth cut {name}: {far} of the "
                                             f"params outside tolerance")
-        del out, p_dev, p_cpu, p0, m
+        del out, p_dev, p_cpu, p0, m, a, b, z, d
+        torch.cuda.empty_cache()
     del cut_cpu
 
     # ---- 17. timings ---------------------------------------------------------
@@ -2394,6 +2445,9 @@ PADDED_PROMPTS, PADDED_NEW_TOKENS = (1024, 4), 16
 FL_ARCHS = ("stablelm-1.6b", "recurrentgemma-2b")   # reduced(), float32
 # 2 federated rounds (a third was cut to make room for phase 28)
 FL_CLIENTS, FL_ROUNDS, FL_LOCAL_STEPS, FL_BATCH, FL_SEQ = 7, 2, 2, 2, 16
+# launch/train.py's --batch-size: its default 32 took 19-23 s a family on
+# the reduced models, whose host issue (a product a sequence) binds
+FL_TRAIN_BATCH = 8
 
 
 def kernel_counts(kflash, krglru, kfedavg, ktpd, kadamw):
@@ -2713,7 +2767,8 @@ def dense_phases(torch, np_, dev, card):
     t0 = time.perf_counter()
     code = train_main(["--arch", "stablelm-1.6b", "--strategy", "pso",
                        "--clients", str(FL_CLIENTS), "--rounds",
-                       str(FL_ROUNDS), "--out", str(out_json)], device=dev)
+                       str(FL_ROUNDS), "--batch-size", str(FL_TRAIN_BATCH),
+                       "--out", str(out_json)], device=dev)
     sync()
     train_s = time.perf_counter() - t0
     record = json.loads(out_json.read_text())
@@ -3177,7 +3232,8 @@ def moe_phases(torch, np_, dev, card):
     out_json.parent.mkdir(parents=True, exist_ok=True)
     zero_counts(*counters)            # the counts to 0 just before the path
     code = train_main(["--arch", MOE_ARCH, "--strategy", "pso", "--clients",
-                       str(FL_CLIENTS), "--rounds", str(FL_ROUNDS), "--out",
+                       str(FL_CLIENTS), "--rounds", str(FL_ROUNDS),
+                       "--batch-size", str(FL_TRAIN_BATCH), "--out",
                        str(out_json)], device=dev)
     sync()
     by_train = kernel_counts(*counters)   # read just after
@@ -3377,10 +3433,11 @@ XLSTM_PROFILE_TRIES = 3                 # (a): profiles a stage at most
 XLSTM_CUT_LAYERS = 2                    # (c): one mLSTM, one sLSTM block
 XLSTM_CUT_PROMPT = 512                  # (c): two chunks of 256
 XLSTM_TRAIN_STEPS, XLSTM_TRAIN_TOKENS = 2, 2048
-# (d) trains a full-width depth cut, 4 mLSTM and 4 sLSTM blocks: the
+# (d) trains a full-width depth cut, 2 mLSTM and 2 sLSTM blocks: the
 # full 48 (41-48 s a step, the sLSTM loop's host issue) left phase 27
-# no time in the script's limit
-XLSTM_TRAIN_LAYERS = 8
+# no time in the script's limit, and 8 (8.5-8.9 s a step) left the
+# script too little room under its limit on a slower host
+XLSTM_TRAIN_LAYERS = 4
 XLSTM_PROFILE_TOKENS = 128              # (d): the step under the profiler
 # float32, card vs host: (a) one block's output and final state (the
 # H100 read 4.9e-4 at most, on the sLSTM's n of scale 21), (c) the cut's
@@ -3849,7 +3906,8 @@ def xlstm_phases(torch, np_, dev, card):
     zero_counts(*counters)            # the counts to 0 just before the path
     code = train_main(["--arch", XLSTM_ARCH, "--strategy", "pso",
                        "--clients", str(FL_CLIENTS), "--rounds",
-                       str(FL_ROUNDS), "--out", str(out_json)], device=dev)
+                       str(FL_ROUNDS), "--batch-size", str(FL_TRAIN_BATCH),
+                       "--out", str(out_json)], device=dev)
     sync()
     by_train = kernel_counts(*counters)   # read just after
     record = json.loads(out_json.read_text())
@@ -3927,7 +3985,12 @@ AUDIO_ARCH = "seamless-m4t-large-v2"
 # 1024 tokens pads to 3584 or 4096; seamless's text follows 1024 frames
 MM_PROMPTS = ((512, 4), (1024, 4))
 MM_NEW_TOKENS = SERVE_NEW_TOKENS
-MM_CUT_LAYERS = 2                       # (c), (d): the depth cuts
+# (c), (d): the depth cuts against the CPU (2 took the host 31.1 s for
+# llava's two dtypes)
+MM_CUT_LAYERS = 1
+# (b) serves llava at a depth cut of the drawn params: all 32 layers
+# (with the 8 serial runs, 27-31 s) left the script too little room
+VLM_SERVE_LAYERS = 16
 MM_CUT_PROMPT = 64                      # text tokens of a cut's prefill
 MM_CUT_BATCH = {VLM_ARCH: 1, AUDIO_ARCH: 2}
 AUDIO_TRAIN_STEPS, AUDIO_TRAIN_TOKENS = 4, 2048
@@ -4243,7 +4306,7 @@ def vlm_audio_phases(torch, np_, dev, card):
         errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], b_err)
     mark("a")
 
-    # ---- (b) llava-next-mistral-7b uncut, served --------------------------
+    # ---- (b) llava-next-mistral-7b drawn uncut, served at a cut ----------
     cfg = get_config(VLM_ARCH)
     model = get_model(cfg)
     t0 = time.perf_counter()
@@ -4263,20 +4326,28 @@ def vlm_audio_phases(torch, np_, dev, card):
           f"{cfg.frontend_dim} stub prefix; {n_params} f32 params "
           f"({n_params * 4 / 1e9:.2f} GB) drawn on the card in "
           f"{time.perf_counter() - t0:.2f} s")
-    vlm_serving, modes = mm_serve(torch, np_, model, params, front, prompts,
-                                  dev, card, f"(b) {VLM_ARCH}", counters)
+    srv_cfg = cfg.replace(n_layers=VLM_SERVE_LAYERS)
+    srv_model = get_model(srv_cfg)
+    srv_params = dict(params, layers=tree_map(
+        lambda x: x[:VLM_SERVE_LAYERS], params["layers"]))
+    print(f"(b) {VLM_ARCH} served at {VLM_SERVE_LAYERS} of {cfg.n_layers} "
+          f"layers")
+    vlm_serving, modes = mm_serve(torch, np_, srv_model, srv_params, front,
+                                  prompts, dev, card, f"(b) {VLM_ARCH}",
+                                  counters)
     waves = len(MM_PROMPTS)
-    check(vlm_serving["flash_attention"] == cfg.n_layers * waves
+    check(vlm_serving["flash_attention"] == srv_cfg.n_layers * waves
           and vlm_serving["flash_attention_f32"] == 0
-          and modes[0] == {"causal": cfg.n_layers * waves},
+          and modes[0] == {"causal": srv_cfg.n_layers * waves},
           f"(b) flash launches {vlm_serving} {modes}, expected "
-          f"{cfg.n_layers} causal per prefill x {waves} on "
+          f"{srv_cfg.n_layers} causal per prefill x {waves} on "
           f"{kflash.SM90_SOURCE.stem} only")
-    decode_profile(torch, np_, model, params, prompts[:SERVE_MAX_BATCH], dev,
+    decode_profile(torch, np_, srv_model, srv_params,
+                   prompts[:SERVE_MAX_BATCH], dev,
                    card, frontend=front)
     mark("b")
 
-    # ---- (c) a 2-layer full-width cut against the CPU ---------------------
+    # ---- (c) a full-width depth cut against the CPU ----------------------
     cut = cfg.replace(n_layers=MM_CUT_LAYERS)
     p_cut = dict(params, layers=tree_map(lambda x: x[:MM_CUT_LAYERS],
                                          params["layers"]))
@@ -4288,7 +4359,7 @@ def vlm_audio_phases(torch, np_, dev, card):
     fe = torch.as_tensor(front).expand(b_cut, -1, -1).contiguous()
     mm_cut_check(torch, get_model, cut, p_cut, p_cpu, toks, fe,
                  DENSE_CUT_STEPS, dev, f"(c) {VLM_ARCH}")
-    del p_cut, p_cpu, params, model
+    del p_cut, p_cpu, params, model, srv_params, srv_model
     torch.cuda.empty_cache()
     mark("c")
 
@@ -4453,6 +4524,7 @@ def vlm_audio_phases(torch, np_, dev, card):
         out_json.parent.mkdir(parents=True, exist_ok=True)
         code = train_main(["--arch", arch, "--strategy", "pso", "--clients",
                            str(FL_CLIENTS), "--rounds", str(FL_ROUNDS),
+                           "--batch-size", str(FL_TRAIN_BATCH),
                            "--out", str(out_json)], device=dev)
         record = json.loads(out_json.read_text())
         losses[arch] = [r["loss"] for r in record["rounds"]]
@@ -4582,6 +4654,10 @@ DIST_LM_OUTSIDE = 1e-5             # share of params allowed outside it
 DIST_FREE_BYTES = 10 * 2 ** 30     # what the ranks leave free on the card
 DIST_MARGIN_BYTES = 2 ** 30        # the depth rule's slack: pools, fragments
 DIST_WORLD_TIMEOUT_S = 400
+# (c)'s depth cap for the script's time: 18 layers, the memory's
+# deepest, took 11.6-16.6 s a tree level on an H100 80GB HBM3 at 700 W,
+# and 9 left the script too little room under its limit
+DIST_LM_LAYERS = 4
 
 
 def _rank_setup(torch, device):
@@ -4828,8 +4904,9 @@ def lm_rank_bytes(cfg) -> int:
     return 12 * layer * cfg.n_layers + 8 * other + logits + 6 * 2 ** 30 // 10
 
 
-def lm_depth(torch, cfg, ranks):
-    """The deepest cut of ``cfg`` whose ``ranks`` leave DIST_FREE_BYTES
+def lm_depth(torch, cfg, ranks, max_layers=None):
+    """The deepest cut of ``cfg``, of at most ``max_layers`` layers, whose
+    ``ranks`` leave DIST_FREE_BYTES
     of the card free, by :func:`lm_rank_bytes`, this process's use of
     the card standing for a rank's CUDA context, and DIST_MARGIN_BYTES
     of slack for the ranks' pools above their tensors. Returns (the cut,
@@ -4837,7 +4914,8 @@ def lm_depth(torch, cfg, ranks):
     free, total = torch.cuda.mem_get_info()
     held = total - free
     context = held - torch.cuda.memory_reserved()
-    for layers in range(cfg.n_layers, 0, -1):
+    for layers in range(min(cfg.n_layers, max_layers or cfg.n_layers), 0,
+                        -1):
         cut = cfg.replace(n_layers=layers)
         rank = lm_rank_bytes(cut)
         need = ranks * (rank + context) + held
@@ -5049,13 +5127,15 @@ def distributed_phases(torch, np_, card):
     torch.cuda.empty_cache()
     lm = get_config(DIST_LM_ARCH)
     h = Hierarchy(*DIST_LM_TREE[:3], n_clients=DIST_LM_TREE[3])
-    cut, need, parts = lm_depth(torch, lm, DIST_LM_RANKS)
+    cut, need, parts = lm_depth(torch, lm, DIST_LM_RANKS,
+                                max_layers=DIST_LM_LAYERS)
     placement = pso_placement(h)
     gib = {k: round(v / 2**30, 3) for k, v in parts.items()}
     print(f"(c) {DIST_LM_ARCH} at full width (d_model {lm.d_model}, "
           f"{lm.n_heads} heads of {lm.resolved_head_dim}, d_ff {lm.d_ff}, "
           f"vocab {lm.vocab_size}), {cut.n_layers} of {lm.n_layers} layers: "
-          f"the deepest whose {DIST_LM_RANKS} ranks leave "
+          f"at most {DIST_LM_LAYERS}, the deepest whose {DIST_LM_RANKS} "
+          f"ranks leave "
           f"{DIST_FREE_BYTES / 2**30:.0f} GiB of the card free (GiB: "
           f"{json.dumps(gib)}; "
           f"{need / 2**30:.1f} GiB estimated in all); tree {DIST_LM_TREE}, "
@@ -5153,6 +5233,11 @@ TP_GRAD_REL_L2 = 2e-2              # (b): the gradient's rel L2 asked for
 # roundings of one float32 gradient lie within twice its gap)
 TP_GRAD_BAND = 2.0
 TP_FREE_BYTES = 10 * 2 ** 30       # what phase 28 leaves free on the card
+# depth caps for the script's time: serving ran all 36 layers (46-64 s
+# of phase 28's 108-116 s on an H100 80GB HBM3 at 700 W), the gradient
+# 15; 12 and 8 (phase 28 54-62 s) left the script too little room
+TP_SERVE_LAYERS = 6
+TP_GRAD_LAYERS = 4
 TP_WORLD_TIMEOUT_S = 600
 TP_CHUNK = 2 ** 26                 # elements a comparison moves at once
 
@@ -5216,15 +5301,18 @@ def tp_grad_bytes(cfg, ranks) -> int:
     return params + logits + work + 2 ** 30
 
 
-def tp_depth(torch, cfg, per_process, ranks, context, kept=lambda cut: 0):
-    """The deepest cut of ``cfg`` whose unsharded run in this process and
-    whose ``ranks`` (each ``per_process(cut, ranks)`` plus a CUDA
-    context, beside ``kept(cut)`` bytes this process keeps for them)
-    each leave TP_FREE_BYTES of the card free. Returns (cut, {"parent",
-    "ranks"}: bytes estimated)."""
+def tp_depth(torch, cfg, per_process, ranks, context, kept=lambda cut: 0,
+             max_layers=None):
+    """The deepest cut of ``cfg``, of at most ``max_layers`` layers,
+    whose unsharded run in this process and whose ``ranks`` (each
+    ``per_process(cut, ranks)`` plus a CUDA context, beside
+    ``kept(cut)`` bytes this process keeps for them) each leave
+    TP_FREE_BYTES of the card free. Returns (cut, {"parent", "ranks"}:
+    bytes estimated)."""
     free, total = torch.cuda.mem_get_info()
     held = total - free
-    for layers in range(cfg.n_layers, 0, -1):
+    for layers in range(min(cfg.n_layers, max_layers or cfg.n_layers),
+                        0, -1):
         cut = cfg.replace(n_layers=layers)
         need = {"parent": held + per_process(cut, 1),
                 "ranks": held + kept(cut)
@@ -5270,6 +5358,50 @@ def _collective_ms(traffic) -> float:
     return sum(row[2] for row in traffic.values()) * 1e3
 
 
+def _world_check_equal(torch, x, group=None) -> bool:
+    """Whether every rank of ``group`` (None: the world) holds the same
+    bits of the 1-D ``x``."""
+    import torch.distributed as dist
+
+    from repro_torch.fl.distributed import bits_checksum
+    check_ = bits_checksum(x.reshape(-1))
+    lo, hi = check_.clone(), check_.clone()
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+    return int(lo) == int(hi)
+
+
+def _leaf(tree, path):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+NORM_PATHS = ("layers/ln1/scale", "layers/ln2/scale", "ln_f/scale")
+
+
+def _rel_l2_sharded(torch, g, want, spec, mesh, dev) -> float:
+    """The relative L2 error of the global leaf whose shard ``g`` this
+    rank holds against ``want`` (this rank's part of the reference leaf,
+    a view; ``spec`` the leaf's), float64, a slab of the leading dim at
+    a time; the ranks' sums are added where ``spec`` splits the leaf
+    (a shard held on several ranks adds to both sums alike)."""
+    import torch.distributed as dist
+    sums = torch.zeros(2, dtype=torch.float64, device=dev)
+    pairs = zip(g.unbind(0), want.unbind(0)) if g.dim() == 3 \
+        else [(g.reshape(1, -1) if g.dim() == 1 else g,
+               want.reshape(1, -1) if want.dim() == 1 else want)]
+    for gl, wl in pairs:
+        step = max(1, TP_CHUNK // gl.shape[-1])
+        for i in range(0, gl.shape[0], step):
+            w = wl[i:i + step].to(dev, torch.float64)
+            sums[0] += (gl[i:i + step].double() - w).square().sum()
+            sums[1] += w.square().sum()
+    if any(a is not None for a in spec):
+        dist.all_reduce(sums)
+    return float((sums[0] / sums[1].clamp_min(1e-300)).sqrt())
+
+
 def tp_rank(rank, world, spec):
     """Phase 28, one rank of the (1, world) data x model mesh on the one
     card: (a) this rank's shards of the seeded serving cut, one wave's
@@ -5283,7 +5415,6 @@ def tp_rank(rank, world, spec):
     import torch
     import torch.distributed as dist
 
-    from repro_torch.fl.distributed import bits_checksum
     from repro_torch.launch.mesh import RankMesh
     from repro_torch.models import get_model, make_policy
     from repro_torch.utils.trees import tree_flatten, tree_map_with_path
@@ -5398,37 +5529,14 @@ def tp_rank(rank, world, spec):
         heads = {"fwd": dict(kflash.flash_attention.heads),
                  "bwd": dict(kflash.flash_attention_bwd.heads)}
         top = peak()
-        errs, norms_equal = {}, True
+        errs = {}
         tree = rebuild(list(grads))
 
-        def compare(path, g, spec_, ref_full):
-            # this rank's part of the reference leaf (a view), a slab
-            # of the leading dim at a time
-            want = tp_view(ref_full, spec_, mesh)
-            sums = torch.zeros(2, dtype=torch.float64, device=dev)
-            pairs = zip(g.unbind(0), want.unbind(0)) if g.dim() == 3 \
-                else [(g.reshape(1, -1) if g.dim() == 1 else g,
-                       want.reshape(1, -1) if want.dim() == 1 else want)]
-            for gl, wl in pairs:
-                step = max(1, TP_CHUNK // gl.shape[-1])
-                for i in range(0, gl.shape[0], step):
-                    w = wl[i:i + step].to(dev, torch.float64)
-                    sums[0] += (gl[i:i + step].double() - w).square().sum()
-                    sums[1] += w.square().sum()
-            if "model" in spec_:
-                dist.all_reduce(sums)
-            errs[path] = float((sums[0] / sums[1].clamp_min(1e-300)).sqrt())
-
-        tree_map_with_path(compare, tree, specs, ref)
-        for path in ("layers/ln1/scale", "layers/ln2/scale", "ln_f/scale"):
-            leaf = tree
-            for k in path.split("/"):
-                leaf = leaf[k]
-            check = bits_checksum(leaf.reshape(-1))
-            lo, hi = check.clone(), check.clone()
-            dist.all_reduce(lo, op=dist.ReduceOp.MIN)
-            dist.all_reduce(hi, op=dist.ReduceOp.MAX)
-            norms_equal &= int(lo) == int(hi)
+        tree_map_with_path(lambda path, g, spec_, ref_full: errs.__setitem__(
+            path, _rel_l2_sharded(torch, g, tp_view(ref_full, spec_, mesh),
+                                  spec_, mesh, dev)), tree, specs, ref)
+        norms_equal = all(_world_check_equal(torch, _leaf(tree, path))
+                          for path in NORM_PATHS)
         out["grad"].append({"seq": seq, "loss": float(loss.detach()),
                             "step_s": step_s, "coll_ms": coll,
                             "bytes": {k: v[1] for k, v in
@@ -5467,18 +5575,20 @@ def tensor_parallel_phases(torch, np_, card):
     full = get_config(TP_ARCH)
     context = 600 * 2 ** 20        # a rank's CUDA context and gloo buffers
     serve_cfg, serve_need = tp_depth(torch, full, tp_serve_bytes, TP_RANKS,
-                                     context)
+                                     context, max_layers=TP_SERVE_LAYERS)
     # the unsharded gradient stays on the card, read by the ranks
     grad_cfg, grad_need = tp_depth(torch, full, tp_grad_bytes, TP_RANKS,
                                    context, lambda c: 4 * (tp_layer_params(c) * c.n_layers
                                                 + 2 * c.padded_vocab
-                                                * c.d_model))
+                                                * c.d_model),
+                                   max_layers=TP_GRAD_LAYERS)
     gib = lambda d: {k: round(v / 2 ** 30, 2) for k, v in d.items()}
     print(f"(a) serving at {serve_cfg.n_layers} of {full.n_layers} layers "
-          f"(GiB estimated: {json.dumps(gib(serve_need))}); (b) the "
-          f"gradient at {grad_cfg.n_layers} layers, the deepest whose "
-          f"unsharded step, and whose {TP_RANKS} ranks beside that "
-          f"gradient, each leave {TP_FREE_BYTES / 2**30:.0f} GiB free (GiB "
+          f"(at most {TP_SERVE_LAYERS}; GiB estimated: "
+          f"{json.dumps(gib(serve_need))}); (b) the gradient at "
+          f"{grad_cfg.n_layers} layers, at most {TP_GRAD_LAYERS} and the "
+          f"deepest whose unsharded step, and whose {TP_RANKS} ranks beside "
+          f"that gradient, each leave {TP_FREE_BYTES / 2**30:.0f} GiB free (GiB "
           f"estimated: {json.dumps(gib(grad_need))}) [{card}]")
 
     # ---- the unsharded references on the card ---------------------------
@@ -5689,6 +5799,588 @@ def tensor_parallel_phases(torch, np_, card):
     print(f"phase 28 took {time.perf_counter() - phase_t0:.1f} s [{card}]")
     return {k: {f"phase 28 {p}": c[k] for p, c in paths.items()}
             for k in r0["serve"][0]["counts"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 29: granite-8b over a data x model mesh: fsdp, and federated
+# rounds of tensor-parallel clients
+# ---------------------------------------------------------------------------
+FSDP_DIMS = (2, 2)                 # (a): ("data", "model")
+FSDP_WAVE = (4, 1024)              # (a): one prefill wave, 2 rows a data rank
+FSDP_NEW_TOKENS = 8                # (a): greedy decode steps, fsdp off
+FSDP_TRAIN = (2, 2048)             # (a): the global batch, 1 row a data rank
+FSDP_STEPS = 2                     # (a): make_train_step steps, adamw()
+# (a) the depth cuts: the time budget binds, not memory (each layer's
+# fsdp gather moves its f32 shard through gloo, 1-2 s at its 0.2-0.5
+# GB/s, three times a layer a training step with remat); at 4 and 2
+# the phase took 105-129 s of its 120
+FSDP_SERVE_LAYERS = 2
+FSDP_TRAIN_LAYERS = 1
+FSDP_LOSS_RTOL = 1e-4
+FSDP_NORM_RTOL = 1e-3
+FSDP_WINDOW = 2 ** 22              # (a): AdamW elements held at each end
+FL_TP_DIMS = (4, 2)                # (b): 4 clients of 2 model ranks
+FL_TP_TREE = (2, 1, 2, 4)          # (b): phase 27's tree
+FL_TP_TOKENS = 512                 # (b): 1 x 512 a client a local step
+FL_TP_LAYERS = 1                   # (b): the depth cut (time, as (a))
+FL_TP_BAND = 2.0                   # (b): times the host path's bf16 gap
+
+
+def fsdp_rank(rank, world, spec):
+    """Phase 29 (a), one rank of the FSDP_DIMS data x model mesh on the
+    one card: its shards of the seeded serving cut with fsdp on
+    (``make_policy(mesh, fsdp=True, seq_shard=True)``, the reference's
+    prefill layout) and one wave's prefill; the same cut drawn again
+    with fsdp off (the decode layout) and FSDP_NEW_TOKENS decode steps
+    fed the reference's greedy tokens; then FSDP_STEPS steps of
+    ``make_train_step`` with ``adamw()`` on the training cut, fsdp on:
+    the first step's gradient held leaf by leaf to the reference
+    gradient (shared by CUDA IPC) and its pre-clip global norm, a window
+    at each end of the rank's flat buffer held to the plain AdamW each
+    step, the norms bit-equal on every rank after the steps."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.ref import fused_adamw_ref
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.models import get_model, make_policy
+    from repro_torch.models.api import flat_params, make_train_step
+    from repro_torch.optim import Optimizer, adamw
+    from repro_torch.optim.optimizers import global_norm
+    from repro_torch.utils.trees import flat_buffer_of, tree_map_with_path
+
+    dev = torch.device(spec.get("device", "cuda"))
+    _rank_setup(torch, dev)
+    counters = _counters()
+    kflash = counters[0]
+    mesh = RankMesh(FSDP_DIMS, ("data", "model"), device=dev)
+    mesh.timed = True
+    on_card = dev.type == "cuda"
+    out = {}
+
+    def sync():
+        _sync(torch, dev)
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if on_card else 0
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def traffic():
+        return {k: {"calls": v[0], "bytes": v[1], "ms": v[2] * 1e3}
+                for k, v in mesh.traffic.items()}
+
+    # ---- prefill, fsdp on --------------------------------------------------
+    cfg = spec["serve_cfg"]
+    model = get_model(cfg, make_policy(mesh, fsdp=cfg.fsdp, seq_shard=True))
+    params = model.init(torch.Generator(dev).manual_seed(SEED), dev)
+    prompts = torch.as_tensor(spec["prompts"], device=dev)
+    zero_counts(*counters)
+    mesh.traffic.clear()
+    reset_peak()
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, state = model.prefill_fn(params, {"tokens": prompts})
+    sync()
+    prefill = {"s": time.perf_counter() - t0, "traffic": traffic(),
+               "counts": kernel_counts(*counters),
+               "heads": dict(kflash.flash_attention.heads), "peak": peak(),
+               "cache": tuple(state["cache"]["k"].shape)}
+    steps = [logits.float().cpu()]
+    del params, model
+    # ---- decode, fsdp off --------------------------------------------------
+    model = get_model(cfg, make_policy(mesh, seq_shard=True))
+    params = model.init(torch.Generator(dev).manual_seed(SEED), dev)
+    zero_counts(*counters)
+    mesh.traffic.clear()
+    reset_peak()
+    step_ms = []
+    with torch.no_grad():
+        for j in range(FSDP_NEW_TOKENS):
+            sync()
+            t1 = time.perf_counter()
+            logits, state = model.decode_fn(params, state, {
+                "token": torch.as_tensor(spec["tokens"][:, j:j + 1],
+                                         device=dev)})
+            sync()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            steps.append(logits.float().cpu())
+    decode = {"step_ms": step_ms, "traffic": traffic(),
+              "counts": kernel_counts(*counters), "peak": peak()}
+    if rank == 0:
+        print(f"(a) rank 0: prefill {prefill['s']:.3f} s, decode "
+              f"{statistics.median(step_ms):.1f} ms a token", flush=True)
+    out["serve"] = {"logits": torch.stack(steps).numpy(),
+                    "prefill": prefill, "decode": decode}
+    del params, model, state, logits
+    if on_card:
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    # ---- training, fsdp on -------------------------------------------------
+    cfg = spec["train_cfg"]
+    model = get_model(cfg, make_policy(mesh, fsdp=cfg.fsdp, seq_shard=True))
+    specs = model.param_pspecs()
+    params = flat_params(model.init(torch.Generator(dev).manual_seed(SEED),
+                                    dev))
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in spec["train_batch"].items()}
+    inner = adamw()
+    rec = {"check_s": 0.0, "adamw_same": [], "errs": {}}
+
+    def update(p, g, state, **kw):
+        """adamw's update; the first step's gradient is held to the
+        reference first, and a window at each end of the flat buffer is
+        held to the plain AdamW on every step (the checks' time kept
+        apart from the step's)."""
+        t_check = time.perf_counter()
+        step = int(state.step) + 1
+        if step == 1:
+            rec["norm"] = float(global_norm(g, kw["shards"]))
+
+            tree_map_with_path(
+                lambda path, leaf, spec_, ref_full: rec["errs"].__setitem__(
+                    path, _rel_l2_sharded(torch, leaf, tp_view(
+                        ref_full, spec_, mesh), spec_, mesh, dev)),
+                g, specs, spec["ref_grads"])
+        flat = flat_buffer_of(p)
+        n = flat.numel()
+        wins = [slice(0, min(FSDP_WINDOW, n)), slice(max(n - FSDP_WINDOW, 0), n)]
+        before = [[flat_buffer_of(t)[w].clone() for t in (p, state.mu,
+                                                           state.nu)]
+                  for w in wins]
+        sync()
+        rec["check_s"] += time.perf_counter() - t_check
+        p, state = inner.update(p, g, state, **kw)
+        t_check = time.perf_counter()
+        same = True
+        for w, (p0, m0, v0) in zip(wins, before, strict=True):
+            want = fused_adamw_ref(p0, flat_buffer_of(g)[w].clone(), m0, v0,
+                                   3e-4, *adamw_scalars(np, step))
+            got = [flat_buffer_of(t)[w] for t in (p, state.mu, state.nu)]
+            same &= all(torch.equal(a, b) for a, b in zip(got, want))
+        rec["adamw_same"].append(same)
+        sync()
+        rec["check_s"] += time.perf_counter() - t_check
+        return p, state
+
+    step_fn = make_train_step(model, Optimizer(init=inner.init,
+                                               update=update))
+    state = inner.init(params)
+    zero_counts(*counters)
+    mesh.traffic.clear()
+    reset_peak()
+    train = {"steps": [], "losses": []}
+    for _ in range(FSDP_STEPS):
+        rec["check_s"] = 0.0
+        before_traffic = {k: list(v) for k, v in mesh.traffic.items()}
+        sync()
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, batch)
+        sync()
+        wall = time.perf_counter() - t0
+        coll = sum(v[2] - before_traffic.get(k, [0, 0, 0.0])[2]
+                   for k, v in mesh.traffic.items())
+        train["steps"].append({"s": wall - rec["check_s"],
+                               "check_s": rec["check_s"],
+                               "coll_s": coll})
+        train["losses"].append(float(metrics["loss"]))
+    train.update(traffic=traffic(), counts=kernel_counts(*counters),
+                 heads={"fwd": dict(kflash.flash_attention.heads),
+                        "bwd": dict(kflash.flash_attention_bwd.heads)},
+                 peak=peak(), norm=rec["norm"], errs=rec["errs"],
+                 adamw_same=rec["adamw_same"])
+    train["norms_equal"] = all(
+        _world_check_equal(torch, _leaf(params, path).detach())
+        for path in NORM_PATHS)
+    out["train"] = train
+    if rank == 0:
+        print(f"(a) rank 0: steps {[round(s['s'], 3) for s in train['steps']]}"
+              f" s", flush=True)
+    return out
+
+
+def fl_tp_rank(rank, world, spec):
+    """Phase 29 (b), one rank of the FL_TP_DIMS data x model mesh on the
+    one card: ``FLTrainStep`` with the reference's federated policy
+    (model and seq axis, no batch or fsdp axes) and ``sgd``, a warm-up
+    round, then the round held to the host path: the data-axis-0 ranks
+    write their shards before and after it into the parent's buffers
+    (CUDA IPC); every rank's shards after it are checked bit-equal
+    along the data axis."""
+    import torch
+
+    from repro_torch.core.hierarchy import Hierarchy
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.fl.distributed import FLTrainStep
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.models import ShardingPolicy, get_model
+    from repro_torch.optim import sgd
+    from repro_torch.utils.trees import flat_buffer_of, tree_map_with_path
+
+    dev = torch.device(spec.get("device", "cuda"))
+    _rank_setup(torch, dev)
+    counters = _counters()
+    kflash = counters[0]
+    mesh = RankMesh(FL_TP_DIMS, ("data", "model"), device=dev)
+    cfg = spec["cfg"]
+    model = get_model(cfg, ShardingPolicy(mesh=mesh, model_axis="model",
+                                          seq_axis="model"))
+    specs = model.param_pspecs()
+    h = Hierarchy(*FL_TP_TREE[:3], n_clients=FL_TP_TREE[3])
+    fl = FLTrainStep(model, sgd(DIST_FL_LR), h, spec["placement"],
+                     local_steps=1, mode="hierarchical")
+    t0 = time.perf_counter()
+    params, state = fl.init_stacked(torch.Generator(dev).manual_seed(SEED))
+    _sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    ds = make_federated_dataset(cfg, h.total_clients, SEED, FL_TP_TOKENS)
+    round_fn = fl.make_round_fn()
+    peak = _peak_reset(torch, dev)
+    zero_counts(*counters)
+    first = mesh.axis_index("data") == 0
+
+    def keep(into):
+        if first:
+            tree_map_with_path(
+                lambda path, x, spec_, buf: tp_view(buf, spec_, mesh).copy_(x),
+                params, specs, into)
+            _sync(torch, dev)
+
+    rounds = []
+    for r in range(2):                      # a warm-up, then the round
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                 ds.client_batch(fl.client_index, 1, r).items()}
+        if r == 1:
+            keep(spec["before"])
+            mesh.timed = True
+            mesh.traffic.clear()
+        stats = []
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        params, state, metrics = round_fn(params, state, batch, stats=stats)
+        _sync(torch, dev)
+        rounds.append({"s": time.perf_counter() - t0, "stats": stats,
+                       "loss": float(metrics["loss"])})
+    keep(spec["after"])
+    equal = _world_check_equal(torch, flat_buffer_of(params),
+                               mesh.axis_group("data"))
+    if rank == 0:
+        print(f"(b) rank 0: rounds {[round(x['s'], 3) for x in rounds]} s",
+              flush=True)
+    return {"rounds": rounds, "init_s": init_s, "equal": equal,
+            "counts": kernel_counts(*counters),
+            "heads": {"fwd": dict(kflash.flash_attention.heads),
+                      "bwd": dict(kflash.flash_attention_bwd.heads)},
+            "peak": peak()[0], "client": fl.client_index,
+            "traffic": {k: v[:] for k, v in mesh.traffic.items()}}
+
+
+def data_model_phases(torch, np_, card, device="cuda"):
+    """Phase 29: full-width granite-8b over a data x model mesh of
+    spawned gloo ranks on the one card: (a) fsdp over the data axis
+    beside the model axis (prefill, decode with fsdp off, two AdamW
+    steps) against the unsharded runs at the same cuts, (b) federated
+    rounds of tensor-parallel clients against the host path. Returns
+    {kernel name: {path: launches}}."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.hierarchy import Hierarchy
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.fl.distributed import FLTrainStep
+    from repro_torch.launch.world import run_world
+    from repro_torch.models import get_model
+    from repro_torch.optim import sgd
+    from repro_torch.utils.trees import (
+        flat_buffer_of,
+        tree_flatten,
+        tree_global_norm,
+        tree_map,
+        tree_map_with_path,
+    )
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    counters = _counters()
+    phase_t0 = time.perf_counter()
+
+    def sync():
+        _sync(torch, dev)
+
+    def free_card():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    phase(f"29. full-width {TP_ARCH} over data x model meshes of gloo ranks "
+          f"on the card: (a) fsdp on {FSDP_DIMS}, (b) federated rounds of "
+          f"tensor-parallel clients on {FL_TP_DIMS}")
+    # the CPU rehearses the phase on the reduced config
+    full = get_config(TP_ARCH) if on_card \
+        else get_config(TP_ARCH).reduced().replace(fsdp=True)
+    serve_cfg, train_cfg, fl_cfg = (
+        full.replace(n_layers=min(n, full.n_layers))
+        for n in (FSDP_SERVE_LAYERS, FSDP_TRAIN_LAYERS, FL_TP_LAYERS))
+    print(f"(a) {TP_ARCH} (d_model {full.d_model}, {full.n_heads} q and "
+          f"{full.n_kv_heads} kv heads of {full.resolved_head_dim}, d_ff "
+          f"{full.d_ff}, vocab {full.vocab_size}, fsdp={full.fsdp}): "
+          f"serving at {serve_cfg.n_layers} layers, training at "
+          f"{train_cfg.n_layers}; (b) {fl_cfg.n_layers} layers [{card}]")
+    free_card()
+
+    # ---- (a) the unsharded references on the card -------------------------
+    rng = np_.random.default_rng(SEED + 29)
+    b, s = FSDP_WAVE
+    prompts = rng.integers(0, full.vocab_size, (b, s)).astype(np_.int32)
+    params = get_model(serve_cfg).init(torch.Generator(dev).manual_seed(SEED),
+                                       dev)
+    ref = {}
+    with torch.no_grad():
+        for dtype in ("bfloat16", "float32"):
+            fed = ref["bfloat16"]["tokens"] if dtype == "float32" else None
+            m = get_model(serve_cfg.replace(dtype=dtype))
+            sync()
+            t0 = time.perf_counter()
+            logits, state = m.prefill_fn(params, {
+                "tokens": torch.as_tensor(prompts, device=dev)})
+            sync()
+            prefill_s = time.perf_counter() - t0
+            steps, tokens = [logits.float().cpu()], []
+            for j in range(FSDP_NEW_TOKENS):
+                tok = logits[:, -1].argmax(-1, keepdim=True).int() \
+                    if fed is None else torch.as_tensor(fed[:, j:j + 1],
+                                                        device=dev)
+                tokens.append(tok.cpu().numpy())
+                logits, state = m.decode_fn(params, state, {"token": tok})
+                steps.append(logits.float().cpu())
+            ref[dtype] = {"logits": torch.stack(steps),
+                          "tokens": np_.concatenate(tokens, 1),
+                          "prefill_s": prefill_s}
+            del state, logits
+    del params
+    free_card()
+    gap = float((ref["bfloat16"]["logits"]
+                 - ref["float32"]["logits"]).abs().max())
+    band = 2 * gap
+    tb, ts = FSDP_TRAIN
+    train_batch = {"tokens": rng.integers(0, full.vocab_size,
+                                          (tb, ts)).astype(np_.int32)}
+    train_batch["labels"] = np_.roll(train_batch["tokens"], -1, axis=1)
+    batch_dev = {k: torch.as_tensor(v, device=dev)
+                 for k, v in train_batch.items()}
+
+    def unsharded_grad(dtype):
+        model = get_model(train_cfg.replace(dtype=dtype))
+        params = model.init(torch.Generator(dev).manual_seed(SEED), dev)
+        live, rebuild = tree_flatten(params)
+        _, skeleton = tree_flatten(tree_map(lambda x: None, params))
+        del params
+        for x in live:
+            x.requires_grad_()
+        sync()
+        t0 = time.perf_counter()
+        loss, _ = model.loss_fn(rebuild(live), batch_dev)
+        grads = list(torch.autograd.grad(loss, live))
+        sync()
+        return float(loss.detach()), grads, skeleton, \
+            time.perf_counter() - t0
+
+    loss32, g32, _, _ = unsharded_grad("float32")
+    ref_loss, g16, skeleton, ref_step_s = unsharded_grad("bfloat16")
+    paths_ = tp_paths(skeleton, len(g16))
+    gaps = {p: rel_l2(torch, a, b_) for p, a, b_ in zip(paths_, g16, g32,
+                                                       strict=True)}
+    ref_norm = float(tree_global_norm(g16))
+    del g32
+    ref_grads = skeleton(g16)
+    del g16
+    free_card()
+    print(f"(a) unsharded on the card: prefill {ref['bfloat16']['prefill_s']:.3f}"
+          f" s a wave; bf16 against float32 (fed bf16's greedy tokens): max "
+          f"abs {gap:.4e} over the last-token logits, so the band {band:.4e};"
+          f" gradient of {tb} x {ts}: loss {ref_loss:.6f} (float32 "
+          f"{loss32:.6f}), global norm {ref_norm:.6f}, {ref_step_s:.3f} s; "
+          f"bf16 against float32 a leaf (rel L2): " + ", ".join(
+              f"{k} {v:.2e}" for k, v in sorted(gaps.items())) + f" [{card}]")
+
+    # ---- (a) the ranks ---------------------------------------------------
+    t0 = time.perf_counter()
+    res = run_world(fsdp_rank, math.prod(FSDP_DIMS), ({
+        "device": str(dev), "serve_cfg": serve_cfg, "train_cfg": train_cfg,
+        "prompts": prompts, "tokens": ref["bfloat16"]["tokens"],
+        "train_batch": train_batch, "ref_grads": ref_grads},),
+        timeout=TP_WORLD_TIMEOUT_S)
+    world_a = time.perf_counter() - t0
+    del ref_grads
+    free_card()
+    paths = {}
+    r0 = res[0]
+    hq = full.n_heads // FSDP_DIMS[1]
+    hkv = full.n_kv_heads // FSDP_DIMS[1]
+    logits = torch.as_tensor(r0["serve"]["logits"])
+    err = float((logits - ref["bfloat16"]["logits"]).abs().max())
+    greedy = all(greedy_in_band(torch, logits[j], ref["bfloat16"]["logits"][j],
+                                band) for j in range(FSDP_NEW_TOKENS + 1))
+    same = all(np_.array_equal(r["serve"]["logits"], r0["serve"]["logits"])
+               for r in res)
+    pre, dec = r0["serve"]["prefill"], r0["serve"]["decode"]
+    coll = lambda t: sum(v["ms"] for v in t.values()) / 1e3
+    per_call = lambda t: {k: round(v["bytes"] / max(v["calls"], 1))
+                          for k, v in t.items()}
+    med = statistics.median(dec["step_ms"])
+    print(f"(a) prefill of {b} x {s} (fsdp on, seq_shard on): "
+          f"{pre['s']:.3f} s ({coll(pre['traffic']):.3f} s, "
+          f"{coll(pre['traffic']) / pre['s']:.1%}, in collectives; bytes a "
+          f"call, rank 0: {json.dumps(per_call(pre['traffic']))}); decode "
+          f"(fsdp off) {med:.2f} ms a token (median of {FSDP_NEW_TOKENS}; "
+          f"{coll(dec['traffic']) * 1e3 / sum(dec['step_ms']):.1%} in "
+          f"collectives); cache a rank {pre['cache']}; peak a rank "
+          f"{[round(max(r['serve']['prefill']['peak'], r['serve']['decode']['peak']) / 2**30, 2) for r in res]}"
+          f" GiB; last-token logits against the unsharded bf16 run: max abs "
+          f"{err:.4e} (band {band:.4e}), greedy in band {greedy}, every "
+          f"rank's logits equal {same} [{card}]")
+    check(err <= band and greedy and same,
+          f"(a) logits {err} outside {band}, greedy out of band, or ranks "
+          f"differ")
+    check(pre["cache"][1] == b // FSDP_DIMS[0] and pre["cache"][3] == hkv,
+          f"(a) a rank's cache {pre['cache']}")
+    for r in res if on_card else ():        # the host runs no kernel
+        check(r["serve"]["prefill"]["heads"] == {
+            f"{hq}x{hkv}": serve_cfg.n_layers},
+            f"(a) rank prefill flash launches "
+            f"{r['serve']['prefill']['heads']}")
+    paths["(a) prefill, fsdp"] = {
+        k: sum(r["serve"]["prefill"]["counts"][k] for r in res)
+        for k in r0["serve"]["prefill"]["counts"]}
+    paths["(a) decode"] = {
+        k: sum(r["serve"]["decode"]["counts"][k] for r in res)
+        for k in r0["serve"]["decode"]["counts"]}
+
+    tr = r0["train"]
+    losses = [r["train"]["losses"] for r in res]
+    rtol = abs(tr["losses"][0] - ref_loss) / abs(ref_loss)
+    norm_rtol = abs(tr["norm"] - ref_norm) / ref_norm
+    ratio = max(tr["errs"][k] / gaps[k] for k in gaps)
+    worst = max(tr["errs"].items(), key=lambda kv: kv[1])
+    print(f"(a) training {FSDP_STEPS} steps of {tb} x {ts} (fsdp on, "
+          f"seq_shard on, remat {train_cfg.remat}, adamw()): losses "
+          f"{tr['losses']} (first against {ref_loss:.6f}: rel {rtol:.2e}); "
+          f"pre-clip global norm {tr['norm']:.6f} (rel {norm_rtol:.2e}); "
+          f"gradient rel L2 a leaf: worst {worst[0]} {worst[1]:.3e}, at most "
+          f"{ratio:.2f} times bf16's own gap; steps "
+          + ", ".join(f"{x['s']:.3f} s ({x['coll_s']:.3f} s, "
+                      f"{x['coll_s'] / x['s']:.1%}, in collectives)"
+                      for x in tr["steps"])
+          + f"; bytes a call, rank 0: {json.dumps(per_call(tr['traffic']))};"
+          f" peak a rank {[round(r['train']['peak'] / 2**30, 2) for r in res]}"
+          f" GiB; fused AdamW windows equal to the plain version "
+          f"{[r['train']['adamw_same'] for r in res]}; norms bit-equal on "
+          f"every rank {tr['norms_equal']} [{card}]")
+    check(all(x == losses[0] for x in losses) and rtol <= FSDP_LOSS_RTOL
+          and norm_rtol <= FSDP_NORM_RTOL and ratio <= TP_GRAD_BAND
+          and tr["norms_equal"]
+          and all(all(r["train"]["adamw_same"]) for r in res),
+          f"(a) training: losses {losses} vs {ref_loss}, norm {tr['norm']} "
+          f"vs {ref_norm}, worst leaf {worst}, norms equal "
+          f"{tr['norms_equal']}")
+    remat = 2 if train_cfg.remat else 1
+    for r in res if on_card else ():
+        check(r["train"]["heads"] == {
+            "fwd": {f"{hq}x{hkv}": remat * train_cfg.n_layers * FSDP_STEPS},
+            "bwd": {f"{hq}x{hkv}": 3 * train_cfg.n_layers * FSDP_STEPS}}
+            and r["train"]["counts"]["fused_adamw"] == FSDP_STEPS,
+            f"(a) rank training launches {r['train']['heads']}, "
+            f"{r['train']['counts']}")
+    paths["(a) training, fsdp"] = {
+        k: sum(r["train"]["counts"][k] for r in res)
+        for k in r0["train"]["counts"]}
+    print(f"(a) world {world_a:.1f} s from spawn to join "
+          f"({time.perf_counter() - phase_t0:.1f} s into phase 29) [{card}]")
+
+    # ---- (b) federated rounds of tensor-parallel clients ------------------
+    h = Hierarchy(*FL_TP_TREE[:3], n_clients=FL_TP_TREE[3])
+    placement = np_.arange(h.dimensions)[::-1].copy()
+    shapes = get_model(fl_cfg).param_shapes()
+    before, after = (tree_map(lambda x: torch.empty(
+        x.shape, dtype=x.dtype, device=dev), shapes) for _ in range(2))
+    t0 = time.perf_counter()
+    res = run_world(fl_tp_rank, math.prod(FL_TP_DIMS), ({
+        "device": str(dev), "cfg": fl_cfg, "placement": placement,
+        "before": before, "after": after},), timeout=TP_WORLD_TIMEOUT_S)
+    world_b = time.perf_counter() - t0
+    ds = make_federated_dataset(fl_cfg, h.total_clients, SEED, FL_TP_TOKENS)
+    host_batch = {k: torch.stack([torch.as_tensor(
+        ds.client_batch(c, 1, 1)[k]) for c in range(h.total_clients)]).to(dev)
+        for k in ("tokens", "labels")}
+
+    def host_update(dtype):
+        """The host path's round update (after minus before, leaf by
+        leaf) from the ranks' params before the round."""
+        fl = FLTrainStep(get_model(fl_cfg.replace(dtype=dtype)),
+                         sgd(DIST_FL_LR), h, placement, local_steps=1,
+                         mode="hierarchical")
+        stacked = tree_map(lambda x: x.expand(
+            (h.total_clients,) + x.shape).clone(), before)
+        states = [fl.optimizer.init(before) for _ in range(h.total_clients)]
+        new, _, metrics = fl.make_round_fn()(stacked, states, host_batch)
+        upd = tree_map(lambda n, b_: n[0].detach() - b_, new, before)
+        return upd, float(metrics["loss"])
+
+    zero_counts(*counters)
+    upd16, loss16 = host_update("bfloat16")
+    upd32, _ = host_update("float32")
+    errs, gaps_b = {}, {}
+
+    def compare(path, a, b_, u16, u32):
+        errs[path] = rel_l2(torch, a - b_, u16)
+        gaps_b[path] = rel_l2(torch, u16, u32)
+
+    tree_map_with_path(compare, after, before, upd16, upd32)
+    del upd16, upd32, before, after
+    free_card()
+    ratio = max(errs[k] / gaps_b[k] for k in errs)
+    rb = res[0]
+    rd = rb["rounds"][1]
+    moved = {}
+    for st in rd["stats"]:
+        if "bytes" in st:
+            moved[st["step"]] = (st["bytes"], st["ranks"], round(st["ms"], 1))
+    print(f"(b) {FL_TP_DIMS[0]} clients of {FL_TP_DIMS[1]} model ranks, tree "
+          f"{FL_TP_TREE} at placement {placement.tolist()}, sgd("
+          f"{DIST_FL_LR}), 1 x {FL_TP_TOKENS} tokens a client: rounds "
+          f"{[round(x['s'], 3) for x in rb['rounds']]} s (warm-up, held), "
+          f"the held one's split on rank 0: "
+          + ", ".join(f"{st['step']} {st['ms']:.1f} ms" for st in rd["stats"])
+          + f"; collectives (step: bytes a rank, ranks, ms) "
+          f"{json.dumps(moved)}; loss {rd['loss']:.6f} (host bf16 "
+          f"{loss16:.6f}); round update against the host path's, rel L2 a "
+          f"leaf: worst {max(errs.values()):.3e}, at most {ratio:.2f} times "
+          f"its bf16 gap to float32; shards bit-equal along the data axis "
+          f"{[r['equal'] for r in res]}; peak a rank "
+          f"{[round(r['peak'] / 2**30, 2) for r in res]} GiB; world "
+          f"{world_b:.1f} s [{card}]")
+    check(ratio <= FL_TP_BAND and all(r["equal"] for r in res),
+          f"(b) round update {ratio} times the band, or shards differ along "
+          f"the data axis")
+    fwd = (2 if fl_cfg.remat else 1) * fl_cfg.n_layers * 2
+    hq = full.n_heads // FL_TP_DIMS[1]
+    hkv = full.n_kv_heads // FL_TP_DIMS[1]
+    for r in res if on_card else ():
+        check(r["heads"] == {"fwd": {f"{hq}x{hkv}": fwd},
+                             "bwd": {f"{hq}x{hkv}": 3 * fl_cfg.n_layers * 2}},
+              f"(b) rank flash launches {r['heads']}")
+    paths["(b) rounds"] = {k: sum(r["counts"][k] for r in res)
+                           for k in rb["counts"]}
+    print("phase 29 launches by path: " + json.dumps(
+        {p: {k: v for k, v in c.items() if v} for p, c in paths.items()}))
+    print(f"phase 29 took {time.perf_counter() - phase_t0:.1f} s [{card}]")
+    return {k: {f"phase 29 {p}": c[k] for p, c in paths.items()}
+            for k in rb["counts"]}
 
 
 def main() -> int:
@@ -6511,6 +7203,7 @@ def main() -> int:
     mm_paths_, mm_errs = vlm_audio_phases(torch, np, dev, card)
     dist_paths = distributed_phases(torch, np, card)
     tp_paths = tensor_parallel_phases(torch, np, card)
+    dm_paths = data_model_phases(torch, np, card)
 
     k_ms, r_ms, b_ms = rows[10]
     kernels = [
@@ -6537,12 +7230,12 @@ def main() -> int:
         *training,
     ]
     # each path's launches, counted from 0 over it: the earlier main
-    # paths' (as named in the module docstring), then phases 22-27
+    # paths' (as named in the module docstring), then phases 22-29
     for entry in kernels:
         paths = {"phases 5-16": entry["launches"], **dense[entry["name"]],
                  **moe_paths[entry["name"]], **xlstm_paths[entry["name"]],
                  **mm_paths_[entry["name"]], **dist_paths[entry["name"]],
-                 **tp_paths[entry["name"]]}
+                 **tp_paths[entry["name"]], **dm_paths[entry["name"]]}
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
         if entry["name"] in mm_errs:        # phase 26 (a)'s shapes too

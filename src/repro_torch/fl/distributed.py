@@ -20,6 +20,17 @@ The port of ``repro.fl.distributed``. Mapping SDFL onto a mesh of ranks
 Multi-pod: each pod hosts its own client set (the same per-pod
 placement); the top of the tree is a mean across the ``pod`` axis.
 
+Tensor-parallel clients (the reference's ``_fl_train_bundle``: a
+policy with ``model_axis`` and optionally ``seq_axis``, no batch or fsdp
+axes) on a ``([pod,] data, model)`` mesh: a client is the model-axis
+group at its data coordinates, each rank holding its shards of the
+client's params (``Model.init`` cuts the one seeded init) and running
+the local steps through the dense or vlm decoder's tensor parallelism
+(``models/transformer_tp.py``). The psums reduce each rank's flat
+buffer of shards along the data axis at its model coordinate
+(``RankMesh.subgroup``'s lines), so every shard of the aggregate is the
+same along the data axis.
+
 Without a mesh (``model.policy.mesh is None``) the round is the host
 path: every client's replica on one device, trained one client at a
 time, then the flat weighted FedAvg (one launch of the FedAvg kernel on
@@ -45,7 +56,7 @@ from repro_torch.fl.aggregation import AggregationPlan, flat_psum, hierarchical_
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import COLLECTIVE_CHUNK
 from repro_torch.models.api import Model, flat_params, make_train_step
-from repro_torch.models.sharding import PartitionSpec
+from repro_torch.models.sharding import PartitionSpec, check_runnable
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.utils.trees import (
     flat_buffer_of,
@@ -139,14 +150,15 @@ class FLTrainStep:
         state a client, on ``device`` (default ``cuda``). Rank path: this
         rank's client's flat params and state, on the mesh's device;
         every rank draws from the same seeded ``generator`` (on that
-        device), and a checksum all-reduce asserts that they start
-        bit-equal.
+        device) and keeps its shards of it under a model axis, and a
+        checksum all-reduce over the client axes asserts that the
+        clients start bit-equal.
         """
-        self._check_replicas()
+        self._check_clients()
         if self.mesh is not None:
             params = flat_params(self.model.init(
                 generator, device if device is not None else self.mesh.device))
-            _assert_replicas_equal(flat_buffer_of(params))
+            _assert_replicas_equal(flat_buffer_of(params), self._replica_groups())
             return params, self.optimizer.init(params)
         params = self.model.init(generator,
                                  device if device is not None else "cuda")
@@ -174,18 +186,35 @@ class FLTrainStep:
         milliseconds (the card synchronised), and each collective's
         bytes and group size.
         """
-        self._check_replicas()
+        self._check_clients()
         return self._host_round if self.mesh is None else self._rank_round
 
-    def _check_replicas(self) -> None:
-        """The round step runs replicas: a rank holds a client's whole
-        model. Clients split over a model axis come with ROADMAP.md
-        queue 1 item 12b-1b (their specs answer already:
-        :meth:`stacked_param_pspecs`)."""
-        if not self.model.policy.replicas_only:
-            raise NotImplementedError(
-                "federated rounds of clients split over a model, fsdp or "
-                "seq axis come with ROADMAP.md queue 1 item 12b-1b")
+    def _check_clients(self) -> None:
+        """The round step runs whole clients: a rank holds a client's
+        model (replicas), or its shards over a model axis (and seq
+        axis) for the dense and vlm families; the other families under
+        a model axis raise naming their ROADMAP.md item
+        (``check_runnable``). Batch and fsdp axes would split a
+        client's batch or params across clients; the reference's
+        federated bundle sets neither."""
+        policy = self.model.policy
+        if policy.mesh is None or policy.replicas_only:
+            return
+        check_runnable(policy, self.model.config.family)
+        if policy.batch_axes or policy.fsdp_axes:
+            raise ValueError(
+                "federated clients split over a model axis take a policy "
+                "with batch_axes=None and fsdp_axes=None (a client is a "
+                f"data-axis slice); got {policy}")
+
+    def _replica_groups(self) -> list:
+        """The process groups the clients' replicas span: the whole world
+        for whole replicas, else the client axes' lines at this rank's
+        model coordinate."""
+        if self.model.policy.replicas_only:
+            return [None]
+        return [self.mesh.axis_group(a) for a in self.client_axes
+                if self.mesh.shape[a] > 1]
 
     def _local_round(self, train_step, params, opt_state, batch):
         loss = None
@@ -260,12 +289,12 @@ class FLTrainStep:
         per, mesh, inner = self.ranks_per_client, self.mesh, self.optimizer
         group = mesh.subgroup("data", self.plan.client_groups)
 
-        def update(params, grads, state):
+        def update(params, grads, state, **kw):
             flat = flat_buffer_of(grads)
             with torch.no_grad():
                 mesh.all_reduce(flat, group)
                 flat.div_(per)
-            return inner.update(params, grads, state)
+            return inner.update(params, grads, state, **kw)
 
         return Optimizer(init=inner.init, update=update)
 
@@ -306,13 +335,15 @@ def bits_checksum(flat: torch.Tensor) -> torch.Tensor:
     return check
 
 
-def _assert_replicas_equal(flat: torch.Tensor) -> None:
-    """Every rank holds the same bits: :func:`bits_checksum`, all-reduced
-    by MIN and by MAX, must agree."""
+def _assert_replicas_equal(flat: torch.Tensor, groups=(None,)) -> None:
+    """Every rank of ``groups`` (process groups reduced over in turn;
+    None the world) holds the same bits: :func:`bits_checksum`,
+    all-reduced by MIN and by MAX, must agree."""
     check = bits_checksum(flat)
     lo, hi = check.clone(), check.clone()
-    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
-    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    for group in groups:
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
     if int(lo) != int(hi):
         raise RuntimeError(f"ranks start from different params (bit "
                            f"checksums {int(lo)} to {int(hi)})")

@@ -16,10 +16,13 @@ step never waits on the device for them. A tensor on a CUDA device
 launches the kernel (counted on ``fused_adamw.launches``, one per call);
 a tensor on the CPU goes to the plain torch version,
 :func:`repro_torch.kernels.ref.fused_adamw_ref`, a chunk of
-``CPU_CHUNK`` elements at a time (so its float32 temporaries stay small
-beside a multi-billion-parameter state), each result copied back into
-p, m and v. The two agree bit for bit. There is no fallback
-from the card to the host.
+``CPU_CHUNK`` elements at a time, each result copied back into p, m and
+v. The chunk keeps the temporaries small beside a
+multi-billion-parameter state and near the cache: much larger chunks
+make the allocator map and fault in every fresh temporary, much smaller
+ones are too small to spread over the threads. The math is elementwise,
+so the chunk does not change a bit. The two agree bit for bit. There
+is no fallback from the card to the host.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from repro_torch.kernels.ref import fused_adamw_ref
 
 SOURCE = CSRC_DIR / "fused_adamw.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-CPU_CHUNK = 1 << 24
+CPU_CHUNK = 1 << 19
 
 
 @functools.cache

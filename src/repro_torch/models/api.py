@@ -31,6 +31,12 @@ accumulates in place and the optimizer (``optim.adamw``: one fused
 kernel launch) updates in place the very tensors the model reads. No
 step copies the tree; a tree that is not yet flat is packed once, on
 its first step.
+
+Over a rank mesh whose policy shards the params (a model, seq or fsdp
+axis), the step runs on the rank's own flat buffer of shards: the
+model's functions place the collectives, and the optimizer's clip
+reads the global norm (``shards=(param_pspecs, mesh)``, see
+``optim.optimizers``).
 """
 from __future__ import annotations
 
@@ -141,6 +147,10 @@ def make_train_step(model: Model, optimizer):
     are already flat (as returned by an earlier step or by
     :func:`flat_params`)."""
     grads_of = {}          # flat param buffer's address -> flat grads
+    policy = model.policy
+    sharded = {}
+    if policy.mesh is not None and not policy.replicas_only:
+        sharded["shards"] = (model.param_pspecs(), policy.mesh)
 
     def train_step(params, opt_state, batch):
         layout = tree_layout(params)
@@ -162,7 +172,8 @@ def make_train_step(model: Model, optimizer):
             leaf.grad = g          # backward() accumulates into the view
         loss, metrics = model.loss_fn(params, batch)
         loss.backward()
-        params, opt_state = optimizer.update(params, grads, opt_state)
+        params, opt_state = optimizer.update(params, grads, opt_state,
+                                             **sharded)
         metrics = {k: v.detach() for k, v in dict(metrics).items()}
         metrics["loss"] = loss.detach()
         return params, opt_state, metrics

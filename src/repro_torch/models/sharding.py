@@ -25,12 +25,12 @@ the spec the reference's hint would constrain to.
 
 What runs under which axis (:func:`check_runnable`): the dense and vlm
 decoders run a model axis, with or without sequence parallelism
-(``seq_axis``), beside a batch axis of one rank; the pod and data replica
-policies of the federated round step run every family. An fsdp axis, a
-batch axis of more than one rank beside the model axis, and the rglru,
-xlstm and encdec families under a model or seq axis come with ROADMAP.md
-queue 1 item 12b-1b; the moe family under a model axis and the 2-D
-``ep2d`` layout with item 12b-1c.
+(``seq_axis``), an fsdp axis and batch axes of any size (each rank its
+rows of the batch); the pod and data replica policies of the federated
+round step run every family. The rglru, xlstm and encdec families under
+a model, seq or fsdp axis come with ROADMAP.md queue 1 item 12b-1b-2;
+the moe family under a model or fsdp axis and the 2-D ``ep2d`` layout
+with item 12b-1c.
 """
 from __future__ import annotations
 
@@ -198,7 +198,7 @@ def make_policy(mesh, fsdp: bool = False,
                           seq_axis=model if seq_shard else None)
 
 
-# the families whose forward runs a model (and seq) axis
+# the families whose forward runs a model, seq and fsdp axis
 TENSOR_PARALLEL_FAMILIES = ("dense", "vlm")
 
 
@@ -211,20 +211,12 @@ def check_runnable(policy: ShardingPolicy, family: str) -> None:
         raise NotImplementedError(
             "the 2-D ep2d expert layout comes with ROADMAP.md queue 1 item "
             "12b-1c")
-    if policy.fsdp_axes:
-        raise NotImplementedError(
-            "an fsdp axis (ZeRO-sharded params) comes with ROADMAP.md "
-            "queue 1 item 12b-1b")
     if family == "moe":
         raise NotImplementedError(
-            "the moe family under a model axis (the expert-parallel "
-            "island, capacity_of's policy, make_serve_step's wrapper) "
-            "comes with ROADMAP.md queue 1 item 12b-1c")
+            "the moe family under a model or fsdp axis (the expert-"
+            "parallel island, capacity_of's policy, make_serve_step's "
+            "wrapper) comes with ROADMAP.md queue 1 item 12b-1c")
     if family not in TENSOR_PARALLEL_FAMILIES:
         raise NotImplementedError(
-            f"the {family} family under a model or seq axis comes with "
-            f"ROADMAP.md queue 1 item 12b-1b")
-    if policy.batch_size_divisor > 1:
-        raise NotImplementedError(
-            "a batch axis of more than one rank beside the model axis "
-            "comes with ROADMAP.md queue 1 item 12b-1b")
+            f"the {family} family under a model, seq or fsdp axis comes "
+            f"with ROADMAP.md queue 1 item 12b-1b-2")

@@ -32,6 +32,13 @@ granite-8b's loss 1.2e-3 from the reference's own sharded run, against
 6.2e-5 with float32 sums and the reference's own sharded-to-unsharded
 gap of 3.9e-4 (``tests/test_torch_tensor_parallel.py``).
 
+The same pairs serve the batch and fsdp axes (:class:`AxisGroup`, over
+one mesh axis or several, row-major): ``gather_seq`` of a weight along
+the dim its spec splits over the fsdp axes is the ZeRO gather, whose
+backward reduce-scatters its gradient in float32; ``copy`` of a leaf
+replicated over batch axes sums its gradient over them; ``reduce`` of
+each rank's share of the loss gives the global batch's mean.
+
 Every rank issues the collectives of a forward, and of its backward, in
 one order (the graphs are the same on every rank); with ``cfg.remat``
 ``torch.utils.checkpoint`` replays the forward's collectives in the
@@ -47,46 +54,54 @@ from repro_torch.models.sharding import PartitionSpec, ShardingPolicy
 from repro_torch.utils.trees import tree_map_with_path
 
 
-class TensorParallel:
-    """One rank's place on the model axis of ``policy``'s rank mesh,
-    and the collectives over that axis."""
+class AxisGroup:
+    """One rank's place on a tuple of mesh axes (their product, row-major,
+    as a spec entry of several names splits a dim), and the collectives
+    over it: a sum runs over each axis in turn, a gather the last axis
+    first and a scatter the first axis first, so a row-major split comes
+    back in order. With no axes (or axes of one rank) every collective
+    is the identity."""
 
-    def __init__(self, policy: ShardingPolicy):
-        self.mesh = policy.mesh
-        self.axis = policy.model_axis
-        self.size = policy.model_size
-        self.index = self.mesh.axis_index(self.axis)
-        self.seq = policy.seq_axis is not None
-
-    def seq_on(self, s: int) -> bool:
-        """Whether a sequence of ``s`` positions lives S-split between
-        blocks: sequence parallelism is on and ``s`` divides (the
-        reference's ``dim("seq", s)`` gate; decode's S of 1 never
-        splits)."""
-        return self.seq and s % self.size == 0
+    def __init__(self, mesh, axes):
+        self.mesh = mesh
+        self.axes = tuple(a for a in entry_axes(axes) if mesh.shape[a] > 1)
+        self.size = math.prod(mesh.shape[a] for a in self.axes)
+        self.index = 0
+        for a in self.axes:
+            self.index = self.index * mesh.shape[a] + mesh.axis_index(a)
 
     def part(self, n: int) -> slice:
-        """This rank's slice of ``n`` entries split over the axis."""
+        """This rank's slice of ``n`` entries split over the axes."""
         k = n // self.size
         return slice(self.index * k, (self.index + 1) * k)
 
     # ---- plain collectives (no autograd) ------------------------------
     def sum_(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum over the axis of ``x``, in float32, in ``x``'s dtype
+        """The sum over the axes of ``x``, in float32, in ``x``'s dtype
         (a new tensor)."""
         y = x.to(torch.float32, copy=True).contiguous()
-        return self.mesh.all_reduce_(y, self.axis).to(x.dtype)
+        for a in self.axes:
+            y = self.mesh.all_reduce_(y, a)
+        return y.to(x.dtype)
 
     def max_(self, x: torch.Tensor) -> torch.Tensor:
-        return self.mesh.all_reduce_(x.clone().contiguous(), self.axis, "max")
+        y = x.clone().contiguous()
+        for a in self.axes:
+            y = self.mesh.all_reduce_(y, a, "max")
+        return y
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        return self.mesh.all_gather(x, self.axis, dim)
+        for a in reversed(self.axes):
+            x = self.mesh.all_gather(x, a, dim)
+        return x
 
     def scatter_sum(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """This rank's part along ``dim`` of the sum over the axis, in
+        """This rank's part along ``dim`` of the sum over the axes, in
         float32, in ``x``'s dtype."""
-        return self.mesh.reduce_scatter(x.float(), self.axis, dim).to(x.dtype)
+        y = x.float()
+        for a in self.axes:
+            y = self.mesh.reduce_scatter(y, a, dim)
+        return y.to(x.dtype)
 
     def slice_(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         return x.narrow(dim, self.index * (x.shape[dim] // self.size),
@@ -110,6 +125,23 @@ class TensorParallel:
 
     def gather_rep(self, x, dim: int = 1):
         return _GatherRep.apply(x, self, dim)
+
+
+class TensorParallel(AxisGroup):
+    """One rank's place on the model axis of ``policy``'s rank mesh,
+    and the collectives over that axis (none without one)."""
+
+    def __init__(self, policy: ShardingPolicy):
+        super().__init__(policy.mesh, policy.model_axis)
+        self.axis = policy.model_axis
+        self.seq = policy.seq_axis is not None
+
+    def seq_on(self, s: int) -> bool:
+        """Whether a sequence of ``s`` positions lives S-split between
+        blocks: sequence parallelism is on and ``s`` divides (the
+        reference's ``dim("seq", s)`` gate; decode's S of 1 never
+        splits)."""
+        return self.seq and s % self.size == 0
 
 
 class _Copy(torch.autograd.Function):
@@ -180,7 +212,8 @@ class _GatherRep(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 # params: cut into one rank's shards, gathered back
 # ---------------------------------------------------------------------------
-def _axes(entry) -> tuple:
+def entry_axes(entry) -> tuple:
+    """The mesh axes of one spec entry: None, a name or a tuple."""
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
@@ -191,7 +224,7 @@ def local_shape(shape, spec: PartitionSpec, mesh) -> tuple:
     does not divide."""
     out = list(shape)
     for d, entry in enumerate(spec):
-        n = math.prod(mesh.shape[a] for a in _axes(entry))
+        n = math.prod(mesh.shape[a] for a in entry_axes(entry))
         if out[d] % n:
             raise ValueError(f"dim {d} of {tuple(shape)} does not split "
                              f"over {entry!r} ({n} ranks)")
@@ -205,7 +238,7 @@ def local_slice(x: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
     row-major coordinate over the dim's axes."""
     local = local_shape(tuple(x.shape), spec, mesh)
     for d, entry in enumerate(spec):
-        axes = _axes(entry)
+        axes = entry_axes(entry)
         if not axes:
             continue
         i = 0
@@ -224,13 +257,16 @@ def shard_params(params, pspecs, mesh):
 
 
 def gather_params(local, pspecs, mesh):
-    """The full tree from every rank's shards (each rank gets it): along
-    each split dim an all-gather over its axes, the last axis first."""
+    """The full tree from every rank's shards (each rank gets it, new
+    tensors outside autograd): along each split dim an all-gather over
+    its axes, the last axis first."""
 
     def one(path, x, spec):
+        x = x.detach()
         for d, entry in enumerate(spec):
-            for a in reversed(_axes(entry)):
+            for a in reversed(entry_axes(entry)):
                 x = mesh.all_gather(x, a, d)
         return x
 
-    return tree_map_with_path(one, local, pspecs)
+    with torch.no_grad():
+        return tree_map_with_path(one, local, pspecs)

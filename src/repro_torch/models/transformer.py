@@ -246,8 +246,9 @@ def make_block_fn(cfg: ModelConfig, policy: ShardingPolicy,
 
 
 def _sharded(policy: ShardingPolicy) -> bool:
-    """Whether ``policy`` runs the decoder over a model axis."""
-    return policy.mesh is not None and policy.model_axis is not None
+    """Whether ``policy`` runs the decoder on per-rank shards (a model,
+    seq or fsdp axis)."""
+    return policy.mesh is not None and not policy.replicas_only
 
 
 def decoder_forward(params: dict, embeds, cfg: ModelConfig,

@@ -42,8 +42,30 @@ autograd pairs of :mod:`repro_torch.models.tensor_parallel`:
   hd (the ranks' partial scores summed, the output gathered); else
   replicated.
 
-Runs the dense and vlm families beside a batch axis of one rank; every
-other layout raises where ``sharding.check_runnable`` says.
+* **Batch axes** (the policy's ``batch_axes``, a ``(data, model)`` or
+  ``(pod, data, model)`` mesh): the functions take the global batch and
+  each rank keeps its rows, split row-major over the batch axes as the
+  reference's ``_batch_specs`` lays them out (tokens, labels, the vlm
+  frontend); where the batch does not divide, every rank keeps it
+  whole (``dim("batch", size)``). The loss is the global batch's mean:
+  each rank's share (its rows' mean over the ranks' count) summed over
+  the batch axes, whose backward hands each rank its own share, so a
+  leaf's gradient sums over the batch ranks exactly once. Prefill and
+  decode gather the logits' rows to every rank; the KV cache keeps the
+  rank's rows (``make_state_spec_rule``).
+* **fsdp** (``fsdp_axes``, ZeRO): a leaf whose spec splits a dim over
+  the fsdp axes (the embedding ``P(m, f)``, ``lm_head`` ``P(f, m)`` and
+  every layer weight) is all-gathered over them where it is read, the
+  last axis first (``gather_params``' order), a layer's inside its
+  ``checkpoint`` body so that remat gathers it again and no gathered
+  layer outlives its use; the gather's backward reduce-scatters the
+  float32 gradient, the first axis first. A leaf replicated over batch
+  axes (the norms; every leaf without fsdp) has its gradient summed
+  over them (``copy`` of the whole stacked leaf at the top of the loss,
+  one all-reduce a leaf). Decode runs with fsdp on or off.
+
+Runs the dense and vlm families; every other layout raises where
+``sharding.check_runnable`` says.
 """
 from __future__ import annotations
 
@@ -59,7 +81,13 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib, common
 from repro_torch.models.api import Model, per_client_loss
 from repro_torch.models.sharding import ShardingPolicy, check_runnable
-from repro_torch.models.tensor_parallel import TensorParallel, local_shape, local_slice
+from repro_torch.models.tensor_parallel import (
+    AxisGroup,
+    TensorParallel,
+    entry_axes,
+    local_shape,
+    local_slice,
+)
 from repro_torch.models.transformer import (
     PREFILL_CACHE_MARGIN,
     _pad_len,
@@ -68,17 +96,24 @@ from repro_torch.models.transformer import (
     make_spec_rule,
     make_state_spec_rule,
 )
-from repro_torch.utils.trees import tree_unstack
+from repro_torch.utils.trees import tree_map_with_path, tree_unstack
 
 
 class DecoderShards:
-    """The decoder ``cfg`` on this rank of ``policy``'s model axis: its
-    heads, its vocab rows and the layout of its cache."""
+    """The decoder ``cfg`` on this rank of ``policy``'s mesh: its heads,
+    its vocab rows, its batch rows, its fsdp shards and the layout of
+    its cache."""
 
     def __init__(self, cfg: ModelConfig, policy: ShardingPolicy):
         check_runnable(policy, cfg.family)
         self.cfg, self.policy = cfg, policy
         self.tp = tp = TensorParallel(policy)
+        mesh = policy.mesh
+        self.batch = AxisGroup(mesh, policy.batch_axes)
+        self.fsdp = AxisGroup(mesh, policy.fsdp_axes)
+        if not set(self.fsdp.axes) <= set(self.batch.axes):
+            raise ValueError(f"fsdp axes {policy.fsdp_axes} must split the "
+                             f"batch (batch axes {policy.batch_axes})")
         m = tp.size
         for name, n in (("d_ff", cfg.d_ff), ("padded vocab", cfg.padded_vocab)):
             if n % m:
@@ -86,6 +121,25 @@ class DecoderShards:
                                  f"over a model axis of {m}")
         self.spec_rule = make_spec_rule(cfg, policy)
         self.state_rule = make_state_spec_rule(cfg, policy)
+        # per leaf path: the dim its spec splits over the fsdp axes (a
+        # layer's, unstacked), and the group its gradient sums over (the
+        # batch axes that do not split it)
+        self.fsdp_dims, self.grad_sums = {}, {}
+        fsdp_entry = set(self.fsdp.axes)
+
+        def leaf(path, x):
+            spec = self.spec_rule(path, tuple(x.shape))
+            lead = 1 if path.startswith("layers/") else 0
+            split = set()
+            for d, entry in enumerate(spec):
+                axes = set(entry_axes(entry))
+                split |= axes
+                if fsdp_entry and axes == fsdp_entry:
+                    self.fsdp_dims[path] = d - lead
+            self.grad_sums[path] = AxisGroup(
+                mesh, tuple(a for a in self.batch.axes if a not in split))
+
+        tree_map_with_path(leaf, init_decoder_params(None, cfg, "meta"))
         self.heads_split = cfg.n_heads % m == 0
         self.kv_split = cfg.n_kv_heads % m == 0
         self.hq = cfg.n_heads // m if self.heads_split else cfg.n_heads
@@ -103,9 +157,63 @@ class DecoderShards:
             self.kv_sel = kv_of_q      # a kv head per q head
         self.dt = getattr(torch, cfg.dtype)
 
+    # ---- batch rows and fsdp shards -------------------------------------
+    def rows(self, n: int) -> slice:
+        """This rank's rows of a global batch of ``n``: its row-major part
+        over the batch axes, or all ``n`` where they do not divide."""
+        if n % self.batch.size:
+            return slice(0, n)
+        return self.batch.part(n)
+
+    def local_batch(self, batch: dict) -> dict:
+        """This rank's rows of every array of ``batch`` (dim 0)."""
+        n = next(iter(batch.values())).shape[0]
+        return {k: v[self.rows(n)] for k, v in batch.items()}
+
+    def gather_rows(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """The global batch's ``n`` rows (dim 0) of this rank's ``x``."""
+        return x if n % self.batch.size else self.batch.gather(x, 0)
+
+    def batch_mean(self, local: torch.Tensor) -> torch.Tensor:
+        """The global batch's mean from this rank's rows' mean ``local``
+        (the same on every rank; each rank's share is its own in the
+        backward). Where the batch does not divide, every rank's
+        ``local`` is the whole batch's and its share is 1/D of it."""
+        if self.batch.size == 1:
+            return local
+        return self.batch.reduce(local / self.batch.size)
+
+    def enter_params(self, params: dict) -> dict:
+        """``params`` as the loss reads them: each leaf replicated over
+        batch axes passed through ``copy`` over them (one all-reduce of
+        its whole gradient in the backward)."""
+        if self.batch.size == 1 or not torch.is_grad_enabled():
+            return params
+
+        def one(path, x):
+            group = self.grad_sums[path]
+            return group.copy(x) if group.size > 1 and x.requires_grad \
+                else x
+
+        return tree_map_with_path(one, params)
+
+    def whole(self, path: str, x: torch.Tensor) -> torch.Tensor:
+        """A leaf as its reader needs it: gathered over the fsdp axes
+        along the dim they split (backward: the float32 reduce-scatter),
+        else ``x``."""
+        d = self.fsdp_dims.get(path)
+        return x if d is None else self.fsdp.gather_seq(x, d)
+
+    def gather_layer(self, layer: dict) -> dict:
+        """One layer's leaves, each :meth:`whole`."""
+        if not self.fsdp_dims:
+            return layer
+        return tree_map_with_path(self.whole, layer, prefix="layers/")
+
     # ---- layouts ------------------------------------------------------
     def cache_spec(self, cache_len: int):
-        """The (L, B, T, Hkv, hd) cache's spec."""
+        """The spec of a (L, B, T, Hkv, hd) cache of this rank's rows
+        (its batch dim not split again)."""
         cfg = self.cfg
         return self.state_rule("cache/k", (cfg.n_layers, 1, cache_len,
                                            cfg.n_kv_heads,
@@ -143,7 +251,8 @@ class DecoderShards:
         (forward all-reduce, backward identity)."""
         ids = tokens.long() - self.v_lo
         inside = (ids >= 0) & (ids < self.vocab)
-        rows = params["embed"]["table"][ids.clamp(0, self.vocab - 1)]
+        table = self.whole("embed/table", params["embed"]["table"])
+        rows = table[ids.clamp(0, self.vocab - 1)]
         return self.tp.reduce(rows * inside[..., None].to(rows.dtype))
 
     def embed_inputs(self, params: dict, batch: dict):
@@ -164,8 +273,10 @@ class DecoderShards:
         """This rank's vocab columns of the logits of ``x`` (already
         entered: gathered or copied to every rank)."""
         if self.cfg.tie_embeddings:
-            return common.unembed(params["embed"], x)
-        return common.unembed_untied(params["lm_head"], x)
+            return common.unembed({"table": self.whole(
+                "embed/table", params["embed"]["table"])}, x)
+        return common.unembed_untied({"proj": self.whole(
+            "lm_head/proj", params["lm_head"]["proj"])}, x)
 
     def gathered_logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         """The full logits of ``x`` (replicated, no grad) on every rank."""
@@ -287,7 +398,8 @@ class DecoderShards:
         x = self.tp.split_seq(embeds) if seq_on else embeds
 
         def body(layer, x):
-            return self.block(layer, x, rope, window, seq_on)[0]
+            return self.block(self.gather_layer(layer), x, rope, window,
+                              seq_on)[0]
 
         for layer in tree_unstack(params["layers"]):
             if self.cfg.remat and torch.is_grad_enabled():
@@ -320,6 +432,7 @@ def attention_block(layer_attn: dict, x, cfg: ModelConfig,
     the global (S,)."""
     sh = DecoderShards(cfg, policy)
     s = positions.shape[0]
+    layer_attn = sh.gather_layer({"attn": layer_attn})["attn"]
     return sh.attention(layer_attn, x, _rope(cfg, positions), window,
                         sh.tp.seq_on(s))[0]
 
@@ -338,17 +451,19 @@ def make_block_fn(cfg: ModelConfig, policy: ShardingPolicy,
         s = x.shape[1] if seq_len is None else seq_len
         seq_on = seq_len is not None and sh.tp.seq_on(s)
         rope = _rope(cfg, torch.arange(s, device=x.device))
-        return (sh.block(layer, x, rope, window, seq_on)[0], aux), None
+        return (sh.block(sh.gather_layer(layer), x, rope, window,
+                         seq_on)[0], aux), None
 
     return block
 
 
 def decoder_forward(params: dict, embeds, cfg: ModelConfig,
                     policy: ShardingPolicy, window, n_real=None):
-    """The stack and the final norm over the full ``embeds``: (x, aux),
-    ``x`` in the stream's layout (this rank's S / M positions under
-    sequence parallelism), aux a float32 zero."""
-    x, _ = DecoderShards(cfg, policy).stack(params, embeds, window)
+    """The stack and the final norm over the full ``embeds`` (this rank's
+    rows): (x, aux), ``x`` in the stream's layout (this rank's S / M
+    positions under sequence parallelism), aux a float32 zero."""
+    sh = DecoderShards(cfg, policy)
+    x, _ = sh.stack(sh.enter_params(params), embeds, window)
     return x, torch.zeros((), dtype=torch.float32, device=embeds.device)
 
 
@@ -359,11 +474,13 @@ def make_loss_fn(cfg: ModelConfig, policy: ShardingPolicy, window):
 
     def loss_fn(params, batch):
         sh = shards()
+        params = sh.enter_params(params)
+        batch = sh.local_batch(batch)
         embeds, n_prefix, _ = sh.embed_inputs(params, batch)
         x, seq_on = sh.stack(params, embeds, window)
         s_text = batch["tokens"].shape[1]
         xf = sh.enter(x, seq_on)[:, n_prefix:n_prefix + s_text]
-        loss = sh.xent(sh.logits(params, xf), batch["labels"])
+        loss = sh.batch_mean(sh.xent(sh.logits(params, xf), batch["labels"]))
         return loss, {"xent": loss}
 
     return loss_fn
@@ -371,14 +488,16 @@ def make_loss_fn(cfg: ModelConfig, policy: ShardingPolicy, window):
 
 def make_prefill_fn(cfg: ModelConfig, policy: ShardingPolicy, window):
     """Prefill on this rank: the last real token's logits (B, 1, V_pad)
-    on every rank, and a decode state holding this rank's part of the
-    cache (``make_state_spec_rule``'s layout)."""
+    of the global batch on every rank, and a decode state holding this
+    rank's part of the cache (``make_state_spec_rule``'s layout: its
+    rows, its heads or length)."""
     shards = _shards(cfg, policy)
 
     def prefill_fn(params, batch):
         sh = shards()
         tp = sh.tp
-        x, _, n_pad = sh.embed_inputs(params, batch)
+        n_rows = batch["tokens"].shape[0]
+        x, _, n_pad = sh.embed_inputs(params, sh.local_batch(batch))
         b, s = x.shape[:2]
         t = s + PREFILL_CACHE_MARGIN
         spec = sh.cache_spec(t)
@@ -388,7 +507,8 @@ def make_prefill_fn(cfg: ModelConfig, policy: ShardingPolicy, window):
         if seq_on:
             x = tp.slice_(x, 1)
         for i, layer in enumerate(tree_unstack(params["layers"])):
-            x, k, v, k_all, v_all = sh.block(layer, x, rope, window, seq_on)
+            x, k, v, k_all, v_all = sh.block(sh.gather_layer(layer), x, rope,
+                                             window, seq_on)
             if k_all is None:                  # heads: this rank's own
                 cache["k"][i, :, :s] = k
                 cache["v"][i, :, :s] = v
@@ -408,7 +528,7 @@ def make_prefill_fn(cfg: ModelConfig, policy: ShardingPolicy, window):
             last = x[:, p:p + 1]
         logits = sh.gathered_logits(params, common.pad_rows(
             last, common.row_bucket(b)))[:b]
-        return logits, {"cache": cache, "pos": p}
+        return sh.gather_rows(logits, n_rows), {"cache": cache, "pos": p}
 
     return prefill_fn
 
@@ -456,16 +576,19 @@ def _decode_attention(sh: DecoderShards, q, kv: dict, pos: int, mode: str,
 
 
 def make_decode_fn(cfg: ModelConfig, policy: ShardingPolicy):
-    """One token through the stack on this rank: the cache in this
-    rank's layout written in place (the ring slot ``pos + 1`` by the
-    rank that holds it), the logits (B, 1, V_pad) on every rank; rows
-    padded to ``common.DECODE_ROWS`` as the unsharded decode."""
+    """One token through the stack on this rank: its rows of the global
+    batch, the cache in this rank's layout written in place (the ring
+    slot ``pos + 1`` by the rank that holds it), the logits (B, 1, V_pad)
+    of the global batch on every rank; rows padded to
+    ``common.DECODE_ROWS`` as the unsharded decode."""
     shards = _shards(cfg, policy)
     hd = cfg.resolved_head_dim
 
     def decode_fn(params, state, batch):
         sh = shards()
         tp, dt = sh.tp, sh.dt
+        n_rows = batch["token"].shape[0]
+        batch = sh.local_batch(batch)
         b = batch["token"].shape[0]
         rows = common.row_bucket(b)
         cache = state["cache"]
@@ -479,6 +602,7 @@ def make_decode_fn(cfg: ModelConfig, policy: ShardingPolicy):
                                dtype=torch.float32, device=x.device)
                 for n in ("k", "v")}
         for i, layer in enumerate(tree_unstack(params["layers"])):
+            layer = sh.gather_layer(layer)
             xc = common.rmsnorm(layer["ln1"], x, cfg.norm_eps).to(dt)
             q, k, v, k_all, v_all = sh.qkv(layer["attn"], xc, rope)
             if mode == "heads":
@@ -514,8 +638,8 @@ def make_decode_fn(cfg: ModelConfig, policy: ShardingPolicy):
                      else partial).to(x.dtype)
             x = x + sh.ffn(layer, x, False)
         x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-        return sh.gathered_logits(params, x)[:b], {"cache": cache,
-                                                    "pos": pos}
+        logits = sh.gathered_logits(params, x)[:b]
+        return sh.gather_rows(logits, n_rows), {"cache": cache, "pos": pos}
 
     return decode_fn
 
@@ -528,7 +652,9 @@ def sharded_model(model: Model, cfg: ModelConfig, policy: ShardingPolicy,
     shards = _shards(cfg, policy)
 
     def init_state(batch_size: int, cache_len: int, device="cuda"):
-        return {"cache": _zero_cache(shards(), batch_size, cache_len,
+        sh = shards()
+        rows = sh.rows(batch_size)
+        return {"cache": _zero_cache(sh, rows.stop - rows.start, cache_len,
                                        resolve_device(device)),
                 "pos": cache_len - 1}
 

@@ -22,6 +22,16 @@ host), passed to the kernel by value. ``sgd`` stays leaf by leaf in
 torch ops, as the reference has it; without momentum it too updates
 params that view one flat buffer in place (the same ops, written back
 leaf by leaf), so a federated rank holds one copy of its model.
+
+Sharded params. Over a rank mesh each rank holds shards of the params
+and their gradients; the clip must read the global norm, as the
+reference's (one program over every shard) does. ``update`` takes
+``shards=(pspecs, mesh)``, the specs of the rank's leaves on its
+``launch.mesh.RankMesh``; the norm is then
+``utils.trees.sharded_global_norm`` (each leaf summed over the axes
+that split it, once over those that replicate it), the same on every
+rank. ``models.api.make_train_step`` passes it for a model whose policy
+shards params. Without it the norm is the rank's own, as before.
 """
 from __future__ import annotations
 
@@ -35,6 +45,7 @@ from repro_torch.kernels import ops
 from repro_torch.utils.trees import (
     flat_buffer_of,
     flatten_tree,
+    sharded_global_norm,
     tree_global_norm,
     tree_layout,
     tree_leaves,
@@ -70,10 +81,20 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def global_norm(grads, shards=None) -> torch.Tensor:
+    """The gradients' global norm: of the tree itself, or, with
+    ``shards=(pspecs, mesh)``, of the global tree whose shards it holds
+    (:func:`~repro_torch.utils.trees.sharded_global_norm`)."""
+    if shards is None:
+        return tree_global_norm(grads)
+    return sharded_global_norm(grads, *shards)
+
+
+def clip_by_global_norm(grads, max_norm: float, shards=None):
     """(grads scaled by min(1, max_norm / (norm + 1e-9)), norm); the
-    scaled grads are float32, as the reference's promotion makes them."""
-    norm = tree_global_norm(grads)
+    scaled grads are float32, as the reference's promotion makes them.
+    ``shards`` as :func:`global_norm`."""
+    norm = global_norm(grads, shards)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: g.float() * scale, grads), norm
 
@@ -106,15 +127,16 @@ def adamw(lr: ScheduleOrFloat = 3e-4, b1: float = 0.9, b2: float = 0.95,
         return OptState(step=_host_step(0), mu=unflatten_tree(m, layout),
                         nu=unflatten_tree(v, layout))
 
-    def update(params, grads, state: OptState):
+    def update(params, grads, state: OptState, shards=None):
         layout = tree_layout(params)
         with torch.no_grad():
             flat_p, params = _flat(params, layout)
-            flat_g, _ = _flat(grads, layout)
+            flat_g, grads = _flat(grads, layout)
             flat_m, mu = _flat(state.mu, layout)
             flat_v, nu = _flat(state.nu, layout)
             if grad_clip is not None:
-                norm = torch.linalg.vector_norm(flat_g, dtype=torch.float32)
+                norm = torch.linalg.vector_norm(flat_g, dtype=torch.float32) \
+                    if shards is None else sharded_global_norm(grads, *shards)
                 flat_g.mul_(torch.clamp(grad_clip / (norm + 1e-9), max=1.0))
             step = int(state.step) + 1
             t = np.float32(step)
@@ -141,10 +163,10 @@ def sgd(lr: ScheduleOrFloat = 1e-2, momentum: float = 0.0,
                                   device=p.device), params)
         return OptState(step=_host_step(0), mu=mu, nu=())
 
-    def update(params, grads, state: OptState):
+    def update(params, grads, state: OptState, shards=None):
         with torch.no_grad():
             if grad_clip is not None:
-                grads, _ = clip_by_global_norm(grads, grad_clip)
+                grads, _ = clip_by_global_norm(grads, grad_clip, shards)
             step = int(state.step) + 1
             lr_t = float(_lr_at(lr, step))
             if momentum == 0.0:

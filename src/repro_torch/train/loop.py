@@ -21,6 +21,17 @@ carrying a reference run's initial params across), set ``loop.params``
 to any tree of the model's layout and ``loop.opt_state =
 loop.optimizer.init(loop.params)`` before ``run()``; the first step
 packs the new params.
+
+Over a rank mesh (a model whose policy shards params: a model, seq or
+fsdp axis on a ``launch.mesh.RankMesh``), every rank runs the loop:
+``model.init`` keeps the rank's shards of the one seeded init,
+``batch_fn`` gives the global batch and the model's functions keep the
+rank's rows of it, and the step runs on the rank's flat buffer (the
+clip reads the global norm). Checkpoints hold the global tree, as the
+reference's do: params and moments are gathered
+(``tensor_parallel.gather_params``) and rank 0 writes, so a sharded
+checkpoint restores unsharded and an unsharded one restores sharded
+(each rank cuts its shards of the stored tree).
 """
 from __future__ import annotations
 
@@ -36,6 +47,8 @@ import torch
 from repro_torch.checkpoint.store import latest_step, leaves_with_paths, restore_checkpoint, save_checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models.api import Model, flat_params, make_train_step
+from repro_torch.models.tensor_parallel import gather_params, local_slice
+from repro_torch.utils.trees import tree_map, tree_map_with_path
 
 # the params' generator is seeded with the loop's seed plus this stream:
 # seed s draws what model.init(torch.Generator(device).manual_seed(s))
@@ -73,6 +86,12 @@ class TrainLoop:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.step_fn = make_train_step(model, optimizer)
+        policy = model.policy
+        # the rank mesh and the params' specs, where each rank holds
+        # shards of the params (else None: every leaf whole)
+        self.mesh = None if policy.mesh is None or policy.replicas_only \
+            else policy.mesh
+        self.specs = model.param_pspecs() if self.mesh is not None else None
 
         gen = torch.Generator(self.device).manual_seed(seed + _PARAM_STREAM)
         self.params = flat_params(model.init(gen, self.device))
@@ -84,11 +103,43 @@ class TrainLoop:
             self._resume()
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def _each_tree(state: dict, fn) -> dict:
+        """``state`` ({"params", "opt"}) with ``fn`` applied to the params
+        and to each moment tree (laid out as the params; sgd's empty
+        ones kept)."""
+        one = lambda t: fn(t) if leaves_with_paths(t) else t
+        opt = state["opt"]
+        return {"params": one(state["params"]),
+                "opt": opt._replace(mu=one(opt.mu), nu=one(opt.nu))}
+
+    def _state(self) -> dict:
+        """The checkpoint's tree: params and optimizer state, global
+        (gathered to every rank over a rank mesh)."""
+        state = {"params": self.params, "opt": self.opt_state}
+        if self.mesh is None:
+            return state
+        return self._each_tree(
+            state, lambda t: gather_params(t, self.specs, self.mesh))
+
     def _resume(self) -> None:
         """Load the newest checkpoint into the loop's own buffers (the
-        params and moments stay flat)."""
+        params and moments stay flat); over a rank mesh each rank takes
+        its shards of the stored global tree."""
         like = {"params": self.params, "opt": self.opt_state}
-        tree, extra = restore_checkpoint(self.cfg.checkpoint_dir, like)
+        template = like
+        if self.mesh is not None:
+            # global shapes on the host, no storage (an expanded scalar):
+            # the stored tree is read to the host, then cut
+            shapes = self.model.param_shapes()
+            template = self._each_tree(like, lambda t: tree_map(
+                lambda x, m: torch.empty((), dtype=x.dtype).expand(m.shape),
+                t, shapes))
+        tree, extra = restore_checkpoint(self.cfg.checkpoint_dir, template)
+        if self.mesh is not None:
+            tree = self._each_tree(tree, lambda t: tree_map_with_path(
+                lambda path, x, spec: local_slice(x, spec, self.mesh), t,
+                self.specs))
         with torch.no_grad():
             for (_, dst), (_, src) in zip(leaves_with_paths(like),
                                           leaves_with_paths(tree),
@@ -100,11 +151,14 @@ class TrainLoop:
     def _save(self, step: int) -> None:
         if not self.cfg.checkpoint_dir:
             return
-        save_checkpoint(
-            self.cfg.checkpoint_dir, step,
-            {"params": self.params, "opt": self.opt_state},
-            extra={"step": step, "metrics_log": self.metrics_log})
-        self._prune()
+        state = self._state()
+        if self.mesh is None or self.mesh.rank == 0:
+            save_checkpoint(
+                self.cfg.checkpoint_dir, step, state,
+                extra={"step": step, "metrics_log": self.metrics_log})
+            self._prune()
+        if self.mesh is not None:
+            torch.distributed.barrier()
 
     def _prune(self) -> None:
         d = Path(self.cfg.checkpoint_dir)

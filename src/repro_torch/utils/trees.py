@@ -121,6 +121,43 @@ def tree_global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(sums))
 
 
+def _spec_axes(spec) -> frozenset:
+    """The mesh axes a PartitionSpec splits its tensor over."""
+    out = set()
+    for entry in spec:
+        if isinstance(entry, str):
+            out.add(entry)
+        elif entry is not None:
+            out.update(entry)
+    return frozenset(out)
+
+
+def sharded_global_norm(tree, pspecs, mesh) -> torch.Tensor:
+    """:func:`tree_global_norm` of the global tree whose shards this rank
+    of ``mesh`` (a ``launch.mesh.RankMesh``) holds, ``pspecs`` their
+    specs: each leaf's float32 sum of squares is summed over the mesh
+    axes that split it and counted once over the axes that replicate
+    it. The leaves are grouped by their split axes; one all-reduce an
+    axis sums the groups that axis splits. The same value on every
+    rank."""
+    groups = {}
+
+    def add(path, x, spec):
+        key = _spec_axes(spec)
+        s = torch.sum(torch.square(x.float()))
+        groups[key] = groups[key] + s if key in groups else s
+
+    tree_map_with_path(add, tree, pspecs)
+    keys = sorted(groups, key=lambda k: sorted(k))
+    sums = torch.stack([groups[k] for k in keys])
+    for axis in mesh.axis_names:
+        hit = torch.tensor([axis in k for k in keys], device=sums.device)
+        if mesh.shape[axis] > 1 and bool(hit.any()):
+            part = mesh.all_reduce_(torch.where(hit, sums, 0.0), axis)
+            sums = torch.where(hit, part, sums)
+    return torch.sqrt(sums.sum())
+
+
 def tree_cast(tree, dtype):
     return tree_map(lambda x: x.to(dtype), tree)
 

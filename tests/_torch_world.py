@@ -1,5 +1,6 @@
 """Rank tasks of the distributed parity tests (``test_torch_distributed.py``,
-``test_torch_tensor_parallel.py``).
+``test_torch_tensor_parallel.py``, ``test_torch_fsdp.py``,
+``test_torch_fl_tp.py``).
 
 Each function here runs in one spawned rank of a gloo world started by
 ``repro_torch.launch.world.run_world`` and returns numpy results to the
@@ -190,5 +191,195 @@ def tp_card_prefill(rank, world, cfg, prompt):
             "cache": tuple(state["cache"]["k"].shape)}
 
 
-_TASKS = {"psum_case": psum_case, "fl_round": fl_round,
-          "replica_check": replica_check, "tp_case": tp_case}
+def _live(tree):
+    leaves, rebuild = tree_flatten(tree)
+    live = [x.detach().requires_grad_() for x in leaves]
+    return live, rebuild
+
+
+def fsdp_case(rank, mesh_of, dims, axes, cfg, seq, fsdp, params, batch,
+              prompt, steps):
+    """The decoder on a mesh with batch axes beside the model axis:
+    ``make_policy(mesh, fsdp=fsdp, seq_shard=seq)``, ``params`` (a full
+    numpy tree) cut into this rank's shards. The global batch's loss and
+    its gradients (gathered to full on rank 0; the norms' own gradients
+    on every rank); the prefill logits of ``prompt`` and the logits of
+    teacher-forced decode steps, with the same policy and with fsdp off
+    (the reference's decode layout, the params cut again), each gathered
+    to every rank; the cache's local shape."""
+    mesh = mesh_of(dims, axes)
+    mesh.traffic.clear()
+    config = get_config(cfg[0]).reduced().replace(**cfg[1])
+    full = params_from_numpy(params, "cpu")
+    model = get_model(config, make_policy(mesh, fsdp=fsdp, seq_shard=seq))
+    specs = model.param_pspecs()
+    local = shard_params(full, specs, mesh)
+    live, rebuild = _live(local)
+    t = {k: torch.tensor(v) for k, v in batch.items()}
+    loss, _ = model.loss_fn(rebuild(live), t)
+    grads = rebuild(list(torch.autograd.grad(loss, live)))
+    gathered = gather_params(grads, specs, mesh)
+    norms = {k: grads["layers"][k]["scale"].numpy() for k in ("ln1", "ln2")}
+    norms["ln_f"] = grads["ln_f"]["scale"].numpy()
+    traffic = dict(mesh.traffic)
+    out = {"loss": float(loss.detach()), "norms": norms, "traffic": traffic,
+           "grads": params_to_numpy(gathered) if rank == 0 else None}
+    decoders = {"same": (model, local)}
+    if fsdp:
+        plain = get_model(config, make_policy(mesh, seq_shard=seq))
+        decoders["fsdp-off"] = (plain, shard_params(
+            full, plain.param_pspecs(), mesh))
+    with torch.no_grad():
+        logits, state = model.prefill_fn(
+            local, {k: torch.tensor(v) for k, v in prompt.items()})
+        out["prefill"] = logits.numpy()
+        out["cache"] = tuple(state["cache"]["k"].shape)
+        first = {k: v.clone() for k, v in state["cache"].items()}
+        for tag, (m, p) in decoders.items():
+            st = {"cache": {k: v.clone() for k, v in first.items()},
+                  "pos": state["pos"]}
+            seq_logits = []
+            for j in range(steps.shape[1]):
+                logits, st = m.decode_fn(
+                    p, st, {"token": torch.tensor(steps[:, j:j + 1])})
+                seq_logits.append(logits.numpy())
+            out[f"decode-{tag}"] = seq_logits
+    return out
+
+
+def _scales(tree) -> dict:
+    """The norms' leaves of a decoder tree, numpy."""
+    out = {k: tree["layers"][k]["scale"].detach().numpy()
+           for k in ("ln1", "ln2")}
+    out["ln_f"] = tree["ln_f"]["scale"].detach().numpy()
+    return out
+
+
+def clip_case(rank, mesh_of, dims, axes, cfg, fsdp, params, batches, lr,
+              clip):
+    """The gradient clip on this rank's shards (``make_policy(mesh,
+    fsdp=fsdp)``): the global norm of the first batch's gradient (and
+    the rank's own, the norm the clip read before it was global); one
+    ``sgd(lr, grad_clip=clip)`` step; ``len(batches)`` steps of
+    ``make_train_step`` with ``adamw(lr, grad_clip=clip)``. The params
+    after each, gathered to full on rank 0, the losses, and each rank's
+    norm scales after the AdamW steps."""
+    from repro_torch.models.api import make_train_step
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizers import global_norm
+    from repro_torch.utils.trees import tree_global_norm
+    mesh = mesh_of(dims, axes)
+    config = get_config(cfg[0]).reduced().replace(**cfg[1])
+    model = get_model(config, make_policy(mesh, fsdp=fsdp))
+    specs = model.param_pspecs()
+    full = params_from_numpy(params, "cpu")
+    ts = [{k: torch.tensor(v) for k, v in b.items()} for b in batches]
+    live, rebuild = _live(shard_params(full, specs, mesh))
+    loss, _ = model.loss_fn(rebuild(live), ts[0])
+    grads = rebuild(list(torch.autograd.grad(loss, live)))
+    out = {"norm": float(global_norm(grads, (specs, mesh))),
+           "local_norm": float(tree_global_norm(grads))}
+    gathered = lambda p: params_to_numpy(gather_params(p, specs, mesh))
+    p = flat_params(shard_params(full, specs, mesh))
+    opt = sgd(lr, grad_clip=clip)
+    p, _, _ = make_train_step(model, opt)(p, opt.init(p), ts[0])
+    out["sgd"] = gathered(p)
+    p = flat_params(shard_params(full, specs, mesh))
+    opt = adamw(lr, grad_clip=clip)
+    step, state, losses = make_train_step(model, opt), opt.init(p), []
+    for b in ts:
+        p, state, m = step(p, state, b)
+        losses.append(float(m["loss"]))
+    out["adamw"], out["losses"] = gathered(p), losses
+    out["scales"] = _scales(p)
+    if rank:
+        out["sgd"] = out["adamw"] = None
+    return out
+
+
+def loop_case(rank, mesh_of, dims, axes, cfg, fsdp, batches, lr, ckpt):
+    """``TrainLoop`` on this rank (``make_policy(mesh, fsdp=fsdp)``,
+    ``adamw(lr)``, seed 0, a checkpoint every step under ``ckpt``,
+    resuming from the newest one there): its metrics log and its final
+    params, gathered to full on rank 0."""
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import TrainLoop, TrainLoopConfig
+    mesh = mesh_of(dims, axes)
+    config = get_config(cfg[0]).reduced().replace(**cfg[1])
+    model = get_model(config, make_policy(mesh, fsdp=fsdp))
+    loop = TrainLoop(model, adamw(lr), lambda step: batches[step],
+                     TrainLoopConfig(total_steps=len(batches), log_every=1,
+                                     save_every=1, checkpoint_dir=ckpt),
+                     device="cpu")
+    start = loop.start_step
+    log = loop.run()["metrics_log"]
+    params = params_to_numpy(gather_params(loop.params, model.param_pspecs(),
+                                           mesh))
+    return {"start": start, "log": log,
+            "params": params if rank == 0 else None}
+
+
+def fl_tp_round(rank, mesh_of, dims, cfg, seq, tree, placement, mode, lr,
+                local_steps, params, batch):
+    """One FLTrainStep round of tensor-parallel clients on a ``("data",
+    "model")`` mesh, the reference's federated policy (model axis, seq
+    axis when ``seq``, no batch or fsdp axes): ``init_stacked``'s params
+    gathered over the model axis, then this rank's shards of ``params``
+    (a full numpy tree), its client's rows of the client-stacked
+    ``batch``, one round; the params after it gathered over the model
+    axis (each data coordinate's), this rank's own shards, the loss."""
+    mesh = mesh_of(dims, ("data", "model"))
+    config = get_config(cfg[0]).reduced().replace(**cfg[1])
+    policy = ShardingPolicy(mesh=mesh, model_axis="model",
+                            seq_axis="model" if seq else None)
+    model = get_model(config, policy)
+    specs = model.param_pspecs()
+    fl = FLTrainStep(model, sgd(lr), Hierarchy(*tree[:3], n_clients=tree[3]),
+                     placement, local_steps=local_steps, mode=mode)
+    drawn, _ = fl.init_stacked(torch.Generator().manual_seed(0), "cpu")
+    drawn = params_to_numpy(gather_params(drawn, specs, mesh))
+    p = flat_params(shard_params(params_from_numpy(params, "cpu"), specs,
+                                 mesh))
+    own = {k: torch.tensor(v[fl.client_index]) for k, v in batch.items()}
+    stats = []
+    p, _, metrics = fl.make_round_fn()(p, fl.optimizer.init(p), own,
+                                       stats=stats)
+    return {"params": params_to_numpy(gather_params(p, specs, mesh)),
+            "local": params_to_numpy(p), "loss": float(metrics["loss"]),
+            "client": fl.client_index, "model": mesh.axis_index("model"),
+            "steps": [s["step"] for s in stats],
+            "init": drawn if rank == 0 else None}
+
+
+def fsdp_card_step(rank, world, cfg, batch):
+    """A rank of ``test_torch_cuda.py``'s fsdp step on the card (a
+    module-level target of ``run_world``): a (2, 2) ``("data",
+    "model")`` mesh, ``make_policy(mesh, fsdp=True, seq_shard=True)``,
+    this rank's shards of the seeded init, one ``make_train_step`` step
+    with ``adamw(1e-3)``; the loss, the params after it gathered to full
+    (rank 0) and the rank's fused AdamW launches."""
+    from repro_torch.kernels import fused_adamw as kadamw
+    from repro_torch.models.api import make_train_step
+    from repro_torch.optim import adamw
+    torch.cuda.set_device(0)
+    torch.set_num_threads(1)
+    mesh = RankMesh((2, 2), ("data", "model"), device="cuda")
+    model = get_model(cfg, make_policy(mesh, fsdp=True, seq_shard=True))
+    params = flat_params(model.init(torch.Generator("cuda").manual_seed(0),
+                                    "cuda"))
+    opt = adamw(1e-3)
+    kadamw.fused_adamw.launches = 0
+    params, _, metrics = make_train_step(model, opt)(
+        params, opt.init(params),
+        {k: torch.tensor(v, device="cuda") for k, v in batch.items()})
+    full = gather_params(params, model.param_pspecs(), mesh)
+    torch.cuda.synchronize()
+    return {"loss": float(metrics["loss"]),
+            "adamw": kadamw.fused_adamw.launches,
+            "params": params_to_numpy(full) if rank == 0 else None}
+
+
+_TASKS = {"psum_case": psum_case, "fl_tp_round": fl_tp_round, "fl_round": fl_round,
+          "replica_check": replica_check, "tp_case": tp_case,
+          "fsdp_case": fsdp_case, "clip_case": clip_case,
+          "loop_case": loop_case}

@@ -100,6 +100,20 @@ def test_fused_adamw_wrapper_updates_in_place_on_the_cpu():
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_adamw_cpu_chunks_equal_one_pass(dtype, monkeypatch):
+    """The CPU path's chunks (a ragged last one too) change no bit."""
+    monkeypatch.setattr(kadamw, "CPU_CHUNK", 1000)
+    p, g, m, v = (torch.tensor(x) for x in _adamw_operands(4099, dtype,
+                                                           seed=7))
+    if dtype == "bfloat16":
+        p, g = p.bfloat16(), g.bfloat16()
+    want = fused_adamw_ref(p, g, m, v, 1e-3, 0.1, 0.05)
+    got = ops.fused_adamw(p, g, m, v, 1e-3, 0.1, 0.05)
+    for x, y in zip(got, want, strict=True):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("bad,err,match", [
     (dict(g=torch.zeros(8, dtype=torch.bfloat16)), TypeError, "g is"),
     (dict(m=torch.zeros(8, dtype=torch.bfloat16)), TypeError, "float32"),

@@ -349,7 +349,8 @@ def test_bf16_stays_inside_the_reference_sharded_band(worlds, ref_sharded,
 
 
 # ---------------------------------------------------------------------------
-# what still raises
+# what still raises (the dense and vlm families' fsdp and batch axes run:
+# tests/test_torch_fsdp.py)
 # ---------------------------------------------------------------------------
 def _mesh(dims):
     return DeviceMesh((torch.device("cpu"),) * int(np.prod(dims)),
@@ -358,11 +359,13 @@ def _mesh(dims):
 
 @pytest.mark.parametrize("arch,policy,item", [
     ("granite-moe-1b-a400m", "model", "12b-1c"),
-    ("granite-8b", "fsdp", "12b-1b"),
-    ("recurrentgemma-2b", "model", "12b-1b"),
-    ("xlstm-1.3b", "seq", "12b-1b"),
-    ("seamless-m4t-large-v2", "model", "12b-1b"),
-    ("granite-8b", "data-2", "12b-1b"),
+    ("granite-moe-1b-a400m", "fsdp", "12b-1c"),
+    ("recurrentgemma-2b", "fsdp", "12b-1b-2"),
+    ("recurrentgemma-2b", "model", "12b-1b-2"),
+    ("xlstm-1.3b", "seq", "12b-1b-2"),
+    ("xlstm-1.3b", "fsdp", "12b-1b-2"),
+    ("seamless-m4t-large-v2", "model", "12b-1b-2"),
+    ("seamless-m4t-large-v2", "data-2", "12b-1b-2"),
 ])
 def test_layouts_still_to_port_raise_and_name_their_item(arch, policy, item):
     dims = (2, 4) if policy == "data-2" else (1, 4)
@@ -385,12 +388,14 @@ def test_federated_rounds_over_a_model_axis_name_their_item():
     from repro_torch.core.hierarchy import Hierarchy
     from repro_torch.fl.distributed import FLTrainStep
     from repro_torch.optim import sgd
-    model = get_model(get_config("granite-8b").reduced(),
+    # the dense and vlm families run it (tests/test_torch_fl_tp.py); the
+    # recurrent ones name their item
+    model = get_model(get_config("recurrentgemma-2b").reduced(),
                       make_policy(_mesh((2, 4))))
     fl = FLTrainStep(model, sgd(0.1), Hierarchy(1, 1, 1, n_clients=2),
                      np.arange(1))
     assert fl.stacked_param_pspecs()          # the specs answer
-    with pytest.raises(NotImplementedError, match="item 12b-1b"):
+    with pytest.raises(NotImplementedError, match="item 12b-1b-2"):
         fl.make_round_fn()
-    with pytest.raises(NotImplementedError, match="item 12b-1b"):
+    with pytest.raises(NotImplementedError, match="item 12b-1b-2"):
         fl.init_stacked(torch.Generator(), "cpu")

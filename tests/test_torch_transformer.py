@@ -206,11 +206,13 @@ def test_unsharded_policy_hints_are_no_ops():
     assert shard_hint(x, meshed, "batch", None) is x
     with pytest.raises(ValueError, match="rank mismatch"):
         shard_hint(x, meshed, "batch")
-    # the layouts still to port name their item when run
+    # the layouts still to port name their item when run (the dense
+    # family runs fsdp: tests/test_torch_fsdp.py)
     fsdp = ShardingPolicy(mesh=_Mesh(), model_axis="model",
                           fsdp_axes=("data",))
-    with pytest.raises(NotImplementedError, match="item 12b-1b"):
-        get_model(get_config(ARCH).reduced(), fsdp).loss_fn(None, None)
+    with pytest.raises(NotImplementedError, match="item 12b-1b-2"):
+        get_model(get_config("recurrentgemma-2b").reduced(),
+                  fsdp).loss_fn(None, None)
 
 
 # ---------------------------------------------------------------------------
