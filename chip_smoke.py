@@ -17,7 +17,22 @@ serves at most 6 layers, not 36, and takes its gradient at most at 4,
 not 15, phase 29 runs 2 and 1 layers, not 4 and 2, phase 25 trains 4
 layers, not 8, phase 26 serves llava at 16 of 32 layers and cuts both
 families to 1 layer against the CPU, not 2, and every
-``launch/train.py`` run takes ``--batch-size 8``, not 32):
+``launch/train.py`` run takes ``--batch-size 8``, not 32; to make room
+for phase 30, phase 16's training depth cut takes 1 step on each
+device, not 2, its bfloat16 step with plain SGD, not AdamW, phase 6
+runs paper-fig4 for 20 rounds, not 50, phase 7 runs 3 rounds, not 5,
+phase 11 and phase 26 (b) and (d) hold one request of each wave to its
+serial decode, not all 8, phase 20 runs 8 rounds, not 12, every
+federated LM run takes 1 round, not 2, phase 25 profiles its stages at
+a 4 x 1024 prefill, not 4 x 2048, and serves a wave of 4 x 512, not
+4 x 1024, phase 27 (c) runs its hierarchical round only, not also a
+flat one, with 1 local step, not 2, phase 29 (b) runs its held round
+only, not after a warm-up round, the federated clients of phases 27
+(c), 29 (b) and 30 (c) train without remat (a rank's first remat call
+imports ``torch._dynamo``, which stalled each world's first round);
+and phase 30 serves seamless-m4t-large-v2 at 2 + 2 layers, not 12 +
+12, whose 12-layer decoder's decode took 0.47-0.53 s a token over
+gloo):
 
 1. card and toolchain (and both TF32 flags);
 2. build all eight kernel sources (``src/repro_torch/csrc/tpd.cu``,
@@ -53,11 +68,11 @@ families to 1 layer against the CPU, not 2, and every
    every TPD launch on the route that builds the leaf loads in shared
    memory;
 6. the emulated main path: ``run_experiment("paper-fig4", ["pso",
-   "random", "uniform"], rounds=50, seeds=[0])`` on ``cuda`` with the
+   "random", "uniform"], rounds=20, seeds=[0])`` on ``cuda`` with the
    full-width paper MLP (batched engine, deterministic timing), held to
    the same run on the CPU: placements and TPDs exactly, losses within
    rtol 1e-4, final params within rtol 1e-3 (atol 1e-5);
-7. the loop engine: paper-fig4 with ``engine="loop"`` for 5 rounds on
+7. the loop engine: paper-fig4 with ``engine="loop"`` for 3 rounds on
    ``cuda``: its TPD trace equals the batched engine's exactly, its
    params agree within rtol 1e-3 (atol 1e-5);
 8. where a round's time goes: 3 rounds of paper-fig4, then full scale:
@@ -95,8 +110,8 @@ families to 1 layer against the CPU, not 2, and every
     (26 layers, 3.55B f32 params drawn on the card, bf16 compute)
     serving 8 requests through ``WaveScheduler(max_batch=4)``: 4 prompts
     of 1024 tokens and 4 of 4096 (tokens from numpy, seed 0), 32 new
-    tokens each, the RG-LRU scan on the TMA route only; every output
-    equal to its batch-1 serial decode; prefill
+    tokens each, the RG-LRU scan on the TMA route only; one request of
+    each wave equal to its batch-1 serial decode; prefill
     time, decode time per token and ``summary()``; where a decode step
     goes; and prefill(4096) + decode equal to prefill(4097) (f32 rtol =
     atol = 2e-3, bf16 atol 0.5 on logits of scale ~5);
@@ -135,10 +150,12 @@ families to 1 layer against the CPU, not 2, and every
     the last step a window of p, g, m, v past
     element 2^31 held bit for bit to the plain AdamW;
 16. a training depth cut: those params cut to one triple and two tails,
-    1 x 128 tokens, 2 steps on ``cuda`` vs ``cpu``, float32 compute
-    (losses rtol 1e-4, update within 3% in norm, at most 0.2% of the
-    elements outside rtol 1e-3 / atol 1e-5) and bfloat16 (losses 1e-2,
-    update within 10%); the f32 run is the f32 flash backward's path;
+    1 x 128 tokens, 1 step on ``cuda`` vs ``cpu``, float32 compute
+    with ``adamw`` (losses rtol 1e-4, update within 3% in norm, at most
+    0.2% of the elements outside rtol 1e-3 / atol 1e-5) and bfloat16
+    with ``sgd(1.0)``, whose update is the gradient (losses rtol 1e-2,
+    update within 10% in norm); the f32 run is the f32 flash backward's
+    path;
 17. timings of the three training kernels beside their bounds, the plain
     versions and (AdamW, flash backward) ``torch._fused_adamw_`` and the
     SDPA backward as yardsticks, the flash backward on both routes (f32
@@ -172,12 +189,12 @@ families to 1 layer against the CPU, not 2, and every
     CPU (placements, TPDs, the event log and every online and fault
     series exactly, losses within rtol 1e-4, final params within rtol
     1e-3 / atol 1e-5 but for at most 1e-5 of them, as phase 19):
-    ``online-sync`` (12 rounds of pso) also equal to the emulated
+    ``online-sync`` (8 rounds of pso) also equal to the emulated
     ``paper-fig4`` run on ``cuda`` bit for bit (``torch.equal`` on the
-    final params); ``online-fig4`` (12 rounds of pso and greedy);
+    final params); ``online-fig4`` (8 rounds of pso and greedy);
     ``online-straggler`` (6 rounds, at least one REOPT swap); ``chaos``
-    online (12 rounds of pso and greedy) and a pso run checkpointed at
-    round 6 and resumed to 12 equal to the uninterrupted run's
+    online (8 rounds of pso and greedy) and a pso run checkpointed at
+    round 6 and resumed to 8 equal to the uninterrupted run's
     ``to_dict()`` byte for byte; the ``fedavg_batched`` launches over
     the phase held to the CPU rehearsal's count (aggregations x tree
     levels: one warm-up a run and every lockstep round);
@@ -206,9 +223,9 @@ families to 1 layer against the CPU, not 2, and every
     then one wave of full-width ``stablelm-3b`` (4 x 1024 tokens, 16 new
     tokens; hd 80 on the padded sm90 route, one launch a layer);
 23. federated LM rounds: ``launch.train.main`` on stablelm-1.6b
-    ``reduced()`` (pso, 7 clients, 2 rounds, batch 8) on ``cuda``, exit
+    ``reduced()`` (pso, 7 clients, 1 round, batch 8) on ``cuda``, exit
     0 with finite losses; then the batched engine (deterministic timing, 7
-    clients, 2 rounds of pso) on ``cuda`` and on ``cpu`` from the same
+    clients, 1 round of pso) on ``cuda`` and on ``cpu`` from the same
     initial params for stablelm-1.6b and recurrentgemma-2b ``reduced()``
     at float32 compute: placements and TPDs exactly, losses within rtol
     1e-4; the flash forward/backward, RG-LRU scan/adjoint and
@@ -242,7 +259,7 @@ families to 1 layer against the CPU, not 2, and every
     each, then the same params on the host: a 1 x 256 prefill and 4
     decode steps in float32 at (e)'s tolerance; (h) ``launch/train.py
     --arch granite-moe-1b-a400m`` (reduced) on ``cuda``, then the
-    batched engine on ``cuda`` and ``cpu`` (7 clients, 2 rounds of pso,
+    batched engine on ``cuda`` and ``cpu`` (7 clients, 1 round of pso,
     float32): placements and TPDs exactly, losses within rtol 1e-4,
     flash and FedAvg launches held to the CPU rehearsal's count, 0 TPD
     launches;
@@ -250,14 +267,15 @@ families to 1 layer against the CPU, not 2, and every
     seed 0): (a) one full-width mLSTM block and one sLSTM block of
     xlstm-1.3b at 2 x 512 float32 tokens against the host (outputs and
     final states within rtol = atol = 1e-3, two card runs bit-equal),
-    then their stages under ``torch.profiler`` at prefill 4 x 2048 and
+    then their stages under ``torch.profiler`` at prefill 4 x 1024 and
     decode B 4 (bf16: up projection, q/k/v/gates, the chunkwise cell,
     out-norm and down; the sLSTM input projection, loop and out
     projection), with the sLSTM loop's launches a step and a token and
     its device time against its host time; (b) full-width, full-depth
     xlstm-1.3b (2.62e9 f32 params, bf16 compute) serving 4 requests
-    through ``WaveScheduler(max_batch=4)`` (4 x 1024 tokens, 32 new
-    each; the 4 x 2048 wave gave phase 26 its time): prefill and decode
+    through ``WaveScheduler(max_batch=4)`` (4 x 512 tokens, 32 new
+    each; the 4 x 2048 wave gave phase 26 its time, the 4 x 1024 wave
+    phase 30): prefill and decode
     times, peak memory, no kernel launch, one request equal to its
     batch-1 serial run, a decode step under ``torch.profiler``; (c) a
     2-layer full-width cut (one block of each kind), a 512-token prompt and 4
@@ -272,7 +290,7 @@ families to 1 layer against the CPU, not 2, and every
     own backward against autograd's (gradients within 1e-4 of their
     scale), and its share of the step's device time; (e)
     ``launch/train.py --arch xlstm-1.3b`` (reduced) on ``cuda``, then
-    the batched engine on ``cuda`` and ``cpu`` (7 clients, 2 rounds of
+    the batched engine on ``cuda`` and ``cpu`` (7 clients, 1 round of
     pso, float32): placements and TPDs exactly, losses within rtol
     1e-4, the FedAvg launches held to the CPU rehearsal's count and no
     other kernel;
@@ -290,13 +308,15 @@ families to 1 layer against the CPU, not 2, and every
     max_batch=4, frontend=...)`` behind one seeded 2880 x 4096 prefix
     (4 x 512 and 4 x 1024 text tokens, 3584 and 4096 after padding, 32
     new each): prefill and decode times, peak memory, one causal sm90
-    flash launch a layer a wave, every request equal to its batch-1
-    serial decode, a decode step under ``torch.profiler``; (c) a 1-layer
+    flash launch a layer a wave, one request of each wave equal to its
+    batch-1 serial decode, a decode step under ``torch.profiler``; (c) a
+    1-layer
     full-width cut, 1 x (2880 + 64) and 4 decode steps, on ``cuda`` vs
     ``cpu``: float32 logits within 1e-4, bf16 greedy tokens by the drift
     band; (d) full-width seamless-m4t-large-v2 (1.28e9 params) served
-    the same way behind a 1024 x 1024 frontend (every request equal to
-    its serial decode; 12 bidirectional and 12 causal flash launches a
+    the same way behind a 1024 x 1024 frontend (one request of each
+    wave equal to its serial decode; 12 bidirectional and 12 causal
+    flash launches a
     wave), a 1 + 1-layer cut held to the CPU as (c), and 4 ``TrainLoop``
     steps of 1 x 2048 text tokens, remat on: losses, step times, peak
     memory, launches by mask; (e) llava trained 2 steps of 1 x (2880 +
@@ -304,7 +324,7 @@ families to 1 layer against the CPU, not 2, and every
     card free (from 20 bytes a layer param and the largest leaf's
     stack), held to leave it; (f) ``launch/train.py`` for both families
     (reduced) on ``cuda``, then the batched engine on ``cuda`` and
-    ``cpu`` (7 clients, 2 rounds of pso, float32): placements and TPDs
+    ``cpu`` (7 clients, 1 round of pso, float32): placements and TPDs
     exactly, losses within rtol 1e-4, the flash and FedAvg launches held
     to the CPU rehearsal's count;
 27. the paper's aggregation tree across ranks (``fl.distributed``,
@@ -328,16 +348,16 @@ families to 1 layer against the CPU, not 2, and every
     params) at the deepest depth whose 4 ranks leave 10 GiB of the card
     free (12 bytes a layer param and 8 of the others a rank) over
     4 ranks, tree (2, 1, 2, 4), ``sgd(0.05)``,
-    2 local steps of 1 x 512 tokens a client, rounds hierarchical and
-    flat (a second hierarchical round was cut for phase 28's time; at
+    1 local step of 1 x 512 tokens a client, one hierarchical round
+    (a second was cut for phase 28's time, a flat one for phase 30's; at
     most DIST_LM_LAYERS = 4 layers since phase 29);
     rank 0 then runs the host path on the card from the same init
     (held bit for bit) and, for each round, from the rank
     path's params before it: losses within rtol 1e-4, params within rtol
     1e-3 / atol 1e-5 but for a share of 1e-5; each round split into
     local steps and each aggregation step (ms, bytes, ranks), peak memory
-    a rank, flash forward and backward launches held to 2 and 3 a layer
-    a local step;
+    a rank, flash forward and backward launches held to 1 and 3 a layer
+    a local step (2 and 3 with remat);
 28. full-width granite-8b over a (1, 4) ``("data", "model")`` mesh of
     spawned gloo ranks on the card (``models/transformer_tp.py``), with
     ``seq_shard`` off and then on, each rank holding its shards of the
@@ -382,7 +402,8 @@ families to 1 layer against the CPU, not 2, and every
     2 model ranks, the reference's federated policy (model and seq
     axis, no batch or fsdp axes), ``sgd(0.05)``, tree (2, 1, 2, 4) at
     placement [1, 0], 1 x 512 tokens a client, at FL_TP_LAYERS = 1
-    layer: a warm-up round, then a round whose update (after minus
+    layer: one round (a warm-up before it was cut for phase 30), whose
+    update (after minus
     before, leaf by leaf) is held to the host path's from the same
     params (written by the data-axis-0 ranks into the parent's buffers,
     CUDA IPC) within twice the host path's bf16-to-float32 gap, every
@@ -390,8 +411,51 @@ families to 1 layer against the CPU, not 2, and every
     and round times, each's share in collectives, bytes a collective,
     peak memory a rank, flash launches on each rank's 16 q and 4 kv
     heads. The depths are set by the phase's time (each layer's fsdp
-    gather moves its float32 shard through gloo), not by memory. Then
-    the ``kernels`` JSON line (ten kernels) and the final status line.
+    gather moves its float32 shard through gloo), not by memory;
+30. full-width recurrentgemma-2b and seamless-m4t-large-v2 over 4
+    spawned gloo ranks on the card (``models/rglru_tp.py``,
+    ``models/encdec_tp.py``): first the RG-LRU scan and adjoint at a
+    model-axis rank's shapes, (2, 4096, 640) and (1, 2048, 640) f32, on
+    the TMA route, bit-equal to the plain versions, with device times
+    beside the bound; then three worlds of 4 ranks (FAM_WORLDS: one each
+    for recurrentgemma-2b's (b) and (c), whose ranks hold 15.4 and 8.9
+    GiB each on the card, one for its (a) and all of seamless; the
+    references on the card, read by CUDA IPC, but (b)'s in the host's
+    shared memory; each world spawned only if the card has its ranks'
+    measured peak reserves, plus 1 GiB a rank, free) run
+    (a) a (1, 4) mesh,
+    ``seq_shard`` off and on: recurrentgemma-2b at 5 layers (one triple,
+    both tails; a wave of 2 x 4096, the 2048 window binding) and
+    seamless at 2 + 2 (a wave of 4 x 512 behind 1024 stub frames), the
+    prefill and
+    8 decode steps fed the unsharded bf16 run's greedy tokens, the
+    last-token logits within twice the unsharded run's bf16-to-float32
+    gap and the greedy tokens in it, equal on every rank; a gradient of
+    1 x 2048 (recurrentgemma at 5 layers, seamless at 2 + 2) held leaf
+    by leaf to twice the unsharded gradient's bf16 gap (read by CUDA
+    IPC), the loss within rtol 1e-3, the replicated leaves' gradients
+    bit-equal on every rank; (b) a (2, 2) mesh, ``make_policy(mesh,
+    fsdp=True, seq_shard=True)``: the wave's prefill within the same
+    band, two ``adamw()`` steps (clip 1.0, remat) of 2 x 512 at the
+    gradient's cut, the first loss within rtol 1e-4 of the unsharded
+    step's, the pre-clip global norm within 1e-3, each leaf within
+    twice its bf16 gap (the two vocab tables over a window of their
+    vocab dim: the batch's ids and every 1021st), the fused AdamW
+    windows bit for bit to the
+    plain version every step, the replicated leaves bit-equal; (c) a
+    (2, 2) mesh, 2 clients of 2 model ranks, the reference's federated
+    policy, ``sgd(0.05)``, flat mode, 1 x 512 tokens a client
+    (recurrentgemma cut to one triple, seamless to 1 + 1): a warm-up
+    round and a round whose update is held to the host path's (one
+    FedAvg launch, from the ranks' params before it) within twice the
+    host path's bf16 gap, the shards bit-equal along the data axis.
+    Every rank's flash launches run on its own heads (recurrentgemma:
+    all 10 q and the 1 kv head on every rank; seamless: 4 and 4 at
+    M = 4, 8 and 8 at M = 2) and its RG-LRU launches on the TMA route;
+    prefill, decode, step and round times, each's seconds in
+    collectives, bytes a collective and peak memory a rank are printed.
+    Then the ``kernels`` JSON line (ten kernels) and the final status
+    line.
 
 Each kernel's launch count is set to 0 just before the path that runs
 it and read just after: ``tpd`` over phase 5, ``fedavg_batched`` over
@@ -430,7 +494,13 @@ reference runs are comparisons and are not counted. Phase 29's ranks
 count theirs over the fsdp prefill, the decode, the training steps and
 the two federated rounds, summed over the ranks under ``"phase 29 (a)
 ..."`` and ``"phase 29 (b) ..."``; the unsharded runs and the host
-path are comparisons and are not counted.
+path are comparisons and are not counted. Phase 30's ranks count
+theirs over each path of (a), (b) and (c) (a prefill with its decode
+steps, a gradient, the fsdp prefill, the training steps, the rounds),
+summed over the ranks under ``"phase 30 (a|b|c) <arch> ..."``, the
+flash kernels split by mask (``causal=1``, ``causal=0``) as phase 26
+splits them; its timings of the RG-LRU kernels at a rank's shapes are
+comparisons.
 """
 from __future__ import annotations
 
@@ -457,8 +527,8 @@ FIG3_DEPTH, FIG3_WIDTH, FIG3_PARTICLES = (3, 4, 5), (4, 5), (5, 10)
 FIG3_ITERATIONS = 100
 FULL_SCALE_ITERATIONS = 50
 FIG4_STRATEGIES = ("pso", "random", "uniform")
-FIG4_ROUNDS = 50
-LOOP_ROUNDS = 5
+FIG4_ROUNDS = 20               # 50 before phase 30 (the CPU run took 26.5 s)
+LOOP_ROUNDS = 3                # 5 before phase 30 (25 s on an H100 host)
 # cuda vs cpu on the emulated track: the same float32 math summed in
 # other orders (the card's matmuls, the kernel's k-ordered sums)
 LOSS_RTOL = 1e-4
@@ -709,6 +779,9 @@ SERVE_PROMPTS = ((1024, 4), (4096, 4))
 # make room for phase 28)
 SERVE_NEW_TOKENS = 16
 SERVE_MAX_BATCH = 4
+# phase 11 serves one request of each wave alone (every request before
+# phase 30)
+SERVE_SERIAL = (0, 4)
 DEPTH_CUT_LAYERS = 5            # one (r, r, a) triple and the two tails
 DEPTH_CUT_PROMPT = 64
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core rate
@@ -964,7 +1037,7 @@ def hybrid_phases(torch, np_, dev, card):
                                & (r.output < cfg.vocab_size))),
               f"request {r.rid}: malformed output {r.output}")
     mismatched = []
-    for r in reqs:
+    for r in (r for r in reqs if r.rid in SERVE_SERIAL):
         one = WaveScheduler(model, params, max_batch=1)
         alone = Request(rid=r.rid, tokens=r.tokens,
                         max_new_tokens=SERVE_NEW_TOKENS)
@@ -1270,15 +1343,20 @@ FLASH_BWD_CASES = ((1, 10, 1, 2048, 256, None), (1, 10, 1, 4096, 256, 2048),
 FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 RGLRU_BWD_CASES = (((1, 2048, 2560), "float32"), ((2, 1031, 2500), "float32"),
                    ((3, 777, 2561), "bfloat16"))
-TRAIN_CUT_TOKENS, TRAIN_CUT_STEPS = 128, 2
+# one step since phase 30 (two took 34.8 and 35.8 s of host training on
+# an H100 80GB HBM3 host at 700 W)
+TRAIN_CUT_TOKENS, TRAIN_CUT_STEPS = 128, 1
 # depth cut, cuda vs cpu: losses (f32: sums in other orders; bf16:
 # roundings at other points over 5 blocks); params: Adam moves a weight
 # whose gradient is within rounding of 0 by +-lr, so elementwise
 # agreement holds for all but a few (tests/test_torch_train.py); the
-# whole update is held in norm
+# whole update is held in norm. The bf16 step is plain SGD since phase
+# 30 (the host's AdamW over 1.74e9 params took most of its time): its
+# update is the gradient, so the norm check reads the gradient itself
 CUT_LOSS_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 CUT_OUTSIDE = {"float32": 2e-3}          # share outside rtol 1e-3/atol 1e-5
 CUT_UPDATE_RTOL = {"float32": 3e-2, "bfloat16": 0.1}
+CUT_SGD_LR = 1.0                         # lr x g: far above f32 rounding
 
 
 def adamw_scalars(np_, step, b1=0.9, b2=0.95):
@@ -1376,7 +1454,7 @@ def training_phases(torch, np_, dev, card):
     from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref, fused_adamw_ref, rglru_scan_bwd_ref
     from repro_torch.models import get_model
     from repro_torch.models.api import flat_params, make_train_step
-    from repro_torch.optim import Optimizer, adamw, warmup_cosine_schedule
+    from repro_torch.optim import Optimizer, adamw, sgd, warmup_cosine_schedule
     from repro_torch.train import TrainLoop, TrainLoopConfig
     from repro_torch.utils.trees import flat_buffer_of, tree_map
 
@@ -1605,7 +1683,7 @@ def training_phases(torch, np_, dev, card):
             d = dev if where == "cuda" else torch.device("cpu")
             kflash.flash_attention_bwd.routes.clear()   # counts to 0
             params = flat_params(tree_map(lambda x: x.to(d), cut_cpu))
-            opt = adamw(sched)
+            opt = adamw(sched) if name == "float32" else sgd(CUT_SGD_LR)
             state = opt.init(params)
             step_fn = make_train_step(m, opt)
             t0 = time.perf_counter()
@@ -1641,7 +1719,8 @@ def training_phases(torch, np_, dev, card):
         gap, moved = math.sqrt(gap2), math.sqrt(moved2)
         far /= p0.numel()
         loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_dev, l_cpu))
-        print(f"{name:8s}: loss rel diff {loss_err:.2e} ("
+        print(f"{name:8s} ({'adamw' if name == 'float32' else 'sgd'}): loss "
+              f"rel diff {loss_err:.2e} ("
               f"{CUT_LOSS_RTOL[name]}); params: update gap {gap / moved:.2e} "
               f"of the update's norm ({CUT_UPDATE_RTOL[name]}), "
               f"{far:.2e} of the elements outside rtol 1e-3 / atol 1e-5, "
@@ -2074,7 +2153,7 @@ def runner_phases(torch, np_, card):
 
 
 # ---- the online track and trace calibration (phases 20-21) ---------------
-ONLINE_ROUNDS = 12
+ONLINE_ROUNDS = 8              # 12 before phase 30 (the CPU runs took 24.5 s)
 ONLINE_STRATEGIES = ("pso", "greedy")
 STRAGGLER_ROUNDS = 6
 ONLINE_CHECKPOINT = 6
@@ -2443,8 +2522,9 @@ DENSE_CUT_STEPS = 4            # decode steps of the depth cut
 PADDED_ARCH = "stablelm-3b"    # hd 80: the padded route of the bf16 flash
 PADDED_PROMPTS, PADDED_NEW_TOKENS = (1024, 4), 16
 FL_ARCHS = ("stablelm-1.6b", "recurrentgemma-2b")   # reduced(), float32
-# 2 federated rounds (a third was cut to make room for phase 28)
-FL_CLIENTS, FL_ROUNDS, FL_LOCAL_STEPS, FL_BATCH, FL_SEQ = 7, 2, 2, 2, 16
+# 1 federated round (a third was cut to make room for phase 28, a second
+# for phase 30: the engine's cuda and cpu runs took 47 s over phases 23-26)
+FL_CLIENTS, FL_ROUNDS, FL_LOCAL_STEPS, FL_BATCH, FL_SEQ = 7, 1, 2, 2, 16
 # launch/train.py's --batch-size: its default 32 took 19-23 s a family on
 # the reduced models, whose host issue (a product a sequence) binds
 FL_TRAIN_BATCH = 8
@@ -3423,11 +3503,12 @@ def moe_cut_check(torch, np_, moe, get_model, cut, p_dev, p_cpu, toks, plen,
 XLSTM_ARCH = "xlstm-1.3b"
 # one wave of 4 x 1024 (a chunk multiple): the 4 x 2048 wave (9.9-20.7 s
 # of host-bound prefill and its serial twin) gave phase 26 its time
-XLSTM_PROMPTS = ((1024, 4),)
+XLSTM_PROMPTS = ((512, 4),)             # 1024 before phase 30
 XLSTM_NEW_TOKENS = SERVE_NEW_TOKENS
 XLSTM_SERIAL = (0,)                     # one request of the wave, alone
 XLSTM_BLOCK_SHAPE = (2, 512)            # (a): card vs host, float32
-XLSTM_PROFILE_SHAPE = (4, 2048)         # (a): the stages' prefill
+XLSTM_PROFILE_SHAPE = (4, 1024)         # (a): the stages' prefill (2048
+                                        # before phase 30)
 XLSTM_DECODE_REPS = 10                  # (a): decode calls a profile
 XLSTM_PROFILE_TRIES = 3                 # (a): profiles a stage at most
 XLSTM_CUT_LAYERS = 2                    # (c): one mLSTM, one sLSTM block
@@ -3984,6 +4065,9 @@ AUDIO_ARCH = "seamless-m4t-large-v2"
 # text tokens and requests a wave: llava's 2880-patch prefix plus 512 or
 # 1024 tokens pads to 3584 or 4096; seamless's text follows 1024 frames
 MM_PROMPTS = ((512, 4), (1024, 4))
+# one request of each wave served alone (every request before phase 30:
+# the 8 serial runs took 5.8-7.2 s a family)
+MM_SERIAL = (0, 4)
 MM_NEW_TOKENS = SERVE_NEW_TOKENS
 # (c), (d): the depth cuts against the CPU (2 took the host 31.1 s for
 # llava's two dtypes)
@@ -4154,18 +4238,20 @@ def mm_serve(torch, np_, model, params, frontend, prompts, dev, card, tag,
               f"{tag} request {r.rid}: malformed output {r.output}")
     t0 = time.perf_counter()
     same = []
-    for r in reqs:
+    serial = [r for r in reqs if r.rid in MM_SERIAL]
+    for r in serial:
         one = WaveScheduler(model, params, max_batch=1, frontend=frontend)
         alone = Request(rid=r.rid, tokens=r.tokens,
                         max_new_tokens=MM_NEW_TOKENS)
         one.submit(alone)
         one.run()
         same.append(bool(np_.array_equal(alone.output, r.output)))
-    print(f"{tag} every request against its batch-1 serial decode: equal "
-          f"{same} ({time.perf_counter() - t0:.1f} s for the {len(reqs)} "
-          f"serial runs); first tokens {reqs[0].output[:6].tolist()}")
+    print(f"{tag} requests {list(MM_SERIAL)} against their batch-1 serial "
+          f"decode: equal {same} ({time.perf_counter() - t0:.1f} s for the "
+          f"{len(serial)} serial runs); first tokens "
+          f"{reqs[0].output[:6].tolist()}")
     check(all(same), f"{tag}: batched != serial for requests "
-                     f"{[r.rid for r, s in zip(reqs, same) if not s]}")
+                     f"{[r.rid for r, s in zip(serial, same) if not s]}")
     return launched, modes
 
 
@@ -4643,11 +4729,19 @@ DIST_MLP_TOL = dict(rtol=1e-5, atol=1e-7)
 DIST_LM_ARCH = "stablelm-1.6b"
 DIST_LM_RANKS = 4
 DIST_LM_TREE = (2, 1, 2, 4)        # depth, width, trainers a leaf, clients
-DIST_LM_TOKENS, DIST_LM_STEPS = 512, 2
+DIST_LM_TOKENS, DIST_LM_STEPS = 512, 1   # 2 local steps before phase 30
+# the federated clients of phases 27 (c), 29 (b) and 30 (c) train without
+# remat since phase 30: a rank's first remat call imports torch._dynamo
+# (8-10.5 s on an H100 host, triton's import among it), which stalled
+# each world's first round; remat runs in phases 28-30's gradients and
+# training
+FL_CLIENT_REMAT = False
 DIST_FL_LR = 0.05                  # the reference's FL_LOCAL_LR
 # one round of each mode: phase 28 took the time of the second
 # hierarchical round (12-26 s on an H100 80GB HBM3 at 700 W)
-DIST_LM_MODES = ("hierarchical", "flat")
+# hierarchical only since phase 30 (flat added 5.5 s, and phases 29-30
+# run flat rounds)
+DIST_LM_MODES = ("hierarchical",)
 DIST_LM_LOSS_RTOL = 1e-4
 DIST_LM_PARAM_TOL = dict(rtol=1e-3, atol=1e-5)
 DIST_LM_OUTSIDE = 1e-5             # share of params allowed outside it
@@ -4673,6 +4767,30 @@ def _rank_setup(torch, device):
     if torch.device(device).type == "cuda":
         torch.cuda.set_device(0)
     torch.set_num_threads(1)
+    _warm_checkpoint_import()
+
+
+def _warm_checkpoint_import() -> None:
+    """Import ``torch._dynamo`` on a thread of its own while the rank
+    starts: ``torch.utils.checkpoint`` imports it at its first call (its
+    ``torch._disable_dynamo`` wrappers), which took 10.5 s on the chip
+    host (triton's import among it) and stalled every rank's first remat
+    gradient. The modules a rank runs are imported first, on this
+    thread, so the two threads never import one module together."""
+    import threading
+
+    import repro_torch.data.synthetic  # noqa: F401
+    import repro_torch.fl.distributed  # noqa: F401
+    import repro_torch.kernels.ref  # noqa: F401
+    import repro_torch.launch.mesh  # noqa: F401
+    import repro_torch.models  # noqa: F401
+    import repro_torch.optim  # noqa: F401
+    import repro_torch.train.loop  # noqa: F401
+    import repro_torch.utils.trees  # noqa: F401
+    import torch.utils.checkpoint  # noqa: F401
+    _counters()
+    threading.Thread(target=__import__, args=("torch._dynamo",),
+                     daemon=True).start()
 
 
 def _counters():
@@ -5129,6 +5247,7 @@ def distributed_phases(torch, np_, card):
     h = Hierarchy(*DIST_LM_TREE[:3], n_clients=DIST_LM_TREE[3])
     cut, need, parts = lm_depth(torch, lm, DIST_LM_RANKS,
                                 max_layers=DIST_LM_LAYERS)
+    cut = cut.replace(remat=FL_CLIENT_REMAT)
     placement = pso_placement(h)
     gib = {k: round(v / 2**30, 3) for k, v in parts.items()}
     print(f"(c) {DIST_LM_ARCH} at full width (d_model {lm.d_model}, "
@@ -5182,9 +5301,10 @@ def distributed_phases(torch, np_, card):
                    for k in res[0]["counts"]}
     steps = DIST_LM_STEPS * len(DIST_LM_MODES)
     layers = cut.n_layers
-    want_rank = {"flash_attention": DIST_LM_RANKS * steps * 2 * layers,
+    fwd = 2 if cut.remat else 1                     # remat's recompute
+    want_rank = {"flash_attention": DIST_LM_RANKS * steps * fwd * layers,
                  "flash_attention_bwd": DIST_LM_RANKS * steps * 3 * layers}
-    want_host = {"flash_attention": h.total_clients * steps * 2 * layers,
+    want_host = {"flash_attention": h.total_clients * steps * fwd * layers,
                  "flash_attention_bwd": h.total_clients * steps * 3 * layers,
                  "fedavg": len(DIST_LM_MODES)}
     peaks = [r["peak"] for r in res]
@@ -5394,7 +5514,9 @@ def _rel_l2_sharded(torch, g, want, spec, mesh, dev) -> float:
     for gl, wl in pairs:
         step = max(1, TP_CHUNK // gl.shape[-1])
         for i in range(0, gl.shape[0], step):
-            w = wl[i:i + step].to(dev, torch.float64)
+            # to the card first: a host reference converts there, not on
+            # the rank's one intra-op thread
+            w = wl[i:i + step].to(dev).double()
             sums[0] += (gl[i:i + step].double() - w).square().sum()
             sums[1] += w.square().sum()
     if any(a is not None for a in spec):
@@ -5823,6 +5945,8 @@ FL_TP_DIMS = (4, 2)                # (b): 4 clients of 2 model ranks
 FL_TP_TREE = (2, 1, 2, 4)          # (b): phase 27's tree
 FL_TP_TOKENS = 512                 # (b): 1 x 512 a client a local step
 FL_TP_LAYERS = 1                   # (b): the depth cut (time, as (a))
+FL_TP_ROUNDS = 1                   # (b): the held round (a warm-up before
+                                   # phase 30)
 FL_TP_BAND = 2.0                   # (b): times the host path's bf16 gap
 
 
@@ -6052,10 +6176,10 @@ def fl_tp_rank(rank, world, spec):
             _sync(torch, dev)
 
     rounds = []
-    for r in range(2):                      # a warm-up, then the round
+    for r in range(FL_TP_ROUNDS):           # the last one is held
         batch = {k: torch.as_tensor(v, device=dev) for k, v in
                  ds.client_batch(fl.client_index, 1, r).items()}
-        if r == 1:
+        if r == FL_TP_ROUNDS - 1:
             keep(spec["before"])
             mesh.timed = True
             mesh.traffic.clear()
@@ -6126,6 +6250,7 @@ def data_model_phases(torch, np_, card, device="cuda"):
     serve_cfg, train_cfg, fl_cfg = (
         full.replace(n_layers=min(n, full.n_layers))
         for n in (FSDP_SERVE_LAYERS, FSDP_TRAIN_LAYERS, FL_TP_LAYERS))
+    fl_cfg = fl_cfg.replace(remat=FL_CLIENT_REMAT)
     print(f"(a) {TP_ARCH} (d_model {full.d_model}, {full.n_heads} q and "
           f"{full.n_kv_heads} kv heads of {full.resolved_head_dim}, d_ff "
           f"{full.d_ff}, vocab {full.vocab_size}, fsdp={full.fsdp}): "
@@ -6315,7 +6440,8 @@ def data_model_phases(torch, np_, card, device="cuda"):
     world_b = time.perf_counter() - t0
     ds = make_federated_dataset(fl_cfg, h.total_clients, SEED, FL_TP_TOKENS)
     host_batch = {k: torch.stack([torch.as_tensor(
-        ds.client_batch(c, 1, 1)[k]) for c in range(h.total_clients)]).to(dev)
+        ds.client_batch(c, 1, FL_TP_ROUNDS - 1)[k])
+        for c in range(h.total_clients)]).to(dev)
         for k in ("tokens", "labels")}
 
     def host_update(dtype):
@@ -6345,7 +6471,7 @@ def data_model_phases(torch, np_, card, device="cuda"):
     free_card()
     ratio = max(errs[k] / gaps_b[k] for k in errs)
     rb = res[0]
-    rd = rb["rounds"][1]
+    rd = rb["rounds"][-1]
     moved = {}
     for st in rd["stats"]:
         if "bytes" in st:
@@ -6353,7 +6479,7 @@ def data_model_phases(torch, np_, card, device="cuda"):
     print(f"(b) {FL_TP_DIMS[0]} clients of {FL_TP_DIMS[1]} model ranks, tree "
           f"{FL_TP_TREE} at placement {placement.tolist()}, sgd("
           f"{DIST_FL_LR}), 1 x {FL_TP_TOKENS} tokens a client: rounds "
-          f"{[round(x['s'], 3) for x in rb['rounds']]} s (warm-up, held), "
+          f"{[round(x['s'], 3) for x in rb['rounds']]} s (the last held), "
           f"the held one's split on rank 0: "
           + ", ".join(f"{st['step']} {st['ms']:.1f} ms" for st in rd["stats"])
           + f"; collectives (step: bytes a rank, ranks, ms) "
@@ -6367,12 +6493,13 @@ def data_model_phases(torch, np_, card, device="cuda"):
     check(ratio <= FL_TP_BAND and all(r["equal"] for r in res),
           f"(b) round update {ratio} times the band, or shards differ along "
           f"the data axis")
-    fwd = (2 if fl_cfg.remat else 1) * fl_cfg.n_layers * 2
+    fwd = (2 if fl_cfg.remat else 1) * fl_cfg.n_layers * FL_TP_ROUNDS
     hq = full.n_heads // FL_TP_DIMS[1]
     hkv = full.n_kv_heads // FL_TP_DIMS[1]
     for r in res if on_card else ():
         check(r["heads"] == {"fwd": {f"{hq}x{hkv}": fwd},
-                             "bwd": {f"{hq}x{hkv}": 3 * fl_cfg.n_layers * 2}},
+                             "bwd": {f"{hq}x{hkv}": 3 * fl_cfg.n_layers
+                                     * FL_TP_ROUNDS}},
               f"(b) rank flash launches {r['heads']}")
     paths["(b) rounds"] = {k: sum(r["counts"][k] for r in res)
                            for k in rb["counts"]}
@@ -6381,6 +6508,913 @@ def data_model_phases(torch, np_, card, device="cuda"):
     print(f"phase 29 took {time.perf_counter() - phase_t0:.1f} s [{card}]")
     return {k: {f"phase 29 {p}": c[k] for p, c in paths.items()}
             for k in rb["counts"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 30: the hybrid and audio families over rank meshes
+# ---------------------------------------------------------------------------
+FAM_RANKS = 4
+FAM_NEW_TOKENS = 8                 # (a): greedy decode steps
+FAM_BAND = 2.0                     # times the unsharded run's bf16 gap
+FAM_LOSS_RTOL = 1e-3               # (a): the gradient's loss
+FAM_FL_TOKENS = 512                # (c): 1 x 512 tokens a client
+FAM_FL_CLIENTS = 2                 # (c): choose_fl_hierarchy(2)'s tree
+FAM_WORLD_TIMEOUT_S = 600
+# per family: the cuts (of a full config's fields), (a)'s prefill wave
+# and gradient tokens, (b)'s training batch
+FAM_SPECS = {
+    RG_ARCH: {
+        "serve": {"n_layers": 5}, "grad": {"n_layers": 5},
+        "fl": {"n_layers": 3, "remat": FL_CLIENT_REMAT}, "wave": (2, 4096),
+        "grad_tokens": 2048, "train": (2, 512)},
+    AUDIO_ARCH: {
+        "serve": {"n_layers": 2, "n_encoder_layers": 2},
+        "grad": {"n_layers": 2, "n_encoder_layers": 2},
+        "fl": {"n_layers": 1, "n_encoder_layers": 1,
+               "remat": FL_CLIENT_REMAT},
+        "wave": (4, 512), "grad_tokens": 2048, "train": (2, 512)},
+}
+# the worlds of 4 ranks, each a list of (arch, parts): recurrentgemma-2b's
+# (b) ranks hold 15.4 GiB each on the card (its vocab tables' AdamW
+# state) and its (c) ranks 8.9 GiB beside the parent's 10.2 GiB of
+# buffers, so each has a world of its own, (b) first while the card is
+# emptiest. The references and buffers the ranks read stay on the card
+# (CUDA IPC: through the host's shared memory they moved at 0.4-0.5 GB/s
+# on an H100 host), but (b)'s, on the host: its ranks need nearly all
+# of the card. (c)'s buffers are freed after its host path. (c) joined
+# to the world of (a) ran out of memory (the ranks at 8.85 GiB
+# allocated and 1.32 GiB cached each, the card full).
+FAM_WORLDS = (((RG_ARCH, "b"),), ((RG_ARCH, "a"), (AUDIO_ARCH, "abc")),
+              ((RG_ARCH, "c"),))
+# each part's peak of the caching allocator's reserve a rank, GiB (H100
+# 80GB HBM3, 700 W: (b) and (c) measured, 17.21 and 14.95 for
+# recurrentgemma-2b beside 15.38 and 8.9 allocated; (a) its allocation
+# peak plus 2.5), and each rank's CUDA context beside it: a world is
+# spawned only if the card has FAM_RANKS times the largest of its parts'
+# peaks, plus the context, free after its references
+FAM_RANK_PEAK_GIB = {(RG_ARCH, "a"): 5.93, (RG_ARCH, "b"): 17.21,
+                     (RG_ARCH, "c"): 14.95, (AUDIO_ARCH, "a"): 5.2,
+                     (AUDIO_ARCH, "b"): 7.47, (AUDIO_ARCH, "c"): 6.38}
+FAM_RANK_CONTEXT_GIB = 1.0
+# (b) holds the two vocab tables' gradients over a window of their vocab
+# dim (leaf path: that dim): the training batch's ids and every
+# FAM_WINDOW_STRIDE-th id. The whole references (2.6 GB each in
+# recurrentgemma-2b, float32) would cross the host's shared memory.
+FAM_B_WINDOWS = {"embed/table": 0, "lm_head/proj": 1}
+FAM_WINDOW_STRIDE = 1021
+# the CPU rehearsal's sizes (reduced configs)
+FAM_CPU = {"wave": (2, 128), "grad_tokens": 64, "train": (2, 32),
+           "fl_tokens": 32}
+
+
+def fam_path(counters) -> dict:
+    """One path's kernel launches as read now: the counts, the flash
+    launches by mask and by heads, the RG-LRU launches by copy route."""
+    kflash, krglru = counters[0], counters[1]
+    return {"counts": kernel_counts(*counters), "modes": flash_modes(kflash),
+            "heads": {"fwd": dict(kflash.flash_attention.heads),
+                      "bwd": dict(kflash.flash_attention_bwd.heads)},
+            "routes": {"scan": dict(krglru.rglru_scan.routes),
+                       "bwd": dict(krglru.rglru_scan_bwd.routes)}}
+
+
+def fam_batch(torch, arrays, dev):
+    return {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
+
+
+def _replicated_equal(torch, tree, specs) -> bool:
+    """Whether every leaf that ``specs`` replicates over every axis holds
+    the same bits on every rank."""
+    from repro_torch.utils.trees import tree_map_with_path
+    same = []
+    tree_map_with_path(lambda path, x, s: same.append(_world_check_equal(
+        torch, x.detach().reshape(-1))) if all(e is None for e in s)
+        else None, tree, specs)
+    return all(same)
+
+
+def fam_rank(rank, world, spec):
+    """Phase 30, one rank of the four on the one card: each family of
+    ``spec["families"]`` in turn (:func:`fam_parts`); their results."""
+    import torch
+
+    from repro_torch.launch.mesh import RankMesh
+    dev = torch.device(spec["device"])
+    _rank_setup(torch, dev)
+    counters = _counters()
+    # one mesh a shape for every part and family: each new mesh creates
+    # its gloo groups, a rendezvous of the world each
+    meshes = {dims: RankMesh(dims, ("data", "model"), device=dev)
+              for dims in ((1, world), (2, world // 2))}
+    return [fam_parts(world, dev, counters, meshes, fs)
+            for fs in spec["families"]]
+
+
+def fam_parts(world, dev, counters, meshes, spec):
+    """One family on this rank, its parts in turn: (a) a (1, 4) mesh,
+    seq_shard off and on: the prefill of one wave and FAM_NEW_TOKENS
+    decode steps fed the unsharded run's greedy tokens, then a gradient
+    held leaf by leaf to the unsharded one (the parent's, by CUDA
+    IPC, or for (b) in the host's shared memory); (b) a (2, 2) mesh with fsdp and seq: one prefill wave and
+    two ``adamw()`` steps, the first step's gradient held to the
+    unsharded one and the fused AdamW windows to the plain version; (c)
+    FLTrainStep rounds of 2 clients of 2 model ranks, a warm-up and a
+    held round whose params before and after the data-axis-0 ranks
+    write into the parent's buffers (CUDA IPC)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.fl.distributed import FLTrainStep, choose_fl_hierarchy
+    from repro_torch.kernels.ref import fused_adamw_ref
+    from repro_torch.models import ShardingPolicy, get_model, make_policy
+    from repro_torch.models.api import flat_params, make_train_step
+    from repro_torch.optim import Optimizer, adamw, sgd
+    from repro_torch.optim.optimizers import global_norm
+    from repro_torch.utils.trees import flat_buffer_of, tree_flatten, tree_map_with_path
+
+    on_card = dev.type == "cuda"
+    out = {}
+
+    def sync():
+        _sync(torch, dev)
+
+    def traffic(mesh):
+        return {k: {"calls": v[0], "bytes": v[1], "ms": v[2] * 1e3}
+                for k, v in mesh.traffic.items()}
+
+    def start(mesh):
+        zero_counts(*counters)
+        mesh.traffic.clear()
+        peak = _peak_reset(torch, dev)
+        sync()
+        return time.perf_counter(), peak
+
+    def errs_of(grads, specs, refs, mesh):
+        """Each leaf's relative L2 error against the reference (a leaf
+        the reference leaves out, None, is skipped)."""
+        errs = {}
+        tree_map_with_path(lambda path, g, s, ref: None if ref is None
+                           else errs.__setitem__(path, _rel_l2_sharded(
+                               torch, g, tp_view(ref, s, mesh), s, mesh,
+                               dev)), grads, specs, refs)
+        return errs
+
+    walls = {}
+    for part in spec["parts"]:
+        part_t0 = time.perf_counter()
+        if part == "a":
+            mesh = meshes[1, world]
+            mesh.timed = True
+            cfg = spec["serve_cfg"]
+            params = get_model(cfg, make_policy(mesh)).init(
+                torch.Generator(dev).manual_seed(SEED), dev)
+            prompts = fam_batch(torch, spec["prompts"], dev)
+            serve = []
+            for seq in (False, True):
+                model = get_model(cfg, make_policy(mesh, seq_shard=seq))
+                t0, peak = start(mesh)
+                with torch.no_grad():
+                    logits, state = model.prefill_fn(params, prompts)
+                    sync()
+                    prefill = {"s": time.perf_counter() - t0,
+                               "traffic": traffic(mesh)}
+                    steps, step_ms = [logits.float().cpu()], []
+                    mesh.traffic.clear()
+                    for j in range(FAM_NEW_TOKENS):
+                        t1 = time.perf_counter()
+                        logits, state = model.decode_fn(params, state, {
+                            "token": torch.as_tensor(
+                                spec["tokens"][:, j:j + 1], device=dev)})
+                        sync()
+                        step_ms.append((time.perf_counter() - t1) * 1e3)
+                        steps.append(logits.float().cpu())
+                serve.append({"seq": seq, "logits": torch.stack(steps).numpy(),
+                              "prefill": prefill, "step_ms": step_ms,
+                              "decode_traffic": traffic(mesh),
+                              "path": fam_path(counters), "peak": peak()})
+                del state, logits
+            del params
+            cfg = spec["grad_cfg"]
+            model = get_model(cfg, make_policy(mesh))
+            params = model.init(torch.Generator(dev).manual_seed(SEED), dev)
+            specs = model.param_pspecs()
+            leaves, rebuild = tree_flatten(params)
+            live = [x.detach().requires_grad_() for x in leaves]
+            del params, leaves
+            batch = fam_batch(torch, spec["grad_batch"], dev)
+            grad = []
+            for seq in (False, True):
+                model = get_model(cfg, make_policy(mesh, seq_shard=seq))
+                t0, peak = start(mesh)
+                loss, _ = model.loss_fn(rebuild(live), batch)
+                grads = rebuild(list(torch.autograd.grad(loss, live)))
+                sync()
+                step_s = time.perf_counter() - t0
+                record = {"seq": seq, "loss": float(loss.detach()),
+                          "s": step_s, "traffic": traffic(mesh),
+                          "path": fam_path(counters), "peak": peak()}
+                record["errs"] = errs_of(grads, specs, spec["ref_grads_a"],
+                                         mesh)
+                record["replicated_equal"] = _replicated_equal(
+                    torch, grads, specs)
+                grad.append(record)
+                del loss, grads
+            del live
+            out["a"] = {"serve": serve, "grad": grad}
+        elif part == "b":
+            mesh = meshes[2, world // 2]
+            mesh.timed = True
+            policy = make_policy(mesh, fsdp=True, seq_shard=True)
+            model = get_model(spec["serve_cfg"], policy)
+            params = model.init(torch.Generator(dev).manual_seed(SEED), dev)
+            t0, peak = start(mesh)
+            with torch.no_grad():
+                logits, state = model.prefill_fn(
+                    params, fam_batch(torch, spec["prompts"], dev))
+            sync()
+            prefill = {"s": time.perf_counter() - t0, "traffic": traffic(mesh),
+                       "path": fam_path(counters), "peak": peak()[0],
+                       "logits": logits.float().cpu().numpy()}
+            del params, state, logits
+            model = get_model(spec["grad_cfg"], policy)
+            specs = model.param_pspecs()
+            params = flat_params(model.init(
+                torch.Generator(dev).manual_seed(SEED), dev))
+            batch = fam_batch(torch, spec["train_batch"], dev)
+            inner = adamw()
+            rec = {"check_s": 0.0, "adamw_same": []}
+
+            def update(p, g, state, **kw):
+                t_check = time.perf_counter()
+                step = int(state.step) + 1
+                if step == 1:
+                    rec["norm"] = float(global_norm(g, kw["shards"]))
+                    rec["errs"] = errs_of(g, specs, spec["ref_grads_b"], mesh)
+                    for path, win in spec["ref_windows_b"].items():
+                        rec["errs"][path] = _rel_l2_window(
+                            torch, _leaf(g, path), win, _leaf(specs, path),
+                            mesh, dev)
+                flat = flat_buffer_of(p)
+                n = flat.numel()
+                wins = [slice(0, min(FSDP_WINDOW, n)),
+                        slice(max(n - FSDP_WINDOW, 0), n)]
+                before = [[flat_buffer_of(t)[w].clone()
+                           for t in (p, state.mu, state.nu)] for w in wins]
+                sync()
+                rec["check_s"] += time.perf_counter() - t_check
+                p, state = inner.update(p, g, state, **kw)
+                t_check = time.perf_counter()
+                same = True
+                for w, (p0, m0, v0) in zip(wins, before, strict=True):
+                    want = fused_adamw_ref(p0, flat_buffer_of(g)[w].clone(),
+                                           m0, v0, 3e-4,
+                                           *adamw_scalars(np, step))
+                    got = [flat_buffer_of(t)[w] for t in (p, state.mu,
+                                                           state.nu)]
+                    same &= all(torch.equal(a, b) for a, b in zip(got, want))
+                rec["adamw_same"].append(same)
+                sync()
+                rec["check_s"] += time.perf_counter() - t_check
+                return p, state
+
+            step_fn = make_train_step(model, Optimizer(init=inner.init,
+                                                       update=update))
+            state = inner.init(params)
+            t0, peak = start(mesh)
+            train = {"steps": [], "losses": []}
+            for _ in range(2):
+                rec["check_s"] = 0.0
+                before = {k: v[2] for k, v in mesh.traffic.items()}
+                sync()
+                t0 = time.perf_counter()
+                params, state, metrics = step_fn(params, state, batch)
+                sync()
+                coll = sum(v[2] - before.get(k, 0.0)
+                           for k, v in mesh.traffic.items())
+                train["steps"].append({
+                    "s": time.perf_counter() - t0 - rec["check_s"],
+                    "coll_s": coll})
+                train["losses"].append(float(metrics["loss"]))
+            peaks = peak()
+            train.update(traffic=traffic(mesh), path=fam_path(counters),
+                         peak=peaks[0], reserved=peaks[1], norm=rec["norm"],
+                         errs=rec["errs"],
+                         adamw_same=rec["adamw_same"],
+                         replicated_equal=_replicated_equal(torch, params,
+                                                            specs))
+            out["b"] = {"prefill": prefill, "train": train}
+            del params, state, step_fn
+        elif part == "c":
+            mesh = meshes[2, world // 2]
+            mesh.timed = False            # timed from the held round
+            cfg = spec["fl_cfg"]
+            model = get_model(cfg, ShardingPolicy(mesh=mesh, model_axis="model",
+                                                  seq_axis="model"))
+            specs = model.param_pspecs()
+            h = choose_fl_hierarchy(FAM_FL_CLIENTS)
+            fl = FLTrainStep(model, sgd(DIST_FL_LR), h, spec["placement"],
+                             local_steps=1, mode="flat")
+            params, state = fl.init_stacked(
+                torch.Generator(dev).manual_seed(SEED))
+            ds = make_federated_dataset(cfg, h.total_clients, SEED,
+                                        spec["fl_tokens"])
+            round_fn = fl.make_round_fn()
+            first = mesh.axis_index("data") == 0
+
+            def keep(into):
+                if first:
+                    tree_map_with_path(
+                        lambda path, x, s, buf: tp_view(buf, s, mesh).copy_(x),
+                        params, specs, into)
+                    sync()
+
+            t0, peak = start(mesh)
+            rounds = []
+            for r in range(2):                  # a warm-up, then the round
+                batch = fam_batch(torch, ds.client_batch(
+                    fl.client_index, 1, r), dev)
+                if r == 1:
+                    keep(spec["before"])
+                    mesh.timed = True
+                    mesh.traffic.clear()
+                stats = []
+                sync()
+                t0 = time.perf_counter()
+                params, state, metrics = round_fn(params, state, batch,
+                                                  stats=stats)
+                sync()
+                rounds.append({"s": time.perf_counter() - t0, "stats": stats,
+                               "loss": float(metrics["loss"])})
+            keep(spec["after"])
+            peaks = peak()
+            out["c"] = {"rounds": rounds, "path": fam_path(counters),
+                        "peak": peaks[0], "reserved": peaks[1],
+                        "client": fl.client_index,
+                        "equal": _world_check_equal(
+                            torch, flat_buffer_of(params),
+                            mesh.axis_group("data"))}
+            del params, state
+        dist.barrier()
+        if on_card:
+            torch.cuda.empty_cache()
+        walls[part] = time.perf_counter() - part_t0
+    out["walls"] = walls
+    return out
+
+
+def fam_unsharded_serve(torch, np_, get_model, cfg, prompts, dev):
+    """The unsharded bf16 and float32 runs of one wave (prefill and
+    FAM_NEW_TOKENS greedy steps, float32 fed bf16's tokens): {dtype:
+    {"logits", "tokens", "prefill_s"}}."""
+    params = get_model(cfg).init(torch.Generator(dev).manual_seed(SEED), dev)
+    batch = fam_batch(torch, prompts, dev)
+    ref = {}
+    with torch.no_grad():
+        for dtype in ("bfloat16", "float32"):
+            fed = ref["bfloat16"]["tokens"] if dtype == "float32" else None
+            m = get_model(cfg.replace(dtype=dtype))
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            logits, state = m.prefill_fn(params, batch)
+            _sync(torch, dev)
+            prefill_s = time.perf_counter() - t0
+            steps, tokens = [logits.float().cpu()], []
+            for j in range(FAM_NEW_TOKENS):
+                tok = logits[:, -1].argmax(-1, keepdim=True).int() \
+                    if fed is None else torch.as_tensor(fed[:, j:j + 1],
+                                                        device=dev)
+                tokens.append(tok.cpu().numpy())
+                logits, state = m.decode_fn(params, state, {"token": tok})
+                steps.append(logits.float().cpu())
+            ref[dtype] = {"logits": torch.stack(steps),
+                          "tokens": np_.concatenate(tokens, 1),
+                          "prefill_s": prefill_s}
+            del state, logits
+    return ref
+
+
+def fam_unsharded_grad(torch, get_model, cfg, batch, dev, windows=None,
+                       host=False):
+    """The unsharded gradient of ``batch`` at bf16 (kept on ``dev``, or
+    with ``host`` in the host's shared memory) against float32: (loss,
+    grads, {path: bf16 gap}, global norm, seconds, {path: (dim, indices,
+    the bf16 gradient at them)}). A leaf of ``windows`` ({path: (dim,
+    indices)}) is kept, and its gap taken, at those indices of ``dim``
+    only (None in grads)."""
+    from repro_torch.utils.trees import tree_flatten, tree_global_norm, tree_map
+    windows = windows or {}
+    out, t_start = {}, time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        model = get_model(cfg.replace(dtype=dtype))
+        params = model.init(torch.Generator(dev).manual_seed(SEED), dev)
+        live, rebuild = tree_flatten(params)
+        _, skeleton = tree_flatten(tree_map(lambda x: None, params))
+        del params
+        for x in live:
+            x.requires_grad_()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        loss, _ = model.loss_fn(rebuild(live), fam_batch(torch, batch, dev))
+        grads = list(torch.autograd.grad(loss, live))
+        _sync(torch, dev)
+        out[dtype] = (float(loss.detach()), grads, time.perf_counter() - t0)
+        del live, loss
+    g16, g32 = out["bfloat16"][1], out["float32"][1]
+    paths = tp_paths(skeleton, len(g16))
+    norm = float(tree_global_norm(g16))
+
+    def keep(x):
+        return x.cpu().share_memory_() if host else x
+
+    gaps, kept, wins = {}, [], {}
+    for p, a, b in zip(paths, g16, g32, strict=True):
+        if p in windows:
+            dim, idx = windows[p]
+            a, b = a.index_select(dim, idx), b.index_select(dim, idx)
+            wins[p] = (dim, keep(idx), keep(a))
+            kept.append(None)
+        else:
+            kept.append(keep(a))
+        gaps[p] = rel_l2(torch, a, b)
+    print(f"the unsharded gradients at float32 and bf16 "
+          f"{time.perf_counter() - t_start:.1f} s (the bf16 step "
+          f"{out['bfloat16'][2]:.3f} s)", flush=True)
+    return (out["bfloat16"][0], skeleton(kept), gaps, norm,
+            out["bfloat16"][2], wins)
+
+
+def _rel_l2_window(torch, g, win, spec, mesh, dev) -> float:
+    """The relative L2 error of the global leaf whose shard ``g`` this
+    rank holds, over a window of one dim: ``win`` = (dim, the window's
+    global indices, the reference leaf at them); ``spec`` the leaf's.
+    The ranks' sums are added as :func:`_rel_l2_sharded` adds them."""
+    import torch.distributed as dist
+    dim, idx, want = win
+    idx = idx.to(dev)
+    n = g.shape[dim]
+    lo = 0 if spec[dim] is None else mesh.axis_index(spec[dim]) * n
+    mine = ((idx >= lo) & (idx < lo + n)).nonzero().squeeze(1)
+    rest = tuple(None if d == dim else a for d, a in enumerate(spec))
+    want = tp_view(want.to(dev), rest, mesh).index_select(dim, mine)
+    got = g.index_select(dim, idx[mine] - lo).double()
+    want = want.double()
+    sums = torch.stack([(got - want).square().sum(), want.square().sum()])
+    if any(a is not None for a in spec):
+        dist.all_reduce(sums)
+    return float((sums[0] / sums[1].clamp_min(1e-300)).sqrt())
+
+
+def fam_scan_timing(torch, card) -> dict:
+    """The RG-LRU scan and adjoint at a model-axis rank's shapes in phase
+    30 (a), recurrentgemma-2b's dr / 4 = 640 channels, float32: the
+    prefill's (2, 4096, 640) and the gradient's (1, 2048, 640), held
+    bit for bit to the plain versions, then device times beside the
+    bound (each operand read once, each output written once)."""
+    from repro_torch.kernels import rglru as krglru
+    from repro_torch.kernels.ref import rglru_scan_bwd_ref, rglru_scan_ref
+    gen = torch.Generator("cuda").manual_seed(SEED + 30)
+    out = {}
+    for shape, adjoint in (((2, 4096, 640), False), ((1, 2048, 640), True)):
+        a = torch.rand(shape, device="cuda", generator=gen).mul_(0.2).add_(0.8)
+        u = torch.randn(shape, device="cuda", generator=gen)
+        if adjoint:
+            h = rglru_scan_ref(a, u)
+            fn = lambda: krglru.rglru_scan_bwd(a, h, u)
+            plain = lambda: rglru_scan_bwd_ref(a, h, u)
+            nbytes = 5 * a.numel() * 4
+        else:
+            fn = lambda: krglru.rglru_scan(a, u)
+            plain = lambda: rglru_scan_ref(a, u)
+            nbytes = 3 * a.numel() * 4
+        got, want = fn(), plain()
+        same = all(torch.equal(x, y) for x, y in zip(
+            got if adjoint else (got,), want if adjoint else (want,)))
+        plan = krglru.plan_for((a, h, u) if adjoint else (a, u))
+        check(same and plan.route == "tma", f"RG-LRU {shape}: route "
+              f"{plan.route}, equal to the plain version {same}")
+        ms = median_device_ms(torch, fn)
+        plain_ms = median_event_ms(torch, plain, runs=5, per_run=1)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        name = "adjoint" if adjoint else "scan"
+        print(f"RG-LRU {name} f32 {shape} (a rank's channels; {plan}): "
+              f"kernel {ms * 1e3:.2f} us on the device ({bound / ms:.1%} of "
+              f"the bound), equal to the plain version {same}; plain torch "
+              f"{plain_ms:.2f} ms a call (host enqueue included); bound "
+              f"{bound * 1e3:.2f} us ({nbytes} B / 3.35 TB/s) [{card}]")
+        out[name] = (shape, ms, plain_ms, bound)
+    return out
+
+
+def fam_host_update(torch, get_model, ctx, dev, before, after):
+    """(c)'s host path from the ranks' params ``before`` the held round,
+    at bf16 and float32 (one FedAvg launch each): each leaf's relative L2
+    error of the ranks' update (``after`` minus ``before``) against the
+    host path's bf16 update, and of that against the float32 one, and
+    the host path's bf16 loss."""
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.fl.distributed import FLTrainStep
+    from repro_torch.optim import sgd
+    from repro_torch.utils.trees import tree_map, tree_map_with_path
+    cfg, h = ctx["fl_cfg"], ctx["h"]
+    ds = make_federated_dataset(cfg, h.total_clients, SEED,
+                                ctx["sizes"]["fl_tokens"])
+    host_batch = {k: torch.stack([torch.as_tensor(ds.client_batch(
+        c, 1, 1)[k]) for c in range(h.total_clients)]).to(dev)
+        for k in ds.client_batch(0, 1, 1)}
+    upd = {}
+    for dtype in ("bfloat16", "float32"):
+        fl = FLTrainStep(get_model(cfg.replace(dtype=dtype)), sgd(DIST_FL_LR),
+                         h, ctx["placement"], local_steps=1, mode="flat")
+        stacked = tree_map(lambda x: x.expand(
+            (h.total_clients,) + x.shape).clone(), before)
+        states = [fl.optimizer.init(before) for _ in range(h.total_clients)]
+        new, _, metrics = fl.make_round_fn()(stacked, states, host_batch)
+        upd[dtype] = (tree_map(lambda n, b_: n[0].detach() - b_, new, before),
+                      float(metrics["loss"]))
+        del stacked, states, new
+    errs, gaps = {}, {}
+    tree_map_with_path(lambda path, a, b_, u16, u32: (
+        errs.__setitem__(path, rel_l2(torch, a - b_, u16)),
+        gaps.__setitem__(path, rel_l2(torch, u16, u32))),
+        after, before, upd["bfloat16"][0], upd["float32"][0])
+    return errs, gaps, upd["bfloat16"][1]
+
+
+def fam_check_path(arch, where, path, n_heads, on_card):
+    """A path's launches on every rank: the flash kernels on
+    ``n_heads`` ("HqxHkv") only, the RG-LRU scan and adjoint on the TMA
+    route only; raises otherwise."""
+    if not on_card:
+        return
+    for kind in ("fwd", "bwd"):
+        heads = path["heads"][kind]
+        check(set(heads) <= {n_heads}, f"{arch} {where}: flash {kind} "
+                                       f"launches on heads {heads}")
+    for kind, routes in path["routes"].items():
+        check(set(routes) <= {"tma"}, f"{arch} {where}: RG-LRU {kind} "
+                                      f"routes {routes}")
+
+
+def hybrid_audio_phases(torch, np_, card, device="cuda"):
+    """Phase 30: full-width recurrentgemma-2b and seamless-m4t-large-v2
+    over meshes of 4 spawned gloo ranks on the one card: (a) a (1, 4)
+    model axis, seq_shard off and on (serving and a gradient), (b) fsdp
+    on (2, 2) (a prefill wave and two AdamW steps), (c) federated rounds
+    of 2 tensor-parallel clients of 2 model ranks, each held to the
+    unsharded run or the host path. Returns {kernel name: {path:
+    launches}}."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.fl.distributed import FLTrainStep, choose_fl_hierarchy
+    from repro_torch.launch.world import run_world
+    from repro_torch.models import get_model
+    from repro_torch.optim import sgd
+    from repro_torch.utils.trees import tree_map, tree_map_with_path
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    phase_t0 = time.perf_counter()
+    paths = {}            # {kernel: {path: launches}}
+
+    def free():
+        gc.collect()
+        if on_card:
+            # memory the ranks opened by CUDA IPC stays in use until
+            # collected here, after they are gone
+            torch.cuda.ipc_collect()
+            torch.cuda.empty_cache()
+
+    def collect(part, label, path):
+        """The path's launches, summed over the ranks, the flash kernels
+        split by mask."""
+        counts = {k: sum(p["counts"][k] for p in path) for k in
+                  path[0]["counts"]}
+        modes = tuple({m: sum(p["modes"][i].get(m, 0) for p in path)
+                       for m in ("causal", "bidirectional")}
+                      for i in range(2))
+        name = f"phase 30 ({part}) {label}"
+        for k, sub in mm_paths(counts, name, modes).items():
+            paths.setdefault(k, {}).update(sub)
+
+    def coll_s(t):
+        return sum(v["ms"] for v in t.values()) / 1e3
+
+    def per_call(t):
+        return {k: round(v["bytes"] / max(v["calls"], 1)) for k, v in t.items()}
+
+    phase(f"30. full-width {RG_ARCH} and {AUDIO_ARCH} over meshes of "
+          f"{FAM_RANKS} gloo ranks on the card: (a) a (1, {FAM_RANKS}) "
+          f"model axis, seq_shard off and on; (b) fsdp on (2, 2); (c) "
+          f"federated rounds of 2 tensor-parallel clients")
+    if on_card:
+        free()     # what earlier phases' ranks opened by CUDA IPC too
+        print(f"{torch.cuda.mem_get_info()[0] / 2**30:.1f} GiB of the card "
+              f"free [{card}]")
+        fam_scan_timing(torch, card)
+    ctxs = {}
+    for arch, fs in FAM_SPECS.items():
+        arch_t0 = time.perf_counter()
+        full = get_config(arch)
+        if not on_card:                  # the CPU rehearses reduced
+            full = full.reduced().replace(**fs["serve"]) \
+                if full.family == "hybrid" else full.reduced()
+        sizes = FAM_CPU if not on_card else {
+            "wave": fs["wave"], "grad_tokens": fs["grad_tokens"],
+            "train": fs["train"], "fl_tokens": FAM_FL_TOKENS}
+        serve_cfg = full.replace(**fs["serve"]) if on_card else full
+        cut = lambda over: full.replace(**{k: min(v, getattr(full, k))
+                                            for k, v in over.items()})
+        grad_cfg, fl_cfg = cut(fs["grad"]), cut(fs["fl"])
+        rng = np_.random.default_rng(SEED + 30)
+        b, s = sizes["wave"]
+
+        def arrays(rows, n):
+            out = {"tokens": rng.integers(0, full.vocab_size,
+                                          (rows, n)).astype(np_.int32)}
+            if full.family == "audio":
+                out["frontend"] = rng.normal(
+                    scale=0.02, size=(rows, full.frontend_len,
+                                      full.frontend_dim)).astype(np_.float32)
+            return out
+
+        prompts = arrays(b, s)
+        grad_batch = arrays(1, sizes["grad_tokens"])
+        grad_batch["labels"] = np_.roll(grad_batch["tokens"], -1, axis=1)
+        train_batch = arrays(*sizes["train"])
+        train_batch["labels"] = np_.roll(train_batch["tokens"], -1, axis=1)
+        m = FAM_RANKS
+        heads_a = f"{full.n_heads}x{full.n_kv_heads}" \
+            if full.family == "hybrid" else \
+            f"{full.n_heads // m}x{full.n_kv_heads // m}"
+        heads_bc = f"{full.n_heads}x{full.n_kv_heads}" \
+            if full.family == "hybrid" else \
+            f"{full.n_heads // 2}x{full.n_kv_heads // 2}"
+        print(f"{arch} (d_model {full.d_model}, {full.n_heads} q and "
+              f"{full.n_kv_heads} kv heads of {full.resolved_head_dim}, d_ff "
+              f"{full.d_ff}, vocab {full.vocab_size}): serving at "
+              f"{serve_cfg.n_layers} layers ({serve_cfg.n_encoder_layers} "
+              f"encoder), a wave of {b} x {s}; gradients at "
+              f"{grad_cfg.n_layers} (+{grad_cfg.n_encoder_layers}); (c) at "
+              f"{fl_cfg.n_layers} (+{fl_cfg.n_encoder_layers}) [{card}]")
+
+        ref = fam_unsharded_serve(torch, np_, get_model, serve_cfg, prompts,
+                                  dev)
+        free()
+        gap = float((ref["bfloat16"]["logits"]
+                     - ref["float32"]["logits"]).abs().max())
+        band = FAM_BAND * gap
+        print(f"(a) unsharded on {dev.type}: prefill "
+              f"{ref['bfloat16']['prefill_s']:.3f} s a wave; bf16 against "
+              f"float32 (fed bf16's greedy tokens): max abs {gap:.4e} over the "
+              f"last-token logits; the ranks are held to {band:.4e} "
+              f"({time.perf_counter() - arch_t0:.1f} s into {arch}) [{card}]")
+        h = choose_fl_hierarchy(FAM_FL_CLIENTS)
+        placement = np_.arange(h.dimensions)
+        base = {"serve_cfg": serve_cfg, "grad_cfg": grad_cfg,
+                "fl_cfg": fl_cfg, "prompts": prompts,
+                "tokens": ref["bfloat16"]["tokens"],
+                "fl_tokens": sizes["fl_tokens"], "placement": placement,
+                "grad_batch": grad_batch, "train_batch": train_batch}
+        ctxs[arch] = dict(
+            base=base, full=full, sizes=sizes, serve_cfg=serve_cfg,
+            grad_cfg=grad_cfg, fl_cfg=fl_cfg, heads_a=heads_a,
+            heads_bc=heads_bc, ref=ref, band=band, h=h, placement=placement,
+            results={})
+    for world in FAM_WORLDS:
+        # each part's references, on the card only while its world runs
+        # (but (c)'s buffers, which the host path reads after)
+        t0 = time.perf_counter()
+        specs = []
+        for arch, parts in world:
+            ctx = ctxs[arch]
+            spec = dict(ctx["base"], parts=parts)
+            if "a" in parts:
+                (loss, spec["ref_grads_a"], gaps, _, ref_s,
+                 _) = fam_unsharded_grad(torch, get_model, ctx["grad_cfg"],
+                                         ctx["base"]["grad_batch"], dev)
+                ctx["results"]["a_ref"] = (loss, gaps, ref_s)
+            if "b" in parts:
+                # on the host: (b)'s ranks need nearly all of the card
+                train = ctx["base"]["train_batch"]
+                idx = torch.as_tensor(np_.unique(np_.concatenate([
+                    train["tokens"].ravel(), train["labels"].ravel(),
+                    np_.arange(0, ctx["full"].vocab_size,
+                               FAM_WINDOW_STRIDE)])), device=dev)
+                (loss, spec["ref_grads_b"], gaps, norm, _,
+                 spec["ref_windows_b"]) = fam_unsharded_grad(
+                    torch, get_model, ctx["grad_cfg"], train, dev,
+                    windows={p: (d, idx) for p, d in FAM_B_WINDOWS.items()},
+                    host=on_card)
+                ctx["results"]["b_ref"] = (loss, gaps, norm, len(idx))
+            if "c" in parts:
+                # the ranks write their shards before and after the held
+                # round into these
+                shapes = get_model(ctx["fl_cfg"]).param_shapes()
+                ctx["bufs"] = tuple(tree_map(
+                    lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          device=dev), shapes)
+                    for _ in range(2))
+                spec["before"], spec["after"] = ctx["bufs"]
+            specs.append(spec)
+        free()
+        label = " and ".join(f"{a} ({p})" for a, p in world)
+        need = FAM_RANKS * (max(FAM_RANK_PEAK_GIB[a, p] for a, parts in world
+                                for p in parts) + FAM_RANK_CONTEXT_GIB)
+        free_gib = torch.cuda.mem_get_info()[0] / 2**30 if on_card else 0.0
+        check(not on_card or free_gib >= need,
+              f"world of {label}: {free_gib:.1f} GiB of the card free after "
+              f"its references, its ranks need {need:.1f} GiB")
+        t1 = time.perf_counter()
+        res = run_world(fam_rank, FAM_RANKS, ({
+            "device": str(dev), "families": specs},),
+            timeout=FAM_WORLD_TIMEOUT_S)
+        room = (f" ({free_gib:.1f} GiB of the card free after its "
+                f"references, {need:.1f} GiB needed by its ranks: "
+                f"{free_gib - need:.1f} GiB of headroom)") if on_card else ""
+        print(f"world of {label}{room}: references {t1 - t0:.1f} s, "
+              f"{time.perf_counter() - t1:.1f} s from spawn to join; on rank "
+              f"0 each part's wall time (inits and checks included): "
+              + "; ".join(f"({k}) {v:.1f} s" for r in res[0]
+                          for k, v in r["walls"].items())
+              + f" ({time.perf_counter() - phase_t0:.1f} s into phase 30) "
+              f"[{card}]")
+        for i, (arch, parts) in enumerate(world):
+            for k in parts:
+                ctxs[arch]["results"][k] = [r[i][k] for r in res]
+        res = specs = spec = None
+        free()
+        for arch, parts in world:           # (c)'s host path, its buffers
+            if "c" in parts:                # freed before the next world
+                ctx = ctxs[arch]
+                ctx["results"]["c_host"] = fam_host_update(
+                    torch, get_model, ctx, dev, *ctx.pop("bufs"))
+                free()
+    for arch in FAM_SPECS:
+        arch_t0 = time.perf_counter()
+        ctx = ctxs.pop(arch)
+        (full, sizes, serve_cfg, grad_cfg, fl_cfg, heads_a, heads_bc, ref,
+         band, h, placement, results) = (ctx[k] for k in (
+             "full", "sizes", "serve_cfg", "grad_cfg", "fl_cfg", "heads_a",
+             "heads_bc", "ref", "band", "h", "placement", "results"))
+        ctx = None
+        # ---- (a) -------------------------------------------------------------
+        ranks = results["a"]
+        for i, seq in enumerate((False, True)):
+            got = ranks[0]["serve"][i]
+            logits = torch.as_tensor(got["logits"])
+            err = float((logits - ref["bfloat16"]["logits"]).abs().max())
+            greedy = all(greedy_in_band(torch, logits[j],
+                                        ref["bfloat16"]["logits"][j], band)
+                         for j in range(FAM_NEW_TOKENS + 1))
+            same = all(np_.array_equal(r["serve"][i]["logits"], got["logits"])
+                       for r in ranks)
+            pre = got["prefill"]
+            print(f"(a) {arch} seq_shard={seq}: prefill {pre['s']:.3f} s a "
+                  f"wave ({coll_s(pre['traffic']):.3f} s in collectives; "
+                  f"bytes a call, rank 0: {json.dumps(per_call(pre['traffic']))}"
+                  f"); decode {statistics.median(got['step_ms']):.2f} ms a "
+                  f"token ({coll_s(got['decode_traffic']) * 1e3 / sum(got['step_ms']):.1%}"
+                  f" in collectives); last-token logits against the "
+                  f"unsharded bf16 run: max abs {err:.4e} (band {band:.4e}), "
+                  f"greedy in band {greedy}, equal on every rank {same}; peak "
+                  f"a rank {[round(r['serve'][i]['peak'][0] / 2**30, 2) for r in ranks]}"
+                  f" GiB allocated, {[round(r['serve'][i]['peak'][1] / 2**30, 2) for r in ranks]}"
+                  f" reserved; flash heads a rank "
+                  f"{[r['serve'][i]['path']['heads']['fwd'] for r in ranks]}; "
+                  f"RG-LRU routes {ranks[0]['serve'][i]['path']['routes']} "
+                  f"[{card}]")
+            check(err <= band and greedy and same,
+                  f"(a) {arch} seq_shard={seq}: logits {err} outside {band}, "
+                  f"greedy out of band, or ranks differ")
+            for r in ranks:
+                fam_check_path(arch, "(a) serving", r["serve"][i]["path"],
+                               heads_a, on_card)
+            collect("a", f"{arch} serving, seq_shard={seq}",
+                    [r["serve"][i]["path"] for r in ranks])
+        ref_loss, gaps, ref_s = results["a_ref"]
+        for i, seq in enumerate((False, True)):
+            got = ranks[0]["grad"][i]
+            ratio = max(got["errs"][k] / max(gaps[k], 1e-30) for k in gaps)
+            worst = max(got["errs"].items(), key=lambda kv: kv[1])
+            rtol = abs(got["loss"] - ref_loss) / abs(ref_loss)
+            losses = [r["grad"][i]["loss"] for r in ranks]
+            print(f"(a) {arch} gradient of 1 x {sizes['grad_tokens']}, "
+                  f"seq_shard={seq}: loss {got['loss']:.6f} against "
+                  f"{ref_loss:.6f} (rel {rtol:.2e}); step {got['s']:.3f} s "
+                  f"({coll_s(got['traffic']):.3f} s in collectives; "
+                  f"unsharded {ref_s:.3f} s); worst leaf {worst[0]} "
+                  f"{worst[1]:.3e}, at most {ratio:.2f} times the leaf's bf16 "
+                  f"gap; replicated leaves' gradients bit-equal on every rank "
+                  f"{got['replicated_equal']}; peak a rank "
+                  f"{[round(r['grad'][i]['peak'][0] / 2**30, 2) for r in ranks]} "
+                  f"GiB allocated, {[round(r['grad'][i]['peak'][1] / 2**30, 2) for r in ranks]}"
+                  f" reserved; RG-LRU routes {got['path']['routes']} [{card}]")
+            check(all(x == losses[0] for x in losses)
+                  and rtol <= FAM_LOSS_RTOL and ratio <= FAM_BAND
+                  and got["replicated_equal"],
+                  f"(a) {arch} gradient seq_shard={seq}: losses {losses} vs "
+                  f"{ref_loss}, worst leaf {worst} ({ratio}x)")
+            for r in ranks:
+                fam_check_path(arch, "(a) gradient", r["grad"][i]["path"],
+                               heads_a, on_card)
+            collect("a", f"{arch} gradient, seq_shard={seq}",
+                    [r["grad"][i]["path"] for r in ranks])
+        # ---- (b) -------------------------------------------------------------
+        ranks = results["b"]
+        b_loss, b_gaps, b_norm, n_window = results["b_ref"]
+        pre = ranks[0]["prefill"]
+        err = float((torch.as_tensor(pre["logits"])
+                     - ref["bfloat16"]["logits"][0]).abs().max())
+        tr = ranks[0]["train"]
+        rtol = abs(tr["losses"][0] - b_loss) / abs(b_loss)
+        norm_rtol = abs(tr["norm"] - b_norm) / b_norm
+        # the vocab tables over their window (FAM_B_WINDOWS)
+        ratio = max(tr["errs"][k] / max(b_gaps[k], 1e-30) for k in b_gaps)
+        worst = max(tr["errs"].items(), key=lambda kv: kv[1])
+        losses = [r["train"]["losses"] for r in ranks]
+        print(f"(b) {arch} fsdp on (2, 2), seq_shard on: prefill "
+              f"{pre['s']:.3f} s ({coll_s(pre['traffic']):.3f} s in "
+              f"collectives), logits against the unsharded bf16 run max abs "
+              f"{err:.4e} (band {band:.4e}); two adamw() steps of "
+              f"{sizes['train'][0]} x {sizes['train'][1]}: losses "
+              f"{tr['losses']} (first rel {rtol:.2e}), pre-clip global norm "
+              f"rel {norm_rtol:.2e}, worst leaf {worst[0]} {worst[1]:.3e} "
+              f"({ratio:.2f}x its bf16 gap; the vocab tables over "
+              f"{n_window} ids: " + ", ".join(
+                  f"{k} {tr['errs'][k]:.3e} ({tr['errs'][k] / max(b_gaps[k], 1e-30):.2f}x)"
+                  for k in FAM_B_WINDOWS) + "), steps "
+              + ", ".join(f"{x['s']:.3f} s ({x['coll_s']:.3f} s in "
+                          f"collectives)" for x in tr["steps"])
+              + f"; bytes a call, rank 0: {json.dumps(per_call(tr['traffic']))}"
+              f"; AdamW windows equal to the plain version "
+              f"{[r['train']['adamw_same'] for r in ranks]}; replicated "
+              f"leaves bit-equal {tr['replicated_equal']}; peak a rank "
+              f"{[round(max(r['prefill']['peak'], r['train']['peak']) / 2**30, 2) for r in ranks]}"
+              f" GiB allocated, {[round(r['train']['reserved'] / 2**30, 2) for r in ranks]}"
+              f" GiB reserved in training [{card}]")
+        check(err <= band and all(x == losses[0] for x in losses)
+              and rtol <= FSDP_LOSS_RTOL and norm_rtol <= FSDP_NORM_RTOL
+              and ratio <= FAM_BAND and tr["replicated_equal"]
+              and all(all(r["train"]["adamw_same"]) for r in ranks),
+              f"(b) {arch}: logits {err} ({band}), losses {losses} vs "
+              f"{b_loss}, norm {tr['norm']} vs {b_norm}, worst {worst}")
+        for r in ranks:
+            fam_check_path(arch, "(b)", r["prefill"]["path"], heads_bc,
+                           on_card)
+            fam_check_path(arch, "(b)", r["train"]["path"], heads_bc, on_card)
+            check(not on_card
+                  or r["train"]["path"]["counts"]["fused_adamw"] == 2,
+                  f"(b) {arch}: AdamW launches {r['train']['path']['counts']}")
+        collect("b", f"{arch} prefill, fsdp",
+                [r["prefill"]["path"] for r in ranks])
+        collect("b", f"{arch} training, fsdp",
+                [r["train"]["path"] for r in ranks])
+        # ---- (c) -------------------------------------------------------------
+        ranks = results["c"]
+        errs, c_gaps, host_loss16 = results["c_host"]
+        ratio = max(errs[k] / max(c_gaps[k], 1e-30) for k in errs)
+        rd = ranks[0]["rounds"][1]
+        moved = {st["step"]: (st["bytes"], st["ranks"], round(st["ms"], 1))
+                 for st in rd["stats"] if "bytes" in st}
+        print(f"(c) {arch}: 2 clients of 2 model ranks, flat, sgd("
+              f"{DIST_FL_LR}), 1 x {sizes['fl_tokens']} tokens a client: "
+              f"rounds {[round(x['s'], 3) for x in ranks[0]['rounds']]} s "
+              f"(warm-up, held), the held one's split on rank 0: "
+              + ", ".join(f"{st['step']} {st['ms']:.1f} ms"
+                          for st in rd["stats"])
+              + f"; collectives (step: bytes a rank, ranks, ms) "
+              f"{json.dumps(moved)}; loss {rd['loss']:.6f} (host bf16 "
+              f"{host_loss16:.6f}); round update against the host "
+              f"path's, rel L2 a leaf: worst {max(errs.values()):.3e}, at most "
+              f"{ratio:.2f} times its bf16 gap; shards bit-equal along the "
+              f"data axis {[r['equal'] for r in ranks]}; peak a rank "
+              f"{[round(r['peak'] / 2**30, 2) for r in ranks]} GiB allocated, "
+              f"{[round(r['reserved'] / 2**30, 2) for r in ranks]} GiB "
+              f"reserved [{card}]")
+        check(ratio <= FAM_BAND and all(r["equal"] for r in ranks),
+              f"(c) {arch}: round update {ratio} times the band, or shards "
+              f"differ along the data axis")
+        for r in ranks:
+            fam_check_path(arch, "(c)", r["path"], heads_bc, on_card)
+        collect("c", f"{arch} rounds", [r["path"] for r in ranks])
+        del results
+        free()
+        print(f"{arch}'s checks and host path took "
+              f"{time.perf_counter() - arch_t0:.1f} s "
+              f"({time.perf_counter() - phase_t0:.1f} s into phase 30) "
+              f"[{card}]")
+    by_path = {}
+    for k, sub in paths.items():
+        for p, n in sub.items():
+            if n:
+                by_path.setdefault(p, {})[k] = n
+    print("phase 30 launches by path: " + json.dumps(by_path))
+    print(f"phase 30 took {time.perf_counter() - phase_t0:.1f} s [{card}]")
+    return paths
 
 
 def main() -> int:
@@ -7204,6 +8238,7 @@ def main() -> int:
     dist_paths = distributed_phases(torch, np, card)
     tp_paths = tensor_parallel_phases(torch, np, card)
     dm_paths = data_model_phases(torch, np, card)
+    fam_paths = hybrid_audio_phases(torch, np, card)
 
     k_ms, r_ms, b_ms = rows[10]
     kernels = [
@@ -7230,12 +8265,13 @@ def main() -> int:
         *training,
     ]
     # each path's launches, counted from 0 over it: the earlier main
-    # paths' (as named in the module docstring), then phases 22-29
+    # paths' (as named in the module docstring), then phases 22-30
     for entry in kernels:
         paths = {"phases 5-16": entry["launches"], **dense[entry["name"]],
                  **moe_paths[entry["name"]], **xlstm_paths[entry["name"]],
                  **mm_paths_[entry["name"]], **dist_paths[entry["name"]],
-                 **tp_paths[entry["name"]], **dm_paths[entry["name"]]}
+                 **tp_paths[entry["name"]], **dm_paths[entry["name"]],
+                 **fam_paths.get(entry["name"], {})}
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
         if entry["name"] in mm_errs:        # phase 26 (a)'s shapes too

@@ -25,8 +25,10 @@ policy with ``model_axis`` and optionally ``seq_axis``, no batch or fsdp
 axes) on a ``([pod,] data, model)`` mesh: a client is the model-axis
 group at its data coordinates, each rank holding its shards of the
 client's params (``Model.init`` cuts the one seeded init) and running
-the local steps through the dense or vlm decoder's tensor parallelism
-(``models/transformer_tp.py``). The psums reduce each rank's flat
+the local steps through its family's tensor parallelism
+(``models/transformer_tp.py`` for the dense and vlm decoders,
+``rglru_tp.py`` for the hybrid, ``encdec_tp.py`` for the audio
+family). The psums reduce each rank's flat
 buffer of shards along the data axis at its model coordinate
 (``RankMesh.subgroup``'s lines), so every shard of the aggregate is the
 same along the data axis.
@@ -192,8 +194,8 @@ class FLTrainStep:
     def _check_clients(self) -> None:
         """The round step runs whole clients: a rank holds a client's
         model (replicas), or its shards over a model axis (and seq
-        axis) for the dense and vlm families; the other families under
-        a model axis raise naming their ROADMAP.md item
+        axis) for the dense, vlm, hybrid and audio families; the other
+        families under a model axis raise naming their ROADMAP.md item
         (``check_runnable``). Batch and fsdp axes would split a
         client's batch or params across clients; the reference's
         federated bundle sets neither."""

@@ -25,9 +25,9 @@ def get_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
     """The family's model of ``cfg`` under ``policy``, its spec rules
     the reference's for any policy. Its functions run unsharded; under
     a pod/data replica policy (the federated round step's: every rank
-    holds whole models); or, for the dense and vlm families, over a
-    model axis with or without sequence parallelism (each rank holds
-    its shards). Under any other layout they raise NotImplementedError
+    holds whole models); or, for the dense, vlm, hybrid and audio
+    families, over model, seq, fsdp and batch axes (each rank holds its
+    shards). Under any other layout they raise NotImplementedError
     naming their ROADMAP.md item (``sharding.check_runnable``), while
     ``param_pspecs`` and ``state_pspecs`` still answer."""
     if cfg.family not in _BUILDERS:

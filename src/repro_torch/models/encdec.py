@@ -22,6 +22,10 @@ Params keep the reference's layout: ``embed``, the ``encoder`` and
 ``torch.utils.checkpoint``, as the reference wraps its scan bodies in
 ``jax.checkpoint``.
 
+Under a model, seq, fsdp or batch axis of a rank mesh the model's
+functions, :func:`encode` and :func:`decode_stack` run on this rank's
+shards (``models/encdec_tp.py``).
+
 Decode state: ``{"self": {"k", "v"} (L, B, S + CACHE_MARGIN, Hkv, hd),
 "cross": {"k", "v"} (L, B, F, Hkv, hd), "pos": S - 1}``: prefill keeps
 the decoder's true self-attention keys and values with
@@ -43,9 +47,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib, common
 from repro_torch.models.api import Model, per_client_loss
-from repro_torch.models.sharding import UNSHARDED, P, ShardingPolicy, check_runnable
-from repro_torch.models.transformer import _attend, _init_attn, _out_proj, _project_qkv, _rope
-from repro_torch.utils.trees import tree_unstack
+from repro_torch.models.sharding import UNSHARDED, P, ShardingPolicy
+from repro_torch.models.transformer import (
+    _attend,
+    _init_attn,
+    _out_proj,
+    _project_qkv,
+    _rope,
+    _sharded,
+)
+from repro_torch.utils.trees import tree_map_with_path, tree_unstack
 
 # decode slots appended to a prefill cache (the ring wraps beyond this)
 CACHE_MARGIN = 64
@@ -75,24 +86,36 @@ def _init_dec_layer(gen, cfg: ModelConfig, dtype, dev) -> dict:
 
 
 def init_encdec_params(generator: torch.Generator, cfg: ModelConfig,
-                       device="cuda") -> dict:
+                       device="cuda", cut=None) -> dict:
     """Random params in the reference's layout, drawn from ``generator``
-    on its own device and placed on ``device``."""
+    on its own device and placed on ``device``. ``cut(path, tensor)``,
+    if given, is applied to each leaf as soon as it is drawn (a layer's
+    leaves unstacked), as ``transformer.init_decoder_params`` applies
+    it."""
     dtype = getattr(torch, cfg.param_dtype)
     dev = resolve_device(device)
+
+    def keep(prefix, tree):
+        if cut is None:
+            return tree
+        return tree_map_with_path(lambda path, x: cut(path, x), tree,
+                                  prefix=prefix)
+
     return {
-        "embed": common.init_embedding(generator, cfg.padded_vocab,
-                                       cfg.d_model, dtype, dev),
+        "embed": keep("embed/", common.init_embedding(
+            generator, cfg.padded_vocab, cfg.d_model, dtype, dev)),
         "encoder": common.init_stacked(
-            lambda: _init_enc_layer(generator, cfg, dtype, dev),
+            lambda: keep("encoder/", _init_enc_layer(generator, cfg, dtype,
+                                                     dev)),
             cfg.n_encoder_layers),
         "decoder": common.init_stacked(
-            lambda: _init_dec_layer(generator, cfg, dtype, dev),
+            lambda: keep("decoder/", _init_dec_layer(generator, cfg, dtype,
+                                                     dev)),
             cfg.n_layers),
         "ln_enc": common.init_rmsnorm(cfg.d_model, dtype, dev),
         "ln_f": common.init_rmsnorm(cfg.d_model, dtype, dev),
-        "lm_head": common.init_unembed(generator, cfg.padded_vocab,
-                                       cfg.d_model, dtype, dev),
+        "lm_head": keep("lm_head/", common.init_unembed(
+            generator, cfg.padded_vocab, cfg.d_model, dtype, dev)),
     }
 
 
@@ -118,10 +141,11 @@ def _ffn(layer: dict, x, cfg: ModelConfig):
 def encode(params: dict, frontend, cfg: ModelConfig,
            policy: ShardingPolicy = UNSHARDED):
     """frontend (B, F, D) -> encoder output (B, F, D) float32 (the
-    params' dtype): bidirectional self-attention over the frames.
-    ``policy``: unsharded or a replica policy (a model or seq axis
-    raises, ROADMAP.md item 12b-1b)."""
-    check_runnable(policy, cfg.family)
+    params' dtype): bidirectional self-attention over the frames. Under
+    a sharded ``policy`` (``encdec_tp.encode``) the params are this
+    rank's shards, and the output is every frame of this rank's rows."""
+    if _sharded(policy):
+        return encdec_tp.encode(params, frontend, cfg, policy)
     x = frontend.to(getattr(torch, cfg.param_dtype))
     rope = _rope(cfg, torch.arange(x.shape[1], device=x.device))
 
@@ -167,8 +191,13 @@ def decode_stack(params: dict, tokens, enc_out, cfg: ModelConfig,
     self-attention caches, each layer's true keys and values followed
     by ``CACHE_MARGIN`` empty slots, and each layer's cross keys and
     values: ``(x, {"k", "v"}, {"k", "v"})``, stacked on the layers.
-    ``policy`` as :func:`encode`'s."""
-    check_runnable(policy, cfg.family)
+    Under a sharded ``policy`` (``encdec_tp.decode_stack``) the params
+    are this rank's shards, ``enc_out`` :func:`encode`'s output, and
+    ``x`` the stream in its layout (this rank's positions under
+    sequence parallelism), the caches this rank's heads."""
+    if _sharded(policy):
+        return encdec_tp.decode_stack(params, tokens, enc_out, cfg, window,
+                                      with_cache, policy)
     dt = getattr(torch, cfg.dtype)
     x = common.embed(params["embed"], tokens).to(dt)
     b, s = tokens.shape
@@ -240,45 +269,80 @@ def make_prefill_fn(cfg: ModelConfig, window: Optional[int]):
     return prefill_fn
 
 
+class DecodeOps:
+    """A decode step's sublayers on the whole model, as
+    :func:`decode_layers` calls them; ``encdec_tp.EncDecShards`` has the
+    same methods on a rank's shards."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    def gather_layer(self, layer: dict, prefix: str) -> dict:
+        return layer
+
+    def step_qkv(self, layer_attn: dict, xn, rope):
+        return _project_qkv(layer_attn, xn, self.cfg, rope)
+
+    def step_out(self, layer_attn: dict, o, x):
+        return _out_proj(layer_attn, o, self.cfg, x)
+
+    def step_cross(self, layer_attn: dict, xn, kv: dict, x):
+        return _cross_attention(layer_attn, xn, kv, self.cfg).to(x.dtype)
+
+    def step_ffn(self, layer: dict, x):
+        return _ffn(layer, x, self.cfg)
+
+
+def decode_layers(ops, params: dict, state: dict, x, b: int):
+    """One token's pass of ``x`` (R, 1, D), its first ``b`` rows real,
+    through the decoder (``ops``: :class:`DecodeOps` or a rank's
+    ``EncDecShards``): the self-attention caches written at
+    ``state["pos"] + 1`` in place (a state is decoded from once, as the
+    dense family's), the cross keys and values read. Returns (the
+    stream, the new state)."""
+    cfg = ops.cfg
+    rows = x.shape[0]
+    self_c, cross = state["self"], state["cross"]
+    pos = state["pos"] + 1   # the incoming token's position
+    slot = pos % self_c["k"].shape[2]
+    rope = _rope(cfg, torch.full((1,), pos, dtype=torch.int32,
+                                 device=x.device))
+    kv32 = {n: torch.zeros((rows,) + self_c[n].shape[2:],
+                           dtype=torch.float32, device=x.device)
+            for n in ("k", "v")}
+    for i, layer in enumerate(tree_unstack(params["decoder"])):
+        layer = ops.gather_layer(layer, "decoder/")
+        q, k, v = ops.step_qkv(
+            layer["self_attn"],
+            common.rmsnorm(layer["ln1"], x, cfg.norm_eps), rope)
+        self_c["k"][i, :, slot] = k[:b, 0]
+        self_c["v"][i, :, slot] = v[:b, 0]
+        for n in ("k", "v"):
+            kv32[n][:b] = self_c[n][i]
+        o = attn_lib.decode_attention(q, kv32, pos)
+        x = x + ops.step_out(layer["self_attn"], o, x)
+        enc_kv = {n: common.pad_rows(cross[n][i], rows) for n in ("k", "v")}
+        x = x + ops.step_cross(
+            layer["cross_attn"],
+            common.rmsnorm(layer["ln_x"], x, cfg.norm_eps), enc_kv, x)
+        x = x + ops.step_ffn(layer, x)
+    return x, {"self": self_c, "cross": cross, "pos": pos}
+
+
 def make_decode_fn(cfg: ModelConfig):
-    """One token through the decoder: the self-attention caches written
-    at ``state["pos"] + 1`` in place (a state is decoded from once, as
-    the dense family's), the cross keys and values read."""
+    """One token through the decoder (:func:`decode_layers`), its rows
+    padded to ``common.DECODE_ROWS``."""
     dt = getattr(torch, cfg.dtype)
+    ops = DecodeOps(cfg)
 
     def decode_fn(params, state, batch):
         b = batch["token"].shape[0]
-        rows = common.row_bucket(b)
-        self_c, cross = state["self"], state["cross"]
-        pos = state["pos"] + 1   # the incoming token's position
-        slot = pos % self_c["k"].shape[2]
         x = common.embed(params["embed"], common.pad_rows(
-            batch["token"], rows)).to(dt)                     # (R, 1, D)
-        rope = _rope(cfg, torch.full((1,), pos, dtype=torch.int32,
-                                     device=x.device))
-        kv32 = {n: torch.zeros((rows,) + self_c[n].shape[2:],
-                               dtype=torch.float32, device=x.device)
-                for n in ("k", "v")}
-        for i, layer in enumerate(tree_unstack(params["decoder"])):
-            q, k, v = _project_qkv(
-                layer["self_attn"],
-                common.rmsnorm(layer["ln1"], x, cfg.norm_eps), cfg, rope)
-            self_c["k"][i, :, slot] = k[:b, 0]
-            self_c["v"][i, :, slot] = v[:b, 0]
-            for n in ("k", "v"):
-                kv32[n][:b] = self_c[n][i]
-            o = attn_lib.decode_attention(q, kv32, pos)
-            x = x + _out_proj(layer["self_attn"], o, cfg, x)
-            enc_kv = {n: common.pad_rows(cross[n][i], rows)
-                      for n in ("k", "v")}
-            x = x + _cross_attention(
-                layer["cross_attn"],
-                common.rmsnorm(layer["ln_x"], x, cfg.norm_eps), enc_kv,
-                cfg).to(x.dtype)
-            x = x + _ffn(layer, x, cfg)
+            batch["token"], common.row_bucket(b))).to(dt)      # (R, 1, D)
+        x, state = decode_layers(ops, params, state, x, b)
         x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         logits = common.unembed_untied(params["lm_head"], x)[:b]
-        return logits, {"self": self_c, "cross": cross, "pos": pos}
+        return logits, state
 
     return decode_fn
 
@@ -301,10 +365,10 @@ def make_init_decode_state(cfg: ModelConfig):
 def build_encdec_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
                        window: Optional[int] = None) -> Model:
     """The encoder-decoder; ``window`` bounds the decoder's prefill
-    self-attention; ``policy`` gives the spec rules (its forward runs
-    unsharded or under a replica policy, see
-    :func:`repro_torch.models.get_model`)."""
-    return Model(
+    self-attention; ``policy`` gives the spec rules. Under a model, seq,
+    fsdp or batch axis its functions run on this rank's shards
+    (``encdec_tp``)."""
+    model = Model(
         config=cfg,
         init=lambda generator, device="cuda": init_encdec_params(
             generator, cfg, device),
@@ -316,6 +380,9 @@ def build_encdec_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
         spec_rule=make_spec_rule(cfg, policy),
         state_spec_rule=make_state_spec_rule(cfg, policy),
     )
+    if not _sharded(policy):
+        return model
+    return encdec_tp.sharded_model(model, cfg, policy, window)
 
 
 def make_spec_rule(cfg: ModelConfig, policy: ShardingPolicy):
@@ -360,3 +427,7 @@ def make_state_spec_rule(cfg: ModelConfig, policy: ShardingPolicy):
         return P(*([None] * len(shape)))
 
     return rule
+
+
+# the sharded model builds on the names above
+from repro_torch.models import encdec_tp  # noqa: E402

@@ -53,7 +53,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib, common
 from repro_torch.models.api import Model, per_client_loss
 from repro_torch.models.sharding import UNSHARDED, P, ShardingPolicy
-from repro_torch.utils.trees import tree_map, tree_stack, tree_unstack
+from repro_torch.models.transformer import _sharded
+from repro_torch.utils.trees import tree_map, tree_map_with_path, tree_stack, tree_unstack
 
 RGLRU_C = 8.0
 CONV_WIDTH = 4
@@ -107,58 +108,74 @@ def _pattern_counts(cfg: ModelConfig):
 
 
 def init_rglru_params(generator: torch.Generator, cfg: ModelConfig,
-                      device="cuda") -> dict:
+                      device="cuda", cut=None) -> dict:
     """Random params in the reference's layout, drawn from ``generator``
-    on its own device and placed on ``device``."""
+    on its own device and placed on ``device``. ``cut(path, tensor)``,
+    if given, is applied to each leaf as soon as it is drawn (a block's
+    leaves unstacked, under their ``triples/...`` or ``tail/...``
+    paths), as ``transformer.init_decoder_params`` applies it."""
     dtype = getattr(torch, cfg.param_dtype)
     dev = resolve_device(device)
     n_triples, n_tail = _pattern_counts(cfg)
+
+    def keep(prefix, tree):
+        if cut is None:
+            return tree
+        return tree_map_with_path(lambda path, x: cut(path, x), tree,
+                                  prefix=prefix)
+
     params = {
-        "embed": common.init_embedding(generator, cfg.padded_vocab,
-                                       cfg.d_model, dtype, dev),
-        "triples": common.init_stacked(lambda: {
+        "embed": keep("embed/", common.init_embedding(
+            generator, cfg.padded_vocab, cfg.d_model, dtype, dev)),
+        "triples": common.init_stacked(lambda: keep("triples/", {
             "rec1": _init_recurrent_block(generator, cfg, dtype, dev),
             "rec2": _init_recurrent_block(generator, cfg, dtype, dev),
             "attn": _init_attn_block(generator, cfg, dtype, dev),
-        }, n_triples),
+        }), n_triples),
         "ln_f": common.init_rmsnorm(cfg.d_model, dtype, dev),
-        "lm_head": common.init_unembed(generator, cfg.padded_vocab,
-                                       cfg.d_model, dtype, dev),
+        "lm_head": keep("lm_head/", common.init_unembed(
+            generator, cfg.padded_vocab, cfg.d_model, dtype, dev)),
     }
     if n_tail:
-        params["tail"] = common.init_stacked(
-            lambda: _init_recurrent_block(generator, cfg, dtype, dev), n_tail)
+        params["tail"] = common.init_stacked(lambda: keep(
+            "tail/", _init_recurrent_block(generator, cfg, dtype, dev)),
+            n_tail)
     return params
 
 
 # ---------------------------------------------------------------------------
 # RG-LRU core
 # ---------------------------------------------------------------------------
-def _rglru_gates(block, xr):
-    """xr (B, S, dr) f32 -> (a, gated input), both (B, S, dr) f32."""
+def _rglru_gates(block, xr, own=None):
+    """xr (B, S, dr) f32 -> (a, gated input), both (B, S, dr) f32. With
+    ``own``, the input's channels that ``w_a`` and ``w_x``'s columns
+    (and the per-channel leaves) gate: the gates read all of ``xr`` and
+    the outputs are ``own``'s channels (a model-axis rank's)."""
+    own = xr if own is None else own
     r = torch.sigmoid(common.matmul(xr, block["w_a"].float())
                       + block["b_a"].float())
     i = torch.sigmoid(common.matmul(xr, block["w_x"].float())
                       + block["b_x"].float())
     log_a = -RGLRU_C * F.softplus(block["lam"].float()) * r
     a = torch.exp(log_a)
-    gated = torch.sqrt(torch.clamp(1.0 - a * a, 0.0, 1.0)) * (i * xr)
+    gated = torch.sqrt(torch.clamp(1.0 - a * a, 0.0, 1.0)) * (i * own)
     return a, gated
 
 
-def rglru_scan(block, xr, h0=None):
+def rglru_scan(block, xr, h0=None, own=None):
     """h_t = a_t h_{t-1} + u_t over a prompt through the scan kernel.
-    xr (B, S, dr) f32; ``h0`` (B, dr) is folded into the first input."""
-    a, u = _rglru_gates(block, xr)
+    xr (B, S, dr) f32; ``h0`` (B, dr) is folded into the first input;
+    ``own`` as :func:`_rglru_gates`'."""
+    a, u = _rglru_gates(block, xr, own)
     if h0 is not None:
         # h_1 = a_1 h_0 + u_1
         u = torch.cat([(u[:, 0] + a[:, 0] * h0)[:, None], u[:, 1:]], dim=1)
     return ops.rglru_scan(a, u)
 
 
-def rglru_step(block, xr, h_prev):
-    """xr (B, 1, dr); h_prev (B, dr)."""
-    a, u = _rglru_gates(block, xr)
+def rglru_step(block, xr, h_prev, own=None):
+    """xr (B, 1, dr); h_prev (B, dr); ``own`` as :func:`_rglru_gates`'."""
+    a, u = _rglru_gates(block, xr, own)
     h = a[:, 0] * h_prev + u[:, 0]
     return h[:, None], h
 
@@ -214,6 +231,19 @@ def local_attn_block(block, x, cfg: ModelConfig, cache=None, pos=None,
     the block's rotated keys and values (B, S, Hkv, hd); decode writes
     the token at ``pos`` into ``cache`` and returns ``(x, new_cache)``."""
     dt = getattr(torch, cfg.dtype)
+    h, out_state = local_attention(block, x, cfg, cache, pos, decode)
+    x = x + h.to(x.dtype)
+    h2 = common.geglu(block["mlp"],
+                      common.rmsnorm(block["ln_mlp"], x, cfg.norm_eps).to(dt))
+    x = x + h2.to(x.dtype)
+    return x, out_state
+
+
+def local_attention(block, x, cfg: ModelConfig, cache=None, pos=None,
+                    decode=False):
+    """The attention half of :func:`local_attn_block`: (its output in the
+    compute dtype, before the residual add; the state as that block's)."""
+    dt = getattr(torch, cfg.dtype)
     hd = cfg.resolved_head_dim
     b, s = x.shape[:2]
     xn = common.rmsnorm(block["ln"], x, cfg.norm_eps).to(dt)
@@ -237,12 +267,7 @@ def local_attn_block(block, x, cfg: ModelConfig, cache=None, pos=None,
             o = attn_lib.causal_attention(q, k, v)
         out_state = (k, v)
     o = o.reshape(b, -1, cfg.n_heads * hd)
-    h = common.matmul(o, block["wo"].to(dt))
-    x = x + h.to(x.dtype)
-    h2 = common.geglu(block["mlp"],
-                      common.rmsnorm(block["ln_mlp"], x, cfg.norm_eps).to(dt))
-    x = x + h2.to(x.dtype)
-    return x, out_state
+    return common.matmul(o, block["wo"].to(dt)), out_state
 
 
 def _ring_cache(k, v, window: int) -> dict:
@@ -262,25 +287,131 @@ def _ring_cache(k, v, window: int) -> dict:
 # ---------------------------------------------------------------------------
 # full model
 # ---------------------------------------------------------------------------
-def _zero_rec_state(batch, dr, dt, dev):
-    return {"h": torch.zeros((batch, dr), dtype=torch.float32, device=dev),
+def _zero_rec_state(batch, dr, dt, dev, h_width=None):
+    return {"h": torch.zeros((batch, h_width or dr), dtype=torch.float32,
+                             device=dev),
             "conv": torch.zeros((batch, CONV_WIDTH - 1, dr), dtype=dt,
                                 device=dev)}
 
 
-def build_rglru_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
-                      window=None) -> Model:
-    """The hybrid model; ``policy`` gives the spec rules (its forward
-    runs unsharded or under a replica policy, see
-    :func:`repro_torch.models.get_model`); ``window`` is taken and
-    ignored, as the reference's builder does (its window is the
-    config's)."""
+def zero_state(cfg: ModelConfig, batch_size: int, cache_len: int, dev,
+               h_width=None) -> dict:
+    """A zero decode state of ``batch_size`` rows and ``cache_len`` ring
+    slots; ``h_width`` the RG-LRU states' channels (default all dr, a
+    model-axis rank's dr / M)."""
     dr = cfg.rglru_dim or cfg.d_model
     dt = getattr(torch, cfg.dtype)
     n_triples, n_tail = _pattern_counts(cfg)
+
+    def stacked(tree, n):
+        return tree_map(lambda z: z.expand((n,) + tuple(z.shape)).clone(),
+                        tree)
+
+    rec = lambda: _zero_rec_state(batch_size, dr, dt, dev, h_width)
+    state = {"triples": stacked({
+        "rec1": rec(), "rec2": rec(),
+        "attn": attn_lib.init_cache(batch_size, cache_len, cfg.n_kv_heads,
+                                    cfg.resolved_head_dim, dt, dev),
+    }, n_triples), "pos": cache_len - 1}
+    if n_tail:
+        state["tail"] = stacked(rec(), n_tail)
+    return state
+
+
+class Blocks:
+    """The blocks as the serving loops call them, on the whole model;
+    ``rglru_tp.HybridShards`` has the same methods on a rank's shards."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    def recurrent(self, block, x, state=None, decode=False):
+        return recurrent_block(block, x, self.cfg, state, decode)
+
+    def attention(self, block, x, cache=None, pos=None, decode=False):
+        return local_attn_block(block, x, self.cfg, cache, pos, decode)
+
+    def gather_layer(self, layer, prefix):
+        return layer
+
+    def zero_state(self, batch_size, cache_len, dev):
+        return zero_state(self.cfg, batch_size, cache_len, dev)
+
+
+def prefill_layers(blocks, params, x):
+    """Prefill's pass of the stream ``x`` (B, S, D) over the blocks:
+    (the stream, the decode state; its ``pos`` the last prompt token's
+    position, so decode writes at pos + 1)."""
+    window = blocks.cfg.local_attn_window
+    triple_states = []
+    for triple in tree_unstack(params["triples"]):
+        triple = blocks.gather_layer(triple, "triples/")
+        x, st1 = blocks.recurrent(triple["rec1"], x)
+        x, st2 = blocks.recurrent(triple["rec2"], x)
+        x, (k, v) = blocks.attention(triple["attn"], x)
+        triple_states.append({"rec1": st1, "rec2": st2,
+                              "attn": _ring_cache(k, v, window)})
+    state = {"triples": tree_stack(triple_states) if triple_states else
+             blocks.zero_state(x.shape[0], window, x.device)["triples"],
+             "pos": x.shape[1] - 1}
+    if "tail" in params:
+        tail_states = []
+        for block in tree_unstack(params["tail"]):
+            x, st = blocks.recurrent(blocks.gather_layer(block, "tail/"), x)
+            tail_states.append(st)
+        state["tail"] = tree_stack(tail_states)
+    return x, state
+
+
+def decode_layers(blocks, params, state, x):
+    """One token's pass of ``x`` (R, 1, D) over the blocks, at
+    ``state["pos"] + 1``: (the stream, the new state)."""
+    pos = state["pos"] + 1     # the incoming token's position
+    triple_states = []
+    for triple, st in zip(tree_unstack(params["triples"]),
+                          tree_unstack(state["triples"]), strict=True):
+        triple = blocks.gather_layer(triple, "triples/")
+        x, r1 = blocks.recurrent(triple["rec1"], x, st["rec1"], decode=True)
+        x, r2 = blocks.recurrent(triple["rec2"], x, st["rec2"], decode=True)
+        x, cache = blocks.attention(triple["attn"], x, cache=st["attn"],
+                                    pos=pos, decode=True)
+        triple_states.append({"rec1": r1, "rec2": r2, "attn": cache})
+    new = {"triples": tree_stack(triple_states) if triple_states
+           else state["triples"], "pos": pos}
+    if "tail" in params:
+        tail_states = []
+        for block, st in zip(tree_unstack(params["tail"]),
+                             tree_unstack(state["tail"]), strict=True):
+            x, r = blocks.recurrent(blocks.gather_layer(block, "tail/"), x,
+                                    st, decode=True)
+            tail_states.append(r)
+        new["tail"] = tree_stack(tail_states)
+    return x, new
+
+
+def pad_state(state: dict, rows: int) -> dict:
+    """The decode state's rows padded to ``rows``."""
+    return {k: v if k == "pos" else tree_map(
+        lambda z: common.pad_rows(z, rows, dim=1), v)
+        for k, v in state.items()}
+
+
+def cut_state(state: dict, b: int) -> dict:
+    """The decode state's first ``b`` rows."""
+    return {k: v if k == "pos" else tree_map(lambda z: z[:, :b], v)
+            for k, v in state.items()}
+
+
+def build_rglru_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
+                      window=None) -> Model:
+    """The hybrid model; ``policy`` gives the spec rules; ``window`` is
+    taken and ignored, as the reference's ``build_rglru_model`` does (its
+    window is the config's). Under a model, seq, fsdp or batch axis its
+    functions run on this rank's shards (``rglru_tp``)."""
+    dt = getattr(torch, cfg.dtype)
     embed_scale = math.sqrt(cfg.d_model)
 
-    # ---------------- training / prefill forward ----------------
+    # ---------------- training forward ----------------
     def triple_body(triple, x):
         x, _ = recurrent_block(triple["rec1"], x, cfg)
         x, _ = recurrent_block(triple["rec2"], x, cfg)
@@ -310,99 +441,62 @@ def build_rglru_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
         loss = common.softmax_xent(logits, batch["labels"], cfg.vocab_size)
         return loss, {"xent": loss}
 
-    # ---------------- decode ----------------
+    # ---------------- serving ----------------
+    blocks = Blocks(cfg)
+
     def decode_fn(params, state, batch):
         b = batch["token"].shape[0]
         rows = common.row_bucket(b)
-        padded = {k: v if k == "pos" else tree_map(
-            lambda z: common.pad_rows(z, rows, dim=1), v) for k, v in state.items()}
-        logits, new_state = decode_rows(
-            params, padded, common.pad_rows(batch["token"], rows))
-        return logits[:b], {k: v if k == "pos" else tree_map(
-            lambda z: z[:, :b], v) for k, v in new_state.items()}
-
-    def decode_rows(params, state, token):
-        x = common.embed(params["embed"], token).to(dt)
+        x = common.embed(params["embed"], common.pad_rows(batch["token"],
+                                                          rows)).to(dt)
         x = common.weak_scale(x, embed_scale)
-        pos = state["pos"] + 1     # the incoming token's position
-        triple_states = []
-        for triple, st in zip(tree_unstack(params["triples"]),
-                              tree_unstack(state["triples"]), strict=True):
-            x, r1 = recurrent_block(triple["rec1"], x, cfg, st["rec1"],
-                                    decode=True)
-            x, r2 = recurrent_block(triple["rec2"], x, cfg, st["rec2"],
-                                    decode=True)
-            x, cache = local_attn_block(triple["attn"], x, cfg,
-                                        cache=st["attn"], pos=pos,
-                                        decode=True)
-            triple_states.append({"rec1": r1, "rec2": r2, "attn": cache})
-        new_state = {"triples": tree_stack(triple_states) if triple_states
-                     else state["triples"], "pos": pos}
-        if n_tail:
-            tail_states = []
-            for block, st in zip(tree_unstack(params["tail"]),
-                                 tree_unstack(state["tail"]), strict=True):
-                x, r = recurrent_block(block, x, cfg, st, decode=True)
-                tail_states.append(r)
-            new_state["tail"] = tree_stack(tail_states)
+        x, new_state = decode_layers(blocks, params, pad_state(state, rows),
+                                     x)
         x = common.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         logits = common.unembed_untied(params["lm_head"], x)
-        return logits, new_state
+        return logits[:b], cut_state(new_state, b)
 
     def prefill_fn(params, batch):
-        tokens = batch["tokens"]
-        s = tokens.shape[1]
         # the reference scales before the cast here (its forward and
         # decode cast first)
-        x = (common.embed(params["embed"], tokens) * embed_scale).to(dt)
-        triple_states = []
-        for triple in tree_unstack(params["triples"]):
-            x, st1 = recurrent_block(triple["rec1"], x, cfg)
-            x, st2 = recurrent_block(triple["rec2"], x, cfg)
-            x, (k, v) = local_attn_block(triple["attn"], x, cfg)
-            triple_states.append({"rec1": st1, "rec2": st2,
-                                  "attn": _ring_cache(
-                                      k, v, cfg.local_attn_window)})
-        # pos: the last prompt token's position; decode writes at pos + 1
-        state = {"triples": tree_stack(triple_states) if triple_states else
-                 zero_state(tokens.shape[0], cfg.local_attn_window,
-                            tokens.device)["triples"],
-                 "pos": s - 1}
-        if n_tail:
-            tail_states = []
-            for block in tree_unstack(params["tail"]):
-                x, st = recurrent_block(block, x, cfg)
-                tail_states.append(st)
-            state["tail"] = tree_stack(tail_states)
+        x = (common.embed(params["embed"], batch["tokens"])
+             * embed_scale).to(dt)
+        x, state = prefill_layers(blocks, params, x)
         x = common.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
         b = x.shape[0]
         logits = common.unembed_untied(params["lm_head"],
                                        common.pad_rows(x, common.row_bucket(b)))[:b]
         return logits, state
 
-    def zero_state(batch_size: int, cache_len: int, dev):
-        hd = cfg.resolved_head_dim
-
-        def stacked(tree, n):
-            return tree_map(lambda z: z.expand((n,) + tuple(z.shape)).clone(),
-                            tree)
-
-        state = {"triples": stacked({
-            "rec1": _zero_rec_state(batch_size, dr, dt, dev),
-            "rec2": _zero_rec_state(batch_size, dr, dt, dev),
-            "attn": attn_lib.init_cache(batch_size, cache_len,
-                                        cfg.n_kv_heads, hd, dt, dev),
-        }, n_triples), "pos": cache_len - 1}
-        if n_tail:
-            state["tail"] = stacked(_zero_rec_state(batch_size, dr, dt, dev),
-                                    n_tail)
-        return state
-
     def init_decode_state(batch_size: int, cache_len: int, device="cuda"):
-        return zero_state(batch_size, min(cache_len, cfg.local_attn_window),
+        return zero_state(cfg, batch_size,
+                          min(cache_len, cfg.local_attn_window),
                           resolve_device(device))
 
-    def spec_rule(path: str, shape):
+    model = Model(
+        config=cfg,
+        init=lambda generator, device="cuda": init_rglru_params(
+            generator, cfg, device),
+        loss_fn=per_client_loss(loss_fn), prefill_fn=prefill_fn,
+        decode_fn=decode_fn,
+        init_decode_state=init_decode_state,
+        policy=policy, spec_rule=make_spec_rule(cfg, policy),
+        state_spec_rule=make_state_spec_rule(cfg, policy),
+    )
+    if not _sharded(policy):
+        return model
+    from repro_torch.models import rglru_tp
+    return rglru_tp.sharded_model(model, cfg, policy)
+
+
+def make_spec_rule(cfg: ModelConfig, policy: ShardingPolicy):
+    """The reference's param rule: the embedding over the vocab rows,
+    ``lm_head`` over its columns, ``w_main``, ``w_gate`` and the MLP's
+    ``w_up`` column-split and both ``w_down`` row-split, ``w_a`` and
+    ``w_x`` over their output channels, the attention's weights
+    replicated over the model axis (10 q heads, 1 kv head), fsdp on the
+    other dim; the rest replicated."""
+    def rule(path: str, shape):
         if policy.mesh is None:
             return P()
         m = policy.model_axis
@@ -426,7 +520,15 @@ def build_rglru_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
             return P(*lead, None, f)
         return P(*([None] * len(shape)))
 
-    def state_spec_rule(path: str, shape):
+    return rule
+
+
+def make_state_spec_rule(cfg: ModelConfig, policy: ShardingPolicy):
+    """The reference's decode-state rule: every leaf's batch dim over
+    the batch axes, the RG-LRU states' channels over the model axis
+    where they divide; the conv states and ring caches replicated over
+    it."""
+    def rule(path: str, shape):
         if policy.mesh is None:
             return P()
         if len(shape) >= 2:
@@ -437,12 +539,4 @@ def build_rglru_model(cfg: ModelConfig, policy: ShardingPolicy = UNSHARDED,
             return P(None, batch, *([None] * (len(shape) - 2)))
         return P(*([None] * len(shape)))
 
-    return Model(
-        config=cfg,
-        init=lambda generator, device="cuda": init_rglru_params(
-            generator, cfg, device),
-        loss_fn=per_client_loss(loss_fn), prefill_fn=prefill_fn,
-        decode_fn=decode_fn,
-        init_decode_state=init_decode_state,
-        policy=policy, spec_rule=spec_rule, state_spec_rule=state_spec_rule,
-    )
+    return rule

@@ -23,12 +23,12 @@ ranks hold local shards and the models place their collectives by hand
 each point where the reference puts a hint. :func:`resolve_hint` gives
 the spec the reference's hint would constrain to.
 
-What runs under which axis (:func:`check_runnable`): the dense and vlm
-decoders run a model axis, with or without sequence parallelism
-(``seq_axis``), an fsdp axis and batch axes of any size (each rank its
-rows of the batch); the pod and data replica policies of the federated
-round step run every family. The rglru, xlstm and encdec families under
-a model, seq or fsdp axis come with ROADMAP.md queue 1 item 12b-1b-2;
+What runs under which axis (:func:`check_runnable`): the dense, vlm,
+hybrid and audio families run a model axis, with or without sequence
+parallelism (``seq_axis``), an fsdp axis and batch axes of any size
+(each rank its rows of the batch); the pod and data replica policies of
+the federated round step run every family. The xlstm family under a
+model, seq or fsdp axis comes with ROADMAP.md queue 1 item 12b-1b-2b;
 the moe family under a model or fsdp axis and the 2-D ``ep2d`` layout
 with item 12b-1c.
 """
@@ -199,7 +199,7 @@ def make_policy(mesh, fsdp: bool = False,
 
 
 # the families whose forward runs a model, seq and fsdp axis
-TENSOR_PARALLEL_FAMILIES = ("dense", "vlm")
+TENSOR_PARALLEL_FAMILIES = ("dense", "vlm", "hybrid", "audio")
 
 
 def check_runnable(policy: ShardingPolicy, family: str) -> None:
@@ -219,4 +219,4 @@ def check_runnable(policy: ShardingPolicy, family: str) -> None:
     if family not in TENSOR_PARALLEL_FAMILIES:
         raise NotImplementedError(
             f"the {family} family under a model, seq or fsdp axis comes "
-            f"with ROADMAP.md queue 1 item 12b-1b-2")
+            f"with ROADMAP.md queue 1 item 12b-1b-2b")

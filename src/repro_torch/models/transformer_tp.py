@@ -64,8 +64,9 @@ autograd pairs of :mod:`repro_torch.models.tensor_parallel`:
   over them (``copy`` of the whole stacked leaf at the top of the loss,
   one all-reduce a leaf). Decode runs with fsdp on or off.
 
-Runs the dense and vlm families; every other layout raises where
-``sharding.check_runnable`` says.
+Runs the dense and vlm families; the pieces every family shares
+(batch rows, fsdp gathers, the vocab split, the stream's entry and
+exit) are ``tensor_parallel.RankShards``'.
 """
 from __future__ import annotations
 
@@ -80,14 +81,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib, common
 from repro_torch.models.api import Model, per_client_loss
-from repro_torch.models.sharding import ShardingPolicy, check_runnable
-from repro_torch.models.tensor_parallel import (
-    AxisGroup,
-    TensorParallel,
-    entry_axes,
-    local_shape,
-    local_slice,
-)
+from repro_torch.models.sharding import ShardingPolicy
+from repro_torch.models.tensor_parallel import RankShards, lazy, local_shape, local_slice
 from repro_torch.models.transformer import (
     PREFILL_CACHE_MARGIN,
     _pad_len,
@@ -96,56 +91,27 @@ from repro_torch.models.transformer import (
     make_spec_rule,
     make_state_spec_rule,
 )
-from repro_torch.utils.trees import tree_map_with_path, tree_unstack
+from repro_torch.utils.trees import tree_unstack
 
 
-class DecoderShards:
+class DecoderShards(RankShards):
     """The decoder ``cfg`` on this rank of ``policy``'s mesh: its heads,
     its vocab rows, its batch rows, its fsdp shards and the layout of
     its cache."""
 
+    STACKED = ("layers/",)
+
     def __init__(self, cfg: ModelConfig, policy: ShardingPolicy):
-        check_runnable(policy, cfg.family)
-        self.cfg, self.policy = cfg, policy
-        self.tp = tp = TensorParallel(policy)
-        mesh = policy.mesh
-        self.batch = AxisGroup(mesh, policy.batch_axes)
-        self.fsdp = AxisGroup(mesh, policy.fsdp_axes)
-        if not set(self.fsdp.axes) <= set(self.batch.axes):
-            raise ValueError(f"fsdp axes {policy.fsdp_axes} must split the "
-                             f"batch (batch axes {policy.batch_axes})")
+        super().__init__(cfg, policy, make_spec_rule(cfg, policy),
+                         init_decoder_params(None, cfg, "meta"))
+        tp = self.tp
         m = tp.size
-        for name, n in (("d_ff", cfg.d_ff), ("padded vocab", cfg.padded_vocab)):
-            if n % m:
-                raise ValueError(f"{cfg.name}'s {name} {n} does not split "
-                                 f"over a model axis of {m}")
-        self.spec_rule = make_spec_rule(cfg, policy)
+        self.require(("d_ff", cfg.d_ff))
         self.state_rule = make_state_spec_rule(cfg, policy)
-        # per leaf path: the dim its spec splits over the fsdp axes (a
-        # layer's, unstacked), and the group its gradient sums over (the
-        # batch axes that do not split it)
-        self.fsdp_dims, self.grad_sums = {}, {}
-        fsdp_entry = set(self.fsdp.axes)
-
-        def leaf(path, x):
-            spec = self.spec_rule(path, tuple(x.shape))
-            lead = 1 if path.startswith("layers/") else 0
-            split = set()
-            for d, entry in enumerate(spec):
-                axes = set(entry_axes(entry))
-                split |= axes
-                if fsdp_entry and axes == fsdp_entry:
-                    self.fsdp_dims[path] = d - lead
-            self.grad_sums[path] = AxisGroup(
-                mesh, tuple(a for a in self.batch.axes if a not in split))
-
-        tree_map_with_path(leaf, init_decoder_params(None, cfg, "meta"))
         self.heads_split = cfg.n_heads % m == 0
         self.kv_split = cfg.n_kv_heads % m == 0
         self.hq = cfg.n_heads // m if self.heads_split else cfg.n_heads
         self.q_lo = tp.index * self.hq if self.heads_split else 0
-        self.vocab = cfg.padded_vocab // m
-        self.v_lo = tp.index * self.vocab
         group = cfg.n_heads // cfg.n_kv_heads
         kv_of_q = [h // group for h in range(self.q_lo, self.q_lo + self.hq)]
         uniq = sorted(set(kv_of_q))
@@ -155,60 +121,6 @@ class DecoderShards:
             self.kv_sel = uniq         # GQA groups intact
         else:
             self.kv_sel = kv_of_q      # a kv head per q head
-        self.dt = getattr(torch, cfg.dtype)
-
-    # ---- batch rows and fsdp shards -------------------------------------
-    def rows(self, n: int) -> slice:
-        """This rank's rows of a global batch of ``n``: its row-major part
-        over the batch axes, or all ``n`` where they do not divide."""
-        if n % self.batch.size:
-            return slice(0, n)
-        return self.batch.part(n)
-
-    def local_batch(self, batch: dict) -> dict:
-        """This rank's rows of every array of ``batch`` (dim 0)."""
-        n = next(iter(batch.values())).shape[0]
-        return {k: v[self.rows(n)] for k, v in batch.items()}
-
-    def gather_rows(self, x: torch.Tensor, n: int) -> torch.Tensor:
-        """The global batch's ``n`` rows (dim 0) of this rank's ``x``."""
-        return x if n % self.batch.size else self.batch.gather(x, 0)
-
-    def batch_mean(self, local: torch.Tensor) -> torch.Tensor:
-        """The global batch's mean from this rank's rows' mean ``local``
-        (the same on every rank; each rank's share is its own in the
-        backward). Where the batch does not divide, every rank's
-        ``local`` is the whole batch's and its share is 1/D of it."""
-        if self.batch.size == 1:
-            return local
-        return self.batch.reduce(local / self.batch.size)
-
-    def enter_params(self, params: dict) -> dict:
-        """``params`` as the loss reads them: each leaf replicated over
-        batch axes passed through ``copy`` over them (one all-reduce of
-        its whole gradient in the backward)."""
-        if self.batch.size == 1 or not torch.is_grad_enabled():
-            return params
-
-        def one(path, x):
-            group = self.grad_sums[path]
-            return group.copy(x) if group.size > 1 and x.requires_grad \
-                else x
-
-        return tree_map_with_path(one, params)
-
-    def whole(self, path: str, x: torch.Tensor) -> torch.Tensor:
-        """A leaf as its reader needs it: gathered over the fsdp axes
-        along the dim they split (backward: the float32 reduce-scatter),
-        else ``x``."""
-        d = self.fsdp_dims.get(path)
-        return x if d is None else self.fsdp.gather_seq(x, d)
-
-    def gather_layer(self, layer: dict) -> dict:
-        """One layer's leaves, each :meth:`whole`."""
-        if not self.fsdp_dims:
-            return layer
-        return tree_map_with_path(self.whole, layer, prefix="layers/")
 
     # ---- layouts ------------------------------------------------------
     def cache_spec(self, cache_len: int):
@@ -235,26 +147,7 @@ class DecoderShards:
                              f"its length or replicated")
         return "length", t_l * m
 
-    def cut(self, path: str, x: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of a freshly drawn leaf (a layer's leaves
-        unstacked), by the spec rule on the leaf's global shape."""
-        shape = tuple(x.shape)
-        stacked = path.startswith("layers/")
-        spec = self.spec_rule(path, (self.cfg.n_layers,) + shape
-                              if stacked else shape)
-        return local_slice(x, spec[1:] if stacked else spec,
-                           self.policy.mesh)
-
-    # ---- embedding, head, loss -----------------------------------------
-    def embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        """The ids' rows of the vocab-split table, summed over the ranks
-        (forward all-reduce, backward identity)."""
-        ids = tokens.long() - self.v_lo
-        inside = (ids >= 0) & (ids < self.vocab)
-        table = self.whole("embed/table", params["embed"]["table"])
-        rows = table[ids.clamp(0, self.vocab - 1)]
-        return self.tp.reduce(rows * inside[..., None].to(rows.dtype))
-
+    # ---- embedding ------------------------------------------------------
     def embed_inputs(self, params: dict, batch: dict):
         """``transformer.embed_inputs`` with the split table: (embeds
         (B, S, D) on every rank, n_prefix, n_pad)."""
@@ -269,57 +162,7 @@ class DecoderShards:
             x = F.pad(x, (0, 0, 0, n_pad))
         return x.to(self.dt), n_prefix, n_pad
 
-    def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        """This rank's vocab columns of the logits of ``x`` (already
-        entered: gathered or copied to every rank)."""
-        if self.cfg.tie_embeddings:
-            return common.unembed({"table": self.whole(
-                "embed/table", params["embed"]["table"])}, x)
-        return common.unembed_untied({"proj": self.whole(
-            "lm_head/proj", params["lm_head"]["proj"])}, x)
-
-    def gathered_logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        """The full logits of ``x`` (replicated, no grad) on every rank."""
-        return self.tp.gather(self.logits(params, x), -1)
-
-    def xent(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        """``common.softmax_xent`` over the vocab split across the ranks:
-        the padded columns masked by global index, the log-sum-exp from
-        the ranks' max and their summed exponentials, the target logit
-        summed from the rank that holds it."""
-        logits = logits.float()
-        ids = self.v_lo + torch.arange(self.vocab, device=logits.device)
-        if self.cfg.padded_vocab > self.cfg.vocab_size:
-            logits = torch.where(ids < self.cfg.vocab_size, logits, -1e9)
-        top = self.tp.max_(logits.detach().amax(-1))
-        sumexp = self.tp.reduce(torch.exp(logits - top[..., None]).sum(-1))
-        lab = labels.long() - self.v_lo
-        inside = (lab >= 0) & (lab < self.vocab)
-        gold = torch.gather(logits, -1, lab.clamp(0, self.vocab - 1)[..., None])
-        gold = self.tp.reduce(gold[..., 0] * inside.to(logits.dtype))
-        return torch.mean(torch.log(sumexp) + top - gold)
-
     # ---- one layer --------------------------------------------------------
-    def norm(self, scale_params: dict, x, seq_on: bool):
-        """RMSNorm; under sequence parallelism the scale's gradient is
-        summed over the ranks (each saw its own positions)."""
-        if seq_on:
-            scale_params = {"scale": self.tp.copy(scale_params["scale"])}
-        return common.rmsnorm(scale_params, x, self.cfg.norm_eps)
-
-    def enter(self, x, seq_on: bool):
-        """A column-parallel product's input on every rank: gathered
-        along S (backward: reduce-scatter), or copied (backward:
-        all-reduce)."""
-        return self.tp.gather_seq(x) if seq_on else self.tp.copy(x)
-
-    def leave(self, partial, seq_on: bool, dtype):
-        """A row-parallel product's partial sums, summed in float32:
-        reduce-scattered along S, or all-reduced; in ``dtype``."""
-        out = self.tp.scatter_seq(partial) if seq_on \
-            else self.tp.reduce(partial)
-        return out.to(dtype)
-
     def qkv(self, layer_attn: dict, xc, rope):
         """This rank's rotated q (B, S, hq, hd) and the k, v its heads
         read, and the rotated k, v of every kv head where ``wk`` and
@@ -413,16 +256,8 @@ class DecoderShards:
 # the reference-shaped functions
 # ---------------------------------------------------------------------------
 def _shards(cfg: ModelConfig, policy: ShardingPolicy):
-    """A getter of the :class:`DecoderShards`, built at its first call
-    (a model's specs are read without a rank mesh)."""
-    box = []
-
-    def get() -> DecoderShards:
-        if not box:
-            box.append(DecoderShards(cfg, policy))
-        return box[0]
-
-    return get
+    """A getter of the :class:`DecoderShards`, built at its first call."""
+    return lazy(lambda: DecoderShards(cfg, policy))
 
 
 def attention_block(layer_attn: dict, x, cfg: ModelConfig,
@@ -518,14 +353,7 @@ def make_prefill_fn(cfg: ModelConfig, policy: ShardingPolicy, window):
                 cache[n][i] = local_slice(padded, spec[1:], tp.mesh)
         x = sh.norm(params["ln_f"], x, seq_on)
         p = s - n_pad - 1                      # the last real position
-        if seq_on:
-            s_l = s // tp.size
-            last = torch.zeros_like(x[:, :1])
-            if p // s_l == tp.index:
-                last = x[:, p % s_l:p % s_l + 1]
-            last = tp.sum_(last)
-        else:
-            last = x[:, p:p + 1]
+        last = sh.last_position(x, p, seq_on)
         logits = sh.gathered_logits(params, common.pad_rows(
             last, common.row_bucket(b)))[:b]
         return sh.gather_rows(logits, n_rows), {"cache": cache, "pos": p}

@@ -287,7 +287,9 @@ def slstm_cell(wx: torch.Tensor, r: torch.Tensor, state: dict):
     return {"h": h, "c": c, "n": n, "m": m_new}
 
 
-def slstm_init_state(batch: int, h: int, dh: int, device="cpu"):
+def slstm_init_state(batch: int, h: int, dh: int, device):
+    """A zero sLSTM state of ``batch`` rows and ``h`` heads of ``dh`` on
+    ``device`` (``m`` at -1e30)."""
     zero = torch.zeros((batch, h, dh), dtype=torch.float32, device=device)
     return {"h": zero, "c": zero, "n": zero,
             "m": torch.full((batch, h, dh), -1e30, dtype=torch.float32,

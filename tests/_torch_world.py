@@ -20,7 +20,7 @@ from repro_torch.models import ShardingPolicy, get_model, make_policy
 from repro_torch.models.api import flat_params
 from repro_torch.models.tensor_parallel import gather_params, shard_params
 from repro_torch.optim import sgd
-from repro_torch.utils.trees import tree_flatten, tree_leaves
+from repro_torch.utils.trees import tree_flatten, tree_leaves, tree_map
 
 
 def run_tasks(rank: int, world: int, tasks):
@@ -248,19 +248,108 @@ def fsdp_case(rank, mesh_of, dims, axes, cfg, seq, fsdp, params, batch,
 
 
 def _scales(tree) -> dict:
-    """The norms' leaves of a decoder tree, numpy."""
-    out = {k: tree["layers"][k]["scale"].detach().numpy()
-           for k in ("ln1", "ln2")}
-    out["ln_f"] = tree["ln_f"]["scale"].detach().numpy()
+    """The norms' leaves of a param tree (any family), numpy."""
+    from repro_torch.utils.trees import tree_map_with_path
+    out = {}
+    tree_map_with_path(lambda path, x: out.__setitem__(
+        path, x.detach().numpy()) if path.endswith("scale") else None, tree)
     return out
 
 
+def _without_pos(state):
+    return {k: v for k, v in state.items() if k != "pos"}
+
+
+def family_case(rank, mesh_of, dims, axes, cfg, seq, fsdp, params, batch,
+                prompt, steps):
+    """Any family's model on a ``make_policy(mesh, fsdp=fsdp,
+    seq_shard=seq)`` rank mesh, ``params`` (a full numpy tree) cut into
+    this rank's shards: the global batch's loss and its gradients
+    (gathered to full on rank 0), each rank's own gradients of the
+    leaves its spec replicates over every axis; the prefill
+    logits of ``prompt`` and the logits of teacher-forced decode steps
+    (``steps``: (B, n) tokens), each gathered to every rank; the decode
+    state after prefill and after the steps, gathered to full by
+    ``state_pspecs`` on rank 0, and its local shapes."""
+    from repro_torch.utils.trees import tree_map_with_path
+    mesh = mesh_of(dims, axes)
+    mesh.traffic.clear()
+    config = get_config(cfg[0]).reduced().replace(**cfg[1])
+    model = get_model(config, make_policy(mesh, fsdp=fsdp, seq_shard=seq))
+    specs = model.param_pspecs()
+    local = shard_params(params_from_numpy(params, "cpu"), specs, mesh)
+    live, rebuild = _live(local)
+    t = {k: torch.tensor(v) for k, v in batch.items()}
+    loss, _ = model.loss_fn(rebuild(live), t)
+    grads = rebuild(list(torch.autograd.grad(loss, live)))
+    replicated = {}
+    tree_map_with_path(lambda path, g, spec: replicated.__setitem__(
+        path, g.numpy()) if all(e is None for e in spec) else None, grads,
+        specs)
+    full = gather_params(grads, specs, mesh)   # on every rank
+    out = {"loss": float(loss.detach()), "replicated": replicated,
+           "traffic": dict(mesh.traffic),
+           "grads": params_to_numpy(full) if rank == 0 else None}
+    rows = next(iter(prompt.values())).shape[0]
+
+    def gathered(state):
+        # the state rule reads the batch and the head or channel dims
+        sspecs = _without_pos(model.state_pspecs(rows, state["pos"] + 1))
+        full = gather_params(_without_pos(state), sspecs, mesh)
+        # a copy: decode writes the caches in place
+        return params_to_numpy(tree_map(torch.clone, full)) if rank == 0 \
+            else None
+
+    with torch.no_grad():
+        logits, state = model.prefill_fn(
+            local, {k: torch.tensor(v) for k, v in prompt.items()})
+        out["logits"] = [logits.numpy()]
+        out["local_state"] = {k: tuple(v.shape) for k, v in _paths(
+            _without_pos(state))}
+        out["state"] = [gathered(state)]
+        for j in range(steps.shape[1]):
+            logits, state = model.decode_fn(
+                local, state, {"token": torch.tensor(steps[:, j:j + 1])})
+            out["logits"].append(logits.numpy())
+        out["state"].append(gathered(state))
+    return out
+
+
+def answer_case(rank, mesh_of, dims, arch, fsdp, seq):
+    """A reduced ``arch`` on ``make_policy(mesh, fsdp=fsdp,
+    seq_shard=seq)``: the seeded init cut into this rank's shards, the
+    loss of a global batch of 2 and the prefill logits of a 2-row
+    prompt (a stub frontend for the audio family)."""
+    mesh = mesh_of(dims, ("data", "model"))
+    cfg = get_config(arch).reduced()
+    model = get_model(cfg, make_policy(mesh, fsdp=fsdp, seq_shard=seq))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 17), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "audio":
+        batch["frontend"] = torch.randn(
+            (2, cfg.frontend_len, cfg.d_model), generator=gen)
+    loss, _ = model.loss_fn(params, batch)
+    with torch.no_grad():
+        logits, _ = model.prefill_fn(params, {k: v for k, v in batch.items()
+                                              if k != "labels"})
+    return {"loss": float(loss.detach()), "logits": logits.numpy()}
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in _paths(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
 def clip_case(rank, mesh_of, dims, axes, cfg, fsdp, params, batches, lr,
-              clip):
+              clip, sgd_lr=None):
     """The gradient clip on this rank's shards (``make_policy(mesh,
     fsdp=fsdp)``): the global norm of the first batch's gradient (and
     the rank's own, the norm the clip read before it was global); one
-    ``sgd(lr, grad_clip=clip)`` step; ``len(batches)`` steps of
+    ``sgd(sgd_lr or lr, grad_clip=clip)`` step; ``len(batches)`` steps of
     ``make_train_step`` with ``adamw(lr, grad_clip=clip)``. The params
     after each, gathered to full on rank 0, the losses, and each rank's
     norm scales after the AdamW steps."""
@@ -281,7 +370,7 @@ def clip_case(rank, mesh_of, dims, axes, cfg, fsdp, params, batches, lr,
            "local_norm": float(tree_global_norm(grads))}
     gathered = lambda p: params_to_numpy(gather_params(p, specs, mesh))
     p = flat_params(shard_params(full, specs, mesh))
-    opt = sgd(lr, grad_clip=clip)
+    opt = sgd(sgd_lr or lr, grad_clip=clip)
     p, _, _ = make_train_step(model, opt)(p, opt.init(p), ts[0])
     out["sgd"] = gathered(p)
     p = flat_params(shard_params(full, specs, mesh))
@@ -382,4 +471,5 @@ def fsdp_card_step(rank, world, cfg, batch):
 _TASKS = {"psum_case": psum_case, "fl_tp_round": fl_tp_round, "fl_round": fl_round,
           "replica_check": replica_check, "tp_case": tp_case,
           "fsdp_case": fsdp_case, "clip_case": clip_case,
-          "loop_case": loop_case}
+          "loop_case": loop_case, "family_case": family_case,
+          "answer_case": answer_case}

@@ -486,7 +486,7 @@ def test_replica_policy_runs_and_other_axes_name_item_12b():
     assert model.policy is replicas
     # the MLP's rule replicates every param, so any axis runs it whole;
     # the families still to port name their item when run
-    lm = get_config("recurrentgemma-2b").reduced()
+    lm = get_config("xlstm-1.3b").reduced()
     for bad in (dict(model_axis="model"), dict(fsdp_axes=("data",)),
                 dict(seq_axis="model"), dict(ep2d_axis="data")):
         policy = ShardingPolicy(mesh=_Mesh(), **bad)

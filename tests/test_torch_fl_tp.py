@@ -21,8 +21,11 @@ tree runs over the data axis at each model coordinate.
   its sharded and host updates of the reference's sharded update, or
   within the port's own float32 update's gap (the bf16 rounding of
   the step), whichever is larger.
-* The rglru, xlstm and encdec families raise naming item 12b-1b-2, the
-  moe family 12b-1c; a policy with batch or fsdp axes is refused.
+* Reduced recurrentgemma-2b and seamless-m4t-large-v2 run a round of 2
+  tensor-parallel clients on (2, 2) and answer (their parity with the
+  host path is ``test_torch_{hybrid,encdec}_tp.py``'s); the xlstm
+  family raises naming item 12b-1b-2b, the moe family 12b-1c; a policy
+  with batch or fsdp axes is refused.
 
 Two worlds (8 ranks, 4 ranks) run once each; the ranks' task is
 ``tests/_torch_world.py:fl_tp_round``.
@@ -118,11 +121,35 @@ def _host_round(dtype, tree, placement, mode, n_clients):
             float(metrics["loss"]))
 
 
+OTHER_FAMILIES = ("recurrentgemma-2b", "seamless-m4t-large-v2")
+
+
+def _family_inputs(arch):
+    """A reduced family's seeded init and a 2-client batch, numpy."""
+    cfg = get_config(arch).reduced()
+    params = params_to_numpy(get_model(cfg).init(
+        torch.Generator().manual_seed(_INIT_STREAM), "cpu"))
+    rng = np.random.default_rng((_DATA_STREAM, len(arch)))
+    toks = rng.integers(0, cfg.vocab_size, (2, ROWS, SEQ + 1)).astype(np.int32)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    if cfg.family == "audio":
+        batch["frontend"] = rng.standard_normal(
+            (2, ROWS, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    return params, batch
+
+
 @pytest.fixture(scope="module")
 def worlds():
     out = {}
     for world in (8, 4):
         keys, tasks = [], []
+        for arch in OTHER_FAMILIES if world == 4 else ():
+            params, batch = _family_inputs(arch)
+            keys.append((arch, "float32"))
+            tasks.append(("fl_tp_round", dict(
+                dims=(2, 2), cfg=(arch, {"dtype": "float32"}), seq=True,
+                tree=PAIR[0], placement=PAIR[1], mode="hierarchical", lr=LR,
+                local_steps=LOCAL_STEPS, params=params, batch=batch)))
         for name, (dims, (tree, placement), mode, seq) in CASES.items():
             if dims[0] * dims[1] != world:
                 continue
@@ -297,9 +324,25 @@ def _mesh(dims):
                       ("data", "model"), dims)
 
 
+@pytest.mark.parametrize("arch", OTHER_FAMILIES)
+def test_hybrid_and_audio_rounds_over_a_model_axis_answer(worlds, arch):
+    ranks = worlds[arch, "float32"]
+    assert sorted({r["client"] for r in ranks}) == [0, 1]
+    p0 = tree_leaves(_family_inputs(arch)[0])
+    for r in ranks:
+        assert np.isfinite(r["loss"]) and r["loss"] == ranks[0]["loss"]
+        assert r["steps"][0] == "local steps"
+        moved = [np.abs(a - b).max(initial=0.0) for a, b in zip(
+            tree_leaves(r["params"]), p0, strict=True)]
+        assert max(moved) > 0 and all(np.isfinite(moved))
+        first = next(q for q in ranks if q["model"] == r["model"])
+        for a, b in zip(tree_leaves(r["local"]), tree_leaves(first["local"]),
+                        strict=True):
+            np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("arch,item", [
-    ("recurrentgemma-2b", "12b-1b-2"), ("xlstm-1.3b", "12b-1b-2"),
-    ("seamless-m4t-large-v2", "12b-1b-2"), ("granite-moe-1b-a400m", "12b-1c"),
+    ("xlstm-1.3b", "12b-1b-2b"), ("granite-moe-1b-a400m", "12b-1c"),
 ])
 def test_other_families_over_a_model_axis_name_their_item(arch, item):
     policy = ShardingPolicy(mesh=_mesh((2, 2)), model_axis="model")

@@ -25,6 +25,12 @@ the port's unsharded path and to the reference's own sharded run.
   times the reference's small 8.9e-5 gap from the port's own
   cross-package difference, and inside 4.34e-4).
 
+* The hybrid and audio layouts that raised before their port (a model
+  axis, fsdp, a data axis of 2) run on a world of 4 ranks and answer a
+  loss and prefill logits (``_torch_world.py:answer_case``; their parity
+  is ``test_torch_{hybrid,encdec}_tp.py``'s); the ssm family names item
+  12b-1b-2b and the moe family 12b-1c.
+
 Each world (4 ranks, 2 ranks) runs once; every test reads its stored
 results. The ranks' task is ``tests/_torch_world.py:tp_case``.
 """
@@ -350,22 +356,54 @@ def test_bf16_stays_inside_the_reference_sharded_band(worlds, ref_sharded,
 
 # ---------------------------------------------------------------------------
 # what still raises (the dense and vlm families' fsdp and batch axes run:
-# tests/test_torch_fsdp.py)
+# tests/test_torch_fsdp.py; the hybrid and audio families' layouts run
+# here and in tests/test_torch_{hybrid,encdec}_tp.py)
 # ---------------------------------------------------------------------------
 def _mesh(dims):
     return DeviceMesh((torch.device("cpu"),) * int(np.prod(dims)),
                       ("data", "model"), dims)
 
 
+# (arch, policy): the layouts of the hybrid and audio families that
+# raised before they were ported; a (1, 4) mesh, "data-2" a (2, 2) one
+PORTED = [("recurrentgemma-2b", "fsdp"), ("recurrentgemma-2b", "model"),
+          ("seamless-m4t-large-v2", "model"),
+          ("seamless-m4t-large-v2", "data-2")]
+
+
+@pytest.fixture(scope="module")
+def ported():
+    """Each ported layout's loss and prefill on a world of 4 ranks."""
+    tasks = [("answer_case", dict(
+        dims=(2, 2) if policy == "data-2" else (1, 4), arch=arch,
+        fsdp=policy == "fsdp", seq=policy == "seq")) for arch, policy in PORTED]
+    per_rank = run_world(_torch_world.run_tasks, 4, (tasks,),
+                         timeout=WORLD_TIMEOUT_S)
+    return {key: [r[j] for r in per_rank] for j, key in enumerate(PORTED)}
+
+
+@pytest.mark.parametrize("arch,policy", PORTED)
+def test_ported_layouts_run_and_answer(ported, arch, policy):
+    """The layouts that named item 12b-1b-2 run: the seeded init cut
+    into each rank's shards, a finite loss (the same on every rank) and
+    the prefill logits of the global batch, gathered to every rank."""
+    ranks = ported[arch, policy]
+    cfg = get_config(arch).reduced()
+    for r in ranks:
+        assert np.isfinite(r["loss"]) and r["loss"] == ranks[0]["loss"]
+        assert r["logits"].shape == (2, 1, cfg.padded_vocab)
+        assert np.isfinite(r["logits"]).all()
+        np.testing.assert_array_equal(r["logits"], ranks[0]["logits"])
+    assert get_model(cfg, make_policy(
+        _mesh((2, 2) if policy == "data-2" else (1, 4)),
+        fsdp=policy == "fsdp")).param_pspecs()
+
+
 @pytest.mark.parametrize("arch,policy,item", [
     ("granite-moe-1b-a400m", "model", "12b-1c"),
     ("granite-moe-1b-a400m", "fsdp", "12b-1c"),
-    ("recurrentgemma-2b", "fsdp", "12b-1b-2"),
-    ("recurrentgemma-2b", "model", "12b-1b-2"),
-    ("xlstm-1.3b", "seq", "12b-1b-2"),
-    ("xlstm-1.3b", "fsdp", "12b-1b-2"),
-    ("seamless-m4t-large-v2", "model", "12b-1b-2"),
-    ("seamless-m4t-large-v2", "data-2", "12b-1b-2"),
+    ("xlstm-1.3b", "seq", "12b-1b-2b"),
+    ("xlstm-1.3b", "fsdp", "12b-1b-2b"),
 ])
 def test_layouts_still_to_port_raise_and_name_their_item(arch, policy, item):
     dims = (2, 4) if policy == "data-2" else (1, 4)
@@ -388,14 +426,15 @@ def test_federated_rounds_over_a_model_axis_name_their_item():
     from repro_torch.core.hierarchy import Hierarchy
     from repro_torch.fl.distributed import FLTrainStep
     from repro_torch.optim import sgd
-    # the dense and vlm families run it (tests/test_torch_fl_tp.py); the
-    # recurrent ones name their item
-    model = get_model(get_config("recurrentgemma-2b").reduced(),
+    # the dense, vlm, hybrid and audio families run it
+    # (tests/test_torch_fl_tp.py, tests/test_torch_{hybrid,encdec}_tp.py);
+    # the ssm family names its item
+    model = get_model(get_config("xlstm-1.3b").reduced(),
                       make_policy(_mesh((2, 4))))
     fl = FLTrainStep(model, sgd(0.1), Hierarchy(1, 1, 1, n_clients=2),
                      np.arange(1))
     assert fl.stacked_param_pspecs()          # the specs answer
-    with pytest.raises(NotImplementedError, match="item 12b-1b-2"):
+    with pytest.raises(NotImplementedError, match="item 12b-1b-2b"):
         fl.make_round_fn()
-    with pytest.raises(NotImplementedError, match="item 12b-1b-2"):
+    with pytest.raises(NotImplementedError, match="item 12b-1b-2b"):
         fl.init_stacked(torch.Generator(), "cpu")

@@ -199,6 +199,9 @@ def test_unsharded_policy_hints_are_no_ops():
         shape = {"data": 1, "model": 4}
         axis_names = ("data", "model")
 
+        def axis_index(self, axis):
+            return 0
+
     # on a mesh a hint returns the tensor its rank already lays out
     # (tests/test_torch_sharding.py holds the resolution to the
     # reference's); a mis-ranked hint raises, as the reference's
@@ -210,9 +213,16 @@ def test_unsharded_policy_hints_are_no_ops():
     # family runs fsdp: tests/test_torch_fsdp.py)
     fsdp = ShardingPolicy(mesh=_Mesh(), model_axis="model",
                           fsdp_axes=("data",))
-    with pytest.raises(NotImplementedError, match="item 12b-1b-2"):
-        get_model(get_config("recurrentgemma-2b").reduced(),
+    with pytest.raises(NotImplementedError, match="item 12b-1b-2b"):
+        get_model(get_config("xlstm-1.3b").reduced(),
                   fsdp).loss_fn(None, None)
+    # the hybrid family's runs (tests/test_torch_hybrid_tp.py): its init
+    # on this rank of the mesh keeps the rank's shards
+    local = get_model(get_config("recurrentgemma-2b").reduced(),
+                      fsdp).init(None, "meta")
+    assert tuple(local["tail"]["w_main"].shape) == (2, 256, 64)
+    assert tuple(local["tail"]["conv_w"].shape) == (2, 4, 256)
+    assert tuple(local["lm_head"]["proj"].shape) == (256, 128)
 
 
 # ---------------------------------------------------------------------------

@@ -319,7 +319,7 @@ def test_slstm_cell_matches_reference():
     wx = rng.standard_normal((5, b, h, 4, dh)).astype(np.float32)
     r = (rng.standard_normal((h, dh, 4 * dh)) * 0.2).astype(np.float32)
     want = ref_xlstm.slstm_init_state(b, h, dh)
-    got = xlstm.slstm_init_state(b, h, dh)
+    got = xlstm.slstm_init_state(b, h, dh, device="cpu")
     _close_tree(got, want, dict(rtol=0, atol=0), "initial state")
     for t in range(5):
         want = ref_xlstm.slstm_cell(jnp.asarray(wx[t]), jnp.asarray(r), want)
@@ -342,7 +342,7 @@ def test_slstm_scan_backward_matches_autograd(start):
     r = torch.tensor(rng.standard_normal((h, dh, 4 * dh)) * 0.5,
                      dtype=torch.float32, requires_grad=True)
     if start == "initial":
-        st = xlstm.slstm_init_state(r_, h, dh)
+        st = xlstm.slstm_init_state(r_, h, dh, device="cpu")
     else:
         st = {k: torch.tensor(rng.standard_normal((r_, h, dh)),
                               dtype=torch.float32) for k in "hcnm"}
